@@ -1,0 +1,113 @@
+"""Config system: :class:`ModelConfig` (architecture), :class:`TrainConfig`
+(optimizer/schedule) and :class:`CompressionConfig` (the paper's
+technique), plus the arch registry.  Counterpart of
+``repro.configs.base``, cut to what the ported slice runs: dense decoder
+stacks, and the fields of the ``none``/``lgc_rar`` compressors on the
+simulated transport.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Callable, Dict, Tuple
+
+ATTN = "attn"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense (the only ported family)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    block_pattern: Tuple[str, ...] = (ATTN,)
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    sliding_window: int = 0
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def n_blocks(self) -> int:
+        assert self.n_layers % len(self.block_pattern) == 0, self.name
+        return self.n_layers // len(self.block_pattern)
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """The smoke-test variant (the reference's ``reduced``): 2 blocks,
+        d_model 256, f32."""
+        small: Dict = dict(
+            n_layers=2 * len(self.block_pattern),
+            d_model=256,
+            n_heads=min(self.n_heads, 8),
+            n_kv_heads=min(self.n_kv_heads, 4),
+            d_ff=512,
+            vocab_size=512,
+            head_dim=32,
+            name=self.name + "-smoke",
+            dtype="float32",
+        )
+        if self.sliding_window:
+            small["sliding_window"] = 64
+        small.update(overrides)
+        return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class CompressionConfig:
+    """The paper's technique (fields of ``repro.configs.base`` that the
+    ported methods read)."""
+    method: str = "none"             # none | lgc_rar (ported so far)
+    sparsity: float = 0.001          # alpha = 0.1% top-k
+    warmup_steps: int = 200          # phase-1 raw-gradient updates
+    ae_train_steps: int = 300        # phase-2 (AE online training) length
+    ae_lr: float = 1e-3
+    momentum_correction: float = 0.9
+    transport: str = "mesh"
+    q8_scale_block: int = 0          # 0 = SCALE_BLOCK
+    topk_backend: str = "jnp"        # jnp | fused
+    extract_backend: str = "auto"    # auto | loop | bitonic
+    ae_backend: str = "jnp"          # jnp | pallas (the fused-matmul kernel)
+    guard: str = "off"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "sgd_momentum"
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    grad_clip_norm: float = 0.0
+    steps: int = 100
+    seed: int = 0
+    compression: CompressionConfig = field(default_factory=CompressionConfig)
+
+
+ARCH_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn: Callable[[], ModelConfig]):
+        ARCH_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_arch(name: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (triggers registration)
+    if name not in ARCH_REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; ported: "
+                       f"{sorted(ARCH_REGISTRY)} (the other families are "
+                       "ROADMAP.md Queue 1, 'other arch families')")
+    return ARCH_REGISTRY[name]()

@@ -1,0 +1,203 @@
+"""Gradient compressors (paper Section V); counterpart of
+``repro.core.compressors`` for the methods ported so far:
+
+  none     baseline, dense all-reduce of the gradient
+  lgc_rar  LGC, ring-allreduce pattern: warm-up dense, then top-k with the
+           autoencoder trained online, then encode -> mean -> decode
+
+Each step compiles its exchanges with ``dist.plan.build_plan`` and runs
+them with ``dist.plan.execute`` against a transport, supplying the
+per-node compute as feed callbacks, as the reference does.  The K nodes'
+accumulators ``u``/``v`` are (K, n) tensors updated IN PLACE, node after
+node: at llama3.2-1b width each is gigabytes, and sweeping the nodes one
+after another keeps only one node's temporaries alive.
+
+The fused path (``topk_backend="fused"``) runs the CUDA sweep kernel
+(``kernels/csrc/sparsify_ef.cu``) on the card; the phase-3 encoder with
+``ae_backend="pallas"`` runs the fused matmul kernel
+(``kernels/csrc/matmul_lrelu.cu``).  On the CPU both take their plain
+PyTorch versions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import CompressionConfig
+from repro_torch.core import autoencoder as AE
+from repro_torch.core import sparsify as SP
+from repro_torch.core.phases import PHASE_TOPK_AE, PHASE_WARMUP
+from repro_torch.dist import plan as XP
+from repro_torch.dist.transport import SimTransport
+from repro_torch.kernels import ops as K_ops
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclass(frozen=True)
+class GradientCompressor:
+    cc: CompressionConfig
+    layout: SP.GradientLayout
+    K: int                        # number of nodes (data-parallel shards)
+
+    def __post_init__(self):
+        cc = self.cc
+        if cc.method not in XP.METHODS:
+            raise NotImplementedError(
+                f"method {cc.method!r} is not ported (ROADMAP.md Queue 1, "
+                "'other methods')")
+        if cc.topk_backend not in SP.SELECT_BACKENDS:
+            raise NotImplementedError(
+                f"topk_backend {cc.topk_backend!r} is not ported (kernel "
+                "K6, ROADMAP.md Queue 2)")
+        if cc.ae_backend not in ("jnp", "pallas"):
+            raise ValueError(f"unknown ae_backend {cc.ae_backend!r}")
+        if cc.guard != "off":
+            raise NotImplementedError("guard policies are ROADMAP.md "
+                                      "Queue 1, 'chaos, guards and resume'")
+
+    # -- state ----------------------------------------------------------------
+
+    def init_state(self, gen: torch.Generator, device="cpu"
+                   ) -> Dict[str, Any]:
+        """One node's state (u, v: (n,) f32) plus, for lgc, the
+        autoencoder and its momentum."""
+        return self._init((), gen, device)
+
+    def init_sim_states(self, gen: torch.Generator, device="cpu"
+                        ) -> Dict[str, Any]:
+        """Stacked per-node state (u, v: (K, n) f32) plus, for lgc, the
+        shared autoencoder and its momentum."""
+        return self._init((self.K,), gen, device)
+
+    def _init(self, lead, gen, device) -> Dict[str, Any]:
+        shape = tuple(lead) + (self.layout.n_total,)
+        out: Dict[str, Any] = {
+            "u": torch.zeros(shape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=device),
+        }
+        if self.cc.method.startswith("lgc"):
+            out["ae"] = AE.init_lgc_autoencoder(gen, device)
+            out["ae_mom"] = tree_map(torch.zeros_like, out["ae"])
+        return out
+
+    # -- per-node pieces -------------------------------------------------------
+
+    def _encode(self, ae, x):
+        if self.cc.ae_backend == "pallas":
+            return K_ops.lgc_encode_fast(ae, x)
+        return AE.lgc_encode(ae, x)[0]                    # (mu/16, 4)
+
+    def _accumulate_select(self, u, v, g):
+        """Node-local EF accumulate + selection.  Writes u', v' into
+        ``u``/``v`` in place; returns (own support idx, last vals, last
+        idx)."""
+        cc, layout = self.cc, self.layout
+        if cc.topk_backend == "fused":
+            u2, v2, _vals, idx, last_vals, last_idx = \
+                SP.fused_accumulate_select(
+                    g, u, v, layout, cc.momentum_correction,
+                    extract=cc.extract_backend)
+        else:
+            u2, v2 = SP.momentum_correct(u, v, g, cc.momentum_correction)
+            last_vals, last_idx = SP.select_topk_last(v2, layout)
+            idx = SP.select_topk(v2, layout)[1]
+        u.copy_(u2)
+        v.copy_(v2)
+        return idx, last_vals, last_idx
+
+    # -- AE online training (phase 2) ------------------------------------------
+
+    def _ae_update(self, state, g_nodes):
+        """One SGD step on the AE params (global-norm clip to 1, momentum
+        0.9, lr ``ae_lr``).  g_nodes: (K, mu_pad)."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(state["ae"])]
+        with torch.enable_grad():
+            ae_loss = AE.ae_loss_rar(tree_unflatten(state["ae"], leaves),
+                                     g_nodes)
+            grads = torch.autograd.grad(ae_loss, leaves)
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0)
+        mom = [0.9 * m + g * scale
+               for m, g in zip(tree_leaves(state["ae_mom"]), grads)]
+        ae = [p.detach() - self.cc.ae_lr * m for p, m in zip(leaves, mom)]
+        return (tree_unflatten(state["ae"], ae),
+                tree_unflatten(state["ae_mom"], mom), ae_loss.detach())
+
+    # ==========================================================================
+
+    @torch.no_grad()
+    def step(self, t, state, g, step: int, phase: str):
+        """Compress the per-node gradients ``g`` (K, n) and return (global
+        gradient (n,), new state, stats).  ``state["u"]``/``["v"]`` are
+        updated in place."""
+        cc, layout, n = self.cc, self.layout, self.layout.n_total
+        stats: Dict[str, Any] = {}
+        plan = XP.build_plan(cc, layout, self.K, transport=t.kind,
+                             phase=phase)
+        if phase == PHASE_WARMUP or cc.method == "none":
+            env = XP.execute(plan, t, {"grad": lambda env: g})
+            return env["grad"], state, stats
+
+        u, v = state["u"], state["v"]
+        sel = [self._accumulate_select(u[k], v[k], g[k])
+               for k in range(self.K)]
+        own_idx = torch.sort(torch.stack([s[0] for s in sel]), dim=-1)[0]
+        last_vals = torch.stack([s[1] for s in sel])
+        last_idx = torch.stack([s[2] for s in sel])
+        dense_seg = torch.stack([SP.dense_segments(g[k], layout)
+                                 for k in range(self.K)])
+        leader = step % self.K
+
+        def vals_of(env):
+            # per-node gather at the broadcast support, shared by feeds
+            if "_vals" not in env:
+                env["_vals"] = torch.stack(
+                    [SP.gather_at(v[k], env["support"])
+                     for k in range(self.K)])
+            return env["_vals"]
+
+        feeds = {
+            "exempt_dense": lambda env: dense_seg,
+            "exempt_last": lambda env: (last_vals, last_idx),
+            "support": lambda env: (own_idx, leader),
+        }
+        new_state = dict(state)
+        if phase == PHASE_TOPK_AE:
+            feeds["support_vals"] = vals_of
+            feeds["gather_vals"] = vals_of
+            env = XP.execute(plan, t, feeds)
+            sent = env["support_vals"]
+            ae, ae_mom, ae_loss = self._ae_update(state, env["gather_vals"])
+            new_state.update(ae=ae, ae_mom=ae_mom)
+            stats["ae_loss"] = ae_loss
+        else:
+            feeds["encoding"] = lambda env: torch.stack(
+                [self._encode(state["ae"], x) for x in vals_of(env)])
+            env = XP.execute(plan, t, feeds)
+            sent = AE.lgc_decode_rar(state["ae"], env["encoding"][None])[0]
+        idx = env["support"]
+        # (sent + dense) + last, the reference's order of additions
+        global_g = SP.scatter_to_dense(sent, idx, n)
+        global_g += SP.scatter_dense_segments(env["exempt_dense"], layout, n)
+        global_g += env["exempt_last"]
+        for k in range(self.K):
+            SP.clear_sent_merged(u[k], v[k], idx, last_idx[k], n)
+        return global_g, new_state, stats
+
+    def sim_step(self, states, g_nodes, step: int, phase: str):
+        """Single-device emulation of K nodes on stacked (K, n) gradients.
+        Returns (global_g (n,), states, stats); ``stats["wire"]`` holds
+        the step's bytes per node, {op label: {collective kind: bytes}}."""
+        t = SimTransport(self.K)
+        global_g, states, stats = self.step(t, states, g_nodes, step, phase)
+        stats["wire"] = t.tally
+        return global_g, states, stats
+
+
+def build_compressor(cc: CompressionConfig, params_template,
+                     K: int) -> GradientCompressor:
+    layout = SP.build_layout(params_template, cc.sparsity)
+    return GradientCompressor(cc=cc, layout=layout, K=K)

@@ -1,0 +1,55 @@
+"""Transmission-rate accounting (paper Section VI-A), derived from the
+exchange-plan IR; counterpart of ``repro.core.rate`` for the ported
+methods.  Host-side functions of the layout and, when given, the concrete
+index set (exact DEFLATE size)."""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.configs.base import CompressionConfig
+from repro_torch.core.sparsify import GradientLayout
+from repro_torch.dist import plan as XP
+
+BYTES_F32 = 4
+
+
+def deflate_bytes(indices: Optional[np.ndarray], count: int, n: int) -> int:
+    """Exact DEFLATE size when indices given; else the entropy estimate
+    count*ceil(log2(n))/8 bytes."""
+    if indices is not None and len(indices):
+        return len(zlib.compress(np.asarray(indices, np.int32).tobytes(), 6))
+    bits = max(1, int(np.ceil(np.log2(max(n, 2)))))
+    return int(np.ceil(count * bits / 8))
+
+
+@dataclass(frozen=True)
+class RateReport:
+    method: str
+    bytes_per_node: float
+    bytes_leader: float
+    bytes_other: float
+    baseline_bytes: float
+    compression_ratio: float
+    compression_ratio_leader: float
+    compression_ratio_other: float
+
+
+def rate_report(cc: CompressionConfig, layout: GradientLayout, K: int,
+                indices: Optional[np.ndarray] = None,
+                count_exempt: bool = True,
+                transport: Optional[str] = None) -> RateReport:
+    """Per-node payload of the method's steady phase, priced from the
+    same ops the compressor executes; ``count_exempt=False`` is the
+    paper's own accounting (exempt first layer left out)."""
+    plan = XP.build_plan(cc, layout, K, transport=transport)
+    baseline = layout.n_total * BYTES_F32
+    b_leader, b_other = XP.rate_terms(plan, indices=indices,
+                                      count_exempt=count_exempt,
+                                      deflate=deflate_bytes)
+    b_avg = (b_leader + (K - 1) * b_other) / K
+    return RateReport(cc.method, b_avg, b_avg, b_avg, baseline,
+                      baseline / b_avg, baseline / b_avg, baseline / b_avg)

@@ -1,0 +1,241 @@
+"""The exchange-plan IR (counterpart of ``repro.dist.plan``), for the
+ported methods ``none`` and ``lgc_rar`` on the ``mesh`` pricing.
+
+:func:`build_plan` compiles (config, layout, K, phase) into an ordered
+tuple of typed exchange ops; :func:`execute` runs them against a transport
+with per-op feed callbacks and checks that feeds and plan labels match
+both ways; :func:`wire_terms_by_op` and :func:`rate_terms` price the same
+op objects.  The packed, int8 and ring wires, the PS ops and the guard
+policies are not ported yet (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs.base import CompressionConfig
+from repro_torch.core import autoencoder as AE
+from repro_torch.core.phases import (PHASE_COMPRESSED, PHASE_TOPK_AE,
+                                     PHASE_WARMUP)
+from repro_torch.core.sparsify import GradientLayout
+from repro_torch.dist.transport import SCALE_BLOCK
+
+BYTES_F32 = 4
+BYTES_I32 = 4
+
+METHODS = ("none", "lgc_rar")
+
+
+@dataclass(frozen=True)
+class Op:
+    label: str
+
+
+@dataclass(frozen=True)
+class DenseReduce(Op):
+    """f32 allreduce of ``n_vals`` values; ``exempt`` marks the exempt
+    layers' dense traffic (left out by the paper's own rate accounting)."""
+    n_vals: int
+    exempt: bool = False
+
+
+@dataclass(frozen=True)
+class Reduce(Op):
+    """f32 allreduce (mean) of ``n_vals`` values."""
+    n_vals: int
+
+
+@dataclass(frozen=True)
+class AllGather(Op):
+    n_vals: int
+
+
+@dataclass(frozen=True)
+class SparseExchange(Op):
+    """k (value, index) pairs over a length-``n_vec`` vector on the exact
+    f32 + int32 wire; ``k_rate`` is what the paper's rate counts."""
+    n_vec: int
+    k: int
+    k_rate: int
+
+
+@dataclass(frozen=True)
+class IndexBroadcast(Op):
+    """The rotating leader's sorted index set to all nodes (raw int32)."""
+    n_vec: int
+    k: int
+    k_rate: int
+
+
+@dataclass(frozen=True)
+class Plan:
+    method: str
+    phase: str
+    transport: str
+    K: int
+    scale_block: int
+    ops: Tuple[Op, ...]
+
+    @property
+    def labels(self) -> Tuple[str, ...]:
+        return tuple(op.label for op in self.ops)
+
+
+def steady_phase(method: str) -> str:
+    return PHASE_WARMUP if method == "none" else PHASE_COMPRESSED
+
+
+def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
+               transport: Optional[str] = None,
+               phase: Optional[str] = None) -> Plan:
+    method = cc.method
+    if method not in METHODS:
+        raise NotImplementedError(
+            f"method {method!r} is not ported (ROADMAP.md Queue 1, "
+            "'other methods')")
+    tkind = transport if transport is not None else (cc.transport or "mesh")
+    phase = phase if phase is not None else steady_phase(method)
+    sb = cc.q8_scale_block or SCALE_BLOCK
+    n = layout.n_total
+
+    def _plan(ops) -> Plan:
+        return Plan(method=method, phase=phase, transport=tkind, K=K,
+                    scale_block=sb, ops=tuple(ops))
+
+    if phase == PHASE_WARMUP or method == "none":
+        return _plan([DenseReduce("grad", n_vals=n)])
+    mp = layout.mu_pad
+    ops = [DenseReduce("exempt_dense",
+                       n_vals=sum(l.size for l in layout.dense), exempt=True),
+           SparseExchange("exempt_last", n_vec=n, k=layout.k_last,
+                          k_rate=layout.k_last),
+           IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu)]
+    if phase == PHASE_TOPK_AE:
+        ops.append(Reduce("support_vals", n_vals=mp))
+        ops.append(AllGather("gather_vals", n_vals=mp))
+    else:
+        ops.append(Reduce("encoding", n_vals=AE.compressed_length(mp)))
+    return _plan(ops)
+
+
+def _run_op(op: Op, t, args: tuple):
+    if isinstance(op, (DenseReduce, Reduce)):
+        return t.mean(*args)
+    if isinstance(op, AllGather):
+        return t.all_gather(*args)
+    if isinstance(op, SparseExchange):
+        vals, idx = args
+        return t.sparse_mean(vals, idx, op.n_vec)
+    if isinstance(op, IndexBroadcast):
+        idx, leader = args
+        return t.broadcast_packed(idx, leader, op.n_vec)
+    raise TypeError(op)
+
+
+def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
+    """Run ``plan.ops`` in order against transport ``t``.  ``feeds[label]
+    (env)`` gives each op's arguments; ``env`` holds earlier ops' results
+    (and memoized per-node values under underscore keys).  Every op needs
+    exactly one feed and vice versa.  Each transport call runs under its
+    op label, so the transport's tally attributes bytes to the op."""
+    labels = set(plan.labels)
+    missing, extra = labels - set(feeds), set(feeds) - labels
+    if missing or extra:
+        raise ValueError(f"plan/feeds mismatch for {plan.method}/"
+                         f"{plan.phase}: missing feeds {sorted(missing)}, "
+                         f"unplanned feeds {sorted(extra)}")
+    env: Dict[str, Any] = {}
+    for op in plan.ops:
+        args = feeds[op.label](env)
+        if not isinstance(args, tuple):
+            args = (args,)
+        with t.wire_op(op.label):
+            env[op.label] = _run_op(op, t, args)
+    return env
+
+
+def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
+    """{op label: {collective kind: bytes}} one op moves per node on the
+    ``mesh`` lowering (the lax collectives: all_reduce 2(K-1)/K of the
+    buffer, all_gather (K-1) buffers, broadcast (K-1)/K)."""
+    if tkind != "mesh":
+        raise NotImplementedError(
+            f"pricing for transport {tkind!r} is not ported (ROADMAP.md "
+            "Queue 1, 'multi-process NCCL transports')")
+    out: Dict[str, Dict[str, float]] = {}
+
+    def add(kind: str, b: float) -> None:
+        if b:
+            row = out.setdefault(op.label, {})
+            row[kind] = row.get(kind, 0.0) + float(b)
+
+    if isinstance(op, (DenseReduce, Reduce)):
+        if op.n_vals > 0:
+            add("all_reduce", 2 * (K - 1) / K * op.n_vals * BYTES_F32)
+    elif isinstance(op, AllGather):
+        add("all_gather", (K - 1) * op.n_vals * BYTES_F32)
+    elif isinstance(op, SparseExchange):
+        if op.k > 0:
+            add("all_gather", (K - 1) * op.k * (BYTES_F32 + BYTES_I32))
+    elif isinstance(op, IndexBroadcast):
+        add("broadcast", (K - 1) / K * op.k * BYTES_I32)
+    else:
+        raise TypeError(op)
+    return out
+
+
+def wire_terms_by_op(plan: Plan, transport: Optional[str] = None,
+                     ) -> Dict[str, Dict[str, float]]:
+    """{op label: {collective kind: bytes}}: what one executed step of the
+    plan moves per node, op by op (ops that move nothing are omitted)."""
+    tkind = transport if transport is not None else plan.transport
+    out: Dict[str, Dict[str, float]] = {}
+    for op in plan.ops:
+        out.update(op_wire_terms(op, tkind, plan.K))
+    return out
+
+
+def wire_terms(plan: Plan, transport: Optional[str] = None
+               ) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for terms in wire_terms_by_op(plan, transport).values():
+        for kind, b in terms.items():
+            out[kind] = out.get(kind, 0.0) + b
+    return out
+
+
+def _op_rate_bytes(op: Op, idx: Optional[np.ndarray], count_exempt: bool,
+                   deflate) -> Tuple[float, float]:
+    """(leader_bytes, other_bytes) one op adds to a node's payload."""
+    if isinstance(op, DenseReduce):
+        b = 0.0 if (op.exempt and not count_exempt) \
+            else op.n_vals * BYTES_F32
+        return b, b
+    if isinstance(op, (Reduce, AllGather)):
+        b = op.n_vals * BYTES_F32
+        return b, b
+    if isinstance(op, SparseExchange):
+        if op.k <= 0:
+            return 0.0, 0.0
+        b = op.k_rate * BYTES_F32 + deflate(idx, op.k_rate, op.n_vec)
+        return b, b
+    if isinstance(op, IndexBroadcast):
+        return float(deflate(idx, op.k_rate, op.n_vec)), 0.0
+    raise TypeError(op)
+
+
+def rate_terms(plan: Plan, *, indices: Optional[np.ndarray] = None,
+               count_exempt: bool = True, deflate=None) -> Tuple[float, float]:
+    """(leader_bytes, other_bytes) per iteration: the paper-style rate of
+    the plan's ops (leader-only terms are amortized by the caller)."""
+    if deflate is None:
+        from repro_torch.core.rate import deflate_bytes as deflate
+    leader = other = 0.0
+    for op in plan.ops:
+        idx = indices if op.label == "support" else None
+        lb, ob = _op_rate_bytes(op, idx, count_exempt, deflate)
+        leader += lb
+        other += ob
+    return leader, other

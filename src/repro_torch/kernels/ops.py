@@ -1,0 +1,60 @@
+"""Wrappers around the kernels: the fused sweep entry point and the LGC
+encoder lowered onto the fused matmul (im2col + matmul_bias_lrelu).
+
+Counterpart of ``repro.kernels.ops`` (``fused_ef_topk``, ``_im2col_1d``,
+``conv1d_lrelu``, ``lgc_encode_fast``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.autoencoder import ENCODER_SPEC
+from repro_torch.kernels import sparsify_ef as _ef
+from repro_torch.kernels.matmul_lrelu import matmul_bias_lrelu
+
+EXTRACT = ("loop", "bitonic")
+
+
+def fused_ef_topk(g, u, v, seg, kcap, momentum: float, use_momentum: bool,
+                  n_cand: int, block: int, extract: str = "loop",
+                  active=None):
+    """One-sweep EF accumulate + segmented top-k candidates over a flat
+    vector of any length (the kernel masks the ragged last block).
+    ``extract`` names the reference's per-block extractor, which picked
+    ``block``; both give the same triples, and so does the one algorithm
+    here.  Returns (u', v', cand_vals, cand_idx, cand_seg), flat."""
+    if extract not in EXTRACT:
+        raise ValueError(f"unknown extract backend: {extract!r}")
+    return _ef.sparsify_ef_topk(g, u, v, seg, kcap, momentum, use_momentum,
+                                n_cand, block, active)
+
+
+def _im2col_1d(x: torch.Tensor, ksize: int, stride: int) -> torch.Tensor:
+    """x: (L, C) -> (L_out, ksize*C), SAME padding as lax (lo = total//2)."""
+    L, C = x.shape
+    L_out = (L + stride - 1) // stride
+    pad_total = max((L_out - 1) * stride + ksize - L, 0)
+    lo = pad_total // 2
+    xp = F.pad(x, (0, 0, lo, pad_total - lo))
+    cols = xp.unfold(0, ksize, stride)                    # (L_out, C, k)
+    return cols.transpose(1, 2).reshape(L_out, ksize * C)
+
+
+def conv1d_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 stride: int, apply_lrelu: bool = True) -> torch.Tensor:
+    """One LGC-AE conv layer on the fused matmul.  x: (L, C_in); w:
+    (ksize, C_in, C_out) WIO.  Returns (L_out, C_out) f32."""
+    ksize, c_in, c_out = w.shape
+    cols = _im2col_1d(x, ksize, stride).contiguous()   # windows overlap
+    return matmul_bias_lrelu(cols, w.reshape(ksize * c_in, c_out)
+                             .contiguous(), b.contiguous(), apply_lrelu)
+
+
+def lgc_encode_fast(ae_params, g: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed ``core.autoencoder.lgc_encode`` for one vector g:
+    (L,) with L % 16 == 0.  Returns (L/16, 4)."""
+    x = g[:, None].to(torch.float32)
+    for p, (_c, _k, s) in zip(ae_params["encoder"], ENCODER_SPEC):
+        x = conv1d_lrelu(x, p["w"], p["b"], s)
+    return x

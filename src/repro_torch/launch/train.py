@@ -1,0 +1,165 @@
+"""End-to-end training entry point of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama3.2-1b --smoke --steps 6 --compression lgc_rar \
+        --topk-backend fused --ae-backend pallas --data-shards 2 \
+        --warmup-steps 2 --ae-train-steps 2 [--device cpu]
+
+Runs the three-phase LGC schedule (warm-up -> top-k + online AE ->
+compressed) with the K data-parallel nodes emulated on one device, and
+logs what the reference trainer logs: the per-phase loss, the rate report,
+and per phase the wire bytes each node moves, per exchange op.  Runs on
+the card unless ``--device cpu``; with no card it raises.  Flags follow
+``repro.launch.train``; the values not ported yet raise
+NotImplementedError naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import (CompressionConfig, ModelConfig,
+                                      TrainConfig)
+from repro_torch.core.phases import phase_for_step
+from repro_torch.core.rate import rate_report
+from repro_torch.data import synthetic_token_batches
+from repro_torch.launch.steps import make_lgc_train_step
+from repro_torch.models.model import build_model
+from repro_torch.utils import resolve_device
+
+log = logging.getLogger("repro_torch.train")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="llama3.2-1b")
+    p.add_argument("--smoke", action="store_true",
+                   help="use the reduced (smoke) config variant")
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--compression", default="none",
+                   choices=["none", "sparse_gd", "dgc", "lgc_ps", "lgc_rar",
+                            "lgc_rar_q8"])
+    p.add_argument("--sparsity", type=float, default=0.001)
+    p.add_argument("--transport", default="mesh",
+                   choices=["mesh", "ring", "ring_q8", "ring_hier",
+                            "ring_packed"],
+                   help="wire the byte rows are priced for; the nodes run "
+                        "emulated on one device")
+    p.add_argument("--topk-backend", default="jnp",
+                   choices=["jnp", "pallas", "fused"],
+                   help="residual top-k selection (fused = the one-launch "
+                        "accumulate + select sweep kernel)")
+    p.add_argument("--ae-backend", default="jnp", choices=["jnp", "pallas"],
+                   help="phase-3 encoder (pallas = im2col + the fused "
+                        "matmul kernel)")
+    p.add_argument("--extract-backend", default="auto",
+                   choices=["auto", "loop", "bitonic"],
+                   help="the reference's per-block extractor, which picks "
+                        "the sweep's block size")
+    p.add_argument("--warmup-steps", type=int, default=10)
+    p.add_argument("--ae-train-steps", type=int, default=15)
+    p.add_argument("--optimizer", default="adamw",
+                   choices=["adamw", "sgd_momentum"])
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--data-shards", type=int, default=1,
+                   help="K, the number of emulated data-parallel nodes")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--metrics-out", default="")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return p.parse_args(argv)
+
+
+def run(cfg: ModelConfig, args,
+        on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
+    """Train ``cfg`` as ``args`` says; returns {"history": per-step
+    records (step, phase, loss, ms), "wire": {phase: {op: {kind: bytes}}},
+    "rate": the RateReport, "compressor": the GradientCompressor}.
+    ``on_step(step)`` runs after each step has finished on the device
+    (a profiler's step marker)."""
+    device = resolve_device(args.device)
+    if args.transport != "mesh":
+        raise NotImplementedError(
+            f"transport {args.transport!r} is ROADMAP.md Queue 1, "
+            "'multi-process NCCL transports'")
+    if args.compression not in ("none", "lgc_rar"):
+        raise NotImplementedError(
+            f"compression {args.compression!r} is ROADMAP.md Queue 1, "
+            "'other methods'")
+    # the reference is f32 where it says f32; on the card f32 matmuls and
+    # cuDNN convolutions would otherwise be allowed TF32 (cuDNN's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cc = CompressionConfig(method=args.compression, sparsity=args.sparsity,
+                           warmup_steps=args.warmup_steps,
+                           ae_train_steps=args.ae_train_steps,
+                           transport=args.transport,
+                           topk_backend=args.topk_backend,
+                           ae_backend=args.ae_backend,
+                           extract_backend=args.extract_backend)
+    tc = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
+                     steps=args.steps, seed=args.seed, compression=cc)
+    model = build_model(cfg)
+    lts = make_lgc_train_step(model, tc, args.data_shards, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params, opt_state, comp_state = lts.init(gen)
+    layout = lts.compressor.layout
+    log.info("arch=%s params=%s device=%s nodes=%d", cfg.name,
+             f"{layout.n_total:,}", device, args.data_shards)
+    report = rate_report(cc, layout, args.data_shards)
+    log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
+             report.compression_ratio, report.bytes_per_node)
+
+    data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq,
+                                   seed=args.seed)
+    history, wire = [], {}
+    for step in range(args.steps):
+        phase = phase_for_step(step, cc)
+        batch = {k: torch.from_numpy(x).to(device).long()
+                 for k, x in next(data).items()}
+        t0 = time.perf_counter()
+        params, opt_state, comp_state, metrics = lts.step(
+            params, opt_state, comp_state, batch, step, phase)
+        loss = float(metrics["loss"])            # waits for the device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        history.append({"step": step, "phase": phase, "loss": loss,
+                        "ms": ms})
+        if on_step is not None:
+            on_step(step)
+        if phase not in wire:
+            wire[phase] = metrics["wire"]
+            log.info("phase=%s wire bytes/node/step by op: %s", phase,
+                     {op: {k: int(b) for k, b in row.items()}
+                      for op, row in metrics["wire"].items()})
+        if step % args.log_every == 0 or step == args.steps - 1:
+            log.info("step %4d  phase=%-10s loss=%.4f  %.1f ms", step,
+                     phase, loss, ms)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(history, f, indent=1)
+    return {"history": history, "wire": wire, "rate": report,
+            "compressor": lts.compressor}
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    args = parse_args(argv)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    return run(cfg, args)["history"]
+
+
+if __name__ == "__main__":
+    main()

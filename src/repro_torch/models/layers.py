@@ -1,0 +1,132 @@
+"""Dense decoder building blocks (counterpart of ``repro.models.layers``,
+dense subset).  Params are nested dicts of tensors in the reference's
+layouts: linear weights (in, out), a leading ``lead`` axis on stacked
+block params.
+
+Attention is plain PyTorch: explicit matmuls, an f32 softmax and a causal
+mask, differentiated by autograd.  The reference's ``models/flash.py`` is
+plain jnp with a recompute-in-backward VJP, not a Pallas kernel; at the
+sequence lengths the port trains with, the plain form needs no such
+memory trick.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
+                scale: Optional[float] = None, lead: Sequence[int] = ()):
+    """Normal(0, scale) with scale = 1/sqrt(fan_in) unless given; ``lead``
+    prepends stacked-block axes (each slice is one block's weight)."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    meta = torch.device(device).type == "meta"     # shapes only
+    w = torch.randn(tuple(lead) + tuple(shape), device=device,
+                    generator=None if meta else gen, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def init_linear(gen, d_in, d_out, dtype, device, bias=False, lead=()):
+    p = {"w": _dense_init(gen, (d_in, d_out), dtype, device, lead=lead)}
+    if bias:
+        p["b"] = torch.zeros(tuple(lead) + (d_out,), dtype=dtype,
+                             device=device)
+    return p
+
+
+def linear(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def init_rmsnorm(d, dtype, device, lead=()):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
+
+
+def rmsnorm(p, x, eps=1e-5):
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (B, S, heads, head_dim); positions: (S,).  Half-split rotation."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions.float()[:, None] * freqs           # (S, hd/2)
+    cos = torch.cos(angles)[:, None, :]                   # (S, 1, hd/2)
+    sin = torch.sin(angles)[:, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_attention(q, k, v, window: int = 0):
+    """q: (B, S, H, D); k, v: (B, S, KH, D) with H % KH == 0 (GQA: query
+    head h reads kv head h // (H/KH)).  Scores and softmax in f32.
+    Returns (B, S, H, D) in q's dtype."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)                           # (B,H,S,D)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return (p @ vf).transpose(1, 2).to(q.dtype)
+
+
+def init_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "norm": init_rmsnorm(D, dtype, device, lead),
+        "wq": init_linear(gen, D, H * hd, dtype, device, cfg.qkv_bias, lead),
+        "wk": init_linear(gen, D, KH * hd, dtype, device, cfg.qkv_bias, lead),
+        "wv": init_linear(gen, D, KH * hd, dtype, device, cfg.qkv_bias, lead),
+        "wo": init_linear(gen, H * hd, D, dtype, device, False, lead),
+    }
+
+
+def attention_fwd(p, cfg: ModelConfig, x, positions):
+    """Pre-norm self-attention with residual.  x: (B, S, D)."""
+    B, S, _ = x.shape
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
+    q = linear(p["wq"], h).view(B, S, cfg.n_heads, cfg.head_dim)
+    k = linear(p["wk"], h).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(p["wv"], h).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = causal_attention(q, k, v, cfg.sliding_window)
+    return x + linear(p["wo"], o.reshape(B, S, -1))
+
+
+def init_swiglu(gen, d_model, d_ff, dtype, device, lead=()):
+    return {
+        "norm": init_rmsnorm(d_model, dtype, device, lead),
+        "w_gate": init_linear(gen, d_model, d_ff, dtype, device, False, lead),
+        "w_up": init_linear(gen, d_model, d_ff, dtype, device, False, lead),
+        "w_down": init_linear(gen, d_ff, d_model, dtype, device, False, lead),
+    }
+
+
+def swiglu_fwd(p, x, eps=1e-5):
+    h = rmsnorm(p["norm"], x, eps)
+    return x + linear(p["w_down"],
+                      F.silu(linear(p["w_gate"], h)) * linear(p["w_up"], h))

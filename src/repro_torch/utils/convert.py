@@ -1,0 +1,34 @@
+"""Weights carried across from the JAX package.
+
+The reference's params arrive as nested dicts (and lists) of numpy arrays,
+e.g. ``jax.tree_util.tree_map(np.asarray, Model(cfg).init(key))``.  The
+port keeps the reference's layouts (stacked blocks, (in, out) linears, WIO
+convs), so conversion is an identity on shapes and values.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_map
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes: exact via f32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """Model params (``repro.models.Model.init`` layout) as tensors."""
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def ae_from_numpy(tree: Any, device="cpu") -> Any:
+    """Autoencoder params (``repro.core.autoencoder.init_lgc_autoencoder``
+    layout: {"encoder": [{"b", "w"}], "decoder": [...]}) as tensors."""
+    return tree_map(lambda a: _tensor(a, device), tree)

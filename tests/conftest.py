@@ -22,6 +22,12 @@ except ModuleNotFoundError:             # … else the deterministic shim
     sys.modules["hypothesis.strategies"] = _mh.strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel on an NVIDIA GPU; skips on a "
+        "machine without one")
+
+
 def run_py(code: str, devices: int = 0, timeout: int = 600) -> str:
     """Run a python snippet in a subprocess (optionally with N fake
     devices) and return stdout.  Raises on nonzero exit."""

@@ -1,0 +1,131 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card.  A CUDA kernel has no CPU mode, so every test here
+is marked ``cuda`` and skips on a machine without an NVIDIA GPU.  On one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The file imports no JAX: the machine with the card need not have it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import autoencoder as AE
+from repro_torch.core import sparsify as SP
+from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import matmul_lrelu as MM
+from repro_torch.kernels import sparsify_ef as EF
+
+pytestmark = pytest.mark.cuda
+
+ROLES = (SP.ROLE_COMPRESSED, SP.ROLE_TOPK_ONLY)
+# "odd": leaves of odd sizes, so blocks hold several slot pieces and leaf
+# boundaries fall anywhere; "big_k": sweep blocks above one shared-memory
+# tile (4096 keys), so the sort's global passes run; "wide_embed": whole
+# blocks (the ragged last one too) with no selectable element
+TREES = {
+    "odd": ({"embed": {"w": (300, 7)}, "block1": {"w": (1000, 37),
+                                                  "b": (13,)},
+             "block2": {"w": (777, 53)}, "fc": {"w": (129, 71)}}, 0.05),
+    "big_k": ({"embed": {"w": (16,)}, "mid": {"w": (81920,)},
+               "fc": {"w": (37,)}}, 0.25),
+    "wide_embed": ({"embed": {"w": (5000, 3)}, "block": {"w": (300, 11)}},
+                   0.05),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _layout(which):
+    shapes, sparsity = TREES[which]
+    tree = {k: {n: torch.zeros(s, device="meta") for n, s in d.items()}
+            for k, d in shapes.items()}
+    return SP.build_layout(tree, sparsity)
+
+
+def _vec(kind, n, seed, dev):
+    r = np.random.default_rng(seed)
+    if kind == "normal":
+        x = r.standard_normal(n)
+    elif kind == "ties":                       # nearly every magnitude tied
+        x = r.integers(-2, 3, n)
+    else:
+        x = np.zeros(n)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("which", sorted(TREES))
+@pytest.mark.parametrize("extract", ["loop", "bitonic"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("use_momentum", [True, False])
+def test_fused_ef_topk_kernel_is_bitwise_its_plain_version(
+        card, which, extract, kind, use_momentum):
+    layout = _layout(which)
+    _, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, ROLES, extract)
+    n = layout.n_total
+    g, u, v = (_vec(kind, n, 10 * i + 1, card) for i in range(3))
+    seg_t, kcap_t = (torch.from_numpy(a).to(card) for a in (seg, kcap))
+    args = (g, u, v, seg_t, kcap_t, 0.9, use_momentum, n_cand, block)
+    before = LAUNCHES["fused_ef_topk"]
+    out = EF.sparsify_ef_topk(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_ef_topk"] == before + 1
+    plain = EF.sparsify_ef_topk_plain(*args)
+    for name, a, b in zip(("u", "v", "vals", "idx", "seg"), out, plain):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 3, 64), (77, 192, 128),
+                                   (5, 64, 4), (130, 17, 70)])
+@pytest.mark.parametrize("apply_lrelu", [True, False])
+def test_matmul_bias_lrelu_kernel_matches_its_plain_version(
+        card, M, K, N, apply_lrelu):
+    """Ragged shapes (no padding to 128): to 1e-5 x max(1, max|y|), f32
+    sums of K products in another order."""
+    gen = torch.Generator(device=card).manual_seed(M + K + N)
+    x, w, b = (torch.randn(s, generator=gen, device=card)
+               for s in ((M, K), (K, N), (N,)))
+    before = LAUNCHES["matmul_bias_lrelu"]
+    y = MM.matmul_bias_lrelu(x, w, b, apply_lrelu)
+    torch.cuda.synchronize()
+    assert LAUNCHES["matmul_bias_lrelu"] == before + 1
+    yp = MM.matmul_bias_lrelu_plain(x, w, b, apply_lrelu)
+    tol = 1e-5 * max(1.0, float(yp.abs().max()))
+    assert float((y - yp).abs().max()) <= tol
+
+
+def test_kernel_encoder_matches_conv_encoder(card):
+    """lgc_encode_fast (im2col + five kernel launches) against the conv
+    encoder lgc_encode, to 1e-5 x max(1, max|z|)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    ae = AE.init_lgc_autoencoder(gen, card)
+    g = torch.randn((4096,), generator=gen, device=card)
+    z = ops.lgc_encode_fast(ae, g)
+    zp = AE.lgc_encode(ae, g)[0]
+    assert z.shape == zp.shape == (256, 4)
+    tol = 1e-5 * max(1.0, float(zp.abs().max()))
+    assert float((z - zp).abs().max()) <= tol
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.zeros((8, 4), device=card)
+    w = torch.zeros((4, 3), device=card)
+    b = torch.zeros((3,), device=card)
+    with pytest.raises(ValueError):
+        MM.matmul_bias_lrelu(x.double(), w, b)
+    with pytest.raises(ValueError):
+        MM.matmul_bias_lrelu(x.t().contiguous().t(), w, b)
+    g = torch.zeros((2048,), device=card)
+    seg = torch.zeros((2048,), dtype=torch.int32, device=card)
+    kcap = torch.ones((1,), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):                # block above 2^17
+        EF.sparsify_ef_topk(g, g, g, seg, kcap, 0.9, True, 1, 1 << 18)
+    with pytest.raises(ValueError):                # seg must be int32
+        EF.sparsify_ef_topk(g, g, g, seg.long(), kcap, 0.9, True, 1, 1024)

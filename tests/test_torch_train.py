@@ -1,0 +1,230 @@
+"""The whole slice: the port's lgc_rar trainer against a reference loop
+built by hand from the JAX package (Model.loss + jax.grad per node +
+GradientCompressor.sim_step with its jnp backends, which the reference's
+own tests prove equal to its Pallas paths + build_optimizer), for 6 steps
+with K=2 nodes through all three phases; plus the entry point on the CPU,
+its refusal to run without a card unless asked, and the import rule."""
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as ref_get_arch
+from repro.configs.base import CompressionConfig as RCC
+from repro.configs.base import TrainConfig as RTC
+from repro.core import build_compressor as ref_build_compressor
+from repro.core.phases import phase_for_step as ref_phase_for_step
+from repro.data import synthetic_token_batches as ref_batches
+from repro.dist import plan as RXP
+from repro.models.model import Model as RefModel
+from repro.optim.optimizers import build_optimizer as ref_build_optimizer
+from repro.utils.tree import tree_flatten_vector as ref_flatten
+from repro.utils.tree import tree_unflatten_vector as ref_unflatten
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import CompressionConfig, TrainConfig
+from repro_torch.core.phases import phase_for_step
+from repro_torch.launch import train
+from repro_torch.launch.steps import make_lgc_train_step
+from repro_torch.models.model import build_model
+from repro_torch.utils.convert import ae_from_numpy, params_from_numpy
+from repro_torch.utils.tree import tree_leaves, tree_map, \
+    tree_unflatten_vector
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K, STEPS, BATCH, SEQ = 2, 6, 4, 32
+SLICE = dict(method="lgc_rar", warmup_steps=2, ae_train_steps=2)
+
+
+def _close(a, b, rel, what):
+    """|a - b| <= rel * max|b|: f32 sums in another order, compounded
+    over the steps.  Measured on the CPU: <= 2.1e-6 for the global
+    gradient, u, v and params, 1e-13 for the AE; bounds are ~10x that."""
+    a, b = np.asarray(a), np.asarray(b)
+    scale = max(float(np.abs(b).max()), 1e-30)
+    np.testing.assert_allclose(a, b, rtol=0, atol=rel * scale,
+                               err_msg=what)
+
+
+def test_lgc_rar_trajectory_matches_reference():
+    rcfg = ref_get_arch("llama3.2-1b").reduced()
+    rmodel = RefModel(rcfg)
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    rcc = RCC(**SLICE, topk_backend="jnp", ae_backend="jnp")
+    # momentum SGD: linear in the gradient, so rounding differences stay
+    # rounding-sized (AdamW's m/sqrt(v) turns a 1e-12-vs-0 gradient into a
+    # full step; its own parity is test_adamw_matches_reference)
+    ropt = ref_build_optimizer(RTC(optimizer="sgd_momentum",
+                                   learning_rate=0.1, steps=STEPS,
+                                   compression=rcc))
+    ropt_state = ropt.init(rparams)
+    rcomp = ref_build_compressor(rcc, rparams, K)
+    rstates = rcomp.init_sim_states(jax.random.PRNGKey(1))
+    rgrad = jax.jit(jax.value_and_grad(rmodel.loss, has_aux=True))
+    rsim = jax.jit(rcomp.sim_step, static_argnums=(3,))
+    rupdate = jax.jit(ropt.update)
+
+    cc = CompressionConfig(**SLICE, topk_backend="fused", ae_backend="pallas")
+    tc = TrainConfig(optimizer="sgd_momentum", learning_rate=0.1,
+                     steps=STEPS, compression=cc)
+    lts = make_lgc_train_step(build_model(get_arch("llama3.2-1b").reduced()),
+                              tc, K, torch.device("cpu"))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, rparams))
+    opt_state = lts.optimizer.init(params)
+    state = lts.compressor.init_sim_states(torch.Generator())
+    state["ae"] = ae_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                       rstates["ae"]))
+    state["ae_mom"] = tree_map(torch.zeros_like, state["ae"])
+
+    data = ref_batches(rcfg.vocab_size, BATCH, SEQ, seed=0)
+    phases = []
+    for step in range(STEPS):
+        phase = phase_for_step(step, cc)
+        assert phase == ref_phase_for_step(step, rcc)
+        phases.append(phase)
+        batch = next(data)
+        # reference: per-node grads -> sim_step -> optimizer
+        flats, rloss = [], 0.0
+        for k in range(K):
+            nb = {n: x[k * BATCH // K:(k + 1) * BATCH // K]
+                  for n, x in batch.items()}
+            (loss_k, _), grads = rgrad(rparams, nb)
+            flats.append(ref_flatten(grads))
+            rloss += float(loss_k) / K
+        rgg, rstates, _ = rsim(rstates, jnp.stack(flats), step, phase)
+        rparams, ropt_state = rupdate(ref_unflatten(rgg, rparams),
+                                      ropt_state, rparams, step)
+        # the port: the same pieces LGCTrainStep.step runs
+        tbatch = {n: torch.from_numpy(x).long() for n, x in batch.items()}
+        g_nodes, metrics = lts.node_grads(params, tbatch)
+        gg, state, stats = lts.compressor.sim_step(state, g_nodes, step,
+                                                   phase)
+        params, opt_state = lts.optimizer.update(
+            tree_unflatten_vector(gg, params), opt_state, params, step)
+
+        where = f"step {step} ({phase})"
+        np.testing.assert_allclose(float(metrics["loss"]), rloss,
+                                   rtol=1e-5, err_msg=where)
+        _close(gg.numpy(), rgg, 2e-5, where + " global gradient")
+        if phase != "warmup":                 # the sent support, bitwise
+            np.testing.assert_array_equal(gg.numpy() != 0,
+                                          np.asarray(rgg) != 0, where)
+        for key in ("u", "v"):
+            ours, ref = state[key].numpy(), np.asarray(rstates[key])
+            np.testing.assert_array_equal(ours == 0, ref == 0,
+                                          f"{where} cleared {key}")
+            _close(ours, ref, 2e-5, f"{where} {key}")
+        _close(torch.cat([a.reshape(-1) for a in tree_leaves(state["ae"])]),
+               ref_flatten(rstates["ae"]), 1e-12, where + " ae")
+        plan = RXP.build_plan(rcc, rcomp.layout, K, transport="mesh",
+                              phase=phase)
+        assert stats["wire"] == RXP.wire_terms_by_op(plan), where
+    assert phases == ["warmup"] * 2 + ["topk_ae"] * 2 + ["compressed"] * 2
+    for a, b in zip(tree_leaves(params), jax.tree_util.tree_leaves(rparams)):
+        _close(a.numpy(), b, 2e-5, "params after 6 steps")
+
+
+@pytest.mark.parametrize("method", ["none", "lgc_rar"])
+def test_compressor_state_matches_reference(method):
+    """init_state / init_sim_states: the same keys, leaf order and shapes
+    as the reference's, with zero accumulators."""
+    from repro.utils.tree import keystr_path as ref_keystr
+    from repro_torch.core.compressors import build_compressor
+    from repro_torch.utils.tree import keystr_path, tree_leaves_with_path
+    shapes = {"embed": {"w": (9, 4)}, "block": {"w": (33, 16)}}
+    rcomp = ref_build_compressor(
+        RCC(method=method), {k: {n: jnp.zeros(s) for n, s in d.items()}
+                             for k, d in shapes.items()}, K)
+    comp = build_compressor(
+        CompressionConfig(method=method),
+        {k: {n: torch.zeros(s) for n, s in d.items()}
+         for k, d in shapes.items()}, K)
+    for ours, ref in ((comp.init_state(torch.Generator()),
+                       rcomp.init_state(jax.random.PRNGKey(0))),
+                      (comp.init_sim_states(torch.Generator()),
+                       rcomp.init_sim_states(jax.random.PRNGKey(0)))):
+        assert [(keystr_path(p), tuple(x.shape))
+                for p, x in tree_leaves_with_path(ours)] == \
+            [(ref_keystr(p), tuple(x.shape))
+             for p, x in jax.tree_util.tree_leaves_with_path(ref)]
+        assert not ours["u"].any() and not ours["v"].any()
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "sgd_momentum"])
+def test_optimizer_matches_reference(optimizer):
+    """Three updates from the same params and gradients: params and
+    moments to 1e-6 of their largest entry."""
+    from repro.optim.optimizers import build_optimizer as rbuild
+    from repro_torch.optim.optimizers import build_optimizer
+    r = np.random.default_rng(0)
+    p = {"a": {"w": r.standard_normal((7, 5)).astype(np.float32)},
+         "b": r.standard_normal((11,)).astype(np.float32)}
+    rtc = RTC(optimizer=optimizer, learning_rate=1e-2, steps=30)
+    tc = TrainConfig(optimizer=optimizer, learning_rate=1e-2, steps=30)
+    ropt, opt = rbuild(rtc), build_optimizer(tc)
+    rp = jax.tree_util.tree_map(jnp.asarray, p)
+    tp = params_from_numpy(p)
+    rs, ts = ropt.init(rp), opt.init(tp)
+    for step in range(3):
+        g = jax.tree_util.tree_map(
+            lambda x: r.standard_normal(x.shape).astype(np.float32), p)
+        rp, rs = ropt.update(jax.tree_util.tree_map(jnp.asarray, g), rs,
+                             rp, step)
+        tp, ts = opt.update(params_from_numpy(g), ts, tp, step)
+        for a, b in zip(tree_leaves(tp) + tree_leaves(ts),
+                        jax.tree_util.tree_leaves(rp)
+                        + jax.tree_util.tree_leaves(rs)):
+            _close(a.numpy(), b, 1e-6, f"{optimizer} step {step}")
+
+
+ARGS = ["--smoke", "--steps", "3", "--batch", "2", "--seq", "16",
+        "--compression", "lgc_rar", "--topk-backend", "fused",
+        "--ae-backend", "pallas", "--data-shards", "2",
+        "--warmup-steps", "1", "--ae-train-steps", "1", "--log-every", "1"]
+
+
+def test_main_runs_end_to_end_on_cpu():
+    history = train.main(ARGS + ["--device", "cpu"])
+    assert [h["phase"] for h in history] == ["warmup", "topk_ae",
+                                             "compressed"]
+    assert all(np.isfinite(h["loss"]) for h in history)
+
+
+def test_main_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(ARGS)
+
+
+@pytest.mark.parametrize("flags", [["--compression", "dgc"],
+                                   ["--transport", "ring"],
+                                   ["--topk-backend", "pallas"]])
+def test_unported_options_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.main(ARGS + flags + ["--device", "cpu"])
+
+
+def test_port_imports_neither_jax_nor_reference():
+    root = os.path.join(REPO, "src", "repro_torch")
+    bad = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            for node in ast.walk(ast.parse(open(path).read())):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                for n in names:
+                    top = n.split(".")[0]
+                    if top in ("jax", "jaxlib", "repro"):
+                        bad.append((path, n))
+    assert not bad, bad
+    assert os.path.exists(os.path.join(root, "kernels", "csrc",
+                                       "sparsify_ef.cu"))
