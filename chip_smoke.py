@@ -11,17 +11,32 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               full-width flat-gradient layout (4 layers): alpha = 0.001,
               where "auto" resolves the bitonic rule (128Ki blocks), and
               alpha = 0.0001, where it resolves the loop rule
-  3. k3       the fused matmul + bias + LeakyReLU kernel against its plain
+  3. k6       the block top-k kernel against its plain version, bitwise,
+              at each per-leaf block shape that select_topk(backend=
+              "pallas") gives that layout (alpha = 0.001); and
+              ops.global_topk on the card against the torch.topk leaf
+              selection, bitwise, for one leaf of each shape
+  4. k2       the segmented sweep kernel against its plain version,
+              bitwise, at that layout under both block rules, as k1; then
+              its path: select_topk(v, layout, backend="fused") with the
+              launch counts reset before and read after, equal to
+              backend="jnp" bitwise
+  5. k3       the fused matmul + bias + LeakyReLU kernel against its plain
               version at the AE encoder's five im2col shapes for that
               layout's mu_pad, within |err| <= 1e-5 * max(1, max|y|)
-  4. train    repro_torch.launch.train's run(): llama3.2-1b at published
+  6. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
-              bf16) with n_layers cut from 16 to 4, lgc_rar with the fused
-              sweep and the kernel encoder, K=2 nodes on this card,
-              6 steps through all three phases; launch counts, finite
-              losses and per-op wire-byte rows are checked
-  5. timings  each kernel's ms beside its plain version's, its bound and
-              (K3) one PyTorch call computing the same function
+              bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
+              three runs: lgc_rar with the fused sweep and the kernel
+              encoder, 6 steps through all three phases; dgc with the block
+              top-k (--topk-backend pallas) and sparse_gd with the fused
+              sweep (momentum off), each 2 warm-up + 3 sparsified steps.
+              Each run resets the launch counts before and reads them
+              after; launch counts, finite losses and per-op wire-byte rows
+              are checked
+  7. timings  each kernel's ms beside its plain version's, its bound and,
+              where there is one, one PyTorch call computing the same
+              function
 
 then the kernel list, the card's name and power limit, and on the last
 line {"ok": true, "device": {...}}.  Any failed check raises: the script
@@ -132,6 +147,136 @@ def k1_phase(dev):
     return timing
 
 
+def pallas_shapes(layout):
+    """{(n_blocks, block, kb): [leaves]}: the block top-k launches that
+    select_topk(backend="pallas") makes for ``layout``, one per leaf."""
+    from repro_torch.core import sparsify as SP
+    shapes = {}
+    for leaf in layout.compressed:
+        block = SP.pallas_block(leaf.k)
+        key = (-(-leaf.size // block), block, min(leaf.k, block))
+        shapes.setdefault(key, []).append(leaf)
+    return shapes
+
+
+def k6_phase(dev):
+    """Kernel vs plain, bitwise, at every leaf shape of the main path's
+    layout, and global_topk vs the torch.topk leaf selection; times per
+    shape and summed over the leaves."""
+    import torch.nn.functional as F
+    from repro_torch.core import sparsify as SP
+    from repro_torch.kernels import block_topk as BT
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes, err = [], 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (nb, block, kb), leaves in sorted(pallas_shapes(
+            llama_layout(0.001)).items()):
+        leaf, count = leaves[0], len(leaves)
+        x = torch.randn(leaf.size, generator=gen, device=dev) * 1e-3
+        xb = F.pad(x, (0, nb * block - leaf.size)).view(nb, block)
+        out = BT.block_topk(xb, kb)
+        torch.cuda.synchronize()
+        plain = BT.block_topk_plain(xb, kb)
+        equal = all(torch.equal(a, b) for a, b in zip(out, plain))
+        e = float((out[0] - plain[0]).abs().max())
+        gv, gi = ops.global_topk(x, leaf.k, block=block)
+        lv, li = SP._leaf_topk(x, leaf.k, 0)
+        global_equal = torch.equal(gv, lv) and torch.equal(gi.long(), li)
+        emit("k6", leaf=leaf.path, size=leaf.size, k=leaf.k, n_blocks=nb,
+             block=block, kb=kb, leaves=count, bitwise=equal,
+             global_topk_bitwise=global_equal, max_abs_err=e)
+        if not (equal and global_equal):
+            raise AssertionError(f"block_topk differs at {(nb, block, kb)}: "
+                                 f"kernel {equal}, global {global_equal}")
+        err = max(err, e)
+        del out, plain, gv, gi, lv, li
+        mag = xb.abs()
+        t = {"ms": cuda_ms(lambda: BT.block_topk(xb, kb), 3),
+             "plain_ms": cuda_ms(lambda: BT.block_topk_plain(xb, kb), 1),
+             "library_ms": cuda_ms(lambda: torch.topk(mag, kb, dim=1), 1),
+             "bound_ms": (nb * block * 4 + nb * kb * 8) / HBM_BYTES_PER_S
+             * 1e3}
+        for key in tot:
+            tot[key] += count * t[key]
+        shapes.append({"n_blocks": nb, "block": block, "kb": kb,
+                       "leaves": count, **t})
+        del x, xb, mag
+        torch.cuda.empty_cache()
+    emit("k6_times", shapes=shapes, summed_over_leaves=tot)
+    return {**tot, "max_abs_err": err, "bound_by": "bytes", "shapes": shapes}
+
+
+def k2_phase(dev):
+    """Kernel vs plain, bitwise, at both block rules; then the kernel's
+    path, select_topk(backend="fused"), with its launches counted; times
+    at alpha = 0.001."""
+    from repro_torch.core import sparsify as SP
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import segmented_topk as ST
+    roles = (SP.ROLE_COMPRESSED,)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    timing = launches = None
+    for sparsity, rule in ((0.001, "bitonic"), (0.0001, "loop")):
+        layout = llama_layout(sparsity)
+        ex, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, roles,
+                                                         "auto")
+        assert ex == rule, (sparsity, ex)
+        n = layout.n_total
+        x = torch.randn(n, generator=gen, device=dev) * 1e-3
+        seg_t = torch.from_numpy(seg).to(dev)
+        kcap_t = torch.from_numpy(kcap).to(dev)
+        active = ST.active_blocks(seg_t, block)
+        args = (x, seg_t, kcap_t, n_cand, block)
+        out_k = ST.segmented_topk(*args, active=active)
+        torch.cuda.synchronize()
+        out_p = ST.segmented_topk_plain(*args)
+        names = ("cand_vals", "cand_idx", "cand_seg")
+        equal = {nm: bool(torch.equal(a, b))
+                 for nm, a, b in zip(names, out_k, out_p)}
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(out_k, out_p))
+        kept = int((out_k[2] >= 0).sum())
+        emit("k2", extract=ex, block=block, n=n, n_cand=n_cand,
+             n_blocks=out_k[0].numel() // n_cand, kept=kept,
+             bitwise=equal, max_abs_err=err)
+        if not all(equal.values()):
+            raise AssertionError(f"segmented_topk differs from its plain "
+                                 f"version at {ex}: {equal}")
+        del out_k, out_p
+        if timing is None:
+            pool = (-(-n // block)) * n_cand
+            nbytes = n * 8 + pool * 12
+            timing = {
+                "ms": cuda_ms(lambda: ST.segmented_topk(
+                    *args, active=active), 3),
+                "plain_ms": cuda_ms(lambda: ST.segmented_topk_plain(*args),
+                                    1),
+                "max_abs_err": err, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None, "block": block,
+                "n": n, "n_cand": n_cand}
+            # the kernel's path: the public selection through the sweep
+            want = SP.select_topk(x, layout, backend="jnp")
+            torch.cuda.synchronize()
+            reset_launches()
+            got = SP.select_topk(x, layout, backend="fused")
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            path_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            emit("k2_path", entry="select_topk(backend='fused')",
+                 launches=launches, equal_to_jnp_backend=path_equal)
+            if not path_equal or launches.get("segmented_topk", 0) != 1:
+                raise AssertionError(f"select_topk(backend='fused') on the "
+                                     f"card: equal {path_equal}, launches "
+                                     f"{launches}")
+            del want, got
+        del x, seg_t, active, args
+        SP._device_meta.cache_clear()
+        torch.cuda.empty_cache()
+    return timing, launches
+
+
 def k3_phase(dev):
     """Kernel vs plain at the encoder's im2col shapes for the main path's
     mu_pad; times one encoder pass (five launches)."""
@@ -181,17 +326,22 @@ def k3_phase(dev):
     return tot
 
 
-def train_phase(dev):
+def train_phase(dev, name: str, flags, steps: int, expect):
+    """One training run through launch.train.run(): the launch counts are
+    reset just before and read just after; ``expect(launches,
+    sparsified_steps)`` raises unless the path went through its kernels.
+    Losses must be finite and the per-op wire rows equal the pricer's."""
+    import gc
     from repro_torch.configs import get_arch
+    from repro_torch.core import sparsify as SP
     from repro_torch.dist import plan as XP
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
     cfg = dataclasses.replace(get_arch("llama3.2-1b"), n_layers=N_LAYERS)
-    args = train.parse_args([
-        "--compression", "lgc_rar", "--topk-backend", "fused",
-        "--ae-backend", "pallas", "--data-shards", "2", "--batch", "8",
-        "--seq", "128", "--warmup-steps", "2", "--ae-train-steps", "2",
-        "--steps", "6", "--log-every", "1", "--device", "cuda"])
+    args = train.parse_args(flags + [
+        "--data-shards", "2", "--batch", "8", "--seq", "128",
+        "--warmup-steps", "2", "--steps", str(steps), "--log-every", "1",
+        "--device", "cuda"])
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     out = train.run(cfg, args)
@@ -199,26 +349,48 @@ def train_phase(dev):
     hist, comp = out["history"], out["compressor"]
     losses = [h["loss"] for h in hist]
     if not all(map(lambda l: l == l and abs(l) != float("inf"), losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
-    for name in ("fused_ef_topk", "matmul_bias_lrelu"):
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"{name} never launched on the main path: "
-                                 f"{launches}")
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    expect(launches, sum(h["phase"] != "warmup" for h in hist))
     for phase, rows in out["wire"].items():
         plan = XP.build_plan(comp.cc, comp.layout, comp.K, transport="mesh",
                              phase=phase)
         if rows != XP.wire_terms_by_op(plan):
-            raise AssertionError(f"{phase}: measured wire rows {rows} != "
-                                 f"priced {XP.wire_terms_by_op(plan)}")
+            raise AssertionError(f"{name} {phase}: measured wire rows {rows}"
+                                 f" != priced {XP.wire_terms_by_op(plan)}")
     step_ms = {}
     for h in hist:
         step_ms.setdefault(h["phase"], []).append(h["ms"])
-    emit("train", arch=cfg.name, n_layers=N_LAYERS, reduced=["n_layers"],
-         d_model=cfg.d_model, dtype=cfg.dtype, n_params=comp.layout.n_total,
-         nodes=comp.K, losses=losses, step_ms=step_ms, launches=launches,
-         wire=out["wire"], peak_mem_gib=torch.cuda.max_memory_allocated(dev)
-         / 2 ** 30, rate_bytes_per_node=out["rate"].bytes_per_node)
+    emit("train", run=name, arch=cfg.name, n_layers=N_LAYERS,
+         reduced=["n_layers"], d_model=cfg.d_model, dtype=cfg.dtype,
+         n_params=comp.layout.n_total, nodes=comp.K, losses=losses,
+         step_ms=step_ms, launches=launches, wire=out["wire"],
+         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+         rate_bytes_per_node=out["rate"].bytes_per_node)
+    del out, hist, comp
+    SP._device_meta.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def launched(*names):
+    def expect(launches, _sparsified):
+        for nm in names:
+            if launches.get(nm, 0) <= 0:
+                raise AssertionError(f"{nm} never launched on the path: "
+                                     f"{launches}")
+    return expect
+
+
+def block_topk_per_leaf(n_leaves: int, nodes: int):
+    def expect(launches, sparsified):
+        want = n_leaves * nodes * sparsified
+        if launches.get("block_topk", 0) != want:
+            raise AssertionError(f"block_topk launched "
+                                 f"{launches.get('block_topk', 0)} times, "
+                                 f"not {want} ({n_leaves} leaves x {nodes} "
+                                 f"nodes x {sparsified} steps)")
+    return expect
 
 
 def main() -> None:
@@ -234,23 +406,45 @@ def main() -> None:
                          text=True, check=True).stdout.strip().splitlines()[0]
     build_phase(smi)
     k1 = k1_phase(dev)
+    k6 = k6_phase(dev)
+    k2, k2_launches = k2_phase(dev)
     k3 = k3_phase(dev)
     torch.cuda.empty_cache()
-    launches = train_phase(dev)
-    emit("timings", card=smi, fused_ef_topk=k1, matmul_bias_lrelu=k3)
+    n_leaves = len(llama_layout(0.001).compressed)
+    runs = {
+        "lgc_rar": train_phase(
+            dev, "lgc_rar", ["--compression", "lgc_rar", "--topk-backend",
+                             "fused", "--ae-backend", "pallas",
+                             "--ae-train-steps", "2"], 6,
+            launched("fused_ef_topk", "matmul_bias_lrelu")),
+        "dgc": train_phase(
+            dev, "dgc", ["--compression", "dgc", "--topk-backend", "pallas"],
+            5, block_topk_per_leaf(n_leaves, 2)),
+        "sparse_gd": train_phase(
+            dev, "sparse_gd", ["--compression", "sparse_gd",
+                               "--topk-backend", "fused"], 5,
+            launched("fused_ef_topk")),
+    }
+    emit("timings", card=smi, fused_ef_topk=k1, matmul_bias_lrelu=k3,
+         block_topk=k6, segmented_topk=k2)
+
+    def count(name):
+        return sum(r.get(name, 0) for r in list(runs.values())
+                   + [k2_launches])
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    rows = [("fused_ef_topk", "sparsify_ef.cu", "sparsify_ef.py:117", k1),
+            ("matmul_bias_lrelu", "matmul_lrelu.cu", "matmul_lrelu.py:46",
+             k3),
+            ("block_topk", "block_topk.cu", "block_topk.py:53", k6),
+            ("segmented_topk", "segmented_topk.cu", "segmented_topk.py:126",
+             k2)]
     print(json.dumps({"kernels": [
-        {"name": "fused_ef_topk", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/sparsify_ef.cu",
-         "replaces": "src/repro/kernels/sparsify_ef.py:117",
-         "launches": launches["fused_ef_topk"],
-         **{k: k1[k] for k in keys}},
-        {"name": "matmul_bias_lrelu", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/matmul_lrelu.cu",
-         "replaces": "src/repro/kernels/matmul_lrelu.py:46",
-         "launches": launches["matmul_bias_lrelu"],
-         **{k: k3[k] for k in keys}}]}), flush=True)
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{src}",
+         "replaces": f"src/repro/kernels/{site}",
+         "launches": count(name), **{k: t[k] for k in keys}}
+        for name, src, site, t in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

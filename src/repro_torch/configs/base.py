@@ -66,7 +66,7 @@ class ModelConfig:
 class CompressionConfig:
     """The paper's technique (fields of ``repro.configs.base`` that the
     ported methods read)."""
-    method: str = "none"             # none | lgc_rar (ported so far)
+    method: str = "none"             # none | sparse_gd | dgc | lgc_rar
     sparsity: float = 0.001          # alpha = 0.1% top-k
     warmup_steps: int = 200          # phase-1 raw-gradient updates
     ae_train_steps: int = 300        # phase-2 (AE online training) length
@@ -74,7 +74,7 @@ class CompressionConfig:
     momentum_correction: float = 0.9
     transport: str = "mesh"
     q8_scale_block: int = 0          # 0 = SCALE_BLOCK
-    topk_backend: str = "jnp"        # jnp | fused
+    topk_backend: str = "jnp"        # jnp | pallas | fused
     extract_backend: str = "auto"    # auto | loop | bitonic
     ae_backend: str = "jnp"          # jnp | pallas (the fused-matmul kernel)
     guard: str = "off"

@@ -1,9 +1,11 @@
 """Gradient compressors (paper Section V); counterpart of
 ``repro.core.compressors`` for the methods ported so far:
 
-  none     baseline, dense all-reduce of the gradient
-  lgc_rar  LGC, ring-allreduce pattern: warm-up dense, then top-k with the
-           autoencoder trained online, then encode -> mean -> decode
+  none       baseline, dense all-reduce of the gradient
+  sparse_gd  top-k sparsification with plain residual accumulation
+  dgc        top-k with DGC momentum correction
+  lgc_rar    LGC, ring-allreduce pattern: warm-up dense, then top-k with
+             the autoencoder trained online, then encode -> mean -> decode
 
 Each step compiles its exchanges with ``dist.plan.build_plan`` and runs
 them with ``dist.plan.execute`` against a transport, supplying the
@@ -13,10 +15,12 @@ node: at llama3.2-1b width each is gigabytes, and sweeping the nodes one
 after another keeps only one node's temporaries alive.
 
 The fused path (``topk_backend="fused"``) runs the CUDA sweep kernel
-(``kernels/csrc/sparsify_ef.cu``) on the card; the phase-3 encoder with
+(``kernels/csrc/sparsify_ef.cu``) on the card, ``topk_backend="pallas"``
+the block top-k kernel once per compressed leaf
+(``kernels/csrc/block_topk.cu``); the phase-3 encoder with
 ``ae_backend="pallas"`` runs the fused matmul kernel
-(``kernels/csrc/matmul_lrelu.cu``).  On the CPU both take their plain
-PyTorch versions.
+(``kernels/csrc/matmul_lrelu.cu``).  On the CPU each takes its plain
+PyTorch version.
 """
 from __future__ import annotations
 
@@ -46,11 +50,9 @@ class GradientCompressor:
         if cc.method not in XP.METHODS:
             raise NotImplementedError(
                 f"method {cc.method!r} is not ported (ROADMAP.md Queue 1, "
-                "'other methods')")
+                "'lgc_ps and lgc_rar_q8')")
         if cc.topk_backend not in SP.SELECT_BACKENDS:
-            raise NotImplementedError(
-                f"topk_backend {cc.topk_backend!r} is not ported (kernel "
-                "K6, ROADMAP.md Queue 2)")
+            raise ValueError(f"unknown topk_backend {cc.topk_backend!r}")
         if cc.ae_backend not in ("jnp", "pallas"):
             raise ValueError(f"unknown ae_backend {cc.ae_backend!r}")
         if cc.guard != "off":
@@ -89,23 +91,36 @@ class GradientCompressor:
             return K_ops.lgc_encode_fast(ae, x)
         return AE.lgc_encode(ae, x)[0]                    # (mu/16, 4)
 
+    @property
+    def _use_momentum(self) -> bool:
+        # sparse_gd is plain residual accumulation, no momentum correction
+        return self.cc.method != "sparse_gd"
+
     def _accumulate_select(self, u, v, g):
         """Node-local EF accumulate + selection.  Writes u', v' into
-        ``u``/``v`` in place; returns (own support idx, last vals, last
-        idx)."""
+        ``u``/``v`` in place; returns (vals, idx, last vals, last idx)."""
         cc, layout = self.cc, self.layout
         if cc.topk_backend == "fused":
-            u2, v2, _vals, idx, last_vals, last_idx = \
+            u2, v2, vals, idx, last_vals, last_idx = \
                 SP.fused_accumulate_select(
                     g, u, v, layout, cc.momentum_correction,
+                    use_momentum=self._use_momentum,
                     extract=cc.extract_backend)
         else:
-            u2, v2 = SP.momentum_correct(u, v, g, cc.momentum_correction)
-            last_vals, last_idx = SP.select_topk_last(v2, layout)
-            idx = SP.select_topk(v2, layout)[1]
-        u.copy_(u2)
+            if self._use_momentum:
+                u2, v2 = SP.momentum_correct(u, v, g,
+                                             cc.momentum_correction)
+            else:
+                u2, v2 = u, v + g
+            last_vals, last_idx = SP.select_topk_last(
+                v2, layout, backend=cc.topk_backend,
+                extract=cc.extract_backend)
+            vals, idx = SP.select_topk(v2, layout, backend=cc.topk_backend,
+                                       extract=cc.extract_backend)
+        if u2 is not u:
+            u.copy_(u2)
         v.copy_(v2)
-        return idx, last_vals, last_idx
+        return vals, idx, last_vals, last_idx
 
     # -- AE online training (phase 2) ------------------------------------------
 
@@ -144,11 +159,36 @@ class GradientCompressor:
         u, v = state["u"], state["v"]
         sel = [self._accumulate_select(u[k], v[k], g[k])
                for k in range(self.K)]
-        own_idx = torch.sort(torch.stack([s[0] for s in sel]), dim=-1)[0]
-        last_vals = torch.stack([s[1] for s in sel])
-        last_idx = torch.stack([s[2] for s in sel])
+        vals, own_idx, last_vals, last_idx = (
+            torch.stack([s[i] for s in sel]) for i in range(4))
+        del sel
         dense_seg = torch.stack([SP.dense_segments(g[k], layout)
                                  for k in range(self.K)])
+        feeds = {
+            "exempt_dense": lambda env: dense_seg,
+            "exempt_last": lambda env: (last_vals, last_idx),
+        }
+
+        def finish(env, global_g, idx_nodes):
+            # (sent + dense) + last, the reference's order of additions;
+            # then zero u, v where each node's pairs were sent
+            global_g += SP.scatter_dense_segments(env["exempt_dense"],
+                                                  layout, n)
+            global_g += env["exempt_last"]
+            for k in range(self.K):
+                SP.clear_sent_merged(u[k], v[k], idx_nodes[k], last_idx[k],
+                                     n)
+            return global_g
+
+        if cc.method in ("sparse_gd", "dgc"):
+            # each node ships its own (vals, idx); each clears its own set
+            feeds["topk"] = lambda env: (vals, own_idx)
+            env = XP.execute(plan, t, feeds)
+            return finish(env, env["topk"], own_idx), dict(state), stats
+
+        # lgc: the rotating leader's sorted index set is every node's
+        # support, and every node clears that shared set
+        own_idx = torch.sort(own_idx, dim=-1)[0]
         leader = step % self.K
 
         def vals_of(env):
@@ -159,11 +199,7 @@ class GradientCompressor:
                      for k in range(self.K)])
             return env["_vals"]
 
-        feeds = {
-            "exempt_dense": lambda env: dense_seg,
-            "exempt_last": lambda env: (last_vals, last_idx),
-            "support": lambda env: (own_idx, leader),
-        }
+        feeds["support"] = lambda env: (own_idx, leader)
         new_state = dict(state)
         if phase == PHASE_TOPK_AE:
             feeds["support_vals"] = vals_of
@@ -179,12 +215,8 @@ class GradientCompressor:
             env = XP.execute(plan, t, feeds)
             sent = AE.lgc_decode_rar(state["ae"], env["encoding"][None])[0]
         idx = env["support"]
-        # (sent + dense) + last, the reference's order of additions
-        global_g = SP.scatter_to_dense(sent, idx, n)
-        global_g += SP.scatter_dense_segments(env["exempt_dense"], layout, n)
-        global_g += env["exempt_last"]
-        for k in range(self.K):
-            SP.clear_sent_merged(u[k], v[k], idx, last_idx[k], n)
+        global_g = finish(env, SP.scatter_to_dense(sent, idx, n),
+                          [idx] * self.K)
         return global_g, new_state, stats
 
     def sim_step(self, states, g_nodes, step: int, phase: str):

@@ -22,9 +22,8 @@ import torch
 
 from repro_torch.kernels import ops as K_ops
 from repro_torch.kernels.segmented_topk import (BLOCK as _SEG_BLOCK,
-                                                magnitude_rank, next_pow2,
-                                                select_candidates)
-from repro_torch.kernels.sparsify_ef import active_blocks
+                                                active_blocks,
+                                                magnitude_rank, next_pow2)
 from repro_torch.utils.tree import keystr_path, tree_leaves_with_path
 
 ROLE_DENSE = "dense"            # exempt: raw dense gradient (first layer)
@@ -129,7 +128,23 @@ def _leaf_topk(seg: torch.Tensor, k: int, offset: int):
     return seg[idx], idx + offset
 
 
-SELECT_BACKENDS = ("jnp", "fused")
+_PALLAS_BLOCK = 8192            # smallest per-leaf global_topk block
+
+
+def pallas_block(k: int) -> int:
+    """The reference's per-leaf global_topk block for a leaf's k:
+    max(8192, k rounded up to 128)."""
+    return max(_PALLAS_BLOCK, ((k + 127) // 128) * 128)
+
+
+def _leaf_topk_pallas(seg: torch.Tensor, k: int, offset: int):
+    """Same contract as :func:`_leaf_topk` through the block top-k kernel
+    (K6) and its merge (``kernels.ops.global_topk``)."""
+    vals, idx = K_ops.global_topk(seg, k, block=pallas_block(k))
+    return vals, idx + offset
+
+
+SELECT_BACKENDS = ("jnp", "pallas", "fused")
 
 FUSED_BLOCK = _SEG_BLOCK
 FUSED_BLOCK_MAX = 128 * 1024
@@ -215,34 +230,26 @@ def _merge_candidates(cvals, cidx, cseg, slots):
 
 
 def _fused_select_lists(v, layout, roles, extract: str = "auto"):
-    """Per-leaf (vals, idx) lists through the segmented sweep without the
-    EF accumulate (the reference's kernel K2).  Its CUDA kernel is not
-    ported yet, so this runs the plain extractor, on the CPU only."""
-    if v.device.type != "cpu":
-        raise NotImplementedError(
-            "select_topk(backend='fused') needs kernel K2 "
-            "(segmented_topk), queued in ROADMAP.md Queue 2")
-    ex, block, seg, kcap, n_cand, slots = _fused_meta(layout, roles, extract)
+    """Per-leaf (vals, idx) lists for all leaves of ``roles`` through ONE
+    segmented sweep without the EF accumulate (kernel K2), then the
+    merge."""
+    ex, block, _, _, n_cand, slots = _fused_meta(layout, roles, extract)
     if not slots:
         return [], []
-    n = v.shape[0]
-    nb = -(-n // block)
-    segp = np.full((nb * block,), -1, np.int32)
-    segp[:n] = seg
-    cv, ci, cs = select_candidates(
-        torch.nn.functional.pad(v, (0, nb * block - n)).view(nb, block),
-        torch.from_numpy(segp).view(nb, block), torch.from_numpy(kcap),
-        n_cand)
-    ci = ci + (torch.arange(nb, dtype=torch.int32) * block)[:, None]
-    return _merge_candidates(cv.reshape(-1), ci.reshape(-1),
-                             cs.reshape(-1), slots)
+    seg, kcap, active = _device_meta(layout, roles, extract, v.device)
+    cv, ci, cs = K_ops.segmented_topk(v, seg, kcap, n_cand, block=block,
+                                      extract=ex, active=active)
+    return _merge_candidates(cv, ci, cs, slots)
 
 
-def _per_leaf_select(v, leaves):
+def _per_leaf_select(v, leaves, backend: str):
+    """Per-leaf (vals, idx) lists, one top-k per leaf: ``torch.topk`` on
+    unique keys ("jnp") or the block top-k kernel ("pallas")."""
+    topk = _leaf_topk_pallas if backend == "pallas" else _leaf_topk
     vals_list, idx_list = [], []
     for leaf in leaves:
-        vals, idx = _leaf_topk(v[leaf.offset:leaf.offset + leaf.size],
-                               leaf.k, leaf.offset)
+        vals, idx = topk(v[leaf.offset:leaf.offset + leaf.size], leaf.k,
+                         leaf.offset)
         vals_list.append(vals)
         idx_list.append(idx)
     return vals_list, idx_list
@@ -250,9 +257,8 @@ def _per_leaf_select(v, leaves):
 
 def _check_backend(backend: str) -> None:
     if backend not in SELECT_BACKENDS:
-        raise NotImplementedError(
-            f"topk backend {backend!r} is not ported (the per-leaf kernel "
-            "K6, block_topk, is queued in ROADMAP.md Queue 2)")
+        raise ValueError(f"unknown topk backend {backend!r}; known: "
+                         f"{SELECT_BACKENDS}")
 
 
 def _pad_compressed(vals_list, idx_list, layout, dtype):
@@ -271,13 +277,17 @@ def select_topk(v, layout: GradientLayout, backend: str = "jnp",
                 extract: str = "auto"):
     """Top-k per compressed leaf of the residual ``v``: (values (mu_pad,),
     indices (mu_pad,) int32); padding entries carry 0 and the sentinel
-    index n_total."""
+    index n_total.  ``backend``: "jnp" (one ``torch.topk`` per leaf),
+    "pallas" (the block top-k kernel K6, one launch per leaf) or "fused"
+    (the segmented sweep kernel K2, one launch for the whole vector); all
+    exact, in the same order (|value| descending, lowest index first)."""
     _check_backend(backend)
     if backend == "fused":
         vals_list, idx_list = _fused_select_lists(
             v, layout, (ROLE_COMPRESSED,), extract)
     else:
-        vals_list, idx_list = _per_leaf_select(v, layout.compressed)
+        vals_list, idx_list = _per_leaf_select(v, layout.compressed,
+                                               backend)
     return _pad_compressed(vals_list, idx_list, layout, v.dtype)
 
 
@@ -292,7 +302,8 @@ def select_topk_last(v, layout: GradientLayout, backend: str = "jnp",
         vals_list, idx_list = _fused_select_lists(
             v, layout, (ROLE_TOPK_ONLY,), extract)
     else:
-        vals_list, idx_list = _per_leaf_select(v, layout.topk_only)
+        vals_list, idx_list = _per_leaf_select(v, layout.topk_only,
+                                               backend)
     return (torch.cat(vals_list),
             torch.cat([i.to(torch.int32) for i in idx_list]))
 

@@ -1,12 +1,16 @@
 """The exchange-plan IR (counterpart of ``repro.dist.plan``), for the
-ported methods ``none`` and ``lgc_rar`` on the ``mesh`` pricing.
+ported methods ``none``, ``sparse_gd``, ``dgc`` and ``lgc_rar`` on the
+``mesh`` pricing.
 
 :func:`build_plan` compiles (config, layout, K, phase) into an ordered
 tuple of typed exchange ops; :func:`execute` runs them against a transport
 with per-op feed callbacks and checks that feeds and plan labels match
 both ways; :func:`wire_terms_by_op` and :func:`rate_terms` price the same
-op objects.  The packed, int8 and ring wires, the PS ops and the guard
-policies are not ported yet (ROADMAP.md Queue 1).
+op objects.  The sparse methods' exchanges are
+:class:`PackedSparseExchange` ops carrying their ``PackPlan``, as in the
+reference; on the ``mesh`` pricing they move the exact f32 + int32 pairs.
+The packed, int8 and ring wires, the PS ops and the guard policies are
+not ported yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -20,12 +24,12 @@ from repro_torch.core import autoencoder as AE
 from repro_torch.core.phases import (PHASE_COMPRESSED, PHASE_TOPK_AE,
                                      PHASE_WARMUP)
 from repro_torch.core.sparsify import GradientLayout
-from repro_torch.dist.transport import SCALE_BLOCK
+from repro_torch.dist import packed as PK
 
 BYTES_F32 = 4
 BYTES_I32 = 4
 
-METHODS = ("none", "lgc_rar")
+METHODS = ("none", "sparse_gd", "dgc", "lgc_rar")
 
 
 @dataclass(frozen=True)
@@ -62,6 +66,20 @@ class SparseExchange(Op):
 
 
 @dataclass(frozen=True)
+class PackedSparseExchange(Op):
+    """A SparseExchange that rides the packed wire on the packed ring
+    transport; ``pack`` is its PackPlan (None when k == 0).  On every
+    other wire it moves the exact pairs.  ``mode="mean"`` averages the
+    scattered pairs, ``"gather"`` returns the (K, n_vec) per-node
+    scatters."""
+    n_vec: int
+    k: int
+    k_rate: int
+    pack: Optional[PK.PackPlan]
+    mode: str = "mean"             # "mean" | "gather"
+
+
+@dataclass(frozen=True)
 class IndexBroadcast(Op):
     """The rotating leader's sorted index set to all nodes (raw int32)."""
     n_vec: int
@@ -84,7 +102,12 @@ class Plan:
 
 
 def steady_phase(method: str) -> str:
-    return PHASE_WARMUP if method == "none" else PHASE_COMPRESSED
+    """The phase a method spends training in, which the rate prices."""
+    if method == "none":
+        return PHASE_WARMUP
+    if method in ("sparse_gd", "dgc"):
+        return PHASE_TOPK_AE
+    return PHASE_COMPRESSED
 
 
 def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
@@ -94,10 +117,10 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
     if method not in METHODS:
         raise NotImplementedError(
             f"method {method!r} is not ported (ROADMAP.md Queue 1, "
-            "'other methods')")
+            "'lgc_ps and lgc_rar_q8')")
     tkind = transport if transport is not None else (cc.transport or "mesh")
     phase = phase if phase is not None else steady_phase(method)
-    sb = cc.q8_scale_block or SCALE_BLOCK
+    sb = cc.q8_scale_block or PK.SCALE_BLOCK
     n = layout.n_total
 
     def _plan(ops) -> Plan:
@@ -106,12 +129,24 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
 
     if phase == PHASE_WARMUP or method == "none":
         return _plan([DenseReduce("grad", n_vals=n)])
+    packed = method in PK.PACKED_METHODS
+
+    def sparse(label, n_vec, k, k_rate):
+        if packed:
+            return PackedSparseExchange(
+                label, n_vec=n_vec, k=k, k_rate=k_rate,
+                pack=PK.make_plan(n_vec, k, sb) if k else None)
+        return SparseExchange(label, n_vec=n_vec, k=k, k_rate=k_rate)
+
     mp = layout.mu_pad
     ops = [DenseReduce("exempt_dense",
                        n_vals=sum(l.size for l in layout.dense), exempt=True),
-           SparseExchange("exempt_last", n_vec=n, k=layout.k_last,
-                          k_rate=layout.k_last),
-           IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu)]
+           sparse("exempt_last", n, layout.k_last, layout.k_last)]
+    if method in ("sparse_gd", "dgc"):
+        # the whole cross-node exchange: mu_pad shipped pairs, mu counted
+        ops.append(sparse("topk", n, mp, layout.mu))
+        return _plan(ops)
+    ops.append(IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu))
     if phase == PHASE_TOPK_AE:
         ops.append(Reduce("support_vals", n_vals=mp))
         ops.append(AllGather("gather_vals", n_vals=mp))
@@ -128,6 +163,11 @@ def _run_op(op: Op, t, args: tuple):
     if isinstance(op, SparseExchange):
         vals, idx = args
         return t.sparse_mean(vals, idx, op.n_vec)
+    if isinstance(op, PackedSparseExchange):
+        vals, idx = args
+        if op.mode == "gather":
+            return t.sparse_gather_packed(vals, idx, op.n_vec, plan=op.pack)
+        return t.sparse_mean_packed(vals, idx, op.n_vec, plan=op.pack)
     if isinstance(op, IndexBroadcast):
         idx, leader = args
         return t.broadcast_packed(idx, leader, op.n_vec)
@@ -159,7 +199,8 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
 def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
     """{op label: {collective kind: bytes}} one op moves per node on the
     ``mesh`` lowering (the lax collectives: all_reduce 2(K-1)/K of the
-    buffer, all_gather (K-1) buffers, broadcast (K-1)/K)."""
+    buffer, all_gather (K-1) buffers, broadcast (K-1)/K).  A packed
+    sparse exchange moves its exact pairs there."""
     if tkind != "mesh":
         raise NotImplementedError(
             f"pricing for transport {tkind!r} is not ported (ROADMAP.md "
@@ -176,7 +217,7 @@ def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
             add("all_reduce", 2 * (K - 1) / K * op.n_vals * BYTES_F32)
     elif isinstance(op, AllGather):
         add("all_gather", (K - 1) * op.n_vals * BYTES_F32)
-    elif isinstance(op, SparseExchange):
+    elif isinstance(op, (SparseExchange, PackedSparseExchange)):
         if op.k > 0:
             add("all_gather", (K - 1) * op.k * (BYTES_F32 + BYTES_I32))
     elif isinstance(op, IndexBroadcast):
@@ -216,7 +257,7 @@ def _op_rate_bytes(op: Op, idx: Optional[np.ndarray], count_exempt: bool,
     if isinstance(op, (Reduce, AllGather)):
         b = op.n_vals * BYTES_F32
         return b, b
-    if isinstance(op, SparseExchange):
+    if isinstance(op, (SparseExchange, PackedSparseExchange)):
         if op.k <= 0:
             return 0.0, 0.0
         b = op.k_rate * BYTES_F32 + deflate(idx, op.k_rate, op.n_vec)
@@ -234,7 +275,7 @@ def rate_terms(plan: Plan, *, indices: Optional[np.ndarray] = None,
         from repro_torch.core.rate import deflate_bytes as deflate
     leader = other = 0.0
     for op in plan.ops:
-        idx = indices if op.label == "support" else None
+        idx = indices if op.label in ("topk", "support") else None
         lb, ob = _op_rate_bytes(op, idx, count_exempt, deflate)
         leader += lb
         other += ob

@@ -19,8 +19,6 @@ from typing import Dict, Optional
 
 import torch
 
-SCALE_BLOCK = 256     # int8-wire values per f32 scale (repro.dist.quantize)
-
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
@@ -61,14 +59,31 @@ class SimTransport:
         self._record("broadcast", (self.K - 1) / self.K * _nbytes(idx[0]))
         return idx[leader]
 
-    def sparse_mean(self, vals, idx, n: int):
-        """Mean over nodes of per-node sparse (vals, idx) pairs as a dense
-        (n,) vector; the wire moves the pairs (two all_gathers)."""
+    def _sparse_gather(self, vals, idx, n: int):
+        """(K, n): each node's sparse (vals, idx) pairs scattered densely
+        (indices >= n dropped); the wire moves the pairs (two
+        all_gathers)."""
         if vals.shape[-1] == 0:
-            return torch.zeros((n,), dtype=vals.dtype, device=vals.device)
+            return torch.zeros((self.K, n), dtype=vals.dtype,
+                               device=vals.device)
         self._record("all_gather",
                      (self.K - 1) * (_nbytes(vals[0]) + _nbytes(idx[0])))
         out = torch.zeros((self.K, n + 1), dtype=vals.dtype,
                           device=vals.device)
         out.scatter_add_(1, idx.long().clamp(0, n), vals)
-        return out[:, :n].mean(0)
+        return out[:, :n]
+
+    def sparse_mean(self, vals, idx, n: int):
+        """Mean over nodes of per-node sparse (vals, idx) pairs as a dense
+        (n,) vector, on the exact f32 + int32 wire."""
+        return self._sparse_gather(vals, idx, n).mean(0)
+
+    def sparse_gather_packed(self, vals, idx, n: int, plan=None):
+        """The exact oracle of the packed wire: the per-node scatters of
+        the untouched pairs, (K, n).  ``plan`` (the op's PackPlan) shapes
+        only the packed ring's payload; bytes are tallied as the mesh
+        lowering moves them, like :meth:`sparse_mean`."""
+        return self._sparse_gather(vals, idx, n)
+
+    def sparse_mean_packed(self, vals, idx, n: int, plan=None):
+        return self.sparse_gather_packed(vals, idx, n, plan).mean(0)

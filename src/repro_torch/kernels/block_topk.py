@@ -1,0 +1,53 @@
+"""Per-block exact top-k by |x| (kernel K6).
+
+Counterpart of ``repro.kernels.block_topk.block_topk`` and its oracle
+``repro.kernels.ref.block_topk_ref``: per row of x (n_blocks, block), the
+kb elements of largest |x|, emitted |x| descending then lowest index
+first, as (values, block-local int32 indices).  :func:`block_topk`
+launches the CUDA kernel (``csrc/block_topk.cu``) for tensors on the card
+and runs :func:`block_topk_plain` for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.segmented_topk import (LANE, LOC_BITS,
+                                                magnitude_rank, next_pow2)
+
+
+def block_topk_plain(x: torch.Tensor, kb: int):
+    """The plain PyTorch version: per row, the kb smallest unique int64
+    keys magnitude_rank << 32 | index."""
+    block = x.shape[1]
+    key = magnitude_rank(x) << 32 | torch.arange(block, device=x.device)
+    idx = torch.topk(key, kb, dim=1, largest=False, sorted=True).indices
+    return x.gather(1, idx), idx.to(torch.int32)
+
+
+def block_topk(x: torch.Tensor, kb: int):
+    """x: (n_blocks, block) f32, block % 128 == 0, 0 < kb <= block.
+    Returns (vals (n_blocks, kb) f32, idx (n_blocks, kb) int32 local to
+    the block); the same outputs as :func:`block_topk_plain`, bitwise."""
+    if x.device.type == "cpu":
+        return block_topk_plain(x, kb)
+    if x.device.type != "cuda" or x.dtype != torch.float32 \
+            or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("block_topk: x must be a contiguous (n_blocks, "
+                         "block) f32 tensor on the card")
+    nb, block = x.shape
+    if not (LANE <= block <= 1 << LOC_BITS and block % LANE == 0) \
+            or not 0 < kb <= block or not 0 < nb * next_pow2(block) < 2 ** 31:
+        raise ValueError(f"block_topk: unsupported n_blocks={nb}, "
+                         f"block={block}, kb={kb}")
+    dev = x.device
+    vals = torch.empty((nb, kb), dtype=torch.float32, device=dev)
+    idx = torch.empty((nb, kb), dtype=torch.int32, device=dev)
+    keys = torch.empty((nb * next_pow2(block),), dtype=torch.int64,
+                       device=dev)
+    err = build.library("block_topk").block_topk(
+        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), keys.data_ptr(), nb,
+        block, kb, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "block_topk")
+    LAUNCHES["block_topk"] += 1
+    return vals, idx

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/`` as
-``lib<name>-<hash of the source>.so`` and loaded with ctypes, so a changed
-source rebuilds and an unchanged one is reused.  :func:`build_all` starts
+``lib<name>-<hash>.so``, the hash taken over the source and the shared
+headers (``csrc/*.cuh``), and loaded with ctypes, so a changed source
+rebuilds and an unchanged one is reused.  :func:`build_all` starts
 one ``nvcc`` per source, all at once.  Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
 """
@@ -32,6 +33,9 @@ SIGNATURES = {
                                       _F, _I, _P]},
     "matmul_lrelu": {"matmul_bias_lrelu": [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _P]},
+    "segmented_topk": {"segmented_topk": [_P, _P, _P, _P, _I, _P, _P, _P,
+                                          _P, _L, _I, _I, _I, _I, _P]},
+    "block_topk": {"block_topk": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -47,7 +51,10 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -1,8 +1,9 @@
-"""Wrappers around the kernels: the fused sweep entry point and the LGC
+"""Wrappers around the kernels: exact global top-k through the block
+top-k kernel, the segmented and fused sweep entry points, and the LGC
 encoder lowered onto the fused matmul (im2col + matmul_bias_lrelu).
 
-Counterpart of ``repro.kernels.ops`` (``fused_ef_topk``, ``_im2col_1d``,
-``conv1d_lrelu``, ``lgc_encode_fast``).
+Counterpart of ``repro.kernels.ops`` (``global_topk``, ``segmented_topk``,
+``fused_ef_topk``, ``_im2col_1d``, ``conv1d_lrelu``, ``lgc_encode_fast``).
 """
 from __future__ import annotations
 
@@ -10,10 +11,47 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.autoencoder import ENCODER_SPEC
+from repro_torch.kernels import segmented_topk as _st
 from repro_torch.kernels import sparsify_ef as _ef
+from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.matmul_lrelu import matmul_bias_lrelu
 
 EXTRACT = ("loop", "bitonic")
+_MASKED = torch.iinfo(torch.int64).max
+
+
+def global_topk(x: torch.Tensor, k: int, block: int = 64 * 128):
+    """Exact top-k by |x| of a flat x: zero-pad to the block, keep each
+    block's top-min(k, block) (kernel K6), then merge the candidates with
+    the padding masked out.  The merge keys are unique (magnitude rank,
+    global index), which is lax.top_k's order over the reference's
+    block-major candidate pool.  Returns (values (k,), global indices (k,)
+    int32), |x| descending, lowest index first."""
+    n = x.shape[0]
+    nb = -(-n // block)
+    xp = F.pad(x, (0, nb * block - n))
+    vals, idx = block_topk(xp.view(nb, block), min(k, block))
+    del xp
+    cand_vals = vals.reshape(-1)
+    cand_idx = (idx + (torch.arange(nb, dtype=torch.int32, device=x.device)
+                       * block)[:, None]).reshape(-1)
+    key = torch.where(cand_idx < n,
+                      _st.magnitude_rank(cand_vals) << 32 | cand_idx,
+                      _MASKED)
+    top = torch.topk(key, k, largest=False, sorted=True).indices
+    return cand_vals[top], cand_idx[top]
+
+
+def segmented_topk(x, seg, kcap, n_cand: int, block: int = _st.BLOCK,
+                   extract: str = "loop", active=None):
+    """Candidate sweep over a flat vector of any length: the plain version
+    pads x with zeros and seg with -1 to whole blocks, the kernel masks
+    the ragged last block.  ``extract`` names the reference's per-block
+    extractor, which picked ``block``; both give the same triples.
+    Returns flat (cand_vals, cand_idx, cand_seg), idx global."""
+    if extract not in EXTRACT:
+        raise ValueError(f"unknown extract backend: {extract!r}")
+    return _st.segmented_topk(x, seg, kcap, n_cand, block, active)
 
 
 def fused_ef_topk(g, u, v, seg, kcap, momentum: float, use_momentum: bool,

@@ -1,21 +1,33 @@
-"""Per-block segmented candidate extraction, in plain PyTorch.
+"""Per-block segmented candidate extraction (kernel K2).
 
-Counterpart of ``repro.kernels.segmented_topk.select_candidates`` (the
-"loop" extractor) and ``repro.kernels.bitonic.select_candidates_bitonic``
-(the "bitonic" one): the reference proves the two bit-identical, so one
-plain version serves both.  It is the plain version of the fused sweep
-kernel (``sparsify_ef``) and runs vectorised over all blocks with two
-sorts on unique int64 keys, which reproduce ``lax.top_k``'s order
-(|value| descending, lowest index first) exactly.
+:func:`select_candidates` is the counterpart of
+``repro.kernels.segmented_topk.select_candidates`` (the "loop" extractor)
+and ``repro.kernels.bitonic.select_candidates_bitonic`` (the "bitonic"
+one): the reference proves the two bit-identical, so one plain version
+serves both.  It runs vectorised over all blocks with two sorts on unique
+int64 keys, which reproduce ``lax.top_k``'s order (|value| descending,
+lowest index first) exactly, and is the plain version of both sweep
+kernels: this module's :func:`segmented_topk` (``csrc/segmented_topk.cu``,
+the reference's ``segmented_topk``) and the fused EF sweep
+(``sparsify_ef``).  :func:`segmented_topk` launches the CUDA kernel for
+tensors on the card and runs :func:`segmented_topk_plain` for tensors on
+the CPU.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import LAUNCHES, build
 
 LANE = 128
 BLOCK = 8 * LANE          # default sweep block (one (8, 128) TPU tile)
 LOC_BITS = 17             # local index bits: blocks are <= 2^17 elements
 _MAG_MAX = 0x7FFFFFFF
+# the cap pass keeps one int counter per slot in dynamic shared memory;
+# with its 1.3 KB of static shared memory it must stay within the 48 KB a
+# launch gets without opting in
+_MAX_SLOTS = 11 * 1024
 
 
 def next_pow2(n: int) -> int:
@@ -69,3 +81,84 @@ def _select(x, seg, kcap, n_cand):
     idx = torch.where(live, li, block).to(torch.int32)
     segs = torch.where(live, seg.gather(1, li), -1).to(torch.int32)
     return vals, idx, segs
+
+
+def active_blocks(seg: torch.Tensor, block: int) -> torch.Tensor:
+    """(n_blocks,) int32: each block's row in the sweep kernels' key
+    scratch, or -1 for a block with no selectable element (seg < 0
+    throughout)."""
+    n = seg.shape[0]
+    full = n // block
+    has = seg[:full * block].view(full, block).amax(1) >= 0
+    if n > full * block:
+        has = torch.cat([has, (seg[full * block:].amax() >= 0)[None]])
+    return torch.where(has, torch.cumsum(has, 0) - 1, -1).to(torch.int32)
+
+
+def check_sweep(name: str, floats, seg, kcap, n_cand: int, block: int):
+    """Refuse what the sweep kernels do not take: ``floats`` f32 and
+    ``seg``, ``kcap`` int32, all contiguous on one CUDA device, the
+    vectors (n,); 256 <= block <= 2^17, block % 128 == 0."""
+    x = floats[0]
+    n = x.shape[0]
+    for t, dt in [(f, torch.float32) for f in floats] + [
+            (seg, torch.int32), (kcap, torch.int32)]:
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: f32 vectors and int32 seg, kcap, "
+                             "contiguous, on one CUDA device")
+    if x.device.type != "cuda" or any(t.shape != (n,)
+                                      for t in list(floats) + [seg]):
+        raise ValueError(f"{name}: the vectors and seg must be (n,) on the "
+                         "card")
+    nb = -(-n // block)
+    if not (256 <= block <= 1 << LOC_BITS and block % 128 == 0) \
+            or nb * block >= 2 ** 31 or not 0 < n_cand <= block \
+            or not 0 < kcap.numel() <= _MAX_SLOTS:
+        raise ValueError(f"{name}: unsupported block={block}, n={n}, "
+                         f"n_cand={n_cand}, slots={kcap.numel()}")
+
+
+def segmented_topk_plain(x, seg, kcap, n_cand: int, block: int):
+    """The plain version of :func:`segmented_topk`: :func:`select_candidates`
+    over the zero-padded blocks (seg padded with -1)."""
+    n = x.shape[0]
+    nb = -(-n // block)
+    pad = nb * block - n
+    vals, idx, segs = select_candidates(
+        F.pad(x, (0, pad)).view(nb, block),
+        F.pad(seg, (0, pad), value=-1).view(nb, block), kcap, n_cand)
+    base = torch.arange(nb, device=x.device, dtype=torch.int32) * block
+    return (vals.reshape(-1), (idx + base[:, None]).reshape(-1),
+            segs.reshape(-1))
+
+
+def segmented_topk(x, seg, kcap, n_cand: int, block: int, active=None):
+    """x: (n,) f32; seg: (n,) int32 slot per element (-1 = not
+    selectable); kcap: (n_slots,) int32.  Per block of ``block``
+    elements, every slot piece's top-min(kcap, |piece|) elements as
+    (value, global index, slot) triples, (n_blocks * n_cand,) each,
+    unused entries (0, block end, -1).  ``active`` is
+    :func:`active_blocks` (computed here when not given).  Same outputs
+    as :func:`segmented_topk_plain`, bitwise."""
+    if x.device.type == "cpu":
+        return segmented_topk_plain(x, seg, kcap, n_cand, block)
+    check_sweep("segmented_topk", (x,), seg, kcap, n_cand, block)
+    n = x.shape[0]
+    nb = -(-n // block)
+    if active is None:
+        active = active_blocks(seg, block)
+    n_active = int(active.max()) + 1
+    dev = x.device
+    cvals = torch.empty((nb * n_cand,), dtype=torch.float32, device=dev)
+    cidx = torch.empty((nb * n_cand,), dtype=torch.int32, device=dev)
+    cseg = torch.empty((nb * n_cand,), dtype=torch.int32, device=dev)
+    keys = torch.empty((max(n_active, 1) * next_pow2(block),),
+                       dtype=torch.int64, device=dev)
+    err = build.library("segmented_topk").segmented_topk(
+        x.data_ptr(), seg.data_ptr(), kcap.data_ptr(), active.data_ptr(),
+        kcap.numel(), cvals.data_ptr(), cidx.data_ptr(), cseg.data_ptr(),
+        keys.data_ptr(), n, block, nb, n_active, n_cand,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "segmented_topk")
+    LAUNCHES["segmented_topk"] += 1
+    return cvals, cidx, cseg

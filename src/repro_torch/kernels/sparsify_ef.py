@@ -10,50 +10,25 @@ card and runs :func:`sparsify_ef_topk_plain` for tensors on the CPU.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES, build
-from repro_torch.kernels.segmented_topk import (LOC_BITS, next_pow2,
-                                                select_candidates)
-
-# the cap pass keeps one int counter per slot in dynamic shared memory;
-# with its 1.3 KB of static shared memory it must stay within the 48 KB a
-# launch gets without opting in
-_MAX_SLOTS = 11 * 1024
-
-
-def active_blocks(seg: torch.Tensor, block: int) -> torch.Tensor:
-    """(n_blocks,) int32: each block's row in the kernel's key scratch, or
-    -1 for a block with no selectable element (seg < 0 throughout)."""
-    n = seg.shape[0]
-    full = n // block
-    has = seg[:full * block].view(full, block).amax(1) >= 0
-    if n > full * block:
-        has = torch.cat([has, (seg[full * block:].amax() >= 0)[None]])
-    return torch.where(has, torch.cumsum(has, 0) - 1, -1).to(torch.int32)
+from repro_torch.kernels.segmented_topk import (active_blocks, check_sweep,
+                                                next_pow2,
+                                                segmented_topk_plain)
 
 
 def sparsify_ef_topk_plain(g, u, v, seg, kcap, momentum: float,
                            use_momentum: bool, n_cand: int, block: int):
     """The plain PyTorch version: separate multiply and add (no fused
-    multiply-add), then the sort-based extractor over the zero-padded
-    blocks.  Returns (u', v', vals, idx, seg), the last three flat
-    (n_blocks * n_cand,)."""
+    multiply-add), then the segmented extractor of v'.  Returns (u', v',
+    vals, idx, seg), the last three flat (n_blocks * n_cand,)."""
     if use_momentum:
         u2 = momentum * u + g
         v2 = v + u2
     else:
         u2 = u.clone()
         v2 = v + g
-    n = g.shape[0]
-    nb = -(-n // block)
-    pad = nb * block - n
-    vals, idx, segs = select_candidates(
-        F.pad(v2, (0, pad)).view(nb, block),
-        F.pad(seg, (0, pad), value=-1).view(nb, block), kcap, n_cand)
-    base = torch.arange(nb, device=g.device, dtype=torch.int32) * block
-    return (u2, v2, vals.reshape(-1), (idx + base[:, None]).reshape(-1),
-            segs.reshape(-1))
+    return (u2, v2) + segmented_topk_plain(v2, seg, kcap, n_cand, block)
 
 
 def sparsify_ef_topk(g, u, v, seg, kcap, momentum: float,
@@ -66,23 +41,9 @@ def sparsify_ef_topk(g, u, v, seg, kcap, momentum: float,
     if g.device.type == "cpu":
         return sparsify_ef_topk_plain(g, u, v, seg, kcap, momentum,
                                       use_momentum, n_cand, block)
+    check_sweep("sparsify_ef_topk", (g, u, v), seg, kcap, n_cand, block)
     n = g.shape[0]
     nb = -(-n // block)
-    for t, dt in ((g, torch.float32), (u, torch.float32),
-                  (v, torch.float32), (seg, torch.int32),
-                  (kcap, torch.int32)):
-        if t.device != g.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError("sparsify_ef_topk: g, u, v f32 and seg, kcap "
-                             "int32, contiguous, on one CUDA device")
-    if g.device.type != "cuda" or u.shape != (n,) or v.shape != (n,) \
-            or seg.shape != (n,):
-        raise ValueError("sparsify_ef_topk: g, u, v, seg must be (n,) on "
-                         "the card")
-    if not (256 <= block <= 1 << LOC_BITS and block % 128 == 0) \
-            or nb * block >= 2 ** 31 or not 0 < n_cand <= block \
-            or not 0 < kcap.numel() <= _MAX_SLOTS:
-        raise ValueError(f"sparsify_ef_topk: unsupported block={block}, "
-                         f"n={n}, n_cand={n_cand}, slots={kcap.numel()}")
     if active is None:
         active = active_blocks(seg, block)
     n_active = int(active.max()) + 1

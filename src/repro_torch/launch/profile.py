@@ -7,8 +7,10 @@
         --ae-train-steps 2 --steps 6
 
 Takes ``repro_torch.launch.train``'s flags plus ``--layers`` (cut the
-arch's depth).  Every step after the first runs under its own profiler
-window, opened and closed between steps.  Prints one JSON line per traced
+arch's depth), so ``--compression dgc --topk-backend pallas`` or
+``--compression sparse_gd --topk-backend fused`` trace those paths.
+Every step after the first runs under its own profiler window, opened
+and closed between steps.  Prints one JSON line per traced
 step: its wall ms (host clock, synchronised, profiler on), the device's
 busy ms (the sum of the kernels' own times; one stream, so kernels do not
 overlap), the idle share, and the kernels by total device time.

@@ -6,7 +6,8 @@
         --warmup-steps 2 --ae-train-steps 2 [--device cpu]
 
 Runs the three-phase LGC schedule (warm-up -> top-k + online AE ->
-compressed) with the K data-parallel nodes emulated on one device, and
+compressed; sparse_gd and dgc: warm-up -> top-k) with the K data-parallel
+nodes emulated on one device, and
 logs what the reference trainer logs: the per-phase loss, the rate report,
 and per phase the wire bytes each node moves, per exchange op.  Runs on
 the card unless ``--device cpu``; with no card it raises.  Flags follow
@@ -55,7 +56,8 @@ def parse_args(argv=None):
                         "emulated on one device")
     p.add_argument("--topk-backend", default="jnp",
                    choices=["jnp", "pallas", "fused"],
-                   help="residual top-k selection (fused = the one-launch "
+                   help="residual top-k selection (pallas = the block "
+                        "top-k kernel per leaf, fused = the one-launch "
                         "accumulate + select sweep kernel)")
     p.add_argument("--ae-backend", default="jnp", choices=["jnp", "pallas"],
                    help="phase-3 encoder (pallas = im2col + the fused "
@@ -90,10 +92,10 @@ def run(cfg: ModelConfig, args,
         raise NotImplementedError(
             f"transport {args.transport!r} is ROADMAP.md Queue 1, "
             "'multi-process NCCL transports'")
-    if args.compression not in ("none", "lgc_rar"):
+    if args.compression in ("lgc_ps", "lgc_rar_q8"):
         raise NotImplementedError(
             f"compression {args.compression!r} is ROADMAP.md Queue 1, "
-            "'other methods'")
+            "'lgc_ps and lgc_rar_q8'")
     # the reference is f32 where it says f32; on the card f32 matmuls and
     # cuDNN convolutions would otherwise be allowed TF32 (cuDNN's default)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -13,7 +13,9 @@ import torch
 from repro_torch.core import autoencoder as AE
 from repro_torch.core import sparsify as SP
 from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import block_topk as BT
 from repro_torch.kernels import matmul_lrelu as MM
+from repro_torch.kernels import segmented_topk as ST
 from repro_torch.kernels import sparsify_ef as EF
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +84,67 @@ def test_fused_ef_topk_kernel_is_bitwise_its_plain_version(
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("which", sorted(TREES))
+@pytest.mark.parametrize("extract", ["loop", "bitonic"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+def test_segmented_topk_kernel_is_bitwise_its_plain_version(
+        card, which, extract, kind):
+    layout = _layout(which)
+    _, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, ROLES, extract)
+    x = _vec(kind, layout.n_total, 7, card)
+    seg_t, kcap_t = (torch.from_numpy(a).to(card) for a in (seg, kcap))
+    before = LAUNCHES["segmented_topk"]
+    out = ST.segmented_topk(x, seg_t, kcap_t, n_cand, block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segmented_topk"] == before + 1
+    plain = ST.segmented_topk_plain(x, seg_t, kcap_t, n_cand, block)
+    for name, a, b in zip(("vals", "idx", "seg"), out, plain):
+        assert torch.equal(a, b), name
+
+
+# (n_blocks, block, kb): a small k; the whole block; blocks above one
+# 4096-key tile, just above a power of two (the padding keys) and at the
+# path's leaf shapes, cut to a few blocks
+BLOCK_SHAPES = [(4, 256, 8), (5, 384, 384), (3, 8192, 4194),
+                (2, 16896, 16777), (2, 67200, 67109)]
+
+
+@pytest.mark.parametrize("nb,block,kb", BLOCK_SHAPES)
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+def test_block_topk_kernel_is_bitwise_its_plain_version(card, nb, block, kb,
+                                                        kind):
+    x = _vec(kind, nb * block, nb + block, card).view(nb, block)
+    before = LAUNCHES["block_topk"]
+    out = BT.block_topk(x, kb)
+    torch.cuda.synchronize()
+    assert LAUNCHES["block_topk"] == before + 1
+    for name, a, b in zip(("vals", "idx"), out, BT.block_topk_plain(x, kb)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("which", sorted(TREES))
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+def test_selections_on_the_card_equal_the_jnp_backend(card, which, kind):
+    """select_topk and select_topk_last through K6 ("pallas", one launch
+    per leaf) and K2 ("fused", one launch) equal the torch.topk backend
+    bitwise, and each launched its kernel."""
+    layout = _layout(which)
+    v = _vec(kind, layout.n_total, 5, card)
+    for select in (SP.select_topk, SP.select_topk_last):
+        want = select(v, layout, backend="jnp")
+        for backend, kernel in (("pallas", "block_topk"),
+                                ("fused", "segmented_topk")):
+            before = LAUNCHES[kernel]
+            got = select(v, layout, backend=backend)
+            torch.cuda.synchronize()
+            leaves = layout.compressed if select is SP.select_topk \
+                else layout.topk_only
+            assert LAUNCHES[kernel] - before == (
+                len(leaves) if backend == "pallas" else int(bool(leaves)))
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (select.__name__, backend)
+
+
 @pytest.mark.parametrize("M,K,N", [(1000, 3, 64), (77, 192, 128),
                                    (5, 64, 4), (130, 17, 70)])
 @pytest.mark.parametrize("apply_lrelu", [True, False])
@@ -129,3 +192,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         EF.sparsify_ef_topk(g, g, g, seg, kcap, 0.9, True, 1, 1 << 18)
     with pytest.raises(ValueError):                # seg must be int32
         EF.sparsify_ef_topk(g, g, g, seg.long(), kcap, 0.9, True, 1, 1024)
+    with pytest.raises(ValueError):                # block above 2^17
+        ST.segmented_topk(g, seg, kcap, 1, 1 << 18)
+    with pytest.raises(ValueError):                # block % 128 != 0
+        BT.block_topk(torch.zeros((2, 200), device=card), 4)
+    with pytest.raises(ValueError):                # kb above the block
+        BT.block_topk(torch.zeros((2, 256), device=card), 257)

@@ -1,7 +1,8 @@
 """The port's exchange plan and byte pricing against the JAX reference:
 the op sequence per (method, phase), the per-op and per-kind wire bytes,
-the paper-style rate terms and ``rate_report`` (all exact: bytes do not
-depend on the hardware), and ``execute``'s both-ways feed check."""
+the paper-style rate terms and ``rate_report``, the packed exchanges'
+PackPlans and their byte counts (all exact: bytes do not depend on the
+hardware), and ``execute``'s both-ways feed check."""
 import dataclasses
 
 import jax
@@ -14,12 +15,16 @@ from repro.configs import get_arch as ref_get_arch
 from repro.configs.base import CompressionConfig as RCC
 from repro.core import rate as RRATE
 from repro.core import sparsify as RSP
+from repro.dist import packed as RPK
 from repro.dist import plan as RXP
+from repro.dist import quantize as RQ
+from repro.kernels import bitpack as RBP
 from repro.models.model import Model as RefModel
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core import rate as RATE
 from repro_torch.core import sparsify as SP
+from repro_torch.dist import packed as PK
 from repro_torch.dist import plan as XP
 from repro_torch.dist.transport import SimTransport
 from repro_torch.models.model import build_model
@@ -48,7 +53,7 @@ def _layouts(which, sparsity):
 
 @pytest.mark.parametrize("which,sparsity", [("odd", 0.05),
                                             ("llama4", 0.001)])
-@pytest.mark.parametrize("method", ["none", "lgc_rar"])
+@pytest.mark.parametrize("method", ["none", "sparse_gd", "dgc", "lgc_rar"])
 @pytest.mark.parametrize("K", [2, 4])
 def test_plan_and_pricing_match_reference(which, sparsity, method, K):
     layout, rlayout = _layouts(which, sparsity)
@@ -71,6 +76,90 @@ def test_plan_and_pricing_match_reference(which, sparsity, method, K):
                 == dataclasses.astuple(RRATE.rate_report(
                     rcc, rlayout, K, indices=indices,
                     count_exempt=count_exempt, transport="mesh"))
+
+
+@pytest.mark.parametrize("which,sparsity", [("odd", 0.05),
+                                            ("llama4", 0.001)])
+@pytest.mark.parametrize("method", ["sparse_gd", "dgc"])
+def test_packed_exchanges_carry_the_reference_packplans(which, sparsity,
+                                                        method):
+    """The sparse methods' exchanges are PackedSparseExchange ops whose
+    PackPlans equal the reference's field for field, with the same wire
+    and index byte counts."""
+    layout, rlayout = _layouts(which, sparsity)
+    plan = XP.build_plan(CompressionConfig(method=method), layout, 2,
+                         transport="mesh")
+    rplan = RXP.build_plan(RCC(method=method), rlayout, 2, transport="mesh")
+    assert plan.phase == rplan.phase == "topk_ae"
+    for op, rop in zip(plan.ops, rplan.ops):
+        assert type(op).__name__ == type(rop).__name__
+        if not isinstance(op, XP.PackedSparseExchange):
+            continue
+        assert (op.label, op.n_vec, op.k, op.k_rate, op.mode) == \
+            (rop.label, rop.n_vec, rop.k, rop.k_rate, rop.mode)
+        if op.pack is None:
+            assert rop.pack is None and op.k == 0
+            continue
+        assert dataclasses.astuple(op.pack) == dataclasses.astuple(rop.pack)
+        assert op.pack.hi_bits == rop.pack.hi_bits
+        assert PK.wire_nbytes(op.pack) == RPK.wire_nbytes(rop.pack)
+        assert PK.index_nbytes(op.pack) == RPK.index_nbytes(rop.pack)
+
+
+@pytest.mark.parametrize("scale_block", [0, 64])
+def test_packplan_arithmetic_matches_reference(scale_block):
+    """make_plan, bucket_plan and the byte counts over a sweep of (n, k),
+    from the few-index raw fallback to k = n, sentinel width included."""
+    for n in (1, 7, 100, 1023, 1024, 65537, 505_956_352):
+        for k in sorted({1, 2, 5, 8, 9, 33, 257, 4096, n} - {0}):
+            if k > n:
+                continue
+            for checksum in (False, True):
+                p = PK.make_plan(n, k, scale_block, checksum=checksum)
+                rp = RPK.make_plan(n, k, scale_block, checksum=checksum)
+                assert dataclasses.astuple(p) == dataclasses.astuple(rp)
+                assert PK.wire_nbytes(p) == RPK.wire_nbytes(rp)
+                assert PK.index_nbytes(p) == RPK.index_nbytes(rp)
+                if not p.raw_index:
+                    for kb in {1, (k + 1) // 2, k}:
+                        assert dataclasses.astuple(PK.bucket_plan(p, kb)) \
+                            == dataclasses.astuple(RPK.bucket_plan(rp, kb))
+            assert PK.packed_nbytes(k, PK.bit_width(n)) == \
+                RBP.packed_nbytes(k, RBP.bit_width(n))
+            assert PK.q8_wire_nbytes(k, scale_block or PK.SCALE_BLOCK) == \
+                RQ.wire_nbytes(k, scale_block or RQ.SCALE_BLOCK)
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_sim_transport_sparse_exchanges_match_reference(K):
+    """The exact oracle of the packed wire (gather and mean) and the
+    exact f32 wire, on pairs with sentinel entries, against the
+    reference's SimTransport: bitwise at K=2; at K=3 the mean's f32 sum of
+    three terms may round in another order, so within 1 ulp of the
+    largest value.  Tallied like the exact exchange."""
+    from repro.dist.transport import SimTransport as RSim
+    r = np.random.default_rng(K)
+    n, k = 97, 12
+    idx = np.stack([np.concatenate([r.choice(n, k - 2, replace=False),
+                                    [n, n]]) for _ in range(K)]
+                   ).astype(np.int32)
+    vals = r.standard_normal((K, k)).astype(np.float32)
+    t, rt = SimTransport(K), RSim(K)
+    pack = PK.make_plan(n, k)
+    tv, ti = torch.from_numpy(vals), torch.from_numpy(idx)
+    jv, ji = jnp.asarray(vals), jnp.asarray(idx)
+    for ours, ref in (
+            (t.sparse_gather_packed(tv, ti, n, plan=pack),
+             rt.sparse_gather_packed(jv, ji, n)),
+            (t.sparse_mean_packed(tv, ti, n, plan=pack),
+             rt.sparse_mean_packed(jv, ji, n)),
+            (t.sparse_mean(tv, ti, n), rt.sparse_mean(jv, ji, n))):
+        ref = np.asarray(ref)
+        ulp = 0.0 if K == 2 else float(np.spacing(np.abs(ref).max()))
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=ulp)
+    with t.wire_op("topk"):
+        t.sparse_mean_packed(tv, ti, n, plan=pack)
+    assert t.tally == {"topk": {"all_gather": (K - 1) * k * 8.0}}
 
 
 def test_execute_checks_feeds_both_ways():

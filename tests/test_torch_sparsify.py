@@ -12,7 +12,10 @@ import torch
 from repro.core import sparsify as RSP
 from repro.kernels import ops as ROPS
 from repro_torch.core import sparsify as SP
+from repro_torch.kernels import ops as OPS
+from repro_torch.kernels import segmented_topk as ST
 from repro_torch.kernels import sparsify_ef as EF
+from repro_torch.kernels.block_topk import block_topk
 
 # odd sizes: no leaf boundary is a multiple of 128 or of the 1024 block
 SHAPES = {"embed": {"w": (11, 3)},
@@ -76,7 +79,7 @@ def test_fused_accumulate_select_matches_reference(kind, seed, m,
     assert (vals[pad] == 0).all() and (idx[pad] == N).all()
 
 
-@pytest.mark.parametrize("backend", ["jnp", "fused"])
+@pytest.mark.parametrize("backend", ["jnp", "pallas", "fused"])
 @pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
 def test_select_topk_matches_reference(backend, kind):
     v = _vec(kind, 7)
@@ -155,10 +158,22 @@ def test_momentum_correct_matches_reference():
 
 
 def test_cuda_tensor_launches_or_raises():
-    """For a tensor that is not on the CPU the wrapper never takes the
-    plain version: on a machine with no card, a meta tensor is refused."""
+    """For a tensor that is not on the CPU a wrapper never takes the
+    plain version: on a machine with no card, a meta tensor is refused by
+    the fused sweep (K1), the segmented sweep (K2) and the block top-k
+    (K6), and by the selections that reach them."""
     ex, block, seg, kcap, n_cand, _ = SP._fused_meta(LAYOUT, ROLES, "loop")
     g = torch.zeros(N, device="meta")
+    seg_m, kcap_m = _t(seg).to("meta"), _t(kcap).to("meta")
     with pytest.raises(ValueError):
-        EF.sparsify_ef_topk(g, g, g, _t(seg).to("meta"),
-                            _t(kcap).to("meta"), 0.9, True, n_cand, block)
+        EF.sparsify_ef_topk(g, g, g, seg_m, kcap_m, 0.9, True, n_cand, block)
+    with pytest.raises(ValueError):
+        ST.segmented_topk(g, seg_m, kcap_m, n_cand, block,
+                          active=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        block_topk(torch.zeros((2, 256), device="meta"), 8)
+    with pytest.raises(ValueError):
+        OPS.global_topk(g, 5, block=256)
+    for backend in ("pallas", "fused"):
+        with pytest.raises(ValueError):
+            SP.select_topk(g, LAYOUT, backend=backend)

@@ -1,9 +1,10 @@
-"""The whole slice: the port's lgc_rar trainer against a reference loop
-built by hand from the JAX package (Model.loss + jax.grad per node +
-GradientCompressor.sim_step with its jnp backends, which the reference's
-own tests prove equal to its Pallas paths + build_optimizer), for 6 steps
-with K=2 nodes through all three phases; plus the entry point on the CPU,
-its refusal to run without a card unless asked, and the import rule."""
+"""The whole slice: the port's lgc_rar, sparse_gd and dgc trainers against
+a reference loop built by hand from the JAX package (Model.loss + jax.grad
+per node + GradientCompressor.sim_step with its jnp backends, which the
+reference's own tests prove equal to its Pallas paths + build_optimizer),
+for 6 steps with K=2 nodes through every phase; plus the entry point on
+the CPU, its refusal to run without a card unless asked, and the import
+rule."""
 import ast
 import os
 
@@ -49,11 +50,15 @@ def _close(a, b, rel, what):
                                err_msg=what)
 
 
-def test_lgc_rar_trajectory_matches_reference():
+def _trajectory(method, backend):
+    """6 steps of the reference loop (jnp backends) beside the port's
+    pieces with ``backend`` (and the kernel encoder for lgc); returns the
+    phases seen."""
     rcfg = ref_get_arch("llama3.2-1b").reduced()
     rmodel = RefModel(rcfg)
     rparams = rmodel.init(jax.random.PRNGKey(0))
-    rcc = RCC(**SLICE, topk_backend="jnp", ae_backend="jnp")
+    slice_ = dict(SLICE, method=method)
+    rcc = RCC(**slice_, topk_backend="jnp", ae_backend="jnp")
     # momentum SGD: linear in the gradient, so rounding differences stay
     # rounding-sized (AdamW's m/sqrt(v) turns a 1e-12-vs-0 gradient into a
     # full step; its own parity is test_adamw_matches_reference)
@@ -67,7 +72,8 @@ def test_lgc_rar_trajectory_matches_reference():
     rsim = jax.jit(rcomp.sim_step, static_argnums=(3,))
     rupdate = jax.jit(ropt.update)
 
-    cc = CompressionConfig(**SLICE, topk_backend="fused", ae_backend="pallas")
+    cc = CompressionConfig(**slice_, topk_backend=backend,
+                           ae_backend="pallas")
     tc = TrainConfig(optimizer="sgd_momentum", learning_rate=0.1,
                      steps=STEPS, compression=cc)
     lts = make_lgc_train_step(build_model(get_arch("llama3.2-1b").reduced()),
@@ -75,9 +81,11 @@ def test_lgc_rar_trajectory_matches_reference():
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, rparams))
     opt_state = lts.optimizer.init(params)
     state = lts.compressor.init_sim_states(torch.Generator())
-    state["ae"] = ae_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                       rstates["ae"]))
-    state["ae_mom"] = tree_map(torch.zeros_like, state["ae"])
+    lgc = "ae" in rstates
+    if lgc:
+        state["ae"] = ae_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                           rstates["ae"]))
+        state["ae_mom"] = tree_map(torch.zeros_like, state["ae"])
 
     data = ref_batches(rcfg.vocab_size, BATCH, SEQ, seed=0)
     phases = []
@@ -105,7 +113,7 @@ def test_lgc_rar_trajectory_matches_reference():
         params, opt_state = lts.optimizer.update(
             tree_unflatten_vector(gg, params), opt_state, params, step)
 
-        where = f"step {step} ({phase})"
+        where = f"{method} step {step} ({phase})"
         np.testing.assert_allclose(float(metrics["loss"]), rloss,
                                    rtol=1e-5, err_msg=where)
         _close(gg.numpy(), rgg, 2e-5, where + " global gradient")
@@ -117,17 +125,34 @@ def test_lgc_rar_trajectory_matches_reference():
             np.testing.assert_array_equal(ours == 0, ref == 0,
                                           f"{where} cleared {key}")
             _close(ours, ref, 2e-5, f"{where} {key}")
-        _close(torch.cat([a.reshape(-1) for a in tree_leaves(state["ae"])]),
-               ref_flatten(rstates["ae"]), 1e-12, where + " ae")
+        if lgc:
+            _close(torch.cat([a.reshape(-1)
+                              for a in tree_leaves(state["ae"])]),
+                   ref_flatten(rstates["ae"]), 1e-12, where + " ae")
         plan = RXP.build_plan(rcc, rcomp.layout, K, transport="mesh",
                               phase=phase)
         assert stats["wire"] == RXP.wire_terms_by_op(plan), where
-    assert phases == ["warmup"] * 2 + ["topk_ae"] * 2 + ["compressed"] * 2
     for a, b in zip(tree_leaves(params), jax.tree_util.tree_leaves(rparams)):
-        _close(a.numpy(), b, 2e-5, "params after 6 steps")
+        _close(a.numpy(), b, 2e-5, f"{method} params after 6 steps")
+    return phases
 
 
-@pytest.mark.parametrize("method", ["none", "lgc_rar"])
+def test_lgc_rar_trajectory_matches_reference():
+    assert _trajectory("lgc_rar", "fused") == \
+        ["warmup"] * 2 + ["topk_ae"] * 2 + ["compressed"] * 2
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+@pytest.mark.parametrize("method", ["sparse_gd", "dgc"])
+def test_sparse_trajectory_matches_reference(method, backend):
+    """sparse_gd and dgc, sparsified from the end of warm-up on: the
+    reference with its jnp top-k beside the port's block top-k (K6's
+    plain version, one per leaf) or fused sweep (K1's plain version,
+    momentum off for sparse_gd); each node clears its own sent set."""
+    assert _trajectory(method, backend) == ["warmup"] * 2 + ["topk_ae"] * 4
+
+
+@pytest.mark.parametrize("method", ["none", "sparse_gd", "dgc", "lgc_rar"])
 def test_compressor_state_matches_reference(method):
     """init_state / init_sim_states: the same keys, leaf order and shapes
     as the reference's, with zero accumulators."""
@@ -193,15 +218,25 @@ def test_main_runs_end_to_end_on_cpu():
     assert all(np.isfinite(h["loss"]) for h in history)
 
 
+@pytest.mark.parametrize("flags", [["--compression", "dgc",
+                                    "--topk-backend", "pallas"],
+                                   ["--compression", "sparse_gd",
+                                    "--topk-backend", "fused"]])
+def test_sparse_methods_run_end_to_end_on_cpu(flags):
+    history = train.main(ARGS + flags + ["--device", "cpu"])
+    assert [h["phase"] for h in history] == ["warmup", "topk_ae", "topk_ae"]
+    assert all(np.isfinite(h["loss"]) for h in history)
+
+
 def test_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(ARGS)
 
 
-@pytest.mark.parametrize("flags", [["--compression", "dgc"],
+@pytest.mark.parametrize("flags", [["--compression", "lgc_ps"],
                                    ["--transport", "ring"],
-                                   ["--topk-backend", "pallas"]])
+                                   ["--compression", "lgc_rar_q8"]])
 def test_unported_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(ARGS + flags + ["--device", "cpu"])
