@@ -24,17 +24,28 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
   5. k3       the fused matmul + bias + LeakyReLU kernel against its plain
               version at the AE encoder's five im2col shapes for that
               layout's mu_pad, within |err| <= 1e-5 * max(1, max|y|)
-  6. train    repro_torch.launch.train's run(): llama3.2-1b at published
+  6. bitpack  the packed wire's kernels (K4 quantize_pack, K5a pack_bits,
+              K5b unpack_bits) against their plain versions, bitwise, at
+              the path's shapes (the topk / support PackPlan of that
+              layout: 243296 pairs, 16 low bits, 7603 words per plane) and
+              at edge cases (k from 1 to two tiles, widths 1 to 31, zero
+              and all-ones values; NaN/Inf, all-zero blocks and .5 ties
+              for K4); then the codec on the card against the CPU
+  7. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
-              three runs: lgc_rar with the fused sweep and the kernel
-              encoder, 6 steps through all three phases; dgc with the block
-              top-k (--topk-backend pallas) and sparse_gd with the fused
-              sweep (momentum off), each 2 warm-up + 3 sparsified steps.
-              Each run resets the launch counts before and reads them
-              after; launch counts, finite losses and per-op wire-byte rows
-              are checked
-  7. timings  each kernel's ms beside its plain version's, its bound and,
+              five runs: lgc_rar with the fused sweep and the kernel
+              encoder, 6 steps through all three phases, on the mesh wire
+              and on the packed ring (--transport ring_packed: the support
+              set through K5a/K5b); dgc with the block top-k
+              (--topk-backend pallas) on the mesh wire and on the packed
+              ring (each node's pairs through K4, each received payload
+              through K5b), and sparse_gd with the fused sweep (momentum
+              off), each 2 warm-up + 3 sparsified steps.  Each run resets
+              the launch counts before and reads them after; launch
+              counts, finite losses and per-op wire-byte rows (priced for
+              the run's own transport) are checked
+  8. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function
 
@@ -326,9 +337,116 @@ def k3_phase(dev):
     return tot
 
 
-def train_phase(dev, name: str, flags, steps: int, expect):
+def _sorted_pairs(n: int, k: int, dev, seed: int):
+    """k pairs over [0, n] as the path ships them: distinct indices in
+    ascending order, the last few the sentinel n, and small values."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cand = torch.unique(torch.randint(0, n, (2 * k,), generator=gen))
+    idx = cand[torch.randperm(cand.numel(), generator=gen)[:k - 9]]
+    idx = torch.cat([torch.sort(idx)[0],
+                     torch.full((9,), n)]).to(torch.int32)
+    vals = torch.randn(k, generator=gen) * 1e-3
+    return vals.to(dev), idx.to(dev)
+
+
+def _edge_ints(kind: str, k: int, width: int, dev):
+    if kind == "random":
+        return torch.randint(0, 2 ** width, (k,), dtype=torch.int32,
+                             device=dev)
+    fill = 2 ** width - 1 if kind == "max" else 0
+    return torch.full((k,), fill, dtype=torch.int32, device=dev)
+
+
+def bitpack_phase(dev):
+    """K4, K5a and K5b against their plain versions, bitwise, at the
+    path's PackPlan and at edge cases; the codec on the card against the
+    CPU; times at the path's shapes."""
+    from repro_torch.dist import packed as PK
+    from repro_torch.dist import quantize as Q
+    from repro_torch.kernels import bitpack as BP
+    layout = llama_layout(0.001)
+    n, k = layout.n_total, layout.mu_pad
+    plan = PK.make_plan(n, k)
+    width, W, sb = plan.lo_bits, BP.word_count(k), plan.scale_block
+    m = -(-k // sb)
+    vals, idx = _sorted_pairs(n, k, dev, 4)
+    lo = idx & ((1 << width) - 1)
+    checks = {}
+
+    def same(name, got, want):
+        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        checks[name] = checks.get(name, True) and ok
+
+    words = BP.pack_bits(lo, width)
+    same("pack_bits", [words], [BP.pack_bits_plain(lo, width)])
+    same("pack_bits", [BP.pack_bits(idx, plan.width)],
+         [BP.pack_bits_plain(idx, plan.width)])
+    same("unpack_bits", [BP.unpack_bits(words, k)],
+         [BP.unpack_bits_plain(words, k), lo])
+    qp = BP.quantize_pack(vals, lo, width, sb, Q._EPS)
+    same("quantize_pack", qp,
+         BP.quantize_pack_plain(vals, lo, width, sb, Q._EPS))
+    for kk in (1, 31, 32, 33, 4096 + 7, 32 * 128 * 2 + 5):
+        for w in (1, 2, 16, 29, 31):
+            for kind in ("random", "zeros", "max"):
+                x = _edge_ints(kind, kk, w, dev)
+                wds = BP.pack_bits(x, w)
+                same("pack_bits", [wds], [BP.pack_bits_plain(x, w)])
+                same("unpack_bits", [BP.unpack_bits(wds, kk)], [x])
+    for kk in (1, 255, 256, 257, 1000, 1300):
+        for blk in (256, 64):
+            v = torch.randn(kk, device=dev)
+            v[::97], v[5::101], v[7::103] = (float("nan"), float("inf"),
+                                             -float("inf"))
+            if kk >= 1024:
+                v[256:512] = 0.0
+                v[768:812] = torch.arange(-22, 22, device=dev) + 0.5
+                v[812] = 127.0
+            x = _edge_ints("random", kk, 16, dev)
+            same("quantize_pack", BP.quantize_pack(v, x, 16, blk, Q._EPS),
+                 BP.quantize_pack_plain(v, x, 16, blk, Q._EPS))
+    perm = torch.randperm(k, device=dev)
+    enc = PK.encode_sparse_fused(vals[perm], idx[perm], plan)
+    cpu = PK.encode_sparse_fused(vals[perm].cpu(), idx[perm].cpu(), plan)
+    same("codec", [a.cpu() for a in enc], cpu)
+    dv, di = PK.decode_sparse(enc, plan)
+    same("codec", [dv.cpu(), di], [PK.decode_sparse(cpu, plan)[0], idx])
+    same("codec", [PK.decode_indices(PK.encode_indices(idx, plan), plan)],
+         [idx])
+    torch.cuda.synchronize()
+    emit("bitpack", n=n, k=k, width=plan.width, lo_bits=width,
+         n_buckets=plan.n_buckets, words_per_plane=W, scale_blocks=m,
+         packed_bytes=PK.wire_nbytes(plan), raw_bytes=k * 8,
+         packed_to_raw=PK.wire_nbytes(plan) / (k * 8), bitwise=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"bitpack kernels differ from their plain "
+                             f"versions: {checks}")
+    plane_bytes = width * W * 4
+    rows = {
+        "pack_bits": (lambda: BP.pack_bits(lo, width),
+                      lambda: BP.pack_bits_plain(lo, width),
+                      k * 4 + plane_bytes),
+        "unpack_bits": (lambda: BP.unpack_bits(words, k),
+                        lambda: BP.unpack_bits_plain(words, k),
+                        plane_bytes + k * 4),
+        "quantize_pack": (
+            lambda: BP.quantize_pack(vals, lo, width, sb, Q._EPS),
+            lambda: BP.quantize_pack_plain(vals, lo, width, sb, Q._EPS),
+            k * 8 + plane_bytes + m * sb + m * 4),
+    }
+    out = {}
+    for name, (kern, plain, nbytes) in rows.items():
+        out[name] = {"ms": cuda_ms(kern, 200), "plain_ms": cuda_ms(plain, 20),
+                     "max_abs_err": 0.0, "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "library_ms": None}
+    emit("bitpack_times", k=k, lo_bits=width, **out)
+    return out
+
+
+def train_phase(dev, name: str, flags, steps: int, *expects):
     """One training run through launch.train.run(): the launch counts are
-    reset just before and read just after; ``expect(launches,
+    reset just before and read just after; each ``expect(launches,
     sparsified_steps)`` raises unless the path went through its kernels.
     Losses must be finite and the per-op wire rows equal the pricer's."""
     import gc
@@ -350,27 +468,30 @@ def train_phase(dev, name: str, flags, steps: int, expect):
     losses = [h["loss"] for h in hist]
     if not all(map(lambda l: l == l and abs(l) != float("inf"), losses)):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
-    expect(launches, sum(h["phase"] != "warmup" for h in hist))
+    for expect in expects:
+        expect(launches, sum(h["phase"] != "warmup" for h in hist))
     for phase, rows in out["wire"].items():
-        plan = XP.build_plan(comp.cc, comp.layout, comp.K, transport="mesh",
-                             phase=phase)
+        plan = XP.build_plan(comp.cc, comp.layout, comp.K,
+                             transport=args.transport, phase=phase)
         if rows != XP.wire_terms_by_op(plan):
             raise AssertionError(f"{name} {phase}: measured wire rows {rows}"
                                  f" != priced {XP.wire_terms_by_op(plan)}")
     step_ms = {}
     for h in hist:
         step_ms.setdefault(h["phase"], []).append(h["ms"])
-    emit("train", run=name, arch=cfg.name, n_layers=N_LAYERS,
+    emit("train", run=name, transport=args.transport, arch=cfg.name,
+         n_layers=N_LAYERS,
          reduced=["n_layers"], d_model=cfg.d_model, dtype=cfg.dtype,
          n_params=comp.layout.n_total, nodes=comp.K, losses=losses,
          step_ms=step_ms, launches=launches, wire=out["wire"],
          peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
          rate_bytes_per_node=out["rate"].bytes_per_node)
+    wire = out["wire"]
     del out, hist, comp
     SP._device_meta.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "losses": losses, "wire": wire}
 
 
 def launched(*names):
@@ -382,15 +503,17 @@ def launched(*names):
     return expect
 
 
-def block_topk_per_leaf(n_leaves: int, nodes: int):
+def per_step(**per_sparsified_step):
+    """Each named kernel launched exactly that many times per sparsified
+    step of the run."""
     def expect(launches, sparsified):
-        want = n_leaves * nodes * sparsified
-        if launches.get("block_topk", 0) != want:
-            raise AssertionError(f"block_topk launched "
-                                 f"{launches.get('block_topk', 0)} times, "
-                                 f"not {want} ({n_leaves} leaves x {nodes} "
-                                 f"nodes x {sparsified} steps)")
+        for nm, per in per_sparsified_step.items():
+            if launches.get(nm, 0) != per * sparsified:
+                raise AssertionError(f"{nm} launched {launches.get(nm, 0)} "
+                                     f"times, not {per} x {sparsified} "
+                                     f"sparsified steps: {launches}")
     return expect
+
 
 
 def main() -> None:
@@ -409,28 +532,49 @@ def main() -> None:
     k6 = k6_phase(dev)
     k2, k2_launches = k2_phase(dev)
     k3 = k3_phase(dev)
+    bp = bitpack_phase(dev)
     torch.cuda.empty_cache()
     n_leaves = len(llama_layout(0.001).compressed)
+    K = 2
+    lgc = ["--compression", "lgc_rar", "--topk-backend", "fused",
+           "--ae-backend", "pallas", "--ae-train-steps", "2"]
+    dgc = ["--compression", "dgc", "--topk-backend", "pallas"]
+    packed = ["--transport", "ring_packed"]
     runs = {
         "lgc_rar": train_phase(
-            dev, "lgc_rar", ["--compression", "lgc_rar", "--topk-backend",
-                             "fused", "--ae-backend", "pallas",
-                             "--ae-train-steps", "2"], 6,
+            dev, "lgc_rar", lgc, 6,
             launched("fused_ef_topk", "matmul_bias_lrelu")),
-        "dgc": train_phase(
-            dev, "dgc", ["--compression", "dgc", "--topk-backend", "pallas"],
-            5, block_topk_per_leaf(n_leaves, 2)),
+        # the support set: one encode (K5a) and one decode (K5b) per step
+        "lgc_rar ring_packed": train_phase(
+            dev, "lgc_rar ring_packed", lgc + packed, 6,
+            launched("fused_ef_topk", "matmul_bias_lrelu"),
+            per_step(pack_bits=1, unpack_bits=1)),
+        "dgc": train_phase(dev, "dgc", dgc, 5,
+                           per_step(block_topk=n_leaves * K)),
+        # topk: one K4 encode per node, one K5b decode per gathered payload
+        "dgc ring_packed": train_phase(
+            dev, "dgc ring_packed", dgc + packed, 5,
+            per_step(block_topk=n_leaves * K, quantize_pack=K,
+                     unpack_bits=K)),
         "sparse_gd": train_phase(
             dev, "sparse_gd", ["--compression", "sparse_gd",
                                "--topk-backend", "fused"], 5,
             launched("fused_ef_topk")),
     }
+    packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
+    raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
+    emit("topk_bytes", packed=packed_b, raw=raw_b,
+         packed_to_raw=packed_b["all_gather_packed"] / raw_b["all_gather"])
+    emit("lgc_rar_losses", mesh=runs["lgc_rar"]["losses"],
+         ring_packed=runs["lgc_rar ring_packed"]["losses"],
+         equal=runs["lgc_rar"]["losses"]
+         == runs["lgc_rar ring_packed"]["losses"])
     emit("timings", card=smi, fused_ef_topk=k1, matmul_bias_lrelu=k3,
-         block_topk=k6, segmented_topk=k2)
+         block_topk=k6, segmented_topk=k2, **bp)
 
     def count(name):
-        return sum(r.get(name, 0) for r in list(runs.values())
-                   + [k2_launches])
+        return sum(r["launches"].get(name, 0) for r in runs.values()) \
+            + k2_launches.get(name, 0)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = [("fused_ef_topk", "sparsify_ef.cu", "sparsify_ef.py:117", k1),
@@ -438,7 +582,12 @@ def main() -> None:
              k3),
             ("block_topk", "block_topk.cu", "block_topk.py:53", k6),
             ("segmented_topk", "segmented_topk.cu", "segmented_topk.py:126",
-             k2)]
+             k2),
+            ("quantize_pack", "bitpack.cu", "bitpack.py:112",
+             bp["quantize_pack"]),
+            ("pack_bits", "bitpack.cu", "bitpack.py:172", bp["pack_bits"]),
+            ("unpack_bits", "bitpack.cu", "bitpack.py:206",
+             bp["unpack_bits"])]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -72,7 +72,8 @@ class CompressionConfig:
     ae_train_steps: int = 300        # phase-2 (AE online training) length
     ae_lr: float = 1e-3
     momentum_correction: float = 0.9
-    transport: str = "mesh"
+    transport: str = "mesh"          # mesh | ring | ring_packed
+    wire_buckets: int = 1            # > 1 not ported (the bucketed ring)
     q8_scale_block: int = 0          # 0 = SCALE_BLOCK
     topk_backend: str = "jnp"        # jnp | pallas | fused
     extract_backend: str = "auto"    # auto | loop | bitonic

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import node_mean
+
 # (filters, kernel, stride) per Table I
 ENCODER_SPEC = ((64, 3, 2), (128, 3, 2), (256, 3, 2), (64, 3, 2), (4, 1, 1))
 # (filters, kernel, stride) per Table II (deconv1 stride 1, see reference)
@@ -107,10 +109,11 @@ def lgc_decode_rar(ae_params, z_avg: torch.Tensor) -> torch.Tensor:
 
 
 def ae_loss_rar(ae_params, g_nodes: torch.Tensor) -> torch.Tensor:
-    """eq. (11), per-element mean: ||D(mean_k E(g_k)) - mean_k g_k||^2."""
+    """eq. (11), per-element mean: ||D(mean_k E(g_k)) - mean_k g_k||^2,
+    the means over nodes as the reference computes them under jit."""
     z = lgc_encode(ae_params, g_nodes)                    # (K, L/16, 4)
-    g_rec = lgc_decode_rar(ae_params, z.mean(0, keepdim=True))[0]
-    return torch.mean((g_rec - g_nodes.mean(0)) ** 2)
+    g_rec = lgc_decode_rar(ae_params, node_mean(z)[None])[0]
+    return torch.mean((g_rec - node_mean(g_nodes)) ** 2)
 
 
 def compressed_length(mu: int) -> int:

@@ -34,7 +34,7 @@ from repro_torch.core import autoencoder as AE
 from repro_torch.core import sparsify as SP
 from repro_torch.core.phases import PHASE_TOPK_AE, PHASE_WARMUP
 from repro_torch.dist import plan as XP
-from repro_torch.dist.transport import SimTransport
+from repro_torch.dist.transport import make_transport
 from repro_torch.kernels import ops as K_ops
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -58,6 +58,11 @@ class GradientCompressor:
         if cc.guard != "off":
             raise NotImplementedError("guard policies are ROADMAP.md "
                                       "Queue 1, 'chaos, guards and resume'")
+        make_transport(cc.transport, self.K)    # raises for an unported wire
+        if cc.wire_buckets != 1:
+            raise NotImplementedError("bucketed exchanges (wire_buckets > "
+                                      "1) are ROADMAP.md Queue 1, "
+                                      "'multi-process NCCL transports'")
 
     # -- state ----------------------------------------------------------------
 
@@ -220,10 +225,11 @@ class GradientCompressor:
         return global_g, new_state, stats
 
     def sim_step(self, states, g_nodes, step: int, phase: str):
-        """Single-device emulation of K nodes on stacked (K, n) gradients.
-        Returns (global_g (n,), states, stats); ``stats["wire"]`` holds
-        the step's bytes per node, {op label: {collective kind: bytes}}."""
-        t = SimTransport(self.K)
+        """Single-device emulation of K nodes on stacked (K, n) gradients,
+        over the emulated transport ``cc.transport`` names.  Returns
+        (global_g (n,), states, stats); ``stats["wire"]`` holds the step's
+        bytes per node, {op label: {collective kind: bytes}}."""
+        t = make_transport(self.cc.transport, self.K)
         global_g, states, stats = self.step(t, states, g_nodes, step, phase)
         stats["wire"] = t.tally
         return global_g, states, stats

@@ -43,8 +43,10 @@ def rate_report(cc: CompressionConfig, layout: GradientLayout, K: int,
                 count_exempt: bool = True,
                 transport: Optional[str] = None) -> RateReport:
     """Per-node payload of the method's steady phase, priced from the
-    same ops the compressor executes; ``count_exempt=False`` is the
-    paper's own accounting (exempt first layer left out)."""
+    same ops the compressor executes, on ``transport`` (default
+    ``cc.transport``): on ``ring_packed`` the packed exchanges and the
+    index broadcast cost their real packed bytes.  ``count_exempt=False``
+    is the paper's own accounting (exempt first layer left out)."""
     plan = XP.build_plan(cc, layout, K, transport=transport)
     baseline = layout.n_total * BYTES_F32
     b_leader, b_other = XP.rate_terms(plan, indices=indices,

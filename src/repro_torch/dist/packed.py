@@ -1,6 +1,5 @@
-"""The packed sparse wire's plan half (counterpart of the pure integer
-arithmetic of ``repro.dist.packed``, with the byte counts of
-``repro.kernels.bitpack`` and ``repro.dist.quantize`` it needs).
+"""The packed sparse wire: its plan and its codec (counterpart of
+``repro.dist.packed``).
 
 A :class:`PackPlan` fixes, per (n, k, scale_block), the wire format of k
 (value, index) pairs over a length-n vector: the sorted indices' high bits
@@ -9,50 +8,31 @@ values as int8 with one f32 scale per ``scale_block`` (or, for a handful
 of indices, the sorted raw int32 indices).  :func:`make_plan` picks
 ``lo_bits`` by exact cost minimisation; :func:`wire_nbytes` and
 :func:`index_nbytes` are what the pricers charge.  The exchange plan
-carries one PackPlan per packed sparse exchange.  The codec that builds
-the payload (and its kernels K4, K5a, K5b) belongs to the packed-wire
-transport, which is not ported yet (ROADMAP.md Queue 1, "multi-process
-NCCL transports").
+carries one PackPlan per packed sparse exchange.
+
+The codec builds and reads the payload the packed ring transport ships:
+:func:`encode_sparse_fused` sorts a node's pairs by index, histograms the
+high bits and runs K4 (``kernels.bitpack.quantize_pack``: int8 values and
+the low-bit planes in one launch); :func:`decode_sparse` unpacks the
+planes with K5b and re-expands the histogram; :func:`encode_indices` /
+:func:`decode_indices` carry an index set alone (K5a / K5b), bit-exact.
+The guard's checksum word and payload validation wait for the guard
+policies (ROADMAP.md Queue 1, "chaos, guards and resume").
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.dist import quantize as Q
+from repro_torch.kernels import bitpack as BP
+from repro_torch.kernels.bitpack import bit_width, packed_nbytes
 
 # the compressor methods whose sparse exchanges ride the packed wire (real
 # bytes on the packed ring transport, the exact f32 + int32 wire elsewhere)
 PACKED_METHODS = ("sparse_gd", "dgc", "lgc_ps")
-
-SCALE_BLOCK = 256     # int8-wire values per f32 scale (repro.dist.quantize)
-GROUP = 32            # values packed into one int32 word (one per bit row)
-MAX_WIDTH = 31        # value bits; bit 31 is the int32 sign
-
-
-def bit_width(n: int) -> int:
-    """Bits needed to represent any value in ``[0, n]``, inclusive: index
-    sets are padded with the sentinel ``n``, which must survive the
-    wire."""
-    w = max(1, int(n).bit_length())
-    assert w <= MAX_WIDTH, (n, w)
-    return w
-
-
-def word_count(k: int) -> int:
-    """int32 words per bit-plane for ``k`` values: exactly ceil(k/32)."""
-    return -(-max(int(k), 1) // GROUP)
-
-
-def packed_nbytes(k: int, width: int) -> int:
-    """Wire bytes of ``k`` values packed at ``width`` bits: the (width,
-    word_count(k)) int32 array."""
-    return width * word_count(k) * 4
-
-
-def q8_wire_nbytes(n: int, scale_block: int = SCALE_BLOCK) -> int:
-    """Wire bytes of ``n`` values on the int8 wire: the padded int8
-    payload + one f32 scale per block (``repro.dist.quantize.wire_nbytes``)."""
-    m = -(-n // scale_block)
-    return m * scale_block * 1 + m * 4
-
 
 @dataclass(frozen=True)
 class PackPlan:
@@ -88,7 +68,7 @@ def make_plan(n: int, k: int, scale_block: int = 0,
                key=lambda lo: _index_nbytes(n, k, lo))
     return PackPlan(n=n, k=k, width=width, lo_bits=best,
                     n_buckets=(n >> best) + 1,
-                    scale_block=scale_block or SCALE_BLOCK,
+                    scale_block=scale_block or Q.SCALE_BLOCK,
                     raw_index=4 * k < _index_nbytes(n, k, best),
                     checksum=checksum)
 
@@ -121,5 +101,102 @@ def wire_nbytes(plan: PackPlan) -> int:
     """Total payload bytes one node ships per packed sparse exchange:
     indices, int8 values with their scales, and the checksum word if
     any."""
-    return _index_base(plan) + q8_wire_nbytes(plan.k, plan.scale_block) \
+    return _index_base(plan) + Q.wire_nbytes(plan.k, plan.scale_block) \
         + (4 if plan.checksum else 0)
+
+
+# -- the codec ----------------------------------------------------------------
+
+
+def _no_checksum(plan: PackPlan) -> None:
+    if plan.checksum:
+        raise NotImplementedError("the guard's checksum word is ROADMAP.md "
+                                  "Queue 1, 'chaos, guards and resume'")
+
+
+def _sort_pairs(vals: torch.Tensor, idx: torch.Tensor):
+    """Pairs in ascending index order; stable, as jnp.argsort is (only
+    the sentinel n can repeat)."""
+    order = torch.argsort(idx, stable=True)
+    return vals[order], idx[order].to(torch.int32)
+
+
+def _lo_mask(plan: PackPlan) -> int:
+    return (1 << plan.lo_bits) - 1
+
+
+def _histogram(idx: torch.Tensor, plan: PackPlan) -> torch.Tensor:
+    """Counts of the high bits idx >> lo_bits over the plan's buckets."""
+    counts = torch.zeros((plan.n_buckets,), dtype=torch.int32,
+                         device=idx.device)
+    return counts.index_add_(0, (idx >> plan.lo_bits).long(),
+                             torch.ones_like(idx))
+
+
+def encode_indices(idx: torch.Tensor, plan: PackPlan
+                   ) -> Tuple[torch.Tensor, ...]:
+    """A sorted-ascending int32 index set (plan.k,) over [0, n] ->
+    (counts, words), or (idx,) on the raw-index fallback."""
+    _no_checksum(plan)
+    assert idx.shape == (plan.k,), (idx.shape, plan)
+    idx = idx.to(torch.int32)
+    if plan.raw_index:
+        return (idx,)
+    return (_histogram(idx, plan),
+            BP.pack_bits(idx & _lo_mask(plan), plan.lo_bits))
+
+
+def decode_indices(payload, plan: PackPlan) -> torch.Tensor:
+    """Inverse of :func:`encode_indices` -> sorted int32 (plan.k,)."""
+    _no_checksum(plan)
+    if plan.raw_index:
+        (idx,) = payload
+        return idx
+    counts, words = payload
+    lo = BP.unpack_bits(words, plan.k)
+    # output_size keeps the card from synchronising on sum(counts)
+    hi = torch.repeat_interleave(
+        torch.arange(plan.n_buckets, dtype=torch.int32, device=lo.device),
+        counts, output_size=plan.k)
+    return (hi << plan.lo_bits) | lo
+
+
+def encode_sparse(vals: torch.Tensor, idx: torch.Tensor, plan: PackPlan):
+    """The composed encode: (counts, words, q, scales), or (idx, q,
+    scales) on the raw-index fallback."""
+    assert vals.shape == idx.shape == (plan.k,), (vals.shape, plan)
+    vals_s, idx_s = _sort_pairs(vals, idx)
+    q, scales = Q.quantize_i8(vals_s, plan.scale_block)
+    return encode_indices(idx_s, plan) + (q, scales)
+
+
+def encode_sparse_fused(vals: torch.Tensor, idx: torch.Tensor,
+                        plan: PackPlan):
+    """:func:`encode_sparse` with the quantize and the low-bit pack in
+    one launch of K4; the same payload bit for bit.  A raw-index plan
+    has nothing to pack and takes the composed path, as the reference
+    does."""
+    if plan.raw_index:
+        return encode_sparse(vals, idx, plan)
+    _no_checksum(plan)
+    assert vals.shape == idx.shape == (plan.k,), (vals.shape, plan)
+    vals_s, idx_s = _sort_pairs(vals, idx)
+    words, q, scales = Q.quantize_pack_fused(
+        vals_s, idx_s & _lo_mask(plan), plan.lo_bits, plan.scale_block)
+    return _histogram(idx_s, plan), words, q, scales
+
+
+def decode_sparse(payload, plan: PackPlan):
+    """Inverse of :func:`encode_sparse` -> (vals f32 (k,), idx int32
+    (k,)) in index order: indices bit-exact, values dequantized."""
+    q, scales = payload[-2], payload[-1]
+    idx = decode_indices(payload[:-2], plan)
+    return Q.dequantize_i8(q, scales, plan.k), idx
+
+
+def fake_roundtrip(vals: torch.Tensor, idx: torch.Tensor,
+                   scale_block: int = 0):
+    """encode -> decode in the float domain: the pairs sorted by index,
+    the sorted values quantized and dequantized in the wire's blocks."""
+    vals_s, idx_s = _sort_pairs(vals, idx)
+    return Q.fake_quantize(vals_s, scale_block or Q.SCALE_BLOCK), idx_s

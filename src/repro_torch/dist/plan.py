@@ -1,16 +1,19 @@
 """The exchange-plan IR (counterpart of ``repro.dist.plan``), for the
 ported methods ``none``, ``sparse_gd``, ``dgc`` and ``lgc_rar`` on the
-``mesh`` pricing.
+``mesh``, ``ring`` and ``ring_packed`` transports (one dp axis, one
+bucket).
 
 :func:`build_plan` compiles (config, layout, K, phase) into an ordered
 tuple of typed exchange ops; :func:`execute` runs them against a transport
 with per-op feed callbacks and checks that feeds and plan labels match
 both ways; :func:`wire_terms_by_op` and :func:`rate_terms` price the same
 op objects.  The sparse methods' exchanges are
-:class:`PackedSparseExchange` ops carrying their ``PackPlan``, as in the
-reference; on the ``mesh`` pricing they move the exact f32 + int32 pairs.
-The packed, int8 and ring wires, the PS ops and the guard policies are
-not ported yet (ROADMAP.md Queue 1).
+:class:`PackedSparseExchange` ops and the lgc support an
+:class:`IndexBroadcast`, each carrying its ``PackPlan``, as in the
+reference: on ``ring_packed`` they move the packed payload, elsewhere the
+exact f32 + int32 pairs (or the raw int32 index set).  The int8 and
+hierarchical rings, the PS ops and the guard policies are not ported yet
+(ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.core.phases import (PHASE_COMPRESSED, PHASE_TOPK_AE,
                                      PHASE_WARMUP)
 from repro_torch.core.sparsify import GradientLayout
 from repro_torch.dist import packed as PK
+from repro_torch.dist import quantize as Q
 
 BYTES_F32 = 4
 BYTES_I32 = 4
@@ -81,10 +85,13 @@ class PackedSparseExchange(Op):
 
 @dataclass(frozen=True)
 class IndexBroadcast(Op):
-    """The rotating leader's sorted index set to all nodes (raw int32)."""
+    """The rotating leader's sorted index set (k entries over [0, n_vec])
+    to all nodes: the packed index payload (``pack``, bit-exact) on
+    ``ring_packed``, a raw int32 broadcast elsewhere."""
     n_vec: int
     k: int
     k_rate: int
+    pack: PK.PackPlan
 
 
 @dataclass(frozen=True)
@@ -120,7 +127,7 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
             "'lgc_ps and lgc_rar_q8')")
     tkind = transport if transport is not None else (cc.transport or "mesh")
     phase = phase if phase is not None else steady_phase(method)
-    sb = cc.q8_scale_block or PK.SCALE_BLOCK
+    sb = cc.q8_scale_block or Q.SCALE_BLOCK
     n = layout.n_total
 
     def _plan(ops) -> Plan:
@@ -146,7 +153,8 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
         # the whole cross-node exchange: mu_pad shipped pairs, mu counted
         ops.append(sparse("topk", n, mp, layout.mu))
         return _plan(ops)
-    ops.append(IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu))
+    ops.append(IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu,
+                              pack=PK.make_plan(n, mp, sb)))
     if phase == PHASE_TOPK_AE:
         ops.append(Reduce("support_vals", n_vals=mp))
         ops.append(AllGather("gather_vals", n_vals=mp))
@@ -170,7 +178,7 @@ def _run_op(op: Op, t, args: tuple):
         return t.sparse_mean_packed(vals, idx, op.n_vec, plan=op.pack)
     if isinstance(op, IndexBroadcast):
         idx, leader = args
-        return t.broadcast_packed(idx, leader, op.n_vec)
+        return t.broadcast_packed(idx, leader, op.n_vec, plan=op.pack)
     raise TypeError(op)
 
 
@@ -196,15 +204,23 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
     return env
 
 
+WIRE_TRANSPORTS = ("mesh", "ring", "ring_packed")
+
+
 def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
-    """{op label: {collective kind: bytes}} one op moves per node on the
-    ``mesh`` lowering (the lax collectives: all_reduce 2(K-1)/K of the
-    buffer, all_gather (K-1) buffers, broadcast (K-1)/K).  A packed
-    sparse exchange moves its exact pairs there."""
-    if tkind != "mesh":
+    """{op label: {collective kind: bytes}} one op moves per node, as the
+    reference's ``bucket_plan`` prices one dp axis and one bucket.
+    ``mesh`` is the lax collectives (all_reduce 2(K-1)/K of the buffer,
+    all_gather (K-1) buffers, broadcast (K-1)/K); ``ring`` reduces through
+    the chunked ring (2(K-1) chunks of ceil(n/K) values); ``ring_packed``
+    adds the packed payloads of the packed exchanges and the index
+    broadcast.  Everywhere else a packed exchange moves its exact
+    pairs."""
+    if tkind not in WIRE_TRANSPORTS:
         raise NotImplementedError(
             f"pricing for transport {tkind!r} is not ported (ROADMAP.md "
-            "Queue 1, 'multi-process NCCL transports')")
+            "Queue 1, 'lgc_ps and lgc_rar_q8', 'multi-process NCCL "
+            "transports')")
     out: Dict[str, Dict[str, float]] = {}
 
     def add(kind: str, b: float) -> None:
@@ -212,16 +228,27 @@ def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
             row = out.setdefault(op.label, {})
             row[kind] = row.get(kind, 0.0) + float(b)
 
+    packed = tkind == "ring_packed"
     if isinstance(op, (DenseReduce, Reduce)):
         if op.n_vals > 0:
-            add("all_reduce", 2 * (K - 1) / K * op.n_vals * BYTES_F32)
+            if tkind == "mesh":
+                add("all_reduce", 2 * (K - 1) / K * op.n_vals * BYTES_F32)
+            else:
+                add("ring_allreduce",
+                    2 * (K - 1) * -(-op.n_vals // K) * BYTES_F32)
     elif isinstance(op, AllGather):
         add("all_gather", (K - 1) * op.n_vals * BYTES_F32)
+    elif isinstance(op, PackedSparseExchange) and packed:
+        if op.k > 0:
+            add("all_gather_packed", (K - 1) * PK.wire_nbytes(op.pack))
     elif isinstance(op, (SparseExchange, PackedSparseExchange)):
         if op.k > 0:
             add("all_gather", (K - 1) * op.k * (BYTES_F32 + BYTES_I32))
     elif isinstance(op, IndexBroadcast):
-        add("broadcast", (K - 1) / K * op.k * BYTES_I32)
+        if packed:
+            add("broadcast_packed", (K - 1) / K * PK.index_nbytes(op.pack))
+        else:
+            add("broadcast", (K - 1) / K * op.k * BYTES_I32)
     else:
         raise TypeError(op)
     return out
@@ -247,9 +274,12 @@ def wire_terms(plan: Plan, transport: Optional[str] = None
     return out
 
 
-def _op_rate_bytes(op: Op, idx: Optional[np.ndarray], count_exempt: bool,
-                   deflate) -> Tuple[float, float]:
-    """(leader_bytes, other_bytes) one op adds to a node's payload."""
+def _op_rate_bytes(op: Op, tkind: str, idx: Optional[np.ndarray],
+                   count_exempt: bool, deflate) -> Tuple[float, float]:
+    """(leader_bytes, other_bytes) one op adds to a node's payload.  On
+    ``ring_packed`` the packed exchanges and the index broadcast cost
+    their real packed bytes, from the op's own PackPlan; elsewhere the
+    index set is priced at its DEFLATE size."""
     if isinstance(op, DenseReduce):
         b = 0.0 if (op.exempt and not count_exempt) \
             else op.n_vals * BYTES_F32
@@ -260,23 +290,31 @@ def _op_rate_bytes(op: Op, idx: Optional[np.ndarray], count_exempt: bool,
     if isinstance(op, (SparseExchange, PackedSparseExchange)):
         if op.k <= 0:
             return 0.0, 0.0
-        b = op.k_rate * BYTES_F32 + deflate(idx, op.k_rate, op.n_vec)
+        if isinstance(op, PackedSparseExchange) and tkind == "ring_packed":
+            b = float(PK.wire_nbytes(op.pack))
+        else:
+            b = op.k_rate * BYTES_F32 + deflate(idx, op.k_rate, op.n_vec)
         return b, b
     if isinstance(op, IndexBroadcast):
+        if tkind == "ring_packed":
+            return float(PK.index_nbytes(op.pack)), 0.0
         return float(deflate(idx, op.k_rate, op.n_vec)), 0.0
     raise TypeError(op)
 
 
 def rate_terms(plan: Plan, *, indices: Optional[np.ndarray] = None,
-               count_exempt: bool = True, deflate=None) -> Tuple[float, float]:
+               count_exempt: bool = True, transport: Optional[str] = None,
+               deflate=None) -> Tuple[float, float]:
     """(leader_bytes, other_bytes) per iteration: the paper-style rate of
-    the plan's ops (leader-only terms are amortized by the caller)."""
+    the plan's ops (leader-only terms are amortized by the caller),
+    priced for ``transport`` (default: the plan's)."""
     if deflate is None:
         from repro_torch.core.rate import deflate_bytes as deflate
+    tkind = transport if transport is not None else plan.transport
     leader = other = 0.0
     for op in plan.ops:
         idx = indices if op.label in ("topk", "support") else None
-        lb, ob = _op_rate_bytes(op, idx, count_exempt, deflate)
+        lb, ob = _op_rate_bytes(op, tkind, idx, count_exempt, deflate)
         leader += lb
         other += ob
     return leader, other

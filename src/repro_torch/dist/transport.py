@@ -1,15 +1,28 @@
 """Transports: how bytes move between the K LGC nodes (counterpart of
 ``repro.dist.transport``).
 
-Ported so far: :class:`SimTransport`, the K data-parallel nodes emulated
-on one device as stacked (K, ...) tensors (the reference's SimTransport
-and the paper's several-nodes-per-GPU setup).  A per-node value carries a
-leading K axis; a global value does not.  Cross-node operations reduce
-over that axis and record, per exchange-plan op, the bytes each node
-would put on the wire under the ``mesh`` lowering (lax collectives), so
+The K data-parallel nodes are emulated on one device as stacked (K, ...)
+tensors (the reference's SimTransport, and the paper's
+several-nodes-per-GPU setup).  A per-node value carries a leading K axis;
+a global value does not.  Cross-node operations reduce over that axis and
+record, per exchange-plan op, the bytes each node puts on the wire, so
 the trainer's per-op byte rows can be held against
-``dist.plan.wire_terms_by_op``.  Real multi-process transports (NCCL) are
-ROADMAP.md Queue 1, "multi-process NCCL transports".
+``dist.plan.wire_terms_by_op`` for the same transport:
+
+  SimTransport         the lax collectives of the reference's ``mesh``
+                       transport, tallied as that lowering moves them
+  RingTransport        the reference's explicit chunked ring
+                       (``dist.collectives``): reductions through
+                       ``ring_allreduce``, the leader exchange through
+                       ``ring_broadcast``
+  RingPackedTransport  the ring whose packed sparse exchanges ship the
+                       real packed payload (``dist.packed``: bit-packed
+                       indices, int8 values, f32 scales) and whose leader
+                       index set rides the packed index wire
+
+Every mean over nodes is :func:`collectives.node_mean`, the reference's
+order of additions under ``jit``.  Real multi-process transports (NCCL)
+are ROADMAP.md Queue 1, "multi-process NCCL transports".
 """
 from __future__ import annotations
 
@@ -19,9 +32,21 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.dist import collectives as C
+from repro_torch.dist import packed as PK
+
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
+
+
+def _scatter_rows(rows, n: int, dtype, device) -> torch.Tensor:
+    """(K, n): row i holds the pairs (vals, idx) of ``rows[i]`` scattered
+    densely; indices >= n (the sentinel) are dropped."""
+    out = torch.zeros((len(rows), n + 1), dtype=dtype, device=device)
+    for i, (vals, idx) in enumerate(rows):
+        out[i].scatter_add_(0, idx.long().clamp(0, n), vals.to(dtype))
+    return out[:, :n]
 
 
 @dataclass
@@ -48,16 +73,20 @@ class SimTransport:
 
     def mean(self, x):
         self._record("all_reduce", 2 * (self.K - 1) / self.K * _nbytes(x[0]))
-        return x.mean(0)
+        return C.node_mean(x)
 
     def all_gather(self, x):
         self._record("all_gather", (self.K - 1) * _nbytes(x[0]))
         return x
 
-    def broadcast_packed(self, idx, leader: int, n: int):
-        """The leader's (sorted) index set, as the raw int32 broadcast."""
-        self._record("broadcast", (self.K - 1) / self.K * _nbytes(idx[0]))
-        return idx[leader]
+    def from_leader(self, x, leader: int):
+        self._record("broadcast", (self.K - 1) / self.K * _nbytes(x[0]))
+        return x[leader]
+
+    def broadcast_packed(self, idx, leader: int, n: int, plan=None):
+        """The leader's (sorted) index set, as the raw int32 broadcast;
+        ``plan`` shapes only the packed ring's payload."""
+        return self.from_leader(idx, leader)
 
     def _sparse_gather(self, vals, idx, n: int):
         """(K, n): each node's sparse (vals, idx) pairs scattered densely
@@ -68,22 +97,94 @@ class SimTransport:
                                device=vals.device)
         self._record("all_gather",
                      (self.K - 1) * (_nbytes(vals[0]) + _nbytes(idx[0])))
-        out = torch.zeros((self.K, n + 1), dtype=vals.dtype,
-                          device=vals.device)
-        out.scatter_add_(1, idx.long().clamp(0, n), vals)
-        return out[:, :n]
+        return _scatter_rows(list(zip(vals, idx)), n, vals.dtype,
+                             vals.device)
 
     def sparse_mean(self, vals, idx, n: int):
         """Mean over nodes of per-node sparse (vals, idx) pairs as a dense
         (n,) vector, on the exact f32 + int32 wire."""
-        return self._sparse_gather(vals, idx, n).mean(0)
+        return C.node_mean(self._sparse_gather(vals, idx, n))
 
     def sparse_gather_packed(self, vals, idx, n: int, plan=None):
         """The exact oracle of the packed wire: the per-node scatters of
-        the untouched pairs, (K, n).  ``plan`` (the op's PackPlan) shapes
-        only the packed ring's payload; bytes are tallied as the mesh
-        lowering moves them, like :meth:`sparse_mean`."""
+        the untouched pairs, (K, n), tallied like :meth:`sparse_mean`."""
         return self._sparse_gather(vals, idx, n)
 
     def sparse_mean_packed(self, vals, idx, n: int, plan=None):
-        return self.sparse_gather_packed(vals, idx, n, plan).mean(0)
+        return C.node_mean(self.sparse_gather_packed(vals, idx, n, plan))
+
+
+class RingTransport(SimTransport):
+    """Every cross-node reduction through the chunked ring and the leader
+    exchange through the forwarding broadcast; all_gathers and the exact
+    sparse exchanges as on :class:`SimTransport`."""
+
+    kind = "ring"
+
+    def mean(self, x):
+        return C.ring_allreduce(x, self._record, op="mean")
+
+    def sum(self, x):
+        return C.ring_allreduce(x, self._record, op="add")
+
+    def from_leader(self, x, leader: int):
+        return C.ring_broadcast(x, leader, self._record)
+
+
+class RingPackedTransport(RingTransport):
+    """The ring whose packed sparse exchanges ship the real packed
+    payload: indices decode bit-exact, values pay one int8 quantization.
+    Per exchange each node's pairs are encoded (one K4 launch per node)
+    and each received payload decoded once (one K5b launch per node):
+    every node's gathered table is the same, so one decode of it serves
+    all.  The leader's index set is encoded once (K5a) and decoded once
+    (K5b) where the reference, being SPMD, encodes on every node and
+    adopts the leader's payload: the same numbers."""
+
+    kind = "ring_packed"
+
+    def sparse_gather_packed(self, vals, idx, n: int, plan=None):
+        k = vals.shape[-1]
+        if k == 0:
+            return super().sparse_gather_packed(vals, idx, n)
+        # the exchange plan's PackPlan, priced for this same (n, k)
+        assert plan is not None and (plan.n, plan.k) == (n, k), (plan, n, k)
+        table = C.all_gather_packed(
+            [PK.encode_sparse_fused(vals[i], idx[i], plan)
+             for i in range(self.K)], self._record)
+        rows = [PK.decode_sparse(tuple(a[j] for a in table), plan)
+                for j in range(self.K)]
+        return _scatter_rows(rows, n, vals.dtype, vals.device)
+
+    def broadcast_packed(self, idx, leader: int, n: int, plan=None):
+        k = idx.shape[-1]
+        if k == 0:
+            return self.from_leader(idx, leader)
+        # the exchange plan's PackPlan, priced for this same (n, k)
+        assert plan is not None and (plan.n, plan.k) == (n, k), (plan, n, k)
+        got = C.ring_broadcast_packed(PK.encode_indices(idx[leader], plan),
+                                      self.K, self._record)
+        return PK.decode_indices(got, plan)
+
+
+TRANSPORTS = {"mesh": SimTransport, "ring": RingTransport,
+              "ring_packed": RingPackedTransport}
+
+
+def make_transport(kind: str, K: int):
+    """The emulated transport for ``CompressionConfig.transport``:
+    ``mesh`` is :class:`SimTransport`, whose tally the mesh pricer
+    predicts."""
+    if kind in TRANSPORTS:
+        return TRANSPORTS[kind](K)
+    if kind == "ring_q8":
+        raise NotImplementedError("transport 'ring_q8' is ROADMAP.md Queue "
+                                  "1, 'lgc_ps and lgc_rar_q8'")
+    if kind == "ring_hier":
+        raise NotImplementedError("transport 'ring_hier' is ROADMAP.md "
+                                  "Queue 1, 'multi-process NCCL "
+                                  "transports'")
+    if kind.startswith("chaos:"):
+        raise NotImplementedError(f"transport {kind!r} is ROADMAP.md Queue "
+                                  "1, 'chaos, guards and resume'")
+    raise ValueError(f"unknown transport {kind!r}")

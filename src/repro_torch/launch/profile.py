@@ -7,8 +7,9 @@
         --ae-train-steps 2 --steps 6
 
 Takes ``repro_torch.launch.train``'s flags plus ``--layers`` (cut the
-arch's depth), so ``--compression dgc --topk-backend pallas`` or
-``--compression sparse_gd --topk-backend fused`` trace those paths.
+arch's depth), so ``--compression dgc --topk-backend pallas``,
+``--compression sparse_gd --topk-backend fused`` or ``--transport
+ring_packed`` (the packed wire's kernels) trace those paths.
 Every step after the first runs under its own profiler window, opened
 and closed between steps.  Prints one JSON line per traced
 step: its wall ms (host clock, synchronised, profiler on), the device's

@@ -7,7 +7,8 @@
 
 Runs the three-phase LGC schedule (warm-up -> top-k + online AE ->
 compressed; sparse_gd and dgc: warm-up -> top-k) with the K data-parallel
-nodes emulated on one device, and
+nodes emulated on one device over the ``--transport`` wire (``mesh``,
+``ring`` or ``ring_packed``), and
 logs what the reference trainer logs: the per-phase loss, the rate report,
 and per phase the wire bytes each node moves, per exchange op.  Runs on
 the card unless ``--device cpu``; with no card it raises.  Flags follow
@@ -52,8 +53,12 @@ def parse_args(argv=None):
     p.add_argument("--transport", default="mesh",
                    choices=["mesh", "ring", "ring_q8", "ring_hier",
                             "ring_packed"],
-                   help="wire the byte rows are priced for; the nodes run "
-                        "emulated on one device")
+                   help="the emulated wire between the nodes (all run on "
+                        "one device): mesh = the lax collectives, ring = "
+                        "the chunked ring, ring_packed = the ring with the "
+                        "packed sparse payloads")
+    p.add_argument("--wire-buckets", type=int, default=1,
+                   help="buckets per exchange (> 1 is not ported)")
     p.add_argument("--topk-backend", default="jnp",
                    choices=["jnp", "pallas", "fused"],
                    help="residual top-k selection (pallas = the block "
@@ -84,14 +89,11 @@ def run(cfg: ModelConfig, args,
         on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
     """Train ``cfg`` as ``args`` says; returns {"history": per-step
     records (step, phase, loss, ms), "wire": {phase: {op: {kind: bytes}}},
-    "rate": the RateReport, "compressor": the GradientCompressor}.
+    "rate": the RateReport, "compressor": the GradientCompressor,
+    "params": the trained parameters}.
     ``on_step(step)`` runs after each step has finished on the device
     (a profiler's step marker)."""
     device = resolve_device(args.device)
-    if args.transport != "mesh":
-        raise NotImplementedError(
-            f"transport {args.transport!r} is ROADMAP.md Queue 1, "
-            "'multi-process NCCL transports'")
     if args.compression in ("lgc_ps", "lgc_rar_q8"):
         raise NotImplementedError(
             f"compression {args.compression!r} is ROADMAP.md Queue 1, "
@@ -104,6 +106,7 @@ def run(cfg: ModelConfig, args,
                            warmup_steps=args.warmup_steps,
                            ae_train_steps=args.ae_train_steps,
                            transport=args.transport,
+                           wire_buckets=args.wire_buckets,
                            topk_backend=args.topk_backend,
                            ae_backend=args.ae_backend,
                            extract_backend=args.extract_backend)
@@ -150,7 +153,7 @@ def run(cfg: ModelConfig, args,
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=1)
     return {"history": history, "wire": wire, "rate": report,
-            "compressor": lts.compressor}
+            "compressor": lts.compressor, "params": params}
 
 
 def main(argv=None):

@@ -12,7 +12,10 @@ import torch
 
 from repro_torch.core import autoencoder as AE
 from repro_torch.core import sparsify as SP
+from repro_torch.dist import packed as PK
+from repro_torch.dist import quantize as Q
 from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import bitpack as BP
 from repro_torch.kernels import block_topk as BT
 from repro_torch.kernels import matmul_lrelu as MM
 from repro_torch.kernels import segmented_topk as ST
@@ -198,3 +201,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         BT.block_topk(torch.zeros((2, 200), device=card), 4)
     with pytest.raises(ValueError):                # kb above the block
         BT.block_topk(torch.zeros((2, 256), device=card), 257)
+    with pytest.raises(ValueError):                # pack_bits takes int32
+        BP.pack_bits(torch.zeros((40,), dtype=torch.int64, device=card), 5)
+    with pytest.raises(ValueError):                # vals must be f32
+        BP.quantize_pack(torch.zeros((40,), dtype=torch.float64,
+                                     device=card),
+                         torch.zeros((40,), dtype=torch.int32, device=card),
+                         5, 256, Q._EPS)
+
+
+# k: one value, under/at/over one word column, past one 128-word tile,
+# past two tiles; and the path's topk/support k
+BITPACK_K = [1, 31, 32, 33, 4096 + 7, 32 * 128 * 2 + 5, 243287]
+
+
+def _ints(kind, k, width, seed):
+    r = np.random.default_rng(seed)
+    if kind == "random":
+        x = r.integers(0, 2 ** width, k)
+    elif kind == "max":
+        x = np.full(k, 2 ** width - 1)
+    else:
+        x = np.zeros(k)
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("k", BITPACK_K)
+@pytest.mark.parametrize("kind", ["random", "zeros", "max"])
+def test_pack_unpack_kernels_are_bitwise_their_plain_versions(card, k, kind):
+    """K5a and K5b at every width 1..31, each launched once per call."""
+    for width in range(1, BP.MAX_WIDTH + 1):
+        x = torch.from_numpy(_ints(kind, k, width, width)).to(card)
+        before = (LAUNCHES["pack_bits"], LAUNCHES["unpack_bits"])
+        words = BP.pack_bits(x, width)
+        back = BP.unpack_bits(words, k)
+        torch.cuda.synchronize()
+        assert (LAUNCHES["pack_bits"], LAUNCHES["unpack_bits"]) == \
+            (before[0] + 1, before[1] + 1)
+        assert torch.equal(words.cpu(), BP.pack_bits_plain(x.cpu(), width))
+        assert torch.equal(back, x), (width, k, kind)
+
+
+@pytest.mark.parametrize("k", [1, 255, 256, 257, 1000, 243287])
+@pytest.mark.parametrize("scale_block", [256, 64])
+def test_quantize_pack_kernel_is_bitwise_its_plain_version(card, k,
+                                                           scale_block):
+    """K4 against its plain version on values with NaN/±Inf, an all-zero
+    block, exact .5 ties of the scale, and random low index bits."""
+    r = np.random.default_rng(k)
+    v = r.standard_normal(k).astype(np.float32)
+    v[::97] = np.nan
+    v[5::101] = np.inf
+    v[7::103] = -np.inf
+    if k > 2 * scale_block:
+        v[scale_block:2 * scale_block] = 0.0
+    if k > 320:                 # scale 1.0: x / scale = n + 0.5 exactly
+        v[256:300] = np.arange(-22, 22, dtype=np.float32) + 0.5
+        v[300] = 127.0
+    idx = r.integers(0, 2 ** 16, k).astype(np.int32)
+    vt, it = torch.from_numpy(v).to(card), torch.from_numpy(idx).to(card)
+    before = LAUNCHES["quantize_pack"]
+    out = BP.quantize_pack(vt, it, 16, scale_block, Q._EPS)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quantize_pack"] == before + 1
+    plain = BP.quantize_pack_plain(vt.cpu(), it.cpu(), 16, scale_block,
+                                   Q._EPS)
+    for a, b in zip(out, plain):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_packed_codec_on_the_card_equals_the_cpu(card):
+    """encode_sparse_fused / decode_sparse and encode_indices /
+    decode_indices at the path's topk plan, on the card (K4, K5a, K5b)
+    and on the CPU (their plain versions): the same payload and pairs."""
+    n, k = 505_956_352, 243287
+    plan = PK.make_plan(n, k)
+    r = np.random.default_rng(0)
+    idx = np.sort(r.choice(n, k - 3, replace=False))
+    idx = np.concatenate([idx, [n, n, n]]).astype(np.int32)
+    vals = (r.standard_normal(k) * 1e-3).astype(np.float32)
+    perm = r.permutation(k)
+    tv, ti = torch.from_numpy(vals[perm]), torch.from_numpy(idx[perm])
+    enc = PK.encode_sparse_fused(tv.to(card), ti.to(card), plan)
+    want = PK.encode_sparse_fused(tv, ti, plan)
+    for a, b in zip(enc, want):
+        assert torch.equal(a.cpu(), b)
+    got_v, got_i = PK.decode_sparse(enc, plan)
+    want_v, want_i = PK.decode_sparse(want, plan)
+    assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(),
+                                                            want_i)
+    assert torch.equal(got_i.cpu(), torch.from_numpy(idx))
+    ienc = PK.encode_indices(torch.from_numpy(idx).to(card), plan)
+    assert torch.equal(PK.decode_indices(ienc, plan).cpu(),
+                       torch.from_numpy(idx))

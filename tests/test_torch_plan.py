@@ -26,7 +26,9 @@ from repro_torch.core import rate as RATE
 from repro_torch.core import sparsify as SP
 from repro_torch.dist import packed as PK
 from repro_torch.dist import plan as XP
+from repro_torch.dist import quantize as Q
 from repro_torch.dist.transport import SimTransport
+from repro_torch.kernels import bitpack as BP
 from repro_torch.models.model import build_model
 
 PHASES = ("warmup", "topk_ae", "compressed")
@@ -124,19 +126,20 @@ def test_packplan_arithmetic_matches_reference(scale_block):
                     for kb in {1, (k + 1) // 2, k}:
                         assert dataclasses.astuple(PK.bucket_plan(p, kb)) \
                             == dataclasses.astuple(RPK.bucket_plan(rp, kb))
-            assert PK.packed_nbytes(k, PK.bit_width(n)) == \
+            assert BP.packed_nbytes(k, BP.bit_width(n)) == \
                 RBP.packed_nbytes(k, RBP.bit_width(n))
-            assert PK.q8_wire_nbytes(k, scale_block or PK.SCALE_BLOCK) == \
+            assert Q.wire_nbytes(k, scale_block or Q.SCALE_BLOCK) == \
                 RQ.wire_nbytes(k, scale_block or RQ.SCALE_BLOCK)
 
 
-@pytest.mark.parametrize("K", [2, 3])
+@pytest.mark.parametrize("K", [2, 3, 5])
 def test_sim_transport_sparse_exchanges_match_reference(K):
-    """The exact oracle of the packed wire (gather and mean) and the
-    exact f32 wire, on pairs with sentinel entries, against the
-    reference's SimTransport: bitwise at K=2; at K=3 the mean's f32 sum of
-    three terms may round in another order, so within 1 ulp of the
-    largest value.  Tallied like the exact exchange."""
+    """The exact oracle of the packed wire (gather and mean), the exact
+    f32 wire and the dense mean, on pairs with sentinel entries, against
+    the reference's SimTransport, bitwise: the means over nodes sum node
+    after node and multiply by f32(1/K), as XLA compiles jnp.mean (a true
+    division by 3 or 5 would differ by an ulp).  Tallied like the exact
+    exchange."""
     from repro.dist.transport import SimTransport as RSim
     r = np.random.default_rng(K)
     n, k = 97, 12
@@ -144,6 +147,7 @@ def test_sim_transport_sparse_exchanges_match_reference(K):
                                     [n, n]]) for _ in range(K)]
                    ).astype(np.int32)
     vals = r.standard_normal((K, k)).astype(np.float32)
+    dense = r.standard_normal((K, 4099)).astype(np.float32)
     t, rt = SimTransport(K), RSim(K)
     pack = PK.make_plan(n, k)
     tv, ti = torch.from_numpy(vals), torch.from_numpy(idx)
@@ -153,13 +157,46 @@ def test_sim_transport_sparse_exchanges_match_reference(K):
              rt.sparse_gather_packed(jv, ji, n)),
             (t.sparse_mean_packed(tv, ti, n, plan=pack),
              rt.sparse_mean_packed(jv, ji, n)),
-            (t.sparse_mean(tv, ti, n), rt.sparse_mean(jv, ji, n))):
+            (t.sparse_mean(tv, ti, n), rt.sparse_mean(jv, ji, n)),
+            (t.mean(torch.from_numpy(dense)), rt.mean(jnp.asarray(dense)))):
         ref = np.asarray(ref)
-        ulp = 0.0 if K == 2 else float(np.spacing(np.abs(ref).max()))
-        np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=ulp)
+        np.testing.assert_array_equal(ours.numpy().view(np.int32),
+                                      ref.view(np.int32))
+    t = SimTransport(K)
     with t.wire_op("topk"):
         t.sparse_mean_packed(tv, ti, n, plan=pack)
     assert t.tally == {"topk": {"all_gather": (K - 1) * k * 8.0}}
+
+
+@pytest.mark.parametrize("which,sparsity", [("odd", 0.05),
+                                            ("llama4", 0.001)])
+@pytest.mark.parametrize("method", ["sparse_gd", "dgc", "lgc_rar"])
+@pytest.mark.parametrize("K", [2, 3])
+@pytest.mark.parametrize("transport", ["ring", "ring_packed"])
+def test_ring_pricing_matches_reference(which, sparsity, method, K,
+                                        transport):
+    """Per-op and per-kind wire bytes, rate terms and rate_report on the
+    ring and the packed ring, for every phase, equal the reference's;
+    the lgc support carries the reference's PackPlan."""
+    layout, rlayout = _layouts(which, sparsity)
+    cc, rcc = CompressionConfig(method=method), RCC(method=method)
+    for phase in PHASES:
+        plan = XP.build_plan(cc, layout, K, transport=transport, phase=phase)
+        rplan = RXP.build_plan(rcc, rlayout, K, transport=transport,
+                               phase=phase)
+        assert plan.labels == rplan.labels
+        assert XP.wire_terms_by_op(plan) == RXP.wire_terms_by_op(rplan)
+        assert XP.wire_terms(plan) == RXP.wire_terms(rplan)
+        for count_exempt in (True, False):
+            assert XP.rate_terms(plan, count_exempt=count_exempt) == \
+                RXP.rate_terms(rplan, count_exempt=count_exempt)
+        for op, rop in zip(plan.ops, rplan.ops):
+            if isinstance(op, XP.IndexBroadcast):
+                assert dataclasses.astuple(op.pack) == \
+                    dataclasses.astuple(rop.pack)
+    assert dataclasses.astuple(RATE.rate_report(
+        cc, layout, K, transport=transport)) == dataclasses.astuple(
+        RRATE.rate_report(rcc, rlayout, K, transport=transport))
 
 
 def test_execute_checks_feeds_both_ways():

@@ -228,6 +228,48 @@ def test_sparse_methods_run_end_to_end_on_cpu(flags):
     assert all(np.isfinite(h["loss"]) for h in history)
 
 
+@pytest.mark.parametrize("flags", [["--compression", "dgc",
+                                    "--topk-backend", "pallas"],
+                                   ["--compression", "sparse_gd",
+                                    "--topk-backend", "fused"],
+                                   []])
+def test_ring_packed_runs_end_to_end_on_cpu(flags):
+    """The packed wire from the entry point: dgc and sparse_gd ship their
+    packed top-k pairs, lgc_rar (ARGS) its packed support; each phase's
+    byte rows are the ring_packed pricer's."""
+    history = train.main(ARGS + flags + ["--transport", "ring_packed",
+                                         "--device", "cpu"])
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert len(history) == 3
+
+
+def test_lgc_rar_on_ring_packed_equals_mesh():
+    """At K=2 the ring mean and the packed index wire are exact, so six
+    lgc_rar steps through all three phases give the mesh run's losses and
+    parameters bit for bit, while the bytes differ as priced."""
+    from repro_torch.dist import plan as XP
+    cfg = get_arch("llama3.2-1b").reduced()
+    outs = {}
+    for transport in ("mesh", "ring_packed"):
+        args = train.parse_args(ARGS[:2] + ["6"] + ARGS[3:] + [
+            "--warmup-steps", "2", "--ae-train-steps", "2", "--transport",
+            transport, "--device", "cpu"])
+        outs[transport] = train.run(cfg, args)
+    mesh, packed = outs["mesh"], outs["ring_packed"]
+    assert [h["phase"] for h in packed["history"]] == \
+        ["warmup"] * 2 + ["topk_ae"] * 2 + ["compressed"] * 2
+    assert [h["loss"] for h in packed["history"]] == \
+        [h["loss"] for h in mesh["history"]]
+    for a, b in zip(tree_leaves(packed["params"]),
+                    tree_leaves(mesh["params"])):
+        assert torch.equal(a, b)
+    comp = packed["compressor"]
+    for phase, rows in packed["wire"].items():
+        plan = XP.build_plan(comp.cc, comp.layout, comp.K, phase=phase)
+        assert rows == XP.wire_terms_by_op(plan, "ring_packed")
+        assert rows != mesh["wire"][phase]
+
+
 def test_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -235,8 +277,10 @@ def test_main_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--compression", "lgc_ps"],
-                                   ["--transport", "ring"],
-                                   ["--compression", "lgc_rar_q8"]])
+                                   ["--transport", "ring_q8"],
+                                   ["--compression", "lgc_rar_q8"],
+                                   ["--transport", "ring_hier"],
+                                   ["--wire-buckets", "2"]])
 def test_unported_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(ARGS + flags + ["--device", "cpu"])
