@@ -24,28 +24,40 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
   5. k3       the fused matmul + bias + LeakyReLU kernel against its plain
               version at the AE encoder's five im2col shapes for that
               layout's mu_pad, within |err| <= 1e-5 * max(1, max|y|)
-  6. bitpack  the packed wire's kernels (K4 quantize_pack, K5a pack_bits,
+  6. k7       the threshold EF pass against its plain version, bitwise on
+              all three outputs (compared slice by slice), at the main
+              path's flat gradient (n = 505,956,352; g ~ N(0,1), u ~
+              0.1·N(0,1), v ~ 0.3·N(0,1)) with tau the sampled threshold
+              of v' for k = mu; its path, ops.estimate_threshold +
+              ops.sparsify_ef, with the launch counts reset before and
+              read after; and the device ms of the exact-FMA
+              momentum_correct (the dgc --topk-backend pallas accumulate)
+  7. bitpack  the packed wire's kernels (K4 quantize_pack, K5a pack_bits,
               K5b unpack_bits) against their plain versions, bitwise, at
               the path's shapes (the topk / support PackPlan of that
               layout: 243296 pairs, 16 low bits, 7603 words per plane) and
               at edge cases (k from 1 to two tiles, widths 1 to 31, zero
               and all-ones values; NaN/Inf, all-zero blocks and .5 ties
               for K4); then the codec on the card against the CPU
-  7. train    repro_torch.launch.train's run(): llama3.2-1b at published
+  8. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
-              five runs: lgc_rar with the fused sweep and the kernel
+              eight runs: lgc_rar with the fused sweep and the kernel
               encoder, 6 steps through all three phases, on the mesh wire
               and on the packed ring (--transport ring_packed: the support
               set through K5a/K5b); dgc with the block top-k
               (--topk-backend pallas) on the mesh wire and on the packed
               ring (each node's pairs through K4, each received payload
               through K5b), and sparse_gd with the fused sweep (momentum
-              off), each 2 warm-up + 3 sparsified steps.  Each run resets
-              the launch counts before and reads them after; launch
-              counts, finite losses and per-op wire-byte rows (priced for
-              the run's own transport) are checked
-  8. timings  each kernel's ms beside its plain version's, its bound and,
+              off), each 2 warm-up + 3 sparsified steps; lgc_ps on the
+              mesh wire and on the packed ring (each node's innovations
+              through K4, each received payload through K5b) and
+              lgc_rar_q8 on the int8 ring (--transport ring_q8), each 6
+              steps as lgc_rar.  Each run resets the launch counts before
+              and reads them after; launch counts per phase, finite
+              losses and per-op wire-byte rows (priced for the run's own
+              transport) are checked
+  9. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function
 
@@ -337,6 +349,69 @@ def k3_phase(dev):
     return tot
 
 
+def k7_phase(dev):
+    """K7 against its plain version, bitwise, at the main path's flat
+    gradient; its path (estimate_threshold + sparsify_ef) with its
+    launches counted; times; and the exact-FMA momentum_correct."""
+    from repro_torch.core import sparsify as SP
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import sparsify_ef as EF
+    from repro_torch.utils import fma_f32
+    layout = llama_layout(0.001)
+    n, k, m = layout.n_total, layout.mu, 0.9
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = torch.randn(n, generator=gen, device=dev)
+    u = torch.randn(n, generator=gen, device=dev) * 0.1
+    v = torch.randn(n, generator=gen, device=dev) * 0.3
+    v_acc = v + fma_f32(m, u, g)
+    tau = ops.estimate_threshold(v_acc, k)
+    del v_acc
+    torch.cuda.synchronize()
+    reset_launches()
+    out = ops.sparsify_ef(g, u, v, tau, m)          # the kernel's path
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches.get("sparsify_ef", 0) != 1:
+        raise AssertionError(f"ops.sparsify_ef on the card: launches "
+                             f"{launches}")
+    equal, err, step = [True] * 3, 0.0, 1 << 26
+    for s in range(0, n, step):
+        sl = slice(s, s + step)
+        want = EF.sparsify_ef_plain(g[sl], u[sl], v[sl], tau, m)
+        for j, (a, b) in enumerate(zip(out, want)):
+            a = a[sl]
+            equal[j] &= bool(torch.equal(a.view(torch.int32),
+                                         b.view(torch.int32)))
+            err = max(err, float((a - b).abs().nan_to_num(0.0).max()))
+        del want
+    kept = int((out[2] != 0).sum())
+    names = ("u_out", "v_out", "sent")
+    emit("k7", n=n, k=k, tau=float(tau), kept=kept, kept_over_k=kept / k,
+         launches=launches, bitwise=dict(zip(names, equal)),
+         max_abs_err=err)
+    if not all(equal):
+        raise AssertionError(f"sparsify_ef differs from its plain version: "
+                             f"{dict(zip(names, equal))}")
+    del out
+    nbytes = 6 * 4 * n
+    timing = {"ms": cuda_ms(lambda: EF.sparsify_ef(g, u, v, tau, m), 5),
+              "plain_ms": cuda_ms(lambda: EF.sparsify_ef_plain(
+                  g, u, v, tau, m), 1),
+              "max_abs_err": err, "bytes": nbytes,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "library_ms": None, "n": n}
+    # the dgc --topk-backend pallas accumulate: u' = fma(m, u, g) exactly,
+    # v' = v + u', beside the product and the sum rounded apart
+    mc = {"momentum_correct_ms": cuda_ms(
+              lambda: SP.momentum_correct(u, v, g, m), 3),
+          "unfused_ms": cuda_ms(lambda: (lambda uu: (uu, v + uu))(
+              m * u + g), 3)}
+    emit("k7_times", **timing, **mc)
+    del g, u, v
+    torch.cuda.empty_cache()
+    return timing, launches
+
+
 def _sorted_pairs(n: int, k: int, dev, seed: int):
     """k pairs over [0, n] as the path ships them: distinct indices in
     ascending order, the last few the sentinel n, and small values."""
@@ -469,7 +544,7 @@ def train_phase(dev, name: str, flags, steps: int, *expects):
     if not all(map(lambda l: l == l and abs(l) != float("inf"), losses)):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     for expect in expects:
-        expect(launches, sum(h["phase"] != "warmup" for h in hist))
+        expect(launches, [h["phase"] for h in hist])
     for phase, rows in out["wire"].items():
         plan = XP.build_plan(comp.cc, comp.layout, comp.K,
                              transport=args.transport, phase=phase)
@@ -495,7 +570,7 @@ def train_phase(dev, name: str, flags, steps: int, *expects):
 
 
 def launched(*names):
-    def expect(launches, _sparsified):
+    def expect(launches, _phases):
         for nm in names:
             if launches.get(nm, 0) <= 0:
                 raise AssertionError(f"{nm} never launched on the path: "
@@ -503,15 +578,23 @@ def launched(*names):
     return expect
 
 
-def per_step(**per_sparsified_step):
+def per_step(compressed=None, **per_sparsified_step):
     """Each named kernel launched exactly that many times per sparsified
-    step of the run."""
-    def expect(launches, sparsified):
-        for nm, per in per_sparsified_step.items():
-            if launches.get(nm, 0) != per * sparsified:
-                raise AssertionError(f"{nm} launched {launches.get(nm, 0)} "
-                                     f"times, not {per} x {sparsified} "
-                                     f"sparsified steps: {launches}")
+    step of the run, plus ``compressed[name]`` more per compressed-phase
+    step."""
+    def expect(launches, phases):
+        sparsified = sum(p != "warmup" for p in phases)
+        n_comp = sum(p == "compressed" for p in phases)
+        extra = compressed or {}
+        for nm in set(per_sparsified_step) | set(extra):
+            want = per_sparsified_step.get(nm, 0) * sparsified \
+                + extra.get(nm, 0) * n_comp
+            if launches.get(nm, 0) != want:
+                raise AssertionError(
+                    f"{nm} launched {launches.get(nm, 0)} times, not "
+                    f"{per_sparsified_step.get(nm, 0)} x {sparsified} "
+                    f"sparsified + {extra.get(nm, 0)} x {n_comp} compressed "
+                    f"steps: {launches}")
     return expect
 
 
@@ -532,14 +615,19 @@ def main() -> None:
     k6 = k6_phase(dev)
     k2, k2_launches = k2_phase(dev)
     k3 = k3_phase(dev)
+    k7, k7_launches = k7_phase(dev)
     bp = bitpack_phase(dev)
     torch.cuda.empty_cache()
     n_leaves = len(llama_layout(0.001).compressed)
     K = 2
+    from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
     lgc = ["--compression", "lgc_rar", "--topk-backend", "fused",
            "--ae-backend", "pallas", "--ae-train-steps", "2"]
     dgc = ["--compression", "dgc", "--topk-backend", "pallas"]
     packed = ["--transport", "ring_packed"]
+    ps = ["--compression", "lgc_ps"] + lgc[2:]
+    q8 = ["--compression", "lgc_rar_q8"] + lgc[2:] + ["--transport",
+                                                      "ring_q8"]
     runs = {
         "lgc_rar": train_phase(
             dev, "lgc_rar", lgc, 6,
@@ -560,6 +648,24 @@ def main() -> None:
             dev, "sparse_gd", ["--compression", "sparse_gd",
                                "--topk-backend", "fused"], 5,
             launched("fused_ef_topk")),
+        # K1 once per node per sparsified step; the leader's common
+        # encoding alone goes through K3 (5 launches per compressed step)
+        "lgc_ps": train_phase(
+            dev, "lgc_ps", ps, 6,
+            per_step(fused_ef_topk=K,
+                     compressed={"matmul_bias_lrelu": len(ENCODER)})),
+        # + the support (K5a, K5b) every sparsified step, and each node's
+        # innovations encoded (K4) and each received payload decoded (K5b)
+        "lgc_ps ring_packed": train_phase(
+            dev, "lgc_ps ring_packed", ps + packed, 6,
+            per_step(fused_ef_topk=K, pack_bits=1, unpack_bits=1,
+                     compressed={"matmul_bias_lrelu": len(ENCODER),
+                                 "quantize_pack": K, "unpack_bits": K})),
+        # every node encodes (K3) for the int8 ring's mean
+        "lgc_rar_q8 ring_q8": train_phase(
+            dev, "lgc_rar_q8 ring_q8", q8, 6,
+            per_step(fused_ef_topk=K,
+                     compressed={"matmul_bias_lrelu": len(ENCODER) * K})),
     }
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
@@ -569,12 +675,19 @@ def main() -> None:
          ring_packed=runs["lgc_rar ring_packed"]["losses"],
          equal=runs["lgc_rar"]["losses"]
          == runs["lgc_rar ring_packed"]["losses"])
+    emit("lgc_ps_bytes", **{
+        name: {op: runs[name]["wire"]["compressed"][op]
+               for op in ("z_common", "innovations")}
+        for name in ("lgc_ps", "lgc_ps ring_packed")},
+        encoding_ring_q8=runs["lgc_rar_q8 ring_q8"]["wire"]["compressed"][
+            "encoding"],
+        encoding_mesh=runs["lgc_rar"]["wire"]["compressed"]["encoding"])
     emit("timings", card=smi, fused_ef_topk=k1, matmul_bias_lrelu=k3,
-         block_topk=k6, segmented_topk=k2, **bp)
+         block_topk=k6, segmented_topk=k2, sparsify_ef=k7, **bp)
 
     def count(name):
         return sum(r["launches"].get(name, 0) for r in runs.values()) \
-            + k2_launches.get(name, 0)
+            + k2_launches.get(name, 0) + k7_launches.get(name, 0)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = [("fused_ef_topk", "sparsify_ef.cu", "sparsify_ef.py:117", k1),
@@ -587,7 +700,8 @@ def main() -> None:
              bp["quantize_pack"]),
             ("pack_bits", "bitpack.cu", "bitpack.py:172", bp["pack_bits"]),
             ("unpack_bits", "bitpack.cu", "bitpack.py:206",
-             bp["unpack_bits"])]
+             bp["unpack_bits"]),
+            ("sparsify_ef", "sparsify_ef.cu", "sparsify_ef.py:59", k7)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -1,9 +1,9 @@
 """Config system: :class:`ModelConfig` (architecture), :class:`TrainConfig`
 (optimizer/schedule) and :class:`CompressionConfig` (the paper's
 technique), plus the arch registry.  Counterpart of
-``repro.configs.base``, cut to what the ported slice runs: dense decoder
-stacks, and the fields of the ``none``/``lgc_rar`` compressors on the
-simulated transport.
+``repro.configs.base``, cut to what the ported slices run: dense decoder
+stacks, and the fields of the six compressors on the emulated
+transports.
 """
 from __future__ import annotations
 
@@ -66,13 +66,16 @@ class ModelConfig:
 class CompressionConfig:
     """The paper's technique (fields of ``repro.configs.base`` that the
     ported methods read)."""
-    method: str = "none"             # none | sparse_gd | dgc | lgc_rar
+    method: str = "none"   # none|sparse_gd|dgc|lgc_ps|lgc_rar|lgc_rar_q8
     sparsity: float = 0.001          # alpha = 0.1% top-k
+    innovation_sparsity: float = 1e-5  # 0.001% coarse innovation (lgc_ps)
     warmup_steps: int = 200          # phase-1 raw-gradient updates
     ae_train_steps: int = 300        # phase-2 (AE online training) length
     ae_lr: float = 1e-3
+    lambda_rec: float = 1.0          # lgc_ps AE loss weights (eq. 7)
+    lambda_sim: float = 0.5
     momentum_correction: float = 0.9
-    transport: str = "mesh"          # mesh | ring | ring_packed
+    transport: str = "mesh"          # mesh | ring | ring_q8 | ring_packed
     wire_buckets: int = 1            # > 1 not ported (the bucketed ring)
     q8_scale_block: int = 0          # 0 = SCALE_BLOCK
     topk_backend: str = "jnp"        # jnp | pallas | fused

@@ -1,5 +1,11 @@
-"""The LGC gradient-compression autoencoder, RAR head (paper Section IV,
-Tables I/II); counterpart of ``repro.core.autoencoder``.
+"""The LGC gradient-compression autoencoders (paper Section IV, Tables
+I/II) with both decode heads; counterpart of ``repro.core.autoencoder``.
+
+  * RAR (aggregation):  g_rec = D_c(mean_k E_c(g_k))       (eq. 9-10)
+  * PS  (decoupling):   g_rec_k = D_c^k(g_c, g_I_k)        (eq. 4): K
+    decoders stacked on a leading axis, as the reference's
+    ``jax.vmap(one_decoder)`` stacks them, each taking its node's
+    innovation vector as an extra channel of the final 1x1 conv.
 
 Layouts are the reference's: activations (B, L, C) (NWC), conv weights
 (k, C_in, C_out) (WIO).  Two of lax's conventions need writing out in
@@ -10,14 +16,11 @@ PyTorch:
   "insert stride-1 zeros between the inputs, pad (2, 1) for k=3, s=2 or
   (1, 1) for k=3, s=1, then cross-correlate with the UNflipped kernel" —
   not ``F.conv_transpose1d`` with the same weights.
-
-The PS decoders (``lgc_decode_ps``, ``ae_loss_ps``) are not ported yet
-(ROADMAP.md Queue 1, "lgc_ps").
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,21 +44,28 @@ def _conv_init(gen, k, c_in, c_out, device):
     return w * math.sqrt(2.0 / (k * c_in))
 
 
-def init_lgc_autoencoder(gen: torch.Generator, device="cpu") -> Dict:
-    """RAR autoencoder params: {"encoder": [{"w", "b"}] * 5,
-    "decoder": [{"w", "b"}] * 6}."""
-    def layer(k, c_in, c_out):
-        return {"w": _conv_init(gen, k, c_in, c_out, device),
-                "b": torch.zeros((c_out,), device=device)}
+def init_lgc_autoencoder(gen: torch.Generator, device="cpu",
+                         num_decoders: int = 1,
+                         ps_innovation: bool = False) -> Dict:
+    """AE params: {"encoder": [{"w", "b"}] * 5, "decoder": [{"w", "b"}] *
+    6}.  ``num_decoders`` = K for the PS pattern (one decoder per node):
+    each decoder leaf then carries a leading K axis.  ``ps_innovation``
+    adds the innovation channel to each decoder's final conv."""
+    def layer(k, c_in, c_out, lead=()):
+        w = torch.stack([_conv_init(gen, k, c_in, c_out, device)
+                         for _ in range(lead[0])]) if lead \
+            else _conv_init(gen, k, c_in, c_out, device)
+        return {"w": w, "b": torch.zeros(lead + (c_out,), device=device)}
     enc, c_in = [], 1
     for c_out, k, _s in ENCODER_SPEC:
         enc.append(layer(k, c_in, c_out))
         c_in = c_out
+    lead = (num_decoders,) if num_decoders > 1 else ()
     dec, ci = [], BOTTLENECK_CH
     for c_out, k, _s in DECODER_SPEC:
-        dec.append(layer(k, ci, c_out))
+        dec.append(layer(k, ci, c_out, lead))
         ci = c_out
-    dec.append(layer(1, ci, 1))
+    dec.append(layer(1, ci + (1 if ps_innovation else 0), 1, lead))
     return {"encoder": enc, "decoder": dec}
 
 
@@ -96,10 +106,12 @@ def lgc_encode(ae_params, g: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _decode_stack(dec_params, z):
+def _decode_stack(dec_params, z, innovation=None):
     x = z
     for i, (_c, _k, s) in enumerate(DECODER_SPEC):
         x = F.leaky_relu(_deconv1d(dec_params[i], x, s), LEAKY_SLOPE)
+    if innovation is not None:                            # PS: extra channel
+        x = torch.cat([x, innovation[..., None]], dim=-1)
     return _conv1d(dec_params[-1], x, 1)[..., 0]          # (B, L)
 
 
@@ -108,12 +120,45 @@ def lgc_decode_rar(ae_params, z_avg: torch.Tensor) -> torch.Tensor:
     return _decode_stack(ae_params["decoder"], z_avg)
 
 
+def lgc_decode_ps(ae_params, z_common: torch.Tensor,
+                  innovations: torch.Tensor) -> torch.Tensor:
+    """Decoupling decoders (eq. 4): K per-node decoders (stacked on the
+    leading axis of every decoder leaf) share the common representation
+    z_common (L/16, 4); decoder k takes node k's innovation vector
+    (innovations: (K, L)).  Returns (K, L)."""
+    dec = ae_params["decoder"]
+    return torch.stack([
+        _decode_stack([{n: p[n][k] for n in p} for p in dec],
+                      z_common[None], innovations[k][None])[0]
+        for k in range(innovations.shape[0])])
+
+
 def ae_loss_rar(ae_params, g_nodes: torch.Tensor) -> torch.Tensor:
     """eq. (11), per-element mean: ||D(mean_k E(g_k)) - mean_k g_k||^2,
     the means over nodes as the reference computes them under jit."""
     z = lgc_encode(ae_params, g_nodes)                    # (K, L/16, 4)
     g_rec = lgc_decode_rar(ae_params, node_mean(z)[None])[0]
     return torch.mean((g_rec - node_mean(g_nodes)) ** 2)
+
+
+def ae_loss_ps(ae_params, g_nodes: torch.Tensor, innovations: torch.Tensor,
+               common_idx: int, lambda_rec: float = 1.0,
+               lambda_sim: float = 0.5) -> Tuple[torch.Tensor, Dict]:
+    """eq. (5)-(7): node ``common_idx``'s encoding is the common
+    representation; decoder k reconstructs node k's gradient from it and
+    node k's innovation.  The similarity term is the per-element mean of
+    ||E(g_k) - E(g_m)||^2 summed over the K x K pairs, over max(K(K-1),
+    1).  g_nodes, innovations: (K, L).  Returns (loss, {"l_rec",
+    "l_sim"})."""
+    K = g_nodes.shape[0]
+    z = lgc_encode(ae_params, g_nodes)                    # (K, L/16, 4)
+    diff = z[:, None] - z[None, :]                        # (K, K, L/16, 4)
+    l_sim = torch.sum(torch.mean(diff ** 2, dim=(2, 3))) / max(K * (K - 1),
+                                                               1)
+    g_rec = lgc_decode_ps(ae_params, z[common_idx], innovations)
+    l_rec = torch.mean((g_nodes - g_rec) ** 2)            # eq. (6)
+    loss = lambda_rec * l_rec + lambda_sim * l_sim        # eq. (7)
+    return loss, {"l_rec": l_rec, "l_sim": l_sim}
 
 
 def compressed_length(mu: int) -> int:

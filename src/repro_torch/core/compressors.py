@@ -1,11 +1,17 @@
 """Gradient compressors (paper Section V); counterpart of
-``repro.core.compressors`` for the methods ported so far:
+``repro.core.compressors``:
 
-  none       baseline, dense all-reduce of the gradient
-  sparse_gd  top-k sparsification with plain residual accumulation
-  dgc        top-k with DGC momentum correction
-  lgc_rar    LGC, ring-allreduce pattern: warm-up dense, then top-k with
-             the autoencoder trained online, then encode -> mean -> decode
+  none        baseline, dense all-reduce of the gradient
+  sparse_gd   top-k sparsification with plain residual accumulation
+  dgc         top-k with DGC momentum correction
+  lgc_ps      LGC, parameter-server pattern: warm-up dense, then top-k
+              with the K-decoder autoencoder trained online, then the
+              leader's common encoding + every node's sparse innovation,
+              decoded per node and averaged
+  lgc_rar     LGC, ring-allreduce pattern: warm-up dense, then top-k with
+              the autoencoder trained online, then encode -> mean -> decode
+  lgc_rar_q8  lgc_rar whose encoding mean is int8 (real on ``ring_q8``,
+              fake-quantized on the float wires)
 
 Each step compiles its exchanges with ``dist.plan.build_plan`` and runs
 them with ``dist.plan.execute`` against a transport, supplying the
@@ -33,9 +39,11 @@ from repro_torch.configs.base import CompressionConfig
 from repro_torch.core import autoencoder as AE
 from repro_torch.core import sparsify as SP
 from repro_torch.core.phases import PHASE_TOPK_AE, PHASE_WARMUP
+from repro_torch.dist import collectives as C
 from repro_torch.dist import plan as XP
 from repro_torch.dist.transport import make_transport
 from repro_torch.kernels import ops as K_ops
+from repro_torch.utils import fma_f32
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -48,9 +56,8 @@ class GradientCompressor:
     def __post_init__(self):
         cc = self.cc
         if cc.method not in XP.METHODS:
-            raise NotImplementedError(
-                f"method {cc.method!r} is not ported (ROADMAP.md Queue 1, "
-                "'lgc_ps and lgc_rar_q8')")
+            raise ValueError(f"unknown method {cc.method!r}; known: "
+                             f"{XP.METHODS}")
         if cc.topk_backend not in SP.SELECT_BACKENDS:
             raise ValueError(f"unknown topk_backend {cc.topk_backend!r}")
         if cc.ae_backend not in ("jnp", "pallas"):
@@ -58,7 +65,7 @@ class GradientCompressor:
         if cc.guard != "off":
             raise NotImplementedError("guard policies are ROADMAP.md "
                                       "Queue 1, 'chaos, guards and resume'")
-        make_transport(cc.transport, self.K)    # raises for an unported wire
+        self._transport()                       # raises for an unported wire
         if cc.wire_buckets != 1:
             raise NotImplementedError("bucketed exchanges (wire_buckets > "
                                       "1) are ROADMAP.md Queue 1, "
@@ -85,9 +92,16 @@ class GradientCompressor:
             "v": torch.zeros(shape, dtype=torch.float32, device=device),
         }
         if self.cc.method.startswith("lgc"):
-            out["ae"] = AE.init_lgc_autoencoder(gen, device)
+            ps = self.cc.method == "lgc_ps"
+            out["ae"] = AE.init_lgc_autoencoder(
+                gen, device, num_decoders=self.K if ps else 1,
+                ps_innovation=ps)
             out["ae_mom"] = tree_map(torch.zeros_like, out["ae"])
         return out
+
+    def _transport(self):
+        return make_transport(self.cc.transport, self.K,
+                              self.cc.q8_scale_block)
 
     # -- per-node pieces -------------------------------------------------------
 
@@ -129,20 +143,30 @@ class GradientCompressor:
 
     # -- AE online training (phase 2) ------------------------------------------
 
-    def _ae_update(self, state, g_nodes):
+    def _ae_update(self, state, g_nodes, inno_nodes, step: int):
         """One SGD step on the AE params (global-norm clip to 1, momentum
-        0.9, lr ``ae_lr``).  g_nodes: (K, mu_pad)."""
+        0.9, lr ``ae_lr``), each momentum and parameter update one FMA
+        as the reference's is under ``jit``.  g_nodes, inno_nodes: (K,
+        mu_pad); the PS loss takes node ``step % K``'s encoding as the
+        common representation."""
+        cc = self.cc
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state["ae"])]
         with torch.enable_grad():
-            ae_loss = AE.ae_loss_rar(tree_unflatten(state["ae"], leaves),
-                                     g_nodes)
+            ae = tree_unflatten(state["ae"], leaves)
+            if cc.method == "lgc_ps":
+                ae_loss, _ = AE.ae_loss_ps(ae, g_nodes, inno_nodes,
+                                           step % self.K, cc.lambda_rec,
+                                           cc.lambda_sim)
+            else:
+                ae_loss = AE.ae_loss_rar(ae, g_nodes)
             grads = torch.autograd.grad(ae_loss, leaves)
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0)
-        mom = [0.9 * m + g * scale
+        mom = [fma_f32(0.9, m, g * scale)
                for m, g in zip(tree_leaves(state["ae_mom"]), grads)]
-        ae = [p.detach() - self.cc.ae_lr * m for p, m in zip(leaves, mom)]
+        ae = [fma_f32(-cc.ae_lr, m, p.detach())
+              for p, m in zip(leaves, mom)]
         return (tree_unflatten(state["ae"], ae),
                 tree_unflatten(state["ae_mom"], mom), ae_loss.detach())
 
@@ -206,15 +230,48 @@ class GradientCompressor:
 
         feeds["support"] = lambda env: (own_idx, leader)
         new_state = dict(state)
+        is_ps = cc.method == "lgc_ps"
+        frac = SP.innovation_frac(cc.innovation_sparsity, cc.sparsity)
+
+        def inno_of(env):
+            # per-node innovation: (in-place vectors, values, local idx)
+            if "_inno" not in env:
+                x = vals_of(env)
+                sel = [SP.select_innovation(x[k], frac)
+                       for k in range(self.K)]
+                ii = torch.stack([s[1] for s in sel])
+                env["_inno"] = (torch.stack([s[0] for s in sel]),
+                                torch.gather(x, 1, ii.long()), ii)
+            return env["_inno"]
+
         if phase == PHASE_TOPK_AE:
             feeds["support_vals"] = vals_of
             feeds["gather_vals"] = vals_of
+            if is_ps:
+                feeds["gather_inno"] = lambda env: inno_of(env)[0]
             env = XP.execute(plan, t, feeds)
             sent = env["support_vals"]
-            ae, ae_mom, ae_loss = self._ae_update(state, env["gather_vals"])
+            ae, ae_mom, ae_loss = self._ae_update(
+                state, env["gather_vals"], env.get("gather_inno"), step)
             new_state.update(ae=ae, ae_mom=ae_mom)
             stats["ae_loss"] = ae_loss
+        elif is_ps:
+            # the leader ships E_c(g~) and every node its innovation; the
+            # decoders reconstruct each node and the K reconstructions are
+            # averaged (eq. 12-13).  Every node receives the same leader
+            # encoding, so only the leader's row is encoded here (the SPMD
+            # reference encodes on every node and keeps the leader's).
+            def z_common(env):
+                z = self._encode(state["ae"], vals_of(env)[leader])
+                return z[None].expand((self.K,) + tuple(z.shape)), leader
+            feeds["z_common"] = z_common
+            feeds["innovations"] = lambda env: inno_of(env)[1:]
+            env = XP.execute(plan, t, feeds)
+            recs = AE.lgc_decode_ps(state["ae"], env["z_common"],
+                                    env["innovations"])    # (K, mu_pad)
+            sent = C.node_mean(recs)
         else:
+            # lgc_rar_q8's encoding mean is the plan's q8 Reduce
             feeds["encoding"] = lambda env: torch.stack(
                 [self._encode(state["ae"], x) for x in vals_of(env)])
             env = XP.execute(plan, t, feeds)
@@ -229,7 +286,7 @@ class GradientCompressor:
         over the emulated transport ``cc.transport`` names.  Returns
         (global_g (n,), states, stats); ``stats["wire"]`` holds the step's
         bytes per node, {op label: {collective kind: bytes}}."""
-        t = make_transport(self.cc.transport, self.K)
+        t = self._transport()
         global_g, states, stats = self.step(t, states, g_nodes, step, phase)
         stats["wire"] = t.tally
         return global_g, states, stats

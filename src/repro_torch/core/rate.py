@@ -40,18 +40,29 @@ class RateReport:
 
 def rate_report(cc: CompressionConfig, layout: GradientLayout, K: int,
                 indices: Optional[np.ndarray] = None,
+                inno_indices: Optional[np.ndarray] = None,
                 count_exempt: bool = True,
                 transport: Optional[str] = None) -> RateReport:
     """Per-node payload of the method's steady phase, priced from the
     same ops the compressor executes, on ``transport`` (default
     ``cc.transport``): on ``ring_packed`` the packed exchanges and the
-    index broadcast cost their real packed bytes.  ``count_exempt=False``
-    is the paper's own accounting (exempt first layer left out)."""
+    index broadcast cost their real packed bytes, on ``ring_q8`` the q8
+    reduction its int8 bytes.  ``indices`` / ``inno_indices`` price the
+    support and the PS innovation set at their exact DEFLATE size.
+    ``count_exempt=False`` is the paper's own accounting (exempt first
+    layer left out).  ``lgc_ps`` reports the leader's payload (common
+    encoding + innovation) apart from the others' (innovation only);
+    every other method reports the average for all three."""
     plan = XP.build_plan(cc, layout, K, transport=transport)
     baseline = layout.n_total * BYTES_F32
     b_leader, b_other = XP.rate_terms(plan, indices=indices,
+                                      inno_indices=inno_indices,
                                       count_exempt=count_exempt,
                                       deflate=deflate_bytes)
     b_avg = (b_leader + (K - 1) * b_other) / K
+    if cc.method == "lgc_ps":
+        return RateReport(cc.method, b_avg, b_leader, b_other, baseline,
+                          baseline / b_avg, baseline / b_leader,
+                          baseline / b_other)
     return RateReport(cc.method, b_avg, b_avg, b_avg, baseline,
                       baseline / b_avg, baseline / b_avg, baseline / b_avg)

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops as K_ops
 from repro_torch.kernels.segmented_topk import (BLOCK as _SEG_BLOCK,
                                                 active_blocks,
                                                 magnitude_rank, next_pow2)
+from repro_torch.utils import fma_f32
 from repro_torch.utils.tree import keystr_path, tree_leaves_with_path
 
 ROLE_DENSE = "dense"            # exempt: raw dense gradient (first layer)
@@ -101,7 +102,9 @@ def build_layout(params_template, sparsity: float,
 
 
 def momentum_correct(u, v, g, m: float):
-    u_new = m * u + g
+    """u' = m*u + g as one FMA (the reference's jitted arithmetic, see
+    :func:`repro_torch.utils.fma_f32`), v' = v + u'."""
+    u_new = fma_f32(m, u, g)
     v_new = v + u_new
     return u_new, v_new
 
@@ -370,3 +373,28 @@ def gather_at(v, indices):
     n = v.shape[0]
     vals = v[indices.long().clamp(max=n - 1)]
     return torch.where(indices < n, vals, torch.zeros_like(vals))
+
+
+def innovation_frac(innovation_sparsity: float, sparsity: float) -> float:
+    """The PS innovation fraction of the top-k support."""
+    return innovation_sparsity / max(sparsity, 1e-12)
+
+
+def innovation_k(mu: int, frac: float) -> int:
+    """Innovation count for a length-``mu`` support: one rounding for the
+    compressor and the byte accounting."""
+    return max(1, int(round(mu * frac)))
+
+
+def select_innovation(values: torch.Tensor, frac: float):
+    """PS innovation: the top ``frac`` of the support values by magnitude,
+    kept in place (zeros elsewhere).  Returns (innovation vector (mu_pad,),
+    local indices (k_inv,) int32 in ``lax.top_k`` order: |value|
+    descending, lowest index first)."""
+    k_inv = innovation_k(values.shape[0], frac)
+    key = magnitude_rank(values) << 32 | torch.arange(
+        values.shape[0], device=values.device)
+    idx = torch.topk(key, k_inv, largest=False, sorted=True).indices
+    inno = torch.zeros_like(values)
+    inno[idx] = values[idx]
+    return inno, idx.to(torch.int32)

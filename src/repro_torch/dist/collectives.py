@@ -24,6 +24,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import quantize as Q
 from repro_torch.kernels.bitpack import f32_reciprocal
 
 Record = Callable[[str, float], None]
@@ -44,6 +45,21 @@ def node_mean(x: torch.Tensor) -> torch.Tensor:
     for k in range(1, x.shape[0]):
         out = out + x[k]
     return out * f32_reciprocal(x.shape[0], x.device)
+
+
+def node_mean_q8(x: torch.Tensor, scale_block: int = Q.SCALE_BLOCK
+                 ) -> torch.Tensor:
+    """:func:`node_mean` of each node's int8 round trip (its values
+    quantized and dequantized in its own scale blocks), as the reference's
+    ``fake_quantize`` + ``mean`` compiles under ``jit``: XLA fuses each
+    node's dequantize into the sum, so node k >= 1 is added as one FMA of
+    its int8 values and scales."""
+    n = x[0].numel()
+    wire = [Q.quantize_i8(x[k], scale_block) for k in range(x.shape[0])]
+    out = Q.dequantize_i8(*wire[0], n)
+    for q, s in wire[1:]:
+        out = Q.dequantize_add_i8(q, s, n, out)
+    return (out * f32_reciprocal(x.shape[0], x.device)).reshape(x.shape[1:])
 
 
 def _to_chunks(x: torch.Tensor):
@@ -86,6 +102,45 @@ def ring_allreduce(x: torch.Tensor, record: Record, op: str = "add"
     if op == "mean":
         out.mul_(f32_reciprocal(K, out.device))     # out is a fresh tensor
     return out
+
+
+def ring_allreduce_q8(x: torch.Tensor, record: Record, op: str = "add",
+                      scale_block: int = Q.SCALE_BLOCK) -> torch.Tensor:
+    """The int8 ring allreduce of per-node ``x`` (K, ...) -> the global
+    (...) result, whose hops carry int8 values + one f32 scale per
+    ``scale_block`` values.  Reduce-scatter as :func:`ring_allreduce`,
+    but each node quantizes its partial chunk before the hop and the
+    receiver dequantizes it into its own chunk (i - t - 1) mod K, product
+    and sum one FMA as XLA compiles the reference's; the finished chunk
+    is quantized once and that payload circulates unchanged, so every
+    node decodes the same value.  Scale blocks are per chunk.  Records
+    2(K-1)·wire_nbytes(c) per node as ``ring_allreduce_q8``; ``op="mean"``
+    multiplies by f32(1/K), as the reference's division by K does under
+    ``jit``.  At K = 1 nothing moves, and the value still makes one
+    quantize -> dequantize round trip."""
+    assert op in ("add", "mean"), op
+    K = x.shape[0]
+    if K == 1:
+        return Q.fake_quantize(x[0], scale_block)
+    chunks, n = _to_chunks(x.to(torch.float32))
+    c = chunks.shape[2]
+    record("ring_allreduce_q8", 2 * (K - 1) * Q.wire_nbytes(c, scale_block))
+    send = [chunks[i, i] for i in range(K)]
+    for t in range(K - 1):
+        wire = [Q.quantize_i8(s, scale_block) for s in send]
+        # node i receives node i - 1's payload (a roll of the node axis)
+        send = [Q.dequantize_add_i8(*wire[(i - 1) % K], c,
+                                    chunks[i, (i - t - 1) % K])
+                for i in range(K)]
+    # node i holds the finished chunk (i + 1) mod K, quantized once
+    out = torch.empty((K, c), dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out[(i + 1) % K] = Q.dequantize_i8(*Q.quantize_i8(send[i],
+                                                          scale_block), c)
+    res = out.reshape(-1)[:n].reshape(x.shape[1:])
+    if op == "mean":
+        res.mul_(f32_reciprocal(K, res.device))
+    return res
 
 
 def ring_broadcast(x: torch.Tensor, leader: int, record: Record

@@ -1,7 +1,7 @@
-"""The exchange-plan IR (counterpart of ``repro.dist.plan``), for the
-ported methods ``none``, ``sparse_gd``, ``dgc`` and ``lgc_rar`` on the
-``mesh``, ``ring`` and ``ring_packed`` transports (one dp axis, one
-bucket).
+"""The exchange-plan IR (counterpart of ``repro.dist.plan``), for the six
+methods (``none``, ``sparse_gd``, ``dgc``, ``lgc_ps``, ``lgc_rar``,
+``lgc_rar_q8``) on the ``mesh``, ``ring``, ``ring_q8`` and
+``ring_packed`` transports (one dp axis, one bucket).
 
 :func:`build_plan` compiles (config, layout, K, phase) into an ordered
 tuple of typed exchange ops; :func:`execute` runs them against a transport
@@ -11,9 +11,13 @@ op objects.  The sparse methods' exchanges are
 :class:`PackedSparseExchange` ops and the lgc support an
 :class:`IndexBroadcast`, each carrying its ``PackPlan``, as in the
 reference: on ``ring_packed`` they move the packed payload, elsewhere the
-exact f32 + int32 pairs (or the raw int32 index set).  The int8 and
-hierarchical rings, the PS ops and the guard policies are not ported yet
-(ROADMAP.md Queue 1).
+exact f32 + int32 pairs (or the raw int32 index set).  ``lgc_ps`` adds
+the PS ops (the innovations' all-gather while the AE trains, then the
+leader's common encoding as a :class:`LeaderBroadcast` and the
+innovations as a packed ``mode="gather"`` exchange); ``lgc_rar_q8``'s
+encoding is a :class:`Reduce` with ``wire="q8"``, int8 on ``ring_q8``
+and f32 elsewhere.  The hierarchical ring, the bucketed schedule and the
+guard policies are not ported yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -26,14 +30,15 @@ from repro_torch.configs.base import CompressionConfig
 from repro_torch.core import autoencoder as AE
 from repro_torch.core.phases import (PHASE_COMPRESSED, PHASE_TOPK_AE,
                                      PHASE_WARMUP)
-from repro_torch.core.sparsify import GradientLayout
+from repro_torch.core.sparsify import (GradientLayout, innovation_frac,
+                                       innovation_k)
 from repro_torch.dist import packed as PK
 from repro_torch.dist import quantize as Q
 
 BYTES_F32 = 4
 BYTES_I32 = 4
 
-METHODS = ("none", "sparse_gd", "dgc", "lgc_rar")
+METHODS = ("none", "sparse_gd", "dgc", "lgc_ps", "lgc_rar", "lgc_rar_q8")
 
 
 @dataclass(frozen=True)
@@ -51,8 +56,10 @@ class DenseReduce(Op):
 
 @dataclass(frozen=True)
 class Reduce(Op):
-    """f32 allreduce (mean) of ``n_vals`` values."""
+    """Allreduce (mean) of ``n_vals`` values; ``wire="q8"`` ships int8 +
+    per-block f32 scales on ``ring_q8`` and f32 on every float wire."""
     n_vals: int
+    wire: str = "f32"              # "f32" | "q8"
 
 
 @dataclass(frozen=True)
@@ -95,6 +102,13 @@ class IndexBroadcast(Op):
 
 
 @dataclass(frozen=True)
+class LeaderBroadcast(Op):
+    """The leader's ``n_vals`` f32 values to all nodes (the PS common
+    encoding): wire cost (K-1)/K·nbytes, rate cost on the leader only."""
+    n_vals: int
+
+
+@dataclass(frozen=True)
 class Plan:
     method: str
     phase: str
@@ -122,9 +136,7 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
                phase: Optional[str] = None) -> Plan:
     method = cc.method
     if method not in METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported (ROADMAP.md Queue 1, "
-            "'lgc_ps and lgc_rar_q8')")
+        raise ValueError(f"unknown method {method!r}; known: {METHODS}")
     tkind = transport if transport is not None else (cc.transport or "mesh")
     phase = phase if phase is not None else steady_phase(method)
     sb = cc.q8_scale_block or Q.SCALE_BLOCK
@@ -138,11 +150,11 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
         return _plan([DenseReduce("grad", n_vals=n)])
     packed = method in PK.PACKED_METHODS
 
-    def sparse(label, n_vec, k, k_rate):
+    def sparse(label, n_vec, k, k_rate, mode="mean"):
         if packed:
             return PackedSparseExchange(
                 label, n_vec=n_vec, k=k, k_rate=k_rate,
-                pack=PK.make_plan(n_vec, k, sb) if k else None)
+                pack=PK.make_plan(n_vec, k, sb) if k else None, mode=mode)
         return SparseExchange(label, n_vec=n_vec, k=k, k_rate=k_rate)
 
     mp = layout.mu_pad
@@ -155,15 +167,26 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
         return _plan(ops)
     ops.append(IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu,
                               pack=PK.make_plan(n, mp, sb)))
+    zl = AE.compressed_length(mp)
     if phase == PHASE_TOPK_AE:
         ops.append(Reduce("support_vals", n_vals=mp))
         ops.append(AllGather("gather_vals", n_vals=mp))
+        if method == "lgc_ps":
+            ops.append(AllGather("gather_inno", n_vals=mp))
+    elif method == "lgc_ps":
+        k_inv = innovation_k(mp, innovation_frac(cc.innovation_sparsity,
+                                                 cc.sparsity))
+        ops.append(LeaderBroadcast("z_common", n_vals=zl))
+        ops.append(sparse("innovations", mp, k_inv, k_inv, mode="gather"))
     else:
-        ops.append(Reduce("encoding", n_vals=AE.compressed_length(mp)))
+        ops.append(Reduce("encoding", n_vals=zl,
+                          wire="q8" if method == "lgc_rar_q8" else "f32"))
     return _plan(ops)
 
 
 def _run_op(op: Op, t, args: tuple):
+    if isinstance(op, Reduce) and op.wire == "q8":
+        return t.mean_q8(*args)
     if isinstance(op, (DenseReduce, Reduce)):
         return t.mean(*args)
     if isinstance(op, AllGather):
@@ -179,6 +202,9 @@ def _run_op(op: Op, t, args: tuple):
     if isinstance(op, IndexBroadcast):
         idx, leader = args
         return t.broadcast_packed(idx, leader, op.n_vec, plan=op.pack)
+    if isinstance(op, LeaderBroadcast):
+        x, leader = args
+        return t.from_leader(x, leader)
     raise TypeError(op)
 
 
@@ -204,23 +230,24 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
     return env
 
 
-WIRE_TRANSPORTS = ("mesh", "ring", "ring_packed")
+WIRE_TRANSPORTS = ("mesh", "ring", "ring_q8", "ring_packed")
 
 
-def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
+def op_wire_terms(op: Op, tkind: str, K: int, sb: int = Q.SCALE_BLOCK
+                  ) -> Dict[str, Dict[str, float]]:
     """{op label: {collective kind: bytes}} one op moves per node, as the
     reference's ``bucket_plan`` prices one dp axis and one bucket.
     ``mesh`` is the lax collectives (all_reduce 2(K-1)/K of the buffer,
     all_gather (K-1) buffers, broadcast (K-1)/K); ``ring`` reduces through
-    the chunked ring (2(K-1) chunks of ceil(n/K) values); ``ring_packed``
-    adds the packed payloads of the packed exchanges and the index
-    broadcast.  Everywhere else a packed exchange moves its exact
-    pairs."""
+    the chunked ring (2(K-1) chunks of ceil(n/K) values); ``ring_q8``
+    moves a q8 reduction's chunks as int8 + scales (``sb`` values per
+    scale); ``ring_packed`` adds the packed payloads of the packed
+    exchanges and the index broadcast.  Everywhere else a packed exchange
+    moves its exact pairs."""
     if tkind not in WIRE_TRANSPORTS:
         raise NotImplementedError(
             f"pricing for transport {tkind!r} is not ported (ROADMAP.md "
-            "Queue 1, 'lgc_ps and lgc_rar_q8', 'multi-process NCCL "
-            "transports')")
+            "Queue 1, 'multi-process NCCL transports')")
     out: Dict[str, Dict[str, float]] = {}
 
     def add(kind: str, b: float) -> None:
@@ -229,7 +256,11 @@ def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
             row[kind] = row.get(kind, 0.0) + float(b)
 
     packed = tkind == "ring_packed"
-    if isinstance(op, (DenseReduce, Reduce)):
+    if isinstance(op, Reduce) and op.wire == "q8" and tkind == "ring_q8":
+        if K > 1:
+            add("ring_allreduce_q8",
+                2 * (K - 1) * Q.wire_nbytes(-(-op.n_vals // K), sb))
+    elif isinstance(op, (DenseReduce, Reduce)):
         if op.n_vals > 0:
             if tkind == "mesh":
                 add("all_reduce", 2 * (K - 1) / K * op.n_vals * BYTES_F32)
@@ -249,6 +280,8 @@ def op_wire_terms(op: Op, tkind: str, K: int) -> Dict[str, Dict[str, float]]:
             add("broadcast_packed", (K - 1) / K * PK.index_nbytes(op.pack))
         else:
             add("broadcast", (K - 1) / K * op.k * BYTES_I32)
+    elif isinstance(op, LeaderBroadcast):
+        add("broadcast", (K - 1) / K * op.n_vals * BYTES_F32)
     else:
         raise TypeError(op)
     return out
@@ -261,7 +294,7 @@ def wire_terms_by_op(plan: Plan, transport: Optional[str] = None,
     tkind = transport if transport is not None else plan.transport
     out: Dict[str, Dict[str, float]] = {}
     for op in plan.ops:
-        out.update(op_wire_terms(op, tkind, plan.K))
+        out.update(op_wire_terms(op, tkind, plan.K, plan.scale_block))
     return out
 
 
@@ -274,15 +307,19 @@ def wire_terms(plan: Plan, transport: Optional[str] = None
     return out
 
 
-def _op_rate_bytes(op: Op, tkind: str, idx: Optional[np.ndarray],
+def _op_rate_bytes(op: Op, tkind: str, sb: int, idx: Optional[np.ndarray],
                    count_exempt: bool, deflate) -> Tuple[float, float]:
     """(leader_bytes, other_bytes) one op adds to a node's payload.  On
     ``ring_packed`` the packed exchanges and the index broadcast cost
     their real packed bytes, from the op's own PackPlan; elsewhere the
-    index set is priced at its DEFLATE size."""
+    index set is priced at its DEFLATE size.  A q8 reduction costs its
+    int8 bytes on ``ring_q8``; a broadcast is paid by the leader alone."""
     if isinstance(op, DenseReduce):
         b = 0.0 if (op.exempt and not count_exempt) \
             else op.n_vals * BYTES_F32
+        return b, b
+    if isinstance(op, Reduce) and op.wire == "q8" and tkind == "ring_q8":
+        b = float(Q.wire_nbytes(op.n_vals, sb))
         return b, b
     if isinstance(op, (Reduce, AllGather)):
         b = op.n_vals * BYTES_F32
@@ -299,22 +336,29 @@ def _op_rate_bytes(op: Op, tkind: str, idx: Optional[np.ndarray],
         if tkind == "ring_packed":
             return float(PK.index_nbytes(op.pack)), 0.0
         return float(deflate(idx, op.k_rate, op.n_vec)), 0.0
+    if isinstance(op, LeaderBroadcast):
+        return op.n_vals * BYTES_F32, 0.0
     raise TypeError(op)
 
 
 def rate_terms(plan: Plan, *, indices: Optional[np.ndarray] = None,
+               inno_indices: Optional[np.ndarray] = None,
                count_exempt: bool = True, transport: Optional[str] = None,
                deflate=None) -> Tuple[float, float]:
     """(leader_bytes, other_bytes) per iteration: the paper-style rate of
     the plan's ops (leader-only terms are amortized by the caller),
-    priced for ``transport`` (default: the plan's)."""
+    priced for ``transport`` (default: the plan's).  ``indices`` prices
+    the top-k/support index set at its exact DEFLATE size on the float
+    wires, ``inno_indices`` the PS innovation set."""
     if deflate is None:
         from repro_torch.core.rate import deflate_bytes as deflate
     tkind = transport if transport is not None else plan.transport
     leader = other = 0.0
+    idx_of = {"topk": indices, "support": indices,
+              "innovations": inno_indices}
     for op in plan.ops:
-        idx = indices if op.label in ("topk", "support") else None
-        lb, ob = _op_rate_bytes(op, tkind, idx, count_exempt, deflate)
+        lb, ob = _op_rate_bytes(op, tkind, plan.scale_block,
+                                idx_of.get(op.label), count_exempt, deflate)
         leader += lb
         other += ob
     return leader, other

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import bitpack as BP
+from repro_torch.utils import fma_f32
 
 SCALE_BLOCK = 256     # values per f32 scale: 4/256 = 1.6% byte overhead
 _EPS = 1e-12          # all-zero blocks quantize to 0 without dividing by 0
@@ -44,6 +45,16 @@ def dequantize_i8(q: torch.Tensor, scales: torch.Tensor, n: int,
     """Inverse of :func:`quantize_i8`: drop the padding, restore shape."""
     flat = (q.to(torch.float32) * scales[:, None]).reshape(-1)[:n]
     return flat.reshape(shape) if shape is not None else flat
+
+
+def dequantize_add_i8(q: torch.Tensor, scales: torch.Tensor, n: int,
+                      acc: torch.Tensor) -> torch.Tensor:
+    """``dequantize_i8(q, scales, n) + acc`` (acc flat (n,)) with each
+    product and its sum rounded once: under ``jit`` XLA fuses the
+    reference's dequantize into the add that consumes it and contracts
+    the pair into one FMA."""
+    scale_of = scales[:, None].expand(q.shape).reshape(-1)[:n]
+    return fma_f32(scale_of, q.to(torch.float32).reshape(-1)[:n], acc)
 
 
 def fake_quantize(x: torch.Tensor, scale_block: int = SCALE_BLOCK):

@@ -15,10 +15,17 @@ the trainer's per-op byte rows can be held against
                        (``dist.collectives``): reductions through
                        ``ring_allreduce``, the leader exchange through
                        ``ring_broadcast``
+  RingQ8Transport      the ring whose q8 reduction (``lgc_rar_q8``'s
+                       encoding) ships int8 values + per-block f32 scales
+                       through ``ring_allreduce_q8``
   RingPackedTransport  the ring whose packed sparse exchanges ship the
                        real packed payload (``dist.packed``: bit-packed
                        indices, int8 values, f32 scales) and whose leader
                        index set rides the packed index wire
+
+On the float wires ``mean_q8`` fake-quantizes each node's values (the
+quantize -> dequantize round trip of ``dist.quantize``) and reduces them
+in f32, moving f32 bytes, as the reference does.
 
 Every mean over nodes is :func:`collectives.node_mean`, the reference's
 order of additions under ``jit``.  Real multi-process transports (NCCL)
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch.dist import collectives as C
 from repro_torch.dist import packed as PK
+from repro_torch.dist import quantize as Q
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -52,6 +60,7 @@ def _scatter_rows(rows, n: int, dtype, device) -> torch.Tensor:
 @dataclass
 class SimTransport:
     K: int
+    scale_block: int = Q.SCALE_BLOCK       # values per int8-wire scale
     # {op label: {collective kind: bytes per node}} recorded since creation
     tally: Dict[str, Dict[str, float]] = field(default_factory=dict)
     _label: Optional[str] = None
@@ -74,6 +83,12 @@ class SimTransport:
     def mean(self, x):
         self._record("all_reduce", 2 * (self.K - 1) / self.K * _nbytes(x[0]))
         return C.node_mean(x)
+
+    def mean_q8(self, x):
+        """The fake int8 mean: each node's values through the int8 round
+        trip, then the node mean, on the f32 all_reduce wire."""
+        self._record("all_reduce", 2 * (self.K - 1) / self.K * _nbytes(x[0]))
+        return C.node_mean_q8(x, self.scale_block)
 
     def all_gather(self, x):
         self._record("all_gather", (self.K - 1) * _nbytes(x[0]))
@@ -130,6 +145,24 @@ class RingTransport(SimTransport):
     def from_leader(self, x, leader: int):
         return C.ring_broadcast(x, leader, self._record)
 
+    def mean_q8(self, x):
+        """Each node's values through the int8 round trip, then the f32
+        ring mean (f32 bytes on the wire)."""
+        return self.mean(torch.stack([Q.fake_quantize(x[k], self.scale_block)
+                                      for k in range(self.K)]))
+
+
+class RingQ8Transport(RingTransport):
+    """The ring whose ``mean_q8`` rides the real int8 wire
+    (:func:`collectives.ring_allreduce_q8`); every other exchange is
+    :class:`RingTransport`'s f32 traffic."""
+
+    kind = "ring_q8"
+
+    def mean_q8(self, x):
+        return C.ring_allreduce_q8(x, self._record, op="mean",
+                                   scale_block=self.scale_block)
+
 
 class RingPackedTransport(RingTransport):
     """The ring whose packed sparse exchanges ship the real packed
@@ -168,18 +201,16 @@ class RingPackedTransport(RingTransport):
 
 
 TRANSPORTS = {"mesh": SimTransport, "ring": RingTransport,
-              "ring_packed": RingPackedTransport}
+              "ring_q8": RingQ8Transport, "ring_packed": RingPackedTransport}
 
 
-def make_transport(kind: str, K: int):
+def make_transport(kind: str, K: int, scale_block: int = 0):
     """The emulated transport for ``CompressionConfig.transport``:
     ``mesh`` is :class:`SimTransport`, whose tally the mesh pricer
-    predicts."""
+    predicts.  ``scale_block`` (0 = ``quantize.SCALE_BLOCK``) is the int8
+    wires' scale granularity."""
     if kind in TRANSPORTS:
-        return TRANSPORTS[kind](K)
-    if kind == "ring_q8":
-        raise NotImplementedError("transport 'ring_q8' is ROADMAP.md Queue "
-                                  "1, 'lgc_ps and lgc_rar_q8'")
+        return TRANSPORTS[kind](K, scale_block or Q.SCALE_BLOCK)
     if kind == "ring_hier":
         raise NotImplementedError("transport 'ring_hier' is ROADMAP.md "
                                   "Queue 1, 'multi-process NCCL "

@@ -1,9 +1,11 @@
-"""Wrappers around the kernels: exact global top-k through the block
-top-k kernel, the segmented and fused sweep entry points, and the LGC
-encoder lowered onto the fused matmul (im2col + matmul_bias_lrelu).
+"""Wrappers around the kernels: the threshold EF pass and its sampled
+threshold, exact global top-k through the block top-k kernel, the
+segmented and fused sweep entry points, and the LGC encoder lowered onto
+the fused matmul (im2col + matmul_bias_lrelu).
 
-Counterpart of ``repro.kernels.ops`` (``global_topk``, ``segmented_topk``,
-``fused_ef_topk``, ``_im2col_1d``, ``conv1d_lrelu``, ``lgc_encode_fast``).
+Counterpart of ``repro.kernels.ops`` (``estimate_threshold``,
+``sparsify_ef``, ``global_topk``, ``segmented_topk``, ``fused_ef_topk``,
+``_im2col_1d``, ``conv1d_lrelu``, ``lgc_encode_fast``).
 """
 from __future__ import annotations
 
@@ -15,9 +17,25 @@ from repro_torch.kernels import segmented_topk as _st
 from repro_torch.kernels import sparsify_ef as _ef
 from repro_torch.kernels.block_topk import block_topk
 from repro_torch.kernels.matmul_lrelu import matmul_bias_lrelu
+# the threshold EF pass (K7) over flat vectors of any length: the
+# reference pads to whole 64Ki tiles and slices back to n, the kernel
+# covers any n
+from repro_torch.kernels.sparsify_ef import sparsify_ef  # noqa: F401
 
 EXTRACT = ("loop", "bitonic")
 _MASKED = torch.iinfo(torch.int64).max
+
+
+def estimate_threshold(v: torch.Tensor, k: int,
+                       sample_stride: int = 32) -> torch.Tensor:
+    """DGC's sampled threshold: the k_s-th largest |v| over every
+    ``sample_stride``-th element, k_s = max(1, min(len, ceil(k /
+    stride))).  A 0-dim tensor on v's device; a value, so the order of
+    ties cannot change it."""
+    sample = v[::sample_stride].abs()
+    k_s = max(1, min(sample.shape[0], -(-k // sample_stride)))
+    return torch.topk(sample, k_s, sorted=True).values[-1]
+
 
 
 def global_topk(x: torch.Tensor, k: int, block: int = 64 * 128):

@@ -6,14 +6,18 @@
         --warmup-steps 2 --ae-train-steps 2 [--device cpu]
 
 Runs the three-phase LGC schedule (warm-up -> top-k + online AE ->
-compressed; sparse_gd and dgc: warm-up -> top-k) with the K data-parallel
-nodes emulated on one device over the ``--transport`` wire (``mesh``,
-``ring`` or ``ring_packed``), and
-logs what the reference trainer logs: the per-phase loss, the rate report,
-and per phase the wire bytes each node moves, per exchange op.  Runs on
-the card unless ``--device cpu``; with no card it raises.  Flags follow
-``repro.launch.train``; the values not ported yet raise
-NotImplementedError naming their ROADMAP.md item.
+compressed; sparse_gd and dgc: warm-up -> top-k) for every method of the
+reference (``--compression none|sparse_gd|dgc|lgc_ps|lgc_rar|
+lgc_rar_q8``) with the K data-parallel nodes emulated on one device over
+the ``--transport`` wire (``mesh``, ``ring``, ``ring_q8`` or
+``ring_packed``), and logs what the reference trainer logs: the
+per-phase loss, the rate report, and per phase the wire bytes each node
+moves, per exchange op.  Runs on the card unless ``--device cpu``; with
+no card it raises.  Flags follow ``repro.launch.train``; the values not
+ported yet raise NotImplementedError naming their ROADMAP.md item:
+``--transport ring_hier``, ``--wire-buckets`` > 1 (multi-process NCCL
+transports), ``--transport chaos:<base>`` and ``--guard`` other than
+``off`` (chaos, guards and resume).
 """
 from __future__ import annotations
 
@@ -50,15 +54,19 @@ def parse_args(argv=None):
                    choices=["none", "sparse_gd", "dgc", "lgc_ps", "lgc_rar",
                             "lgc_rar_q8"])
     p.add_argument("--sparsity", type=float, default=0.001)
+    transports = ["mesh", "ring", "ring_q8", "ring_hier", "ring_packed"]
     p.add_argument("--transport", default="mesh",
-                   choices=["mesh", "ring", "ring_q8", "ring_hier",
-                            "ring_packed"],
+                   choices=transports + ["chaos:" + t for t in transports],
                    help="the emulated wire between the nodes (all run on "
                         "one device): mesh = the lax collectives, ring = "
-                        "the chunked ring, ring_packed = the ring with the "
-                        "packed sparse payloads")
+                        "the chunked ring, ring_q8 = the ring with an int8 "
+                        "q8 reduction (lgc_rar_q8's encoding), ring_packed "
+                        "= the ring with the packed sparse payloads")
     p.add_argument("--wire-buckets", type=int, default=1,
                    help="buckets per exchange (> 1 is not ported)")
+    p.add_argument("--guard", default="off",
+                   choices=["off", "scrub", "skip_round", "fail_fast"],
+                   help="exchange guard policy (only off is ported)")
     p.add_argument("--topk-backend", default="jnp",
                    choices=["jnp", "pallas", "fused"],
                    help="residual top-k selection (pallas = the block "
@@ -94,10 +102,6 @@ def run(cfg: ModelConfig, args,
     ``on_step(step)`` runs after each step has finished on the device
     (a profiler's step marker)."""
     device = resolve_device(args.device)
-    if args.compression in ("lgc_ps", "lgc_rar_q8"):
-        raise NotImplementedError(
-            f"compression {args.compression!r} is ROADMAP.md Queue 1, "
-            "'lgc_ps and lgc_rar_q8'")
     # the reference is f32 where it says f32; on the card f32 matmuls and
     # cuDNN convolutions would otherwise be allowed TF32 (cuDNN's default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,6 +111,7 @@ def run(cfg: ModelConfig, args,
                            ae_train_steps=args.ae_train_steps,
                            transport=args.transport,
                            wire_buckets=args.wire_buckets,
+                           guard=args.guard,
                            topk_backend=args.topk_backend,
                            ae_backend=args.ae_backend,
                            extract_backend=args.extract_backend)

@@ -294,3 +294,67 @@ def test_packed_codec_on_the_card_equals_the_cpu(card):
     ienc = PK.encode_indices(torch.from_numpy(idx).to(card), plan)
     assert torch.equal(PK.decode_indices(ienc, plan).cpu(),
                        torch.from_numpy(idx))
+
+
+def _ef_inputs(n, seed, dev):
+    r = np.random.default_rng(seed)
+    out = []
+    for i, s in enumerate((1.0, 0.1, 0.3)):
+        x = (r.standard_normal(n) * s).astype(np.float32)
+        x[i::1013] = np.nan
+        x[i + 3::1019] = np.inf
+        x[i + 5::1021] = -np.inf
+        x[i + 7::97] = 0.0
+        x[i + 9::89] = -0.0
+        out.append(torch.from_numpy(x).to(dev))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 3, 4096 + 517, 2 * 65536 + 999])
+@pytest.mark.parametrize("tau", [0.0, 0.5, 10.0])
+@pytest.mark.parametrize("m", [0.0, 0.9])
+def test_sparsify_ef_kernel_is_bitwise_its_plain_version(card, n, tau, m):
+    """K7 against its plain version on the same card tensors (float4 path
+    and scalar tail), and against the plain version on the CPU; tau as a
+    number and as a tensor on the card; offset views take the scalar
+    path.  Bitwise, NaN payloads aside: a NaN is NaN in the same places
+    (the card's FMA returns its canonical NaN, 0x7fffffff)."""
+    g, u, v = _ef_inputs(n + 1, n, card)
+    for off in (0, 1):
+        gg, uu, vv = (x[off:off + n] for x in (g, u, v))
+        want = EF.sparsify_ef_plain(gg, uu, vv, tau, m)
+        cpu = EF.sparsify_ef_plain(gg.cpu(), uu.cpu(), vv.cpu(), tau, m)
+        for t in (tau, torch.tensor(tau, device=card)):
+            got = EF.sparsify_ef(gg, uu, vv, t, m)
+            for a, b, c in zip(got, want, cpu):
+                for x, y in ((a, b), (a.cpu(), c)):
+                    nan = x.isnan()
+                    assert torch.equal(nan, y.isnan())
+                    assert torch.equal(x[~nan].view(torch.int32),
+                                       y[~nan].view(torch.int32))
+
+
+def test_ops_sparsify_ef_counts_its_launch(card):
+    g, u, v = _ef_inputs(5000, 0, card)
+    before = LAUNCHES["sparsify_ef"]
+    tau = ops.estimate_threshold(v, 100)
+    assert tau.device == g.device
+    ops.sparsify_ef(g, u, v, tau, 0.9)
+    assert LAUNCHES["sparsify_ef"] == before + 1
+
+
+def test_fused_ef_topk_momentum_is_one_fma(card):
+    """K1's u' = m*u + g is one FMA: equal to fma_f32 on the CPU and, on
+    this data, not to the product and the sum rounded apart."""
+    from repro_torch.utils import fma_f32
+    layout = _layout("odd")
+    _, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, ROLES, "loop")
+    n = layout.n_total
+    g, u, v = (_vec("normal", n, 5 + i, card) for i in range(3))
+    seg_t, kcap_t = (torch.from_numpy(a).to(card) for a in (seg, kcap))
+    out = EF.sparsify_ef_topk(g, u, v, seg_t, kcap_t, 0.9, True, n_cand,
+                              block)
+    want = fma_f32(0.9, u.cpu(), g.cpu())
+    assert torch.equal(out[0].cpu().view(torch.int32),
+                       want.view(torch.int32))
+    assert not torch.equal(want, 0.9 * u.cpu() + g.cpu())

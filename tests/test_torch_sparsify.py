@@ -1,9 +1,10 @@
 """The port's sparsification against the JAX reference: the fused
-accumulate + select (plain version on the CPU) with indices bitwise —
-ties, all-zero leaves, mu_pad sentinels, unaligned leaf boundaries — and
-u', v', values within the reference's own 1-ulp FMA slack (atol 1e-6);
-the plain sweep kernel's candidate triples against the Pallas kernel in
-interpret mode; and the scatter/gather/clear helpers."""
+accumulate + select (plain version on the CPU) bitwise — indices (ties,
+all-zero leaves, mu_pad sentinels, unaligned leaf boundaries), u', v'
+and values, the EF momentum being one FMA on both sides; the plain sweep
+kernel's candidate triples against the Pallas kernel in interpret mode;
+the jitted momentum correction; and the scatter/gather/clear helpers."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,7 +74,7 @@ def test_fused_accumulate_select_matches_reference(kind, seed, m,
     np.testing.assert_array_equal(idx, ridx)           # bitwise, ties too
     np.testing.assert_array_equal(lidx, rlidx)
     for a, b in ((u2, ru2), (v2, rv2), (vals, rvals), (lvals, rlvals)):
-        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
     pad = idx >= N
     assert pad.sum() == LAYOUT.mu_pad - LAYOUT.mu > 0
     assert (vals[pad] == 0).all() and (idx[pad] == N).all()
@@ -95,9 +96,9 @@ def test_select_topk_matches_reference(backend, kind):
 @pytest.mark.parametrize("kind", ["normal", "ties"])
 def test_plain_sweep_triples_match_pallas_kernel(extract, kind):
     """The plain version of the CUDA sweep kernel against the reference's
-    Pallas kernel (ops.fused_ef_topk, interpret mode): candidate indices
-    and slots identical; values, u' and v' within the reference's 1-ulp
-    FMA slack (XLA may contract m*u + g; the port never does)."""
+    Pallas kernel (ops.fused_ef_topk, interpret mode), bitwise: candidate
+    indices, slots and values, u' and v' (m*u + g one FMA on both
+    sides)."""
     ex, block, seg, kcap, n_cand, _ = SP._fused_meta(LAYOUT, ROLES, extract)
     g, u, v = (_vec(kind, 20 + i) for i in range(3))
     ours = EF.sparsify_ef_topk_plain(_t(g), _t(u), _t(v), _t(seg),
@@ -105,11 +106,11 @@ def test_plain_sweep_triples_match_pallas_kernel(extract, kind):
     ref = ROPS.fused_ef_topk(jnp.asarray(g), jnp.asarray(u), jnp.asarray(v),
                              jnp.asarray(seg), jnp.asarray(kcap), 0.9, True,
                              n_cand, block=block, extract=ex)
-    for a, b in zip(ours[3:], ref[3:]):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    for a, b in zip(ours[:3], ref[:3]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
-                                   rtol=0)
+    for a, b in zip(ours, ref):
+        a, b = a.numpy(), np.asarray(b).reshape(-1)
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b)
 
 
 def test_clear_sent_merged_drops_sentinel():
@@ -148,13 +149,15 @@ def test_scatter_gather_dense_segments_match_reference():
 
 
 def test_momentum_correct_matches_reference():
+    """Bitwise against the reference as it runs, under jit, where XLA
+    contracts m*u + g into one FMA (the eager reference does not)."""
     r = np.random.default_rng(5)
     u, v, g = (r.standard_normal(N).astype(np.float32) for _ in range(3))
-    for a, b in zip(SP.momentum_correct(_t(u), _t(v), _t(g), 0.9),
-                    RSP.momentum_correct(jnp.asarray(u), jnp.asarray(v),
-                                         jnp.asarray(g), 0.9)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
-                                   rtol=0)
+    ref = jax.jit(RSP.momentum_correct, static_argnums=3)(
+        jnp.asarray(u), jnp.asarray(v), jnp.asarray(g), 0.9)
+    for a, b in zip(SP.momentum_correct(_t(u), _t(v), _t(g), 0.9), ref):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      np.asarray(b).view(np.int32))
 
 
 def test_cuda_tensor_launches_or_raises():

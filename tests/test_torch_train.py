@@ -50,10 +50,10 @@ def _close(a, b, rel, what):
                                err_msg=what)
 
 
-def _trajectory(method, backend):
+def _trajectory(method, backend, ae_rel=1e-12):
     """6 steps of the reference loop (jnp backends) beside the port's
-    pieces with ``backend`` (and the kernel encoder for lgc); returns the
-    phases seen."""
+    pieces with ``backend`` (and the kernel encoder for lgc), the AE held
+    to ``ae_rel`` of its largest value; returns the phases seen."""
     rcfg = ref_get_arch("llama3.2-1b").reduced()
     rmodel = RefModel(rcfg)
     rparams = rmodel.init(jax.random.PRNGKey(0))
@@ -128,7 +128,7 @@ def _trajectory(method, backend):
         if lgc:
             _close(torch.cat([a.reshape(-1)
                               for a in tree_leaves(state["ae"])]),
-                   ref_flatten(rstates["ae"]), 1e-12, where + " ae")
+                   ref_flatten(rstates["ae"]), ae_rel, where + " ae")
         plan = RXP.build_plan(rcc, rcomp.layout, K, transport="mesh",
                               phase=phase)
         assert stats["wire"] == RXP.wire_terms_by_op(plan), where
@@ -142,6 +142,17 @@ def test_lgc_rar_trajectory_matches_reference():
         ["warmup"] * 2 + ["topk_ae"] * 2 + ["compressed"] * 2
 
 
+def test_lgc_ps_trajectory_matches_reference():
+    """lgc_ps on the mesh wire: the K-decoder AE trained on the PS loss,
+    then the leader's common encoding and every node's innovation,
+    decoded per node and averaged.  The PS AE's gradient (K decoders, the
+    similarity term) rounds differently in XLA and PyTorch: its trained
+    weights were measured within 1.3e-9 of their largest value, held here
+    to the 2e-5 of the other trajectory quantities."""
+    assert _trajectory("lgc_ps", "fused", ae_rel=2e-5) == \
+        ["warmup"] * 2 + ["topk_ae"] * 2 + ["compressed"] * 2
+
+
 @pytest.mark.parametrize("backend", ["pallas", "fused"])
 @pytest.mark.parametrize("method", ["sparse_gd", "dgc"])
 def test_sparse_trajectory_matches_reference(method, backend):
@@ -152,7 +163,8 @@ def test_sparse_trajectory_matches_reference(method, backend):
     assert _trajectory(method, backend) == ["warmup"] * 2 + ["topk_ae"] * 4
 
 
-@pytest.mark.parametrize("method", ["none", "sparse_gd", "dgc", "lgc_rar"])
+@pytest.mark.parametrize("method", ["none", "sparse_gd", "dgc", "lgc_rar",
+                                    "lgc_ps", "lgc_rar_q8"])
 def test_compressor_state_matches_reference(method):
     """init_state / init_sim_states: the same keys, leaf order and shapes
     as the reference's, with zero accumulators."""
@@ -277,10 +289,32 @@ def test_main_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--compression", "lgc_ps"],
-                                   ["--transport", "ring_q8"],
-                                   ["--compression", "lgc_rar_q8"],
-                                   ["--transport", "ring_hier"],
-                                   ["--wire-buckets", "2"]])
+                                   ["--compression", "lgc_ps",
+                                    "--transport", "ring_packed"],
+                                   ["--compression", "lgc_rar_q8",
+                                    "--transport", "ring_q8"]])
+def test_ps_q8_run_end_to_end_on_cpu(flags):
+    """lgc_ps (mesh and the packed ring) and lgc_rar_q8 on the int8 ring
+    from the entry point, through all three phases, each phase's byte
+    rows the pricer's for the run's transport."""
+    from repro_torch.dist import plan as XP
+    args = train.parse_args(ARGS + flags + ["--device", "cpu"])
+    out = train.run(get_arch("llama3.2-1b").reduced(), args)
+    assert [h["phase"] for h in out["history"]] == ["warmup", "topk_ae",
+                                                    "compressed"]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    comp = out["compressor"]
+    for phase, rows in out["wire"].items():
+        plan = XP.build_plan(comp.cc, comp.layout, comp.K, phase=phase)
+        assert rows == XP.wire_terms_by_op(plan)
+    if "lgc_ps" in flags:
+        assert out["rate"].bytes_leader > out["rate"].bytes_other
+
+
+@pytest.mark.parametrize("flags", [["--transport", "ring_hier"],
+                                   ["--wire-buckets", "2"],
+                                   ["--transport", "chaos:mesh"],
+                                   ["--guard", "scrub"]])
 def test_unported_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(ARGS + flags + ["--device", "cpu"])
