@@ -13,9 +13,11 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               alpha = 0.0001, where it resolves the loop rule
   3. k6       the block top-k kernel against its plain version, bitwise,
               at each per-leaf block shape that select_topk(backend=
-              "pallas") gives that layout (alpha = 0.001); and
-              ops.global_topk on the card against the torch.topk leaf
-              selection, bitwise, for one leaf of each shape
+              "pallas") gives that layout (alpha = 0.001), and at the
+              MLP leaves' shape on a ties-heavy input (x rounded to 2^-10
+              steps); and ops.global_topk on the card against the
+              torch.topk leaf selection, bitwise, for one leaf of each
+              shape
   4. k2       the segmented sweep kernel against its plain version,
               bitwise, at that layout under both block rules, as k1; then
               its path: select_topk(v, layout, backend="fused") with the
@@ -23,7 +25,8 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               backend="jnp" bitwise
   5. k3       the fused matmul + bias + LeakyReLU kernel against its plain
               version at the AE encoder's five im2col shapes for that
-              layout's mu_pad, within |err| <= 1e-5 * max(1, max|y|)
+              layout's mu_pad, within |err| <= 1e-5 * max(1, max|y|); the
+              route (3xTF32 on the tensor cores) and two bounds
   6. k7       the threshold EF pass against its plain version, bitwise on
               all three outputs (compared slice by slice), at the main
               path's flat gradient (n = 505,956,352; g ~ N(0,1), u ~
@@ -59,7 +62,7 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               transport) are checked
   9. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
-              function
+              function (K6 and K3 also per shape, with their ratio to it)
 
 then the kernel list, the card's name and power limit, and on the last
 line {"ok": true, "device": {...}}.  Any failed check raises: the script
@@ -82,6 +85,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
 N_LAYERS = 4                       # the only cut: 16 -> 4 layers
 
 
@@ -184,8 +188,10 @@ def pallas_shapes(layout):
 
 def k6_phase(dev):
     """Kernel vs plain, bitwise, at every leaf shape of the main path's
-    layout, and global_topk vs the torch.topk leaf selection; times per
-    shape and summed over the leaves."""
+    layout, and global_topk vs the torch.topk leaf selection; at the MLP
+    leaves' shape also on a ties-heavy input (x rounded to 2^-10 steps, so
+    the stable order decides most of each block); times per shape and
+    summed over the leaves, each beside torch.topk's."""
     import torch.nn.functional as F
     from repro_torch.core import sparsify as SP
     from repro_torch.kernels import block_topk as BT
@@ -214,6 +220,18 @@ def k6_phase(dev):
                                  f"kernel {equal}, global {global_equal}")
         err = max(err, e)
         del out, plain, gv, gi, lv, li
+        if block == max(b for _, b, _ in pallas_shapes(
+                llama_layout(0.001))):
+            ties = torch.round(xb * 1024.0) / 1024.0
+            out, plain = BT.block_topk(ties, kb), BT.block_topk_plain(ties, kb)
+            distinct = torch.unique(ties[0].abs()).numel()
+            equal = all(torch.equal(a, b) for a, b in zip(out, plain))
+            emit("k6_ties", n_blocks=nb, block=block, kb=kb, step=2 ** -10,
+                 distinct_magnitudes_in_block_0=distinct, bitwise=equal)
+            if not equal:
+                raise AssertionError(f"block_topk differs on the ties-heavy "
+                                     f"input at {(nb, block, kb)}")
+            del ties, out, plain
         mag = xb.abs()
         t = {"ms": cuda_ms(lambda: BT.block_topk(xb, kb), 3),
              "plain_ms": cuda_ms(lambda: BT.block_topk_plain(xb, kb), 1),
@@ -223,10 +241,12 @@ def k6_phase(dev):
         for key in tot:
             tot[key] += count * t[key]
         shapes.append({"n_blocks": nb, "block": block, "kb": kb,
-                       "leaves": count, **t})
+                       "leaves": count, **t,
+                       "to_library": t["ms"] / t["library_ms"]})
         del x, xb, mag
         torch.cuda.empty_cache()
-    emit("k6_times", shapes=shapes, summed_over_leaves=tot)
+    emit("k6_times", shapes=shapes, summed_over_leaves=tot,
+         to_library=tot["ms"] / tot["library_ms"])
     return {**tot, "max_abs_err": err, "bound_by": "bytes", "shapes": shapes}
 
 
@@ -302,7 +322,10 @@ def k2_phase(dev):
 
 def k3_phase(dev):
     """Kernel vs plain at the encoder's im2col shapes for the main path's
-    mu_pad; times one encoder pass (five launches)."""
+    mu_pad; times each layer and one encoder pass (the five launches back
+    to back) beside addmm + leaky_relu's, with two bounds: f32 operations
+    outside the tensor cores (the table's) and the kernel's route, three
+    TF32 products (3xTF32) on the tensor cores."""
     import torch.nn.functional as F
     from repro_torch.core import autoencoder as AE
     from repro_torch.kernels import matmul_lrelu as MM
@@ -312,8 +335,9 @@ def k3_phase(dev):
     ae = AE.init_lgc_autoencoder(gen, dev)
     x = torch.randn((mu_pad, 1), generator=gen, device=dev) * 1e-3
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0, "bound_ms": 0.0}
-    err, shapes = 0.0, []
+           "ops_ms": 0.0, "bound_ms": 0.0, "tf32x3_ops_ms": 0.0,
+           "tf32x3_bound_ms": 0.0}
+    err, shapes, layers = 0.0, [], []
     for p, (_c, k, s) in zip(ae["encoder"], AE.ENCODER_SPEC):
         cols = ops._im2col_1d(x, k, s).contiguous()
         w = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
@@ -335,18 +359,36 @@ def k3_phase(dev):
                  torch.addmm(b, cols, w), 0.01), 20),
              "bytes_ms": (M * Kd + Kd * N + N + M * N) * 4
              / HBM_BYTES_PER_S * 1e3,
-             "ops_ms": 2.0 * M * N * Kd / F32_FLOPS * 1e3}
+             "ops_ms": 2.0 * M * N * Kd / F32_FLOPS * 1e3,
+             "tf32x3_ops_ms": 3 * 2.0 * M * N * Kd / TF32_FLOPS * 1e3}
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["tf32x3_bound_ms"] = max(t["bytes_ms"], t["tf32x3_ops_ms"])
         for key in tot:
             tot[key] += t[key]
         shapes.append({"M": M, "K": Kd, "N": N, "max_abs_err": e,
-                       "tol": tol, **t})
+                       "tol": tol, **t,
+                       "to_library": t["ms"] / t["library_ms"]})
+        layers.append((cols, w, b))
         x = y
-    emit("k3", mu_pad=mu_pad, shapes=shapes, max_abs_err=err)
-    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
-        else "operations"
-    tot["max_abs_err"] = err
-    return tot
+    # one encode as the path runs it: the five layers back to back, so the
+    # host's launch overhead hides behind the large layers as it does there
+    chained = {
+        "ms": cuda_ms(lambda: [MM.matmul_bias_lrelu(*a) for a in layers], 20),
+        "plain_ms": cuda_ms(lambda: [MM.matmul_bias_lrelu_plain(*a)
+                                     for a in layers], 20),
+        "library_ms": cuda_ms(lambda: [F.leaky_relu(torch.addmm(b, c, w), 0.01)
+                                       for c, w, b in layers], 20)}
+    emit("k3", mu_pad=mu_pad, route="3xTF32 mma.sync m16n8k8 (K >= 8), f32 "
+         "FMA (K < 8)", shapes=shapes, max_abs_err=err,
+         summed_over_layers={k: tot[k] for k in ("ms", "plain_ms",
+                                                  "library_ms")},
+         summed_to_library=tot["ms"] / tot["library_ms"], encode=chained,
+         encode_to_library=chained["ms"] / chained["library_ms"],
+         bound_ms=tot["bound_ms"], tf32x3_bound_ms=tot["tf32x3_bound_ms"])
+    return {**tot, **chained, "summed_ms": tot["ms"],
+            "summed_library_ms": tot["library_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+            else "operations", "max_abs_err": err}
 
 
 def k7_phase(dev):

@@ -11,62 +11,125 @@
 // The TPU kernel runs kb rounds of (max, record, mask) over a block held in
 // VMEM.  On the path that calls it (ops.global_topk at the per-leaf block
 // max(8192, roundup128(k))), kb is nearly the whole block -- 67109 of 67200
-// at llama3.2-1b's MLP leaves -- so here it is a sort, not a selection:
-// block_keys_kernel writes one 64-bit key per element, the blocks are
-// bitonic-sorted in a global key scratch padded to the next power of two
-// (topk_sort.cuh, shared with the fused sweep), and block_emit_kernel reads
-// the first kb keys of each block back into (x[loc], loc).
+// at llama3.2-1b's MLP leaves -- so here it is a sort, not a selection.
 //
-// What bounds it on this card: device-memory bytes (one read of x, one
-// write of kb values and indices per block).  The sort's ~20 passes over
-// the key scratch -- twice the block where the block is just above a power
-// of two -- are what it costs.
+// What bounds it on this card: device-memory bytes.  The least it must move
+// is one read of x and one write of kb values and indices per block; a
+// block of up to 2^17 elements does not fit a CTA's shared memory, so a
+// sort keeps the block in a global scratch between passes, and the passes
+// over that scratch are what it costs.  The design keeps them few and
+// unpadded: one CTA sorts one block with a stable LSD radix sort
+// (radix_sort.cuh) on the 31-bit magnitude rank r = 0x7FFFFFFF - bits(|x|),
+// the block-local index riding along in the word r << 17 | index.  Read in
+// index order, a stable sort on r alone leaves ties lowest index first,
+// which is lax.top_k's order (NaN, +-inf, +-0 and subnormals ordered by
+// their bits).  One histogram read of x, then four 8-bit passes:
+//   x -> a (64-bit words) -> b (32-bit) -> a (32-bit) -> vals/idx
+// where a pass's output keeps only the digits still to sort (after the
+// second pass r's top 15 bits and the 17-bit index fit in 32 bits), and
+// the last pass writes only positions < kb, with the value gathered from
+// x.  About 52 bytes move per element, against ~20 passes over a scratch
+// padded to the next power of two in the bitonic sort it replaces.
 
-#include "topk_sort.cuh"
+#include "radix_sort.cuh"
 
 namespace {
 
-__global__ void block_keys_kernel(const float* __restrict__ x,
-                                  unsigned long long* __restrict__ keys,
-                                  long long total, int block, int block2) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long b = i / block;
-    const int loc = (int)(i - b * block);
-    keys[b * block2 + loc] = magnitude_key(x[i], loc);
-  }
-}
+constexpr int LOC_BITS = 17;                 // block <= 131072 = 2^17
+constexpr unsigned LOC_MASK = (1u << LOC_BITS) - 1u;
 
-__global__ void block_emit_kernel(const unsigned long long* __restrict__ keys,
-                                  const float* __restrict__ x,
-                                  float* __restrict__ vals,
-                                  int* __restrict__ idx, long long total,
-                                  int block, int block2, int kb) {
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       p < total; p += (long long)gridDim.x * blockDim.x) {
-    const long long b = p / kb;
-    const int loc = (int)(keys[b * block2 + (p - b * kb)] & LOC_MASK);
-    vals[p] = x[b * block + loc];
-    idx[p] = loc;
+// the word of element i: its magnitude rank over its local index
+struct KeysOfX {
+  using Raw = float;
+  static constexpr bool kWritten = false;
+  const float* p;
+  __device__ unsigned long long word(float x, int i) const {
+    const unsigned bits = __float_as_uint(x) & 0x7FFFFFFFu;
+    return ((unsigned long long)(0x7FFFFFFFu - bits) << LOC_BITS) |
+           (unsigned)i;
   }
+};
+
+struct Words64 {
+  using Raw = unsigned long long;
+  static constexpr bool kWritten = true;
+  unsigned long long* p;
+  __device__ unsigned long long word(unsigned long long w, int) const {
+    return w;
+  }
+  __device__ void operator()(int pos, unsigned long long w) const {
+    __stcg(p + pos, w);
+  }
+};
+
+// r from bit R0 up over the index: all the passes after the one that
+// sorted r's bits below R0 read
+template <int R0>
+struct Words32 {
+  static_assert(31 - R0 + LOC_BITS <= 32, "does not fit 32 bits");
+  static constexpr int SHIFT = LOC_BITS + R0;
+  using Raw = unsigned;
+  static constexpr bool kWritten = true;
+  unsigned* p;
+  __device__ unsigned long long word(unsigned c, int) const {
+    return ((unsigned long long)(c >> LOC_BITS) << SHIFT) | (c & LOC_MASK);
+  }
+  __device__ void operator()(int pos, unsigned long long w) const {
+    __stcg(p + pos,
+           (unsigned)(w >> SHIFT) << LOC_BITS | ((unsigned)w & LOC_MASK));
+  }
+};
+
+struct Emit {
+  const float* x;
+  float* vals;
+  int* idx;
+  int kb;
+  __device__ void operator()(int pos, unsigned long long w) const {
+    if (pos < kb) {
+      const int loc = (int)(w & LOC_MASK);
+      vals[pos] = x[loc];
+      idx[pos] = loc;
+    }
+  }
+};
+
+// one CTA of 512 threads on each SM (150 KB of shared memory), <= 128
+// registers: measured faster than two of 256 threads with 32 words each,
+// which spill
+__global__ void __launch_bounds__(radix::THREADS, 1)
+block_topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                  int* __restrict__ idx, unsigned long long* a,
+                  unsigned* b, int block, int kb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  radix::Smem& s = *reinterpret_cast<radix::Smem*>(smem);
+  const long long row = blockIdx.x;
+  const KeysOfX keys{x + row * block};
+  const Words64 wa{a + row * block};
+  const Words32<2 * radix::BITS> wb{b + row * block};
+  const Words32<3 * radix::BITS> wc{reinterpret_cast<unsigned*>(
+      a + row * block)};
+  const Emit out{x + row * block, vals + row * kb, idx + row * kb, kb};
+  radix::row_histograms<LOC_BITS, 4>(keys, block, s);
+  radix::row_pass<LOC_BITS>(keys, wa, block, 0, s);
+  radix::row_pass<LOC_BITS>(wa, wb, block, 1, s);
+  radix::row_pass<LOC_BITS>(wb, wc, block, 2, s);
+  radix::row_pass<LOC_BITS>(wc, out, block, 3, s);
 }
 
 }  // namespace
 
+// a, b: scratch of n_blocks * block 64-bit and 32-bit words.
 extern "C" int block_topk(const float* x, float* vals, int* idx,
-                          unsigned long long* keys, int n_blocks, int block,
-                          int kb, void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  const int block2 = next_pow2(block);
-  const long long total = (long long)n_blocks * block;
-  block_keys_kernel<<<grid_for(total, 256), 256, 0, st>>>(x, keys, total,
-                                                         block, block2);
-  cudaError_t err = cudaGetLastError();
+                          unsigned long long* a, unsigned* b,
+                          int n_blocks, int block, int kb,
+                          void* stream_ptr) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(radix::Smem));
   if (err != cudaSuccess) return (int)err;
-  err = sort_rows(keys, n_blocks, block, block2, st);
-  if (err != cudaSuccess) return (int)err;
-  const long long out = (long long)n_blocks * kb;
-  block_emit_kernel<<<grid_for(out, 256), 256, 0, st>>>(
-      keys, x, vals, idx, out, block, block2, kb);
+  block_topk_kernel<<<n_blocks, radix::THREADS, sizeof(radix::Smem),
+                      (cudaStream_t)stream_ptr>>>(x, vals, idx, a, b, block,
+                                                  kb);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // Per-block exact top-k by |x| on Hopper (sm_90a): the machinery that the
-// fused sweep (sparsify_ef.cu), the segmented sweep (segmented_topk.cu) and
-// the block top-k (block_topk.cu) share.  Included by each of them; every
-// definition has internal linkage, so each library carries its own copy.
+// fused sweep (sparsify_ef.cu) and the segmented sweep (segmented_topk.cu)
+// share.  Included by each of them; every definition has internal linkage,
+// so each library carries its own copy.
 //
 // One 64-bit key per element of a block,
 //   (0x7FFFFFFF - bits(|x|)) << 17 | local index,

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.kernels.matmul_lrelu.matmul_bias_lrelu``.
 :func:`matmul_bias_lrelu` launches the CUDA kernel
-(``csrc/matmul_lrelu.cu``, a tiled f32 SIMT GEMM with the bias and the
-activation in its epilogue) for tensors on the card and runs
+(``csrc/matmul_lrelu.cu``, a tiled GEMM on the tensor cores at f32
+accuracy -- 3xTF32 -- with the bias and the activation in its epilogue) for tensors on the card and runs
 :func:`matmul_bias_lrelu_plain` for tensors on the CPU.  No padding to the
 TPU's 128 tiles: the kernel masks ragged edges.
 """

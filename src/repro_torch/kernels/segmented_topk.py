@@ -36,8 +36,11 @@ def next_pow2(n: int) -> int:
 
 
 def magnitude_rank(x: torch.Tensor) -> torch.Tensor:
-    """int64 key ascending in |x| descending: 0x7FFFFFFF - bits(|x|)."""
-    return _MAG_MAX - x.abs().view(torch.int32).to(torch.int64)
+    """int64 key ascending in |x| descending: 0x7FFFFFFF - bits(|x|), the
+    sign bit cleared on the bits themselves, as the kernels do, so a NaN
+    ranks by its payload on every device (torch.abs need not keep a NaN's
+    bits on the card)."""
+    return _MAG_MAX - (x.view(torch.int32) & _MAG_MAX).to(torch.int64)
 
 
 def select_candidates(x: torch.Tensor, seg: torch.Tensor,

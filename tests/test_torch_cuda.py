@@ -55,12 +55,25 @@ def _layout(which):
     return SP.build_layout(tree, sparsity)
 
 
+# bit patterns of the "special" kind: NaNs of several payloads and signs,
+# +-inf, +-0.0, subnormals (the smallest, a middle one, the largest)
+SPECIAL_BITS = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF,
+                         0x7F800000, 0xFF800000, 0x00000000, 0x80000000,
+                         0x00000001, 0x80000001, 0x00012345, 0x807FFFFF],
+                        dtype=np.uint32)
+
+
 def _vec(kind, n, seed, dev):
     r = np.random.default_rng(seed)
     if kind == "normal":
         x = r.standard_normal(n)
     elif kind == "ties":                       # nearly every magnitude tied
         x = r.integers(-2, 3, n)
+    elif kind == "special":                    # a third of them special
+        x = r.standard_normal(n).astype(np.float32)
+        at = r.random(n) < 1 / 3
+        x[at] = SPECIAL_BITS[r.integers(0, len(SPECIAL_BITS),
+                                        int(at.sum()))].view(np.float32)
     else:
         x = np.zeros(n)
     return torch.from_numpy(x.astype(np.float32)).to(dev)
@@ -106,23 +119,29 @@ def test_segmented_topk_kernel_is_bitwise_its_plain_version(
 
 
 # (n_blocks, block, kb): a small k; the whole block; blocks above one
-# 4096-key tile, just above a power of two (the padding keys) and at the
-# path's leaf shapes, cut to a few blocks
+# 4096-key tile, just above a power of two and at the path's leaf shapes,
+# cut to a few blocks; the largest block the wrapper takes; kb = 1; and
+# blocks that are not a multiple of the radix sort's 8192-word tile, inside
+# one tile and across two
 BLOCK_SHAPES = [(4, 256, 8), (5, 384, 384), (3, 8192, 4194),
-                (2, 16896, 16777), (2, 67200, 67109)]
+                (2, 16896, 16777), (2, 67200, 67109), (2, 131072, 131072),
+                (3, 8192, 1), (3, 4096 + 384, 2000), (3, 8192 + 384, 2000)]
 
 
 @pytest.mark.parametrize("nb,block,kb", BLOCK_SHAPES)
-@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "special"])
 def test_block_topk_kernel_is_bitwise_its_plain_version(card, nb, block, kb,
                                                         kind):
+    """Values compared as bits, so NaNs (payloads too), +-0.0 and
+    subnormals count: both versions copy x's bits."""
     x = _vec(kind, nb * block, nb + block, card).view(nb, block)
     before = LAUNCHES["block_topk"]
     out = BT.block_topk(x, kb)
     torch.cuda.synchronize()
     assert LAUNCHES["block_topk"] == before + 1
-    for name, a, b in zip(("vals", "idx"), out, BT.block_topk_plain(x, kb)):
-        assert torch.equal(a, b), name
+    vals, idx = BT.block_topk_plain(x, kb)
+    assert torch.equal(out[0].view(torch.int32), vals.view(torch.int32))
+    assert torch.equal(out[1], idx)
 
 
 @pytest.mark.parametrize("which", sorted(TREES))
@@ -148,8 +167,12 @@ def test_selections_on_the_card_equal_the_jnp_backend(card, which, kind):
                 assert torch.equal(a, b), (select.__name__, backend)
 
 
+# the path's layers cut in M (K = 3, 192, 384, 768, 64); ragged K, N; a
+# K past one 32-deep tile that is not a multiple of the mma's K-step of 8
 @pytest.mark.parametrize("M,K,N", [(1000, 3, 64), (77, 192, 128),
-                                   (5, 64, 4), (130, 17, 70)])
+                                   (300, 384, 256), (200, 768, 64),
+                                   (5, 64, 4), (130, 17, 70),
+                                   (97, 100, 64)])
 @pytest.mark.parametrize("apply_lrelu", [True, False])
 def test_matmul_bias_lrelu_kernel_matches_its_plain_version(
         card, M, K, N, apply_lrelu):
@@ -165,6 +188,25 @@ def test_matmul_bias_lrelu_kernel_matches_its_plain_version(
     yp = MM.matmul_bias_lrelu_plain(x, w, b, apply_lrelu)
     tol = 1e-5 * max(1.0, float(yp.abs().max()))
     assert float((y - yp).abs().max()) <= tol
+
+
+def test_matmul_bias_lrelu_kernel_propagates_non_finite_inputs(card):
+    """inf and NaN in X and W: NaN and +-inf where the plain version has
+    them, the finite outputs to the tolerance above."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    x, w, b = (torch.randn(s, generator=gen, device=card)
+               for s in ((130, 40), (40, 70), (70,)))
+    x[3, 5], x[7, 9], x[7, 10], x[11, 0] = (float("inf"), float("inf"),
+                                            -float("inf"), float("nan"))
+    w[4, 6], w[20, 30] = -float("inf"), 0.0
+    x[50, 4] = 0.0                             # 0 * inf
+    y = MM.matmul_bias_lrelu(x, w, b)
+    yp = MM.matmul_bias_lrelu_plain(x, w, b)
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(mask(y), mask(yp))
+    fin = yp.isfinite()
+    tol = 1e-5 * max(1.0, float(yp[fin].abs().max()))
+    assert float((y[fin] - yp[fin]).abs().max()) <= tol
 
 
 def test_kernel_encoder_matches_conv_encoder(card):

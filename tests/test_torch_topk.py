@@ -55,6 +55,33 @@ def test_block_topk_plain_matches_reference(kind, block, kb):
         _eq(ours, ref_block_topk(jnp.asarray(x), k))
 
 
+# NaNs of several payloads and signs, +-inf, +-0.0, subnormals: the order
+# by bits that K6 and the plain version share on every device
+SPECIAL_BITS = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF,
+                         0x7F800000, 0xFF800000, 0x00000000, 0x80000000,
+                         0x00000001, 0x80000001, 0x00012345, 0x807FFFFF],
+                        dtype=np.uint32)
+
+
+@pytest.mark.parametrize("kb", [1, 100, 384])
+def test_block_topk_plain_orders_special_values_by_their_bits(kb):
+    """|x| is the bits with the sign cleared, NaNs by payload above inf,
+    ties lowest index first: against a numpy stable sort; values carry
+    x's bits unchanged."""
+    r = np.random.default_rng(kb)
+    x = r.standard_normal((3, 384)).astype(np.float32)
+    at = r.random(x.shape) < 0.5
+    x[at] = SPECIAL_BITS[r.integers(0, len(SPECIAL_BITS), int(at.sum()))
+                         ].view(np.float32)
+    vals, idx = block_topk_plain(torch.from_numpy(x), kb)
+    mag = x.view(np.uint32) & 0x7FFFFFFF
+    want = np.argsort(-mag.astype(np.int64), axis=1, kind="stable")[:, :kb]
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(vals.numpy().view(np.uint32),
+                                  np.take_along_axis(x, want, 1)
+                                  .view(np.uint32))
+
+
 @pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
 @pytest.mark.parametrize("n,k,block", [(1000, 37, 256), (1024, 64, 256),
                                        (777, 50, 384), (300, 16, 640)])
