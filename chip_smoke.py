@@ -10,7 +10,10 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               PyTorch version on the same inputs, bitwise, at llama3.2-1b's
               full-width flat-gradient layout (4 layers): alpha = 0.001,
               where "auto" resolves the bitonic rule (128Ki blocks), and
-              alpha = 0.0001, where it resolves the loop rule
+              alpha = 0.0001, where it resolves the loop rule; and at
+              alpha = 0.001 on a special-values input (a third of g, u, v
+              NaNs of several payloads, +-inf, +-0, subnormals), every
+              output compared as bits
   3. k6       the block top-k kernel against its plain version, bitwise,
               at each per-leaf block shape that select_topk(backend=
               "pallas") gives that layout (alpha = 0.001), and at the
@@ -19,7 +22,8 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               torch.topk leaf selection, bitwise, for one leaf of each
               shape
   4. k2       the segmented sweep kernel against its plain version,
-              bitwise, at that layout under both block rules, as k1; then
+              bitwise, at that layout under both block rules and on the
+              special-values input, as k1; then
               its path: select_topk(v, layout, backend="fused") with the
               launch counts reset before and read after, equal to
               backend="jnp" bitwise
@@ -124,22 +128,61 @@ def llama_layout(sparsity: float):
     return SP.build_layout(meta, sparsity)
 
 
+# bit patterns of the special-values inputs: NaNs of several payloads and
+# signs, +-inf, +-0.0, subnormals
+SPECIAL_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF, 0x7F800000,
+                0xFF800000, 0x00000000, 0x80000000, 0x00000001, 0x80000001,
+                0x00012345, 0x807FFFFF)
+
+
+def special_values(n: int, gen, dev):
+    """1e-3 N(0,1) with a third of the values replaced by special ones."""
+    x = torch.randn(n, generator=gen, device=dev) * 1e-3
+    at = torch.rand(n, generator=gen, device=dev) < 1 / 3
+    bits = torch.tensor([b - (1 << 32) if b >> 31 else b
+                         for b in SPECIAL_BITS], dtype=torch.int32,
+                        device=dev)
+    pick = torch.randint(0, len(SPECIAL_BITS), (n,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    special = bits.index_select(0, pick).view(torch.float32)
+    return torch.where(at, special, x)
+
+
+def same_bits(a, b) -> bool:
+    """Equal as bits (f32 through int32 views: NaN payloads, +-0.0)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def sweep_scratch_bytes(active, block: int) -> int:
+    """The sweep kernels' radix scratch: 12 B per element of each active
+    block (a 64-bit and a 32-bit word)."""
+    return (int(active.max()) + 1) * block * 12
+
+
 def k1_phase(dev):
-    """Kernel vs plain, bitwise, at both block rules; times at alpha=0.001
-    (the main path's layout)."""
+    """Kernel vs plain, bitwise, at both block rules, and on the
+    special-values input at alpha = 0.001 (the main path's layout), where
+    it is also timed."""
     from repro_torch.core import sparsify as SP
     from repro_torch.kernels import sparsify_ef as EF
     roles = (SP.ROLE_COMPRESSED, SP.ROLE_TOPK_ONLY)
     gen = torch.Generator(device=dev).manual_seed(0)
     timing = None
-    for sparsity, rule in ((0.001, "bitonic"), (0.0001, "loop")):
+    for sparsity, rule, kind in ((0.001, "bitonic", "normal"),
+                                 (0.001, "bitonic", "special"),
+                                 (0.0001, "loop", "normal")):
         layout = llama_layout(sparsity)
         ex, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, roles,
                                                          "auto")
         assert ex == rule, (sparsity, ex)
         n = layout.n_total
-        g, u, v = (torch.randn(n, generator=gen, device=dev) * 1e-3
-                   for _ in range(3))
+        if kind == "special":
+            g, u, v = (special_values(n, gen, dev) for _ in range(3))
+        else:
+            g, u, v = (torch.randn(n, generator=gen, device=dev) * 1e-3
+                       for _ in range(3))
         seg_t = torch.from_numpy(seg).to(dev)
         kcap_t = torch.from_numpy(kcap).to(dev)
         active = EF.active_blocks(seg_t, block)
@@ -148,17 +191,24 @@ def k1_phase(dev):
         torch.cuda.synchronize()
         out_p = EF.sparsify_ef_topk_plain(*args)
         names = ("u", "v", "cand_vals", "cand_idx", "cand_seg")
-        equal = {nm: bool(torch.equal(a, b))
+        equal = {nm: same_bits(a, b)
                  for nm, a, b in zip(names, out_k, out_p)}
-        err = max(float((a.float() - b.float()).abs().max())
+        # u' NaN payloads aside: the card's FMA gives its canonical NaN,
+        # the plain version's exact FMA (f64 operations) another NaN
+        nan = out_k[0].isnan()
+        equal["u"] = bool(torch.equal(nan, out_p[0].isnan())) and \
+            same_bits(out_k[0][~nan], out_p[0][~nan])
+        err = max(float((a.float() - b.float()).abs().nan_to_num(0.0).max())
                   for a, b in zip(out_k, out_p))
         kept = int((out_k[4] >= 0).sum())
-        emit("k1", extract=ex, block=block, n=n, n_cand=n_cand,
+        emit("k1" if kind == "normal" else "k1_special", extract=ex,
+             block=block, n=n, n_cand=n_cand,
              n_blocks=out_k[2].numel() // n_cand, kept=kept,
              bitwise=equal, max_abs_err=err)
         if not all(equal.values()):
             raise AssertionError(f"fused_ef_topk differs from its plain "
-                                 f"version at {ex}: {equal}")
+                                 f"version at {ex} on {kind} input: "
+                                 f"{equal}")
         if timing is None:
             del out_k, out_p
             ms = cuda_ms(lambda: EF.sparsify_ef_topk(*args, active=active), 3)
@@ -168,6 +218,7 @@ def k1_phase(dev):
             timing = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
                       "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S
                       * 1e3, "bound_by": "bytes", "library_ms": None,
+                      "scratch_bytes": sweep_scratch_bytes(active, block),
                       "block": block, "n": n, "n_cand": n_cand}
         del g, u, v, seg_t, active, args
         torch.cuda.empty_cache()
@@ -260,13 +311,16 @@ def k2_phase(dev):
     roles = (SP.ROLE_COMPRESSED,)
     gen = torch.Generator(device=dev).manual_seed(2)
     timing = launches = None
-    for sparsity, rule in ((0.001, "bitonic"), (0.0001, "loop")):
+    for sparsity, rule, kind in ((0.001, "bitonic", "normal"),
+                                 (0.001, "bitonic", "special"),
+                                 (0.0001, "loop", "normal")):
         layout = llama_layout(sparsity)
         ex, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, roles,
                                                          "auto")
         assert ex == rule, (sparsity, ex)
         n = layout.n_total
-        x = torch.randn(n, generator=gen, device=dev) * 1e-3
+        x = special_values(n, gen, dev) if kind == "special" else \
+            torch.randn(n, generator=gen, device=dev) * 1e-3
         seg_t = torch.from_numpy(seg).to(dev)
         kcap_t = torch.from_numpy(kcap).to(dev)
         active = ST.active_blocks(seg_t, block)
@@ -275,17 +329,19 @@ def k2_phase(dev):
         torch.cuda.synchronize()
         out_p = ST.segmented_topk_plain(*args)
         names = ("cand_vals", "cand_idx", "cand_seg")
-        equal = {nm: bool(torch.equal(a, b))
+        equal = {nm: same_bits(a, b)
                  for nm, a, b in zip(names, out_k, out_p)}
-        err = max(float((a.float() - b.float()).abs().max())
+        err = max(float((a.float() - b.float()).abs().nan_to_num(0.0).max())
                   for a, b in zip(out_k, out_p))
         kept = int((out_k[2] >= 0).sum())
-        emit("k2", extract=ex, block=block, n=n, n_cand=n_cand,
+        emit("k2" if kind == "normal" else "k2_special", extract=ex,
+             block=block, n=n, n_cand=n_cand,
              n_blocks=out_k[0].numel() // n_cand, kept=kept,
              bitwise=equal, max_abs_err=err)
         if not all(equal.values()):
             raise AssertionError(f"segmented_topk differs from its plain "
-                                 f"version at {ex}: {equal}")
+                                 f"version at {ex} on {kind} input: "
+                                 f"{equal}")
         del out_k, out_p
         if timing is None:
             pool = (-(-n // block)) * n_cand
@@ -297,8 +353,9 @@ def k2_phase(dev):
                                     1),
                 "max_abs_err": err, "bytes": nbytes,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "library_ms": None, "block": block,
-                "n": n, "n_cand": n_cand}
+                "bound_by": "bytes", "library_ms": None,
+                "scratch_bytes": sweep_scratch_bytes(active, block),
+                "block": block, "n": n, "n_cand": n_cand}
             # the kernel's path: the public selection through the sweep
             want = SP.select_topk(x, layout, backend="jnp")
             torch.cuda.synchronize()
@@ -577,6 +634,8 @@ def train_phase(dev, name: str, flags, steps: int, *expects):
         "--data-shards", "2", "--batch", "8", "--seq", "128",
         "--warmup-steps", "2", "--steps", str(steps), "--log-every", "1",
         "--device", "cuda"])
+    gc.collect()        # what the phases before left in reference cycles
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     out = train.run(cfg, args)

@@ -31,7 +31,14 @@ def block_topk(x: torch.Tensor, kb: int):
     """x: (n_blocks, block) f32, block % 128 == 0, block <= 2^17,
     0 < kb <= block.
     Returns (vals (n_blocks, kb) f32, idx (n_blocks, kb) int32 local to
-    the block); the same outputs as :func:`block_topk_plain`, bitwise."""
+    the block); the same outputs as :func:`block_topk_plain`, bitwise.
+
+    A NaN ranks by its bits with the sign cleared, above inf, as in
+    ``lax.top_k`` (the reference's ``jnp`` backend and per-leaf oracle).
+    The reference's Pallas ``block_topk`` differs on a row holding a
+    NaN: no position equals a NaN maximum, so from then on it emits
+    (0.0, block) for every slot; this kernel does not copy that
+    (tests/test_torch_nan_order.py)."""
     if x.device.type == "cpu":
         return block_topk_plain(x, kb)
     if x.device.type != "cuda" or x.dtype != torch.float32 \

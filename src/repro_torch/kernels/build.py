@@ -29,13 +29,13 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # argtypes of every C entry point, by source name and function name
 SIGNATURES = {
     "sparsify_ef": {"fused_ef_topk": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                      _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                      _P, _P, _P, _P, _P, _L, _I, _I, _I,
                                       _F, _I, _P],
                     "sparsify_ef": [_P, _P, _P, _P, _F, _P, _P, _P, _L, _P]},
     "matmul_lrelu": {"matmul_bias_lrelu": [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _P]},
     "segmented_topk": {"segmented_topk": [_P, _P, _P, _P, _I, _P, _P, _P,
-                                          _P, _L, _I, _I, _I, _I, _P]},
+                                          _P, _P, _L, _I, _I, _I, _P]},
     "block_topk": {"block_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "bitpack": {"pack_bits": [_P, _P, _I, _I, _I, _P],
                 "unpack_bits": [_P, _P, _I, _I, _I, _P],

@@ -35,50 +35,11 @@
 
 namespace {
 
-constexpr int LOC_BITS = 17;                 // block <= 131072 = 2^17
-constexpr unsigned LOC_MASK = (1u << LOC_BITS) - 1u;
-
-// the word of element i: its magnitude rank over its local index
-struct KeysOfX {
-  using Raw = float;
-  static constexpr bool kWritten = false;
-  const float* p;
-  __device__ unsigned long long word(float x, int i) const {
-    const unsigned bits = __float_as_uint(x) & 0x7FFFFFFFu;
-    return ((unsigned long long)(0x7FFFFFFFu - bits) << LOC_BITS) |
-           (unsigned)i;
-  }
-};
-
-struct Words64 {
-  using Raw = unsigned long long;
-  static constexpr bool kWritten = true;
-  unsigned long long* p;
-  __device__ unsigned long long word(unsigned long long w, int) const {
-    return w;
-  }
-  __device__ void operator()(int pos, unsigned long long w) const {
-    __stcg(p + pos, w);
-  }
-};
-
-// r from bit R0 up over the index: all the passes after the one that
-// sorted r's bits below R0 read
-template <int R0>
-struct Words32 {
-  static_assert(31 - R0 + LOC_BITS <= 32, "does not fit 32 bits");
-  static constexpr int SHIFT = LOC_BITS + R0;
-  using Raw = unsigned;
-  static constexpr bool kWritten = true;
-  unsigned* p;
-  __device__ unsigned long long word(unsigned c, int) const {
-    return ((unsigned long long)(c >> LOC_BITS) << SHIFT) | (c & LOC_MASK);
-  }
-  __device__ void operator()(int pos, unsigned long long w) const {
-    __stcg(p + pos,
-           (unsigned)(w >> SHIFT) << LOC_BITS | ((unsigned)w & LOC_MASK));
-  }
-};
+using radix::LOC_BITS;
+using radix::LOC_MASK;
+using radix::Words32;
+using radix::Words64;
+using KeysOfX = radix::KeysOf<false>;
 
 struct Emit {
   const float* x;

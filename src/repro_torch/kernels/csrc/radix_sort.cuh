@@ -1,6 +1,6 @@
 // Stable LSD radix sort of one row per CTA, for Hopper (sm_90a): the
-// machinery of the block top-k (block_topk.cu), written so that the
-// segmented sweeps can take it up.  Included by each user; every definition
+// machinery of the block top-k (block_topk.cu, K6) and of the segmented
+// sweeps (sweep.cuh: K1 and K2).  Included by each user; every definition
 // has internal linkage, so each library carries its own copy.
 //
 // A row holds n <= 2^17 64-bit words.  The sort key is the 31 bits of a
@@ -24,6 +24,8 @@
 //                   the tile in digit order in shared memory and writes it
 //                   out from there, so each digit's run leaves as one
 //                   contiguous store at the digit's running position.
+//                   The ranking (warp_rank) serves any 8-bit label: the
+//                   sweeps' cap walk ranks words by slot with it.
 // The scattered runs are what a pass costs beyond its reads: a tile of 8192
 // words makes them ~32 words long (runs half as long measured up to a
 // quarter slower).
@@ -130,6 +132,47 @@ __device__ __forceinline__ int exclusive_scan(int v, int* scan) {
   return before + inc - v;
 }
 
+// Turns s.offset[p][d], the count of digit d in pass p for p < PASSES,
+// into the digit's first position in the sorted row.  Needs the counts
+// complete (a __syncthreads() after the last count); ends with one.
+template <int PASSES>
+__device__ void scan_offsets(Smem& s) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int ex = exclusive_scan(tid < BINS ? s.offset[p][tid] : 0, s.scan);
+    if (tid < BINS) s.offset[p][tid] = ex;
+  }
+  __syncthreads();
+}
+
+// The rank of this lane's word among the warp's valid words of digit d:
+// counts[d] (the warp's count of d so far, which this advances by the
+// warp's valid words of d) plus the words of d on lower lanes.  The whole
+// warp calls it; peer_bits are the warp's BINS masks, all 0 between calls.
+__device__ __forceinline__ int warp_rank(int d, bool valid,
+                                         unsigned* peer_bits, int* counts) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lanes_upto = FULL >> (31 - lane);
+  // the lanes of this word's digit: each sets its bit in the digit's
+  // mask (shared-memory atomics; a warp vote per digit bit, or
+  // __match_any_sync, is slower on this card)
+  if (valid) atomicOr(&peer_bits[d], 1u << lane);
+  __syncwarp();
+  const unsigned peers =
+      valid ? *static_cast<volatile unsigned*>(&peer_bits[d]) : 0u;
+  const int upto = __popc(peers & lanes_upto);
+  // the highest peer counts them all, hands out the warp's count so far
+  // and clears the mask
+  const int leader = 31 - __clz(peers);
+  int before = 0;
+  if (valid && lane == leader) before = atomicAdd(&counts[d], upto);
+  before = __shfl_sync(FULL, before, valid ? leader : lane);
+  if (valid && lane == leader) peer_bits[d] = 0u;
+  __syncwarp();
+  return before + upto - 1;
+}
+
 // s.offset[p][d] = the position in the sorted row of the first word whose
 // digit p is d, for p < PASSES.  Ends with a __syncthreads().
 template <int KEY_LO, int PASSES, class Load>
@@ -160,12 +203,7 @@ __device__ void row_histograms(const Load& load, int n, Smem& s) {
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int p = 0; p < PASSES; ++p) {
-    const int ex = exclusive_scan(tid < BINS ? s.offset[p][tid] : 0, s.scan);
-    if (tid < BINS) s.offset[p][tid] = ex;
-  }
-  __syncthreads();
+  scan_offsets<PASSES>(s);
 }
 
 // One stable pass on digit `pass`: store(position, word) for every word
@@ -175,7 +213,6 @@ template <int KEY_LO, class Load, class Store>
 __device__ void row_pass(const Load& load, const Store& store, int n,
                          int pass, Smem& s) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const unsigned lanes_upto = FULL >> (31 - lane);
   const bool owner = tid < BINS;         // owns digit tid
   int run = owner ? s.offset[pass][tid] : 0;   // its next row position
   unsigned* peer_bits = s.peers[warp];   // this warp's; all 0 between words
@@ -204,24 +241,8 @@ __device__ void row_pass(const Load& load, const Store& store, int n,
     for (int j = 0; j < ITEMS; ++j) {
       const bool valid = first + 32 * j < n;
       const int d = digit<KEY_LO>(word[j], pass);
-      // the lanes of this word's digit: each sets its bit in the digit's
-      // mask (shared-memory atomics; a warp vote per digit bit, or
-      // __match_any_sync, is slower on this card)
-      if (valid) atomicOr(&peer_bits[d], 1u << lane);
-      __syncwarp();
-      const unsigned peers =
-          valid ? *static_cast<volatile unsigned*>(&peer_bits[d]) : 0u;
-      const int upto = __popc(peers & lanes_upto);
-      // the highest peer counts them all, hands out the warp's count so
-      // far and clears the mask
-      const int leader = 31 - __clz(peers);
-      int before = 0;
-      if (valid && lane == leader)
-        before = atomicAdd(&s.warp_count[warp][d], upto);
-      before = __shfl_sync(FULL, before, valid ? leader : lane);
-      if (valid && lane == leader) peer_bits[d] = 0u;
-      __syncwarp();
-      const unsigned rank = (unsigned)(before + upto - 1);
+      const unsigned rank = (unsigned)warp_rank(d, valid, peer_bits,
+                                                s.warp_count[warp]);
       rank2[j / 2] = j % 2 ? rank2[j / 2] | rank << 16 : rank;
     }
     __syncthreads();
@@ -262,6 +283,57 @@ __device__ void row_pass(const Load& load, const Store& store, int n,
     __syncthreads();
   }
 }
+
+// The word formats of the per-block sorts (block_topk.cu, sweep.cuh).  A
+// row holds <= 2^17 elements; the key is the magnitude rank
+// r = 0x7FFFFFFF - bits(|x|) (31 bits, the sign bit cleared on the bits, so
+// a NaN ranks by its payload, above inf), the element's row index below it.
+constexpr int LOC_BITS = 17;                 // rows <= 131072 = 2^17
+constexpr unsigned LOC_MASK = (1u << LOC_BITS) - 1u;
+
+// the first pass's words, from a row of floats: r over the index.
+// WRITTEN: the row is this kernel's own output (fetched through L2).
+template <bool WRITTEN>
+struct KeysOf {
+  using Raw = float;
+  static constexpr bool kWritten = WRITTEN;
+  const float* p;
+  __device__ unsigned long long word(float x, int i) const {
+    const unsigned bits = __float_as_uint(x) & 0x7FFFFFFFu;
+    return ((unsigned long long)(0x7FFFFFFFu - bits) << LOC_BITS) |
+           (unsigned)i;
+  }
+};
+
+struct Words64 {
+  using Raw = unsigned long long;
+  static constexpr bool kWritten = true;
+  unsigned long long* p;
+  __device__ unsigned long long word(unsigned long long w, int) const {
+    return w;
+  }
+  __device__ void operator()(int pos, unsigned long long w) const {
+    __stcg(p + pos, w);
+  }
+};
+
+// r from bit R0 up over the index: all the passes after the one that
+// sorted r's bits below R0 read
+template <int R0>
+struct Words32 {
+  static_assert(31 - R0 + LOC_BITS <= 32, "does not fit 32 bits");
+  static constexpr int SHIFT = LOC_BITS + R0;
+  using Raw = unsigned;
+  static constexpr bool kWritten = true;
+  unsigned* p;
+  __device__ unsigned long long word(unsigned c, int) const {
+    return ((unsigned long long)(c >> LOC_BITS) << SHIFT) | (c & LOC_MASK);
+  }
+  __device__ void operator()(int pos, unsigned long long w) const {
+    __stcg(p + pos,
+           (unsigned)(w >> SHIFT) << LOC_BITS | ((unsigned)w & LOC_MASK));
+  }
+};
 
 }  // namespace radix
 }  // namespace

@@ -15,50 +15,39 @@
 //
 // What bounds it on this card: device-memory bytes (one read of x and seg,
 // one write of the candidate pool; a few operations per element).  The
-// design is K1's (topk_sort.cuh): seg_keys_kernel writes one 64-bit key per
-// element of each block holding a selectable element, a bitonic sort per
-// block in a global key scratch, then the per-slot cap and emit pass.  As in
-// K1, the sort's ~20 passes over the scratch are what it costs.
+// design is K1's (sweep.cuh): per block holding a selectable element, one
+// CTA counts the digits of x's magnitude rank, radix-sorts the block in a
+// global scratch (radix_sort.cuh) and walks the sorted indices applying
+// each slot's cap; the other blocks get only the pool fill.
 
-#include "topk_sort.cuh"
+#include "sweep.cuh"
 
 namespace {
 
-__global__ void seg_keys_kernel(const float* __restrict__ x,
-                                const int* __restrict__ seg,
-                                const int* __restrict__ active_of_block,
-                                unsigned long long* __restrict__ keys,
-                                long long n, int block, int block2,
-                                long long total) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long b = i / block;
-    const int a = active_of_block[b];
-    if (a < 0) continue;
-    const int loc = (int)(i - b * block);
-    const int s = i < n ? seg[i] : -1;
-    keys[(long long)a * block2 + loc] =
-        s >= 0 ? magnitude_key(x[i], loc) : MASKED;
-  }
-}
+// K2's row: x as given
+struct XSource {
+  static constexpr bool kAccumulates = false;
+  using Keys = radix::KeysOf<false>;
+  using In = float4;
+  const float* x;
+
+  __device__ float one(long long i) const { return __ldg(x + i); }
+  __device__ In load4(long long i) const { return sweep::ld4(x + i); }
+  __device__ float4 apply4(const In& in, long long) const { return in; }
+  __device__ const float* row(long long base) const { return x + base; }
+  __device__ float value(long long i) const { return __ldg(x + i); }
+};
 
 }  // namespace
 
 extern "C" int segmented_topk(const float* x, const int* seg,
                               const int* kcap, const int* active_of_block,
                               int n_slots, float* cvals, int* cidx,
-                              int* cseg, unsigned long long* keys,
+                              int* cseg, unsigned long long* a, unsigned* b,
                               long long n, int block, int n_blocks,
-                              int n_active, int n_cand, void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  const long long total = (long long)n_blocks * block;
-  if (n_active > 0) {
-    seg_keys_kernel<<<grid_for(total, 256), 256, 0, st>>>(
-        x, seg, active_of_block, keys, n, block, next_pow2(block), total);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)sort_and_emit(keys, seg, x, kcap, active_of_block, n_slots,
-                            cvals, cidx, cseg, block, n_blocks, n_active,
-                            n_cand, st);
+                              int n_cand, void* stream_ptr) {
+  return (int)sweep::launch(XSource{x}, seg, kcap, active_of_block, n_slots,
+                            cvals, cidx, cseg, a, b, n, block, n_blocks,
+                            n_cand, sweep::aligned16({x, seg}),
+                            (cudaStream_t)stream_ptr);
 }

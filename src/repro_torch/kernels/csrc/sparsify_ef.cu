@@ -1,7 +1,7 @@
 // Two error-feedback kernels for Hopper (sm_90a): the fused accumulate +
 // exact segmented top-k candidates (fused_ef_topk, K1) and the threshold
-// pass (sparsify_ef, K7).  Built by repro_torch/kernels/build.py with nvcc into a
-// shared library with a plain C interface; bound with ctypes.
+// pass (sparsify_ef, K7).  Built by repro_torch/kernels/build.py with nvcc
+// into a shared library with a plain C interface; bound with ctypes.
 //
 // fused_ef_topk replaces the TPU kernel
 // src/repro/kernels/sparsify_ef.py::sparsify_ef_topk
@@ -21,61 +21,69 @@
 // What bounds it on this card: device-memory bytes.  The work is one read of
 // (g, u, v, seg), one write of (u', v') and a write of the candidate pool;
 // the arithmetic is a few operations per element.  A TPU core keeps a whole
-// 128Ki-element block in VMEM and sorts it there; one CTA's 227 KB of shared
-// memory holds 28Ki 64-bit keys at most, so here the sort runs in a
-// global-memory key scratch instead (topk_sort.cuh):
-//
-//   1. ef_keys_kernel: the accumulate, plus one 64-bit key per element of a
-//      block that holds any selectable element ("active" block); blocks
-//      with no selectable element (the exempt embedding) get no keys.
-//   2. a bitonic sort of each active block's keys (sort_rows).
-//   3. cap_emit_kernel: the per-slot cap, and the compaction of the kept
-//      elements into the pool.
-//
-// The sort moves the key scratch ~20 times, so the kernel is several times
-// its byte bound; fewer global passes (several merge distances per pass) and
-// sorting only each slot's top candidates are the known next steps.
+// 128Ki-element block in VMEM and sorts it there; a CTA's 227 KB of shared
+// memory does not hold one, so each block is radix-sorted by one CTA in a
+// global scratch (sweep.cuh, on radix_sort.cuh): the accumulate is the
+// sort's histogram walk, whose v' the first pass reads back through L2, and
+// the per-slot cap is a walk over the sorted indices in the same CTA.
 
-#include "topk_sort.cuh"
+#include "sweep.cuh"
 
 namespace {
 
-__global__ void ef_keys_kernel(const float* __restrict__ g,
-                               const float* __restrict__ u,
-                               const float* __restrict__ v,
-                               const int* __restrict__ seg,
-                               const int* __restrict__ active_of_block,
-                               float* __restrict__ u_out,
-                               float* __restrict__ v_out,
-                               unsigned long long* __restrict__ keys,
-                               long long n, int block, int block2,
-                               long long total, float m, int use_momentum) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    float vn = 0.f;
-    int s = -1;
-    if (i < n) {
-      const float gi = g[i], ui = u[i], vi = v[i];
-      float un;
-      if (use_momentum) {
-        un = __fmaf_rn(m, ui, gi);
-        vn = __fadd_rn(vi, un);
-      } else {
-        un = ui;
-        vn = __fadd_rn(vi, gi);
-      }
-      u_out[i] = un;
-      v_out[i] = vn;
-      s = seg[i];
-    }
-    const long long b = i / block;
-    const int loc = (int)(i - b * block);
-    const int a = active_of_block[b];
-    if (a >= 0)
-      keys[(long long)a * block2 + loc] =
-          s >= 0 ? magnitude_key(vn, loc) : MASKED;
-  }
+int grid_for(long long work, int threads) {
+  long long g = (work + threads - 1) / threads;
+  const long long cap = 132LL * 32;
+  if (g > cap) g = cap;
+  return g < 1 ? 1 : (int)g;
 }
+
+// K1's row: the accumulate, whose v' the sweep selects on
+struct EfSource {
+  static constexpr bool kAccumulates = true;
+  using Keys = radix::KeysOf<true>;      // v' is this kernel's own output
+  struct In {
+    float4 g, u, v;
+  };
+  const float *g, *u, *v;
+  float *u_out, *v_out;
+  float m;
+  int use_momentum;
+
+  __device__ void acc(float gi, float ui, float vi, float& un,
+                      float& vn) const {
+    if (use_momentum) {
+      un = __fmaf_rn(m, ui, gi);
+      vn = __fadd_rn(vi, un);
+    } else {
+      un = ui;
+      vn = __fadd_rn(vi, gi);
+    }
+  }
+  __device__ float one(long long i) const {
+    float un, vn;
+    acc(__ldg(g + i), __ldg(u + i), __ldg(v + i), un, vn);
+    u_out[i] = un;
+    __stcg(v_out + i, vn);
+    return vn;
+  }
+  __device__ In load4(long long i) const {
+    return {sweep::ld4(g + i), sweep::ld4(u + i), sweep::ld4(v + i)};
+  }
+  __device__ float4 apply4(const In& in, long long i) const {
+    float4 un, vn;
+    acc(in.g.x, in.u.x, in.v.x, un.x, vn.x);
+    acc(in.g.y, in.u.y, in.v.y, un.y, vn.y);
+    acc(in.g.z, in.u.z, in.v.z, un.z, vn.z);
+    acc(in.g.w, in.u.w, in.v.w, un.w, vn.w);
+    *reinterpret_cast<float4*>(u_out + i) = un;
+    __stcg(reinterpret_cast<float4*>(v_out + i), vn);
+    return vn;
+  }
+  __device__ const float* row(long long base) const { return v_out + base; }
+  // a kept element's value: v' as this kernel wrote it, through L2
+  __device__ float value(long long i) const { return __ldcg(v_out + i); }
+};
 
 // K7, the threshold pass (replaces src/repro/kernels/sparsify_ef.py::
 // sparsify_ef, body _kernel): per element u' = fma(m, u, g), v' = v + u',
@@ -140,9 +148,7 @@ extern "C" int sparsify_ef(const float* g, const float* u, const float* v,
                            float* v_out, float* sent, long long n,
                            void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  const void* ptrs[] = {g, u, v, u_out, v_out, sent};
-  int vec = 1;
-  for (const void* p : ptrs) vec &= ((unsigned long long)p & 15) == 0;
+  const int vec = sweep::aligned16({g, u, v, u_out, v_out, sent});
   const int threads = 256;
   threshold_ef_kernel<<<grid_for(vec ? (n >> 2) : n, threads), threads, 0,
                         st>>>(g, u, v, tau, momentum, u_out, v_out, sent, n,
@@ -154,18 +160,13 @@ extern "C" int fused_ef_topk(const float* g, const float* u, const float* v,
                              const int* seg, const int* kcap,
                              const int* active_of_block, int n_slots,
                              float* u_out, float* v_out, float* cvals,
-                             int* cidx, int* cseg, unsigned long long* keys,
-                             long long n, int block, int n_blocks,
-                             int n_active, int n_cand, float momentum,
+                             int* cidx, int* cseg, unsigned long long* a,
+                             unsigned* b, long long n, int block,
+                             int n_blocks, int n_cand, float momentum,
                              int use_momentum, void* stream_ptr) {
-  cudaStream_t st = (cudaStream_t)stream_ptr;
-  const long long total = (long long)n_blocks * block;
-  ef_keys_kernel<<<grid_for(total, 256), 256, 0, st>>>(
-      g, u, v, seg, active_of_block, u_out, v_out, keys, n, block,
-      next_pow2(block), total, momentum, use_momentum);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)sort_and_emit(keys, seg, v_out, kcap, active_of_block, n_slots,
-                            cvals, cidx, cseg, block, n_blocks, n_active,
-                            n_cand, st);
+  const EfSource src{g, u, v, u_out, v_out, momentum, use_momentum};
+  const bool vec = sweep::aligned16({g, u, v, u_out, v_out, seg});
+  return (int)sweep::launch(src, seg, kcap, active_of_block, n_slots, cvals,
+                            cidx, cseg, a, b, n, block, n_blocks, n_cand, vec,
+                            (cudaStream_t)stream_ptr);
 }

@@ -24,9 +24,9 @@ LANE = 128
 BLOCK = 8 * LANE          # default sweep block (one (8, 128) TPU tile)
 LOC_BITS = 17             # local index bits: blocks are <= 2^17 elements
 _MAG_MAX = 0x7FFFFFFF
-# the cap pass keeps one int counter per slot in dynamic shared memory;
-# with its 1.3 KB of static shared memory it must stay within the 48 KB a
-# launch gets without opting in
+# the sweep keeps one int counter per slot in dynamic shared memory beside
+# the radix sort's 150 KB; 11Ki slots (44 KB) keep a CTA within the 227 KB
+# it may have
 _MAX_SLOTS = 11 * 1024
 
 
@@ -87,7 +87,7 @@ def _select(x, seg, kcap, n_cand):
 
 
 def active_blocks(seg: torch.Tensor, block: int) -> torch.Tensor:
-    """(n_blocks,) int32: each block's row in the sweep kernels' key
+    """(n_blocks,) int32: each block's row in the sweep kernels' sort
     scratch, or -1 for a block with no selectable element (seg < 0
     throughout)."""
     n = seg.shape[0]
@@ -96,6 +96,17 @@ def active_blocks(seg: torch.Tensor, block: int) -> torch.Tensor:
     if n > full * block:
         has = torch.cat([has, (seg[full * block:].amax() >= 0)[None]])
     return torch.where(has, torch.cumsum(has, 0) - 1, -1).to(torch.int32)
+
+
+def radix_scratch(active: torch.Tensor, block: int):
+    """The sweep kernels' sort scratch, one row of ``block`` per active
+    block: a 64-bit and a 32-bit word per element (the radix passes
+    ping-pong between them, as the block top-k's do)."""
+    rows = int(active.max()) + 1
+    return (torch.empty((rows * block,), dtype=torch.int64,
+                        device=active.device),
+            torch.empty((rows * block,), dtype=torch.int32,
+                        device=active.device))
 
 
 def check_sweep(name: str, floats, seg, kcap, n_cand: int, block: int):
@@ -142,7 +153,14 @@ def segmented_topk(x, seg, kcap, n_cand: int, block: int, active=None):
     (value, global index, slot) triples, (n_blocks * n_cand,) each,
     unused entries (0, block end, -1).  ``active`` is
     :func:`active_blocks` (computed here when not given).  Same outputs
-    as :func:`segmented_topk_plain`, bitwise."""
+    as :func:`segmented_topk_plain`, bitwise.
+
+    NaN is ordered as ``lax.top_k`` orders it (the reference's ``jnp``
+    backend): by its bits with the sign cleared, above inf, and selected
+    like any value.  The reference's own sweep differs on a block holding
+    a NaN: its ``loop`` extractor (``valid = m >= 0``) drops every
+    candidate of that block, its ``bitonic`` one never selects the NaN.
+    This sweep follows neither (tests/test_torch_nan_order.py)."""
     if x.device.type == "cpu":
         return segmented_topk_plain(x, seg, kcap, n_cand, block)
     check_sweep("segmented_topk", (x,), seg, kcap, n_cand, block)
@@ -150,17 +168,15 @@ def segmented_topk(x, seg, kcap, n_cand: int, block: int, active=None):
     nb = -(-n // block)
     if active is None:
         active = active_blocks(seg, block)
-    n_active = int(active.max()) + 1
     dev = x.device
     cvals = torch.empty((nb * n_cand,), dtype=torch.float32, device=dev)
     cidx = torch.empty((nb * n_cand,), dtype=torch.int32, device=dev)
     cseg = torch.empty((nb * n_cand,), dtype=torch.int32, device=dev)
-    keys = torch.empty((max(n_active, 1) * next_pow2(block),),
-                       dtype=torch.int64, device=dev)
+    a, b = radix_scratch(active, block)
     err = build.library("segmented_topk").segmented_topk(
         x.data_ptr(), seg.data_ptr(), kcap.data_ptr(), active.data_ptr(),
         kcap.numel(), cvals.data_ptr(), cidx.data_ptr(), cseg.data_ptr(),
-        keys.data_ptr(), n, block, nb, n_active, n_cand,
+        a.data_ptr(), b.data_ptr(), n, block, nb, n_cand,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "segmented_topk")
     LAUNCHES["segmented_topk"] += 1

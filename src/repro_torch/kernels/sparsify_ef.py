@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.segmented_topk import (active_blocks, check_sweep,
-                                                next_pow2,
+                                                radix_scratch,
                                                 segmented_topk_plain)
 from repro_torch.utils import fma_f32
 
@@ -43,7 +43,14 @@ def sparsify_ef_topk(g, u, v, seg, kcap, momentum: float,
     """g, u, v: (n,) f32; seg: (n,) int32 slot per element (-1 = not
     selectable); kcap: (n_slots,) int32.  ``active`` is
     :func:`active_blocks` (computed here when not given).  Same outputs
-    as :func:`sparsify_ef_topk_plain`, bitwise."""
+    as :func:`sparsify_ef_topk_plain`, bitwise.
+
+    A NaN in v' is selected in ``lax.top_k``'s order (the reference's
+    ``jnp`` backend): by its bits with the sign cleared, above inf.  The
+    reference's fused kernel differs on a block holding a NaN (its
+    ``loop`` extractor drops the whole block's candidates, its ``bitonic``
+    one skips the NaN); this one follows neither
+    (tests/test_torch_nan_order.py)."""
     if g.device.type == "cpu":
         return sparsify_ef_topk_plain(g, u, v, seg, kcap, momentum,
                                       use_momentum, n_cand, block)
@@ -52,20 +59,18 @@ def sparsify_ef_topk(g, u, v, seg, kcap, momentum: float,
     nb = -(-n // block)
     if active is None:
         active = active_blocks(seg, block)
-    n_active = int(active.max()) + 1
     dev = g.device
     u_out = torch.empty_like(g)
     v_out = torch.empty_like(g)
     cvals = torch.empty((nb, n_cand), dtype=torch.float32, device=dev)
     cidx = torch.empty((nb, n_cand), dtype=torch.int32, device=dev)
     cseg = torch.empty((nb, n_cand), dtype=torch.int32, device=dev)
-    keys = torch.empty((max(n_active, 1) * next_pow2(block),),
-                       dtype=torch.int64, device=dev)
+    a, b = radix_scratch(active, block)
     err = build.library("sparsify_ef").fused_ef_topk(
         g.data_ptr(), u.data_ptr(), v.data_ptr(), seg.data_ptr(),
         kcap.data_ptr(), active.data_ptr(), kcap.numel(), u_out.data_ptr(),
         v_out.data_ptr(), cvals.data_ptr(), cidx.data_ptr(),
-        cseg.data_ptr(), keys.data_ptr(), n, block, nb, n_active, n_cand,
+        cseg.data_ptr(), a.data_ptr(), b.data_ptr(), n, block, nb, n_cand,
         float(momentum), int(bool(use_momentum)),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fused_ef_topk")

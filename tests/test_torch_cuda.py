@@ -25,15 +25,25 @@ pytestmark = pytest.mark.cuda
 
 ROLES = (SP.ROLE_COMPRESSED, SP.ROLE_TOPK_ONLY)
 # "odd": leaves of odd sizes, so blocks hold several slot pieces and leaf
-# boundaries fall anywhere; "big_k": sweep blocks above one shared-memory
-# tile (4096 keys), so the sort's global passes run; "wide_embed": whole
-# blocks (the ragged last one too) with no selectable element
+# boundaries fall anywhere, with unselectable runs inside a block; "big_k":
+# one sweep block (131072) longer than the vector, so the one block is
+# ragged and spans ten 8192-word radix tiles; "tiles": loop blocks of
+# 54272 words (6.6 tiles, as the main path's loop rule gives) and a ragged
+# last block; "tiny": hundreds of one- and two-element slot pieces in a
+# block, more than the 256 slot ids the cap walk ranks per digit, so one
+# warp ranks them; "wide_embed": whole blocks (the ragged last one too)
+# with no selectable element
 TREES = {
     "odd": ({"embed": {"w": (300, 7)}, "block1": {"w": (1000, 37),
                                                   "b": (13,)},
              "block2": {"w": (777, 53)}, "fc": {"w": (129, 71)}}, 0.05),
     "big_k": ({"embed": {"w": (16,)}, "mid": {"w": (81920,)},
                "fc": {"w": (37,)}}, 0.25),
+    "tiles": ({"embed": {"w": (64,)}, "mid": {"w": (135680,)},
+               "fc": {"w": (1000,)}}, 0.05),
+    "tiny": ({"embed": {"w": (300,)},
+              **{f"l{i:03d}": {"w": (1 + i % 2,)} for i in range(700)},
+              "fc": {"w": (5,)}}, 0.5),
     "wide_embed": ({"embed": {"w": (5000, 3)}, "block": {"w": (300, 11)}},
                    0.05),
 }
@@ -79,12 +89,24 @@ def _vec(kind, n, seed, dev):
     return torch.from_numpy(x.astype(np.float32)).to(dev)
 
 
+def _same_bits(a, b):
+    """Equal as bits: f32 through their int32 views, so NaN payloads,
+    +-0.0 and subnormals count."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
 @pytest.mark.parametrize("which", sorted(TREES))
 @pytest.mark.parametrize("extract", ["loop", "bitonic"])
-@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "special"])
 @pytest.mark.parametrize("use_momentum", [True, False])
 def test_fused_ef_topk_kernel_is_bitwise_its_plain_version(
         card, which, extract, kind, use_momentum):
+    """Every output as bits, u' NaN payloads aside: the card's FMA returns
+    its canonical NaN (0x7fffffff), the plain version's exact FMA (f64
+    operations) another NaN in the same places.  v' is a sum on the card
+    on both sides, so its NaNs, and the candidates', are equal bits."""
     layout = _layout(which)
     _, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, ROLES, extract)
     n = layout.n_total
@@ -96,13 +118,16 @@ def test_fused_ef_topk_kernel_is_bitwise_its_plain_version(
     torch.cuda.synchronize()
     assert LAUNCHES["fused_ef_topk"] == before + 1
     plain = EF.sparsify_ef_topk_plain(*args)
-    for name, a, b in zip(("u", "v", "vals", "idx", "seg"), out, plain):
-        assert torch.equal(a, b), name
+    nan = out[0].isnan()
+    assert torch.equal(nan, plain[0].isnan())
+    assert _same_bits(out[0][~nan], plain[0][~nan]), "u"
+    for name, a, b in zip(("v", "vals", "idx", "seg"), out[1:], plain[1:]):
+        assert _same_bits(a, b), name
 
 
 @pytest.mark.parametrize("which", sorted(TREES))
 @pytest.mark.parametrize("extract", ["loop", "bitonic"])
-@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "special"])
 def test_segmented_topk_kernel_is_bitwise_its_plain_version(
         card, which, extract, kind):
     layout = _layout(which)
@@ -115,11 +140,11 @@ def test_segmented_topk_kernel_is_bitwise_its_plain_version(
     assert LAUNCHES["segmented_topk"] == before + 1
     plain = ST.segmented_topk_plain(x, seg_t, kcap_t, n_cand, block)
     for name, a, b in zip(("vals", "idx", "seg"), out, plain):
-        assert torch.equal(a, b), name
+        assert _same_bits(a, b), name
 
 
-# (n_blocks, block, kb): a small k; the whole block; blocks above one
-# 4096-key tile, just above a power of two and at the path's leaf shapes,
+# (n_blocks, block, kb): a small k; the whole block; blocks of several
+# 8192-word tiles, just above a power of two and at the path's leaf shapes,
 # cut to a few blocks; the largest block the wrapper takes; kb = 1; and
 # blocks that are not a multiple of the radix sort's 8192-word tile, inside
 # one tile and across two

@@ -1,4 +1,5 @@
-"""Time variants of the K6 and K3 kernels on the card: what each part costs.
+"""Time variants of the K6, K1 and K3 kernels on the card: what each part
+costs.
 
     PYTHONPATH=src python tools/kernel_variants.py [name ...]
 
@@ -8,10 +9,11 @@ that on the CPU), compiled into its own library under ``build/variants/``
 and launched through the same
 C entry point, at the main path's shapes: the block top-k at the llama3.2-1b
 (4 layers, alpha = 0.001) MLP, attention-output and key/value leaf blocks,
-the encoder matmul at its five im2col shapes.  Variants marked "timing only"
-change what the kernel computes (they drop or fake a part of it), so their
-outputs are not compared; the others are held to the plain version as
-chip_smoke.py holds the kernels.  Prints one JSON line per variant (device
+the fused EF sweep at that layout's flat gradient (506M elements, 131072
+blocks), the encoder matmul at its five im2col shapes.  Variants marked
+"timing only" change what the kernel computes (they drop or fake a part of
+it), so their outputs are not compared; the others are held to the plain
+version as chip_smoke.py holds the kernels.  Prints one JSON line per variant (device
 ms per shape) and one for the library call at the same shapes.  Needs the
 card and nvcc.
 """
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import block_topk as BT
 from repro_torch.kernels import build
 from repro_torch.kernels import matmul_lrelu as MM
+from repro_torch.kernels import segmented_topk as ST
+from repro_torch.kernels import sparsify_ef as EF
 
 OUT = build.BUILD_DIR.parent / "variants"
 K6_SHAPES = [(999, 67200, 67109), (993, 16896, 16777), (512, 8192, 4194)]
@@ -39,10 +43,10 @@ _PASSES = ("  radix::row_pass<LOC_BITS>(keys, wa, block, 0, s);\n"
            "  radix::row_pass<LOC_BITS>(wa, wb, block, 1, s);\n"
            "  radix::row_pass<LOC_BITS>(wb, wc, block, 2, s);\n"
            "  radix::row_pass<LOC_BITS>(wc, out, block, 3, s);")
-_PEERS = ("      if (valid) atomicOr(&peer_bits[d], 1u << lane);\n"
-          "      __syncwarp();\n"
-          "      const unsigned peers =\n"
-          "          valid ? *static_cast<volatile unsigned*>"
+_PEERS = ("  if (valid) atomicOr(&peer_bits[d], 1u << lane);\n"
+          "  __syncwarp();\n"
+          "  const unsigned peers =\n"
+          "      valid ? *static_cast<volatile unsigned*>"
           "(&peer_bits[d]) : 0u;")
 _SPLIT = ("  hi = (__float_as_uint(x) + TF32_HALF_ULP) & TF32_MASK;\n"
           "  const float r = x - __uint_as_float(hi);\n"
@@ -52,6 +56,12 @@ _NOLOAD = [("    if (st < n_k) load(st, st);",
             "    if (st < n_k && K < 0) load(st, st);"),
            ("    if (kt + STAGES - 1 < n_k)\n      load(",
             "    if (kt + STAGES - 1 < n_k && K < 0)\n      load(")]
+
+_NO_WALK = ("rb, base, len, lo, hi, budget,", "rb, base, len, lo, hi, 0,")
+_SWEEP_PASSES = ("  radix::row_pass<LOC_BITS>(keys, wa, len, 0, s.r);\n"
+                 "  radix::row_pass<LOC_BITS>(wa, wb, len, 1, s.r);\n"
+                 "  radix::row_pass<LOC_BITS>(wb, wc, len, 2, s.r);\n"
+                 "  radix::row_pass<LOC_BITS>(wc, locs, len, 3, s.r);")
 
 # name: (source, [(old, new)], timing only)
 VARIANTS = {
@@ -65,7 +75,7 @@ VARIANTS = {
         (_WRITE, "      { const int d = digit<KEY_LO>(w, pass) & ~1;\n"
                  "        store(s.tile_dst[d] + k, w); }")], True),
     "k6 peers by __match_any_sync": ("block_topk", [
-        (_PEERS, "      const unsigned peers = __match_any_sync(FULL, d)"
+        (_PEERS, "  const unsigned peers = __match_any_sync(FULL, d)"
                  " & __ballot_sync(FULL, valid);")], False),
     "k6 no prefetch": ("block_topk", [
         ("  fetch_tile(load, 0, n, s);\n"
@@ -81,6 +91,21 @@ VARIANTS = {
         ("constexpr int ITEMS = 16;", "constexpr int ITEMS = 32;"),
         ("__launch_bounds__(radix::THREADS, 1)",
          "__launch_bounds__(radix::THREADS, 2)")], False),
+    "k1": ("sparsify_ef", [], False),
+    "k1 fill one CTA a block": ("sparsify_ef", [
+        ("constexpr int FILL_SLICES = 8;", "constexpr int FILL_SLICES = 1;")],
+        False),
+    "k1 no cap walk": ("sparsify_ef", [_NO_WALK], True),
+    "k1 histogram only": ("sparsify_ef", [_NO_WALK, (_SWEEP_PASSES, "")],
+                          True),
+    "k1 no fill kernel": ("sparsify_ef", [
+        ("  inactive_kernel<Src><<<",
+         "  if (n < 0) inactive_kernel<Src><<<")], True),
+    "k1 cap walk without gathers": ("sparsify_ef", [
+        ("      sl[j] = i < len ? __ldg(seg + base + loc[j]) : -1;",
+         "      sl[j] = i < len ? lo : -1;"),
+        ("        cv[pos] = src.value(gi);", "        cv[pos] = 0.f;")],
+        True),
     "k3": ("matmul_lrelu", [], False),
     "k3 exact split always": ("matmul_lrelu", [
         ("        if (!__any_sync(0xffffffffu, bad)) {",
@@ -148,6 +173,35 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def k1_inputs(dev, gen):
+    """K1 at the main path's layout: (plain version's args, outputs,
+    the C entry point's arguments up to the stream)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core import sparsify as SP
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), n_layers=4)
+    layout = SP.build_layout(build_model(cfg).init(torch.Generator(),
+                                                   "meta"), 0.001)
+    _, block, seg, kcap, n_cand, _ = SP._fused_meta(
+        layout, (SP.ROLE_COMPRESSED, SP.ROLE_TOPK_ONLY), "auto")
+    n = layout.n_total
+    nb = -(-n // block)
+    g, u, v = (torch.randn(n, generator=gen, device=dev) * 1e-3
+               for _ in range(3))
+    seg, kcap = (torch.from_numpy(a).to(dev) for a in (seg, kcap))
+    active = ST.active_blocks(seg, block)
+    outs = (torch.empty_like(g), torch.empty_like(g),
+            torch.empty((nb * n_cand,), device=dev),
+            torch.empty((nb * n_cand,), dtype=torch.int32, device=dev),
+            torch.empty((nb * n_cand,), dtype=torch.int32, device=dev))
+    a, b = ST.radix_scratch(active, block)
+    ptrs = ([t.data_ptr() for t in (g, u, v, seg, kcap, active)]
+            + [kcap.numel()] + [t.data_ptr() for t in outs + (a, b)]
+            + [n, block, nb, n_cand, 0.9, 1])
+    return (g, u, v, seg, kcap, 0.9, True, n_cand, block), outs, ptrs
+
+
 def main(names) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -160,10 +214,26 @@ def main(names) -> None:
         w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
         b = torch.randn((N,), generator=gen, device=dev) * 0.1
         k3_in[(M, K, N)] = (x, w, b, MM.matmul_bias_lrelu_plain(x, w, b))
+    k1_in = None
+    if any(VARIANTS[nm][0] == "sparsify_ef" for nm in names):
+        k1_in = k1_inputs(dev, gen)
     for name, (lib, src) in compile_variants(names).items():
         timing_only = VARIANTS[name][2]
         row = {}
-        if src == "block_topk":
+        if src == "sparsify_ef":
+            args, outs, ptrs = k1_in
+
+            def call():
+                build.check(lib.fused_ef_topk(*ptrs, stream), name)
+            call()
+            torch.cuda.synchronize()
+            if not timing_only:
+                want = EF.sparsify_ef_topk_plain(*args)
+                assert all(torch.equal(a, b) for a, b in zip(outs, want)), \
+                    name
+                del want
+            row["llama3.2-1b 4 layers, alpha 0.001"] = cuda_ms(call, 5)
+        elif src == "block_topk":
             for nb, block, kb in K6_SHAPES:
                 x = k6_in[(nb, block, kb)]
                 vals = torch.empty((nb, kb), device=dev)
