@@ -45,7 +45,9 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               layout: 243296 pairs, 16 low bits, 7603 words per plane) and
               at edge cases (k from 1 to two tiles, widths 1 to 31, zero
               and all-ones values; NaN/Inf, all-zero blocks and .5 ties
-              for K4); then the codec on the card against the CPU
+              at scale blocks 1, 64, 256 and 1000 for K4), K5b also on a
+              stack of two payloads; then the codec on the card against
+              the CPU, and on a gathered table of two payloads
   8. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
@@ -54,11 +56,13 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               and on the packed ring (--transport ring_packed: the support
               set through K5a/K5b); dgc with the block top-k
               (--topk-backend pallas) on the mesh wire and on the packed
-              ring (each node's pairs through K4, each received payload
-              through K5b), and sparse_gd with the fused sweep (momentum
-              off), each 2 warm-up + 3 sparsified steps; lgc_ps on the
+              ring (each node's pairs through K4, the gathered table of
+              the K payloads through one K5b launch: every node holds the
+              same table, so one decode serves all), and sparse_gd with
+              the fused sweep (momentum off), each 2 warm-up + 3
+              sparsified steps; lgc_ps on the
               mesh wire and on the packed ring (each node's innovations
-              through K4, each received payload through K5b) and
+              through K4, their gathered table through one K5b) and
               lgc_rar_q8 on the int8 ring (--transport ring_q8), each 6
               steps as lgc_rar.  Each run resets the launch counts before
               and reads them after; launch counts per phase, finite
@@ -66,7 +70,10 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               transport) are checked
   9. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
-              function (K6 and K3 also per shape, with their ratio to it)
+              function (K6 and K3 also per shape, with their ratio to it);
+              K4, K5a and K5b (one payload and the two-payload table) also
+              as device_ms (200 calls in one CUDA graph) and host_us (the
+              wrapper's host time per call)
 
 then the kernel list, the card's name and power limit, and on the last
 line {"ok": true, "device": {...}}.  Any failed check raises: the script
@@ -108,6 +115,48 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms of fn() over ``reps`` calls captured in one CUDA
+    graph and replayed: the kernels' own time, without the host's work
+    between launches (the wrappers launch on the current stream, which
+    is the capture stream)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host us of fn() over ``reps`` calls with no synchronise
+    between them, after a warm-up: what the wrapper costs the host."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
 
 
 def build_phase(card: str):
@@ -533,8 +582,9 @@ def _edge_ints(kind: str, k: int, width: int, dev):
 
 def bitpack_phase(dev):
     """K4, K5a and K5b against their plain versions, bitwise, at the
-    path's PackPlan and at edge cases; the codec on the card against the
-    CPU; times at the path's shapes."""
+    path's PackPlan and at edge cases, K5b also on stacks of B = 2
+    payloads (a gathered table); the codec on the card against the CPU,
+    and on a gathered table; times at the path's shapes."""
     from repro_torch.dist import packed as PK
     from repro_torch.dist import quantize as Q
     from repro_torch.kernels import bitpack as BP
@@ -557,6 +607,12 @@ def bitpack_phase(dev):
          [BP.pack_bits_plain(idx, plan.width)])
     same("unpack_bits", [BP.unpack_bits(words, k)],
          [BP.unpack_bits_plain(words, k), lo])
+    # the gathered table of K = 2 payloads, decoded in one launch
+    vals2, idx2 = _sorted_pairs(n, k, dev, 5)
+    lo2 = idx2 & ((1 << width) - 1)
+    table = torch.stack([words, BP.pack_bits(lo2, width)])
+    same("unpack_bits_table", [BP.unpack_bits(table, k)],
+         [BP.unpack_bits_plain(table, k), torch.stack([lo, lo2])])
     qp = BP.quantize_pack(vals, lo, width, sb, Q._EPS)
     same("quantize_pack", qp,
          BP.quantize_pack_plain(vals, lo, width, sb, Q._EPS))
@@ -567,8 +623,12 @@ def bitpack_phase(dev):
                 wds = BP.pack_bits(x, w)
                 same("pack_bits", [wds], [BP.pack_bits_plain(x, w)])
                 same("unpack_bits", [BP.unpack_bits(wds, kk)], [x])
+                tbl = torch.stack([wds, BP.pack_bits(
+                    _edge_ints("random", kk, w, dev), w)])
+                same("unpack_bits_table", [BP.unpack_bits(tbl, kk)],
+                     [BP.unpack_bits_plain(tbl, kk)])
     for kk in (1, 255, 256, 257, 1000, 1300):
-        for blk in (256, 64):
+        for blk in (256, 64, 1, 1000):
             v = torch.randn(kk, device=dev)
             v[::97], v[5::101], v[7::103] = (float("nan"), float("inf"),
                                              -float("inf"))
@@ -587,6 +647,12 @@ def bitpack_phase(dev):
     same("codec", [dv.cpu(), di], [PK.decode_sparse(cpu, plan)[0], idx])
     same("codec", [PK.decode_indices(PK.encode_indices(idx, plan), plan)],
          [idx])
+    # the gathered table as RingPackedTransport decodes it: one call
+    enc2 = PK.encode_sparse_fused(vals2, idx2, plan)
+    tv, ti = PK.decode_sparse(tuple(torch.stack(p) for p in zip(enc, enc2)),
+                              plan)
+    same("codec_table", [tv[0], tv[1], ti], [dv, PK.decode_sparse(
+        enc2, plan)[0], torch.stack([idx, idx2])])
     torch.cuda.synchronize()
     emit("bitpack", n=n, k=k, width=plan.width, lo_bits=width,
          n_buckets=plan.n_buckets, words_per_plane=W, scale_blocks=m,
@@ -595,6 +661,27 @@ def bitpack_phase(dev):
     if not all(checks.values()):
         raise AssertionError(f"bitpack kernels differ from their plain "
                              f"versions: {checks}")
+    return bitpack_times(dev, batched=True)
+
+
+def bitpack_times(dev, batched: bool):
+    """K4, K5a and K5b at the path's shapes, each as ``ms`` (CUDA events
+    around 200 back-to-back wrapper calls: host and device work), as
+    ``device_ms`` (the same 200 calls captured in one CUDA graph and
+    replayed) and as ``host_us`` (1000 calls, no synchronise); with
+    ``batched``, also K5b on the K = 2 gathered table in one launch
+    (``unpack_bits_table``)."""
+    from repro_torch.dist import packed as PK
+    from repro_torch.dist import quantize as Q
+    from repro_torch.kernels import bitpack as BP
+    layout = llama_layout(0.001)
+    n, k = layout.n_total, layout.mu_pad
+    plan = PK.make_plan(n, k)
+    width, W, sb = plan.lo_bits, BP.word_count(k), plan.scale_block
+    m = -(-k // sb)
+    vals, idx = _sorted_pairs(n, k, dev, 4)
+    lo = idx & ((1 << width) - 1)
+    words = BP.pack_bits(lo, width)
     plane_bytes = width * W * 4
     rows = {
         "pack_bits": (lambda: BP.pack_bits(lo, width),
@@ -608,13 +695,23 @@ def bitpack_phase(dev):
             lambda: BP.quantize_pack_plain(vals, lo, width, sb, Q._EPS),
             k * 8 + plane_bytes + m * sb + m * 4),
     }
+    if batched:
+        table = torch.stack([words, BP.pack_bits(
+            _sorted_pairs(n, k, dev, 5)[1] & ((1 << width) - 1), width)])
+        rows["unpack_bits_table"] = (
+            lambda: BP.unpack_bits(table, k),
+            lambda: BP.unpack_bits_plain(table, k),
+            2 * (plane_bytes + k * 4))
     out = {}
     for name, (kern, plain, nbytes) in rows.items():
-        out[name] = {"ms": cuda_ms(kern, 200), "plain_ms": cuda_ms(plain, 20),
+        out[name] = {"ms": cuda_ms(kern, 200),
+                     "device_ms": graph_ms(kern, 200),
+                     "host_us": host_us(kern, 1000),
+                     "plain_ms": cuda_ms(plain, 20),
                      "max_abs_err": 0.0, "bytes": nbytes,
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "bound_by": "bytes", "library_ms": None}
-    emit("bitpack_times", k=k, lo_bits=width, **out)
+    emit("bitpack_times", k=k, lo_bits=width, words_per_plane=W, **out)
     return out
 
 
@@ -740,11 +837,12 @@ def main() -> None:
             per_step(pack_bits=1, unpack_bits=1)),
         "dgc": train_phase(dev, "dgc", dgc, 5,
                            per_step(block_topk=n_leaves * K)),
-        # topk: one K4 encode per node, one K5b decode per gathered payload
+        # topk: one K4 encode per node, one K5b decode of the gathered
+        # table (every node holds the same K payloads)
         "dgc ring_packed": train_phase(
             dev, "dgc ring_packed", dgc + packed, 5,
             per_step(block_topk=n_leaves * K, quantize_pack=K,
-                     unpack_bits=K)),
+                     unpack_bits=1)),
         "sparse_gd": train_phase(
             dev, "sparse_gd", ["--compression", "sparse_gd",
                                "--topk-backend", "fused"], 5,
@@ -756,12 +854,13 @@ def main() -> None:
             per_step(fused_ef_topk=K,
                      compressed={"matmul_bias_lrelu": len(ENCODER)})),
         # + the support (K5a, K5b) every sparsified step, and each node's
-        # innovations encoded (K4) and each received payload decoded (K5b)
+        # innovations encoded (K4) and their gathered table decoded once
+        # (K5b)
         "lgc_ps ring_packed": train_phase(
             dev, "lgc_ps ring_packed", ps + packed, 6,
             per_step(fused_ef_topk=K, pack_bits=1, unpack_bits=1,
                      compressed={"matmul_bias_lrelu": len(ENCODER),
-                                 "quantize_pack": K, "unpack_bits": K})),
+                                 "quantize_pack": K, "unpack_bits": 1})),
         # every node encodes (K3) for the int8 ring's mean
         "lgc_rar_q8 ring_q8": train_phase(
             dev, "lgc_rar_q8 ring_q8", q8, 6,

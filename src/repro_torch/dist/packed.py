@@ -14,7 +14,8 @@ The codec builds and reads the payload the packed ring transport ships:
 :func:`encode_sparse_fused` sorts a node's pairs by index, histograms the
 high bits and runs K4 (``kernels.bitpack.quantize_pack``: int8 values and
 the low-bit planes in one launch); :func:`decode_sparse` unpacks the
-planes with K5b and re-expands the histogram; :func:`encode_indices` /
+planes with K5b and re-expands the histogram, one launch for a whole
+gathered table; :func:`encode_indices` /
 :func:`decode_indices` carry an index set alone (K5a / K5b), bit-exact.
 The guard's checksum word and payload validation wait for the guard
 policies (ROADMAP.md Queue 1, "chaos, guards and resume").
@@ -147,18 +148,23 @@ def encode_indices(idx: torch.Tensor, plan: PackPlan
 
 
 def decode_indices(payload, plan: PackPlan) -> torch.Tensor:
-    """Inverse of :func:`encode_indices` -> sorted int32 (plan.k,)."""
+    """Inverse of :func:`encode_indices` -> sorted int32 (plan.k,); on a
+    gathered (B, ...) table of payloads -> (B, plan.k), one K5b launch
+    for all B."""
     _no_checksum(plan)
     if plan.raw_index:
         (idx,) = payload
         return idx
     counts, words = payload
     lo = BP.unpack_bits(words, plan.k)
+    buckets = torch.arange(plan.n_buckets, dtype=torch.int32,
+                           device=lo.device)
+    if counts.dim() == 2:
+        buckets = buckets.repeat(counts.shape[0])
     # output_size keeps the card from synchronising on sum(counts)
-    hi = torch.repeat_interleave(
-        torch.arange(plan.n_buckets, dtype=torch.int32, device=lo.device),
-        counts, output_size=plan.k)
-    return (hi << plan.lo_bits) | lo
+    hi = torch.repeat_interleave(buckets, counts.reshape(-1),
+                                 output_size=lo.numel())
+    return (hi.view(lo.shape) << plan.lo_bits) | lo
 
 
 def encode_sparse(vals: torch.Tensor, idx: torch.Tensor, plan: PackPlan):
@@ -188,7 +194,8 @@ def encode_sparse_fused(vals: torch.Tensor, idx: torch.Tensor,
 
 def decode_sparse(payload, plan: PackPlan):
     """Inverse of :func:`encode_sparse` -> (vals f32 (k,), idx int32
-    (k,)) in index order: indices bit-exact, values dequantized."""
+    (k,)) in index order: indices bit-exact, values dequantized.  On a
+    gathered (B, ...) table, (B, k) each, with one K5b launch."""
     q, scales = payload[-2], payload[-1]
     idx = decode_indices(payload[:-2], plan)
     return Q.dequantize_i8(q, scales, plan.k), idx

@@ -42,8 +42,11 @@ def quantize_i8(x: torch.Tensor, scale_block: int = SCALE_BLOCK):
 
 def dequantize_i8(q: torch.Tensor, scales: torch.Tensor, n: int,
                   shape=None) -> torch.Tensor:
-    """Inverse of :func:`quantize_i8`: drop the padding, restore shape."""
-    flat = (q.to(torch.float32) * scales[:, None]).reshape(-1)[:n]
+    """Inverse of :func:`quantize_i8`: drop the padding, restore shape.
+    A leading batch of (q, scales) pairs, (B, m, scale_block) and (B, m),
+    gives (B, n)."""
+    flat = (q.to(torch.float32) * scales[..., None]
+            ).reshape(*q.shape[:-2], -1)[..., :n]
     return flat.reshape(shape) if shape is not None else flat
 
 

@@ -168,11 +168,12 @@ class RingPackedTransport(RingTransport):
     """The ring whose packed sparse exchanges ship the real packed
     payload: indices decode bit-exact, values pay one int8 quantization.
     Per exchange each node's pairs are encoded (one K4 launch per node)
-    and each received payload decoded once (one K5b launch per node):
-    every node's gathered table is the same, so one decode of it serves
-    all.  The leader's index set is encoded once (K5a) and decoded once
-    (K5b) where the reference, being SPMD, encodes on every node and
-    adopts the leader's payload: the same numbers."""
+    and the gathered table of all K payloads is decoded in one K5b
+    launch: every node ends with the same table and would decode it
+    whole, so one decode of it serves all.  The leader's index set is
+    encoded once (K5a) and decoded once (K5b) where the reference, being
+    SPMD, encodes on every node and adopts the leader's payload: the same
+    numbers."""
 
     kind = "ring_packed"
 
@@ -185,9 +186,9 @@ class RingPackedTransport(RingTransport):
         table = C.all_gather_packed(
             [PK.encode_sparse_fused(vals[i], idx[i], plan)
              for i in range(self.K)], self._record)
-        rows = [PK.decode_sparse(tuple(a[j] for a in table), plan)
-                for j in range(self.K)]
-        return _scatter_rows(rows, n, vals.dtype, vals.device)
+        vals_t, idx_t = PK.decode_sparse(table, plan)
+        return _scatter_rows(list(zip(vals_t, idx_t)), n, vals.dtype,
+                             vals.device)
 
     def broadcast_packed(self, idx, leader: int, n: int, plan=None):
         k = idx.shape[-1]

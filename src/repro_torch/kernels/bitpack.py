@@ -73,12 +73,13 @@ def pack_bits_plain(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def unpack_bits_plain(words: torch.Tensor, k: int) -> torch.Tensor:
-    width, W = words.shape
+    *lead, width, W = words.shape
     r = torch.arange(GROUP, dtype=torch.int32, device=words.device)[:, None]
-    acc = torch.zeros((GROUP, W), dtype=torch.int32, device=words.device)
+    acc = torch.zeros((*lead, GROUP, W), dtype=torch.int32,
+                      device=words.device)
     for b in range(width):
-        acc |= ((words[b][None, :] >> r) & 1) << b
-    return acc.reshape(-1)[:k]
+        acc |= ((words[..., b, None, :] >> r) & 1) << b
+    return acc.reshape(*lead, GROUP * W)[..., :k]
 
 
 def quantize_pack_plain(vals: torch.Tensor, idx_lo: torch.Tensor,
@@ -99,6 +100,15 @@ def quantize_pack_plain(vals: torch.Tensor, idx_lo: torch.Tensor,
 
 # -- wrappers -----------------------------------------------------------------
 
+_ENTRIES = {}     # C entry points of csrc/bitpack.cu, bound at first launch
+
+
+def _entry(name: str):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(build.library("bitpack"), name)
+    return fn
+
 
 def _check(name: str, *tensors) -> None:
     for t in tensors:
@@ -107,8 +117,11 @@ def _check(name: str, *tensors) -> None:
                              "on the card")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(dev) -> int:
+    """The raw handle of ``dev``'s current stream, where the launch goes:
+    the getter PyTorch's own generated code uses, without building the
+    Stream object of ``torch.cuda.current_stream(dev)``."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def pack_bits(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -122,7 +135,7 @@ def pack_bits(x: torch.Tensor, width: int) -> torch.Tensor:
         raise ValueError("pack_bits: x must be a non-empty int32 tensor")
     k, W = x.shape[0], word_count(x.shape[0])
     words = torch.empty((width, W), dtype=torch.int32, device=x.device)
-    build.check(build.library("bitpack").pack_bits(
+    build.check(_entry("pack_bits")(
         x.data_ptr(), words.data_ptr(), k, width, W, _stream(x.device)),
         "pack_bits")
     LAUNCHES["pack_bits"] += 1
@@ -131,19 +144,25 @@ def pack_bits(x: torch.Tensor, width: int) -> torch.Tensor:
 
 def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
     """Inverse of :func:`pack_bits`: (width, W) planes -> the first ``k``
-    values, bit-exact."""
-    width, W = words.shape
+    values, or a (B, width, W) stack of them (a gathered table) -> (B, k),
+    bit-exact; one launch either way."""
+    if words.dim() not in (2, 3):
+        raise ValueError("unpack_bits: words must be (width, W) or (B, "
+                         "width, W)")
+    width, W = words.shape[-2:]
     assert 1 <= width <= MAX_WIDTH and 1 <= k <= GROUP * W, (width, W, k)
-    if words.device.type == "cpu":
+    dev = words.device
+    if dev.type == "cpu":
         return unpack_bits_plain(words, k)
-    if words.device.type != "cuda" or words.dtype != torch.int32 \
-            or not words.is_contiguous():
+    B = words.shape[0] if words.dim() == 3 else 1
+    if dev.type != "cuda" or words.dtype != torch.int32 \
+            or not words.is_contiguous() or not 1 <= B <= 65535:
         raise ValueError("unpack_bits: words must be contiguous int32 on "
-                         "the card")
-    out = torch.empty((k,), dtype=torch.int32, device=words.device)
-    build.check(build.library("bitpack").unpack_bits(
-        words.data_ptr(), out.data_ptr(), k, width, W,
-        _stream(words.device)), "unpack_bits")
+                         "the card, with 1 to 65535 stacked")
+    out = torch.empty(words.shape[:-2] + (k,), dtype=torch.int32, device=dev)
+    build.check(_entry("unpack_bits")(
+        words.data_ptr(), out.data_ptr(), B, k, width, W, _stream(dev)),
+        "unpack_bits")
     LAUNCHES["unpack_bits"] += 1
     return out
 
@@ -152,7 +171,8 @@ def quantize_pack(vals: torch.Tensor, idx_lo: torch.Tensor, width: int,
                   scale_block: int, eps: float):
     """One launch: ``vals`` (k,) f32 -> (q int8 (m, scale_block), scales
     f32 (m,)), m = ceil(k/scale_block), and ``idx_lo`` (k,) int32 ->
-    (width, word_count(k)) planes.  Returns (words, q, scales)."""
+    (width, word_count(k)) planes.  Returns (words, q, scales); on the
+    card they are views of one allocation."""
     assert 1 <= width <= MAX_WIDTH, width
     k = vals.shape[0]
     assert k >= 1 and idx_lo.shape == (k,), (vals.shape, idx_lo.shape)
@@ -165,10 +185,15 @@ def quantize_pack(vals: torch.Tensor, idx_lo: torch.Tensor, width: int,
                          "card, scale_block >= 1")
     dev = vals.device
     W, m = word_count(k), -(-k // scale_block)
-    words = torch.empty((width, W), dtype=torch.int32, device=dev)
-    q = torch.empty((m, scale_block), dtype=torch.int8, device=dev)
-    scales = torch.empty((m,), dtype=torch.float32, device=dev)
-    build.check(build.library("bitpack").quantize_pack(
+    # words, scales, then q in one int32 allocation, each 4-byte aligned
+    nw = width * W
+    buf = torch.empty((nw + m + -(-m * scale_block // 4),),
+                      dtype=torch.int32, device=dev)
+    words = buf.as_strided((width, W), (W, 1))
+    scales = buf.view(torch.float32).as_strided((m,), (1,), nw)
+    q = buf.view(torch.int8).as_strided((m, scale_block), (scale_block, 1),
+                                        4 * (nw + m))
+    build.check(_entry("quantize_pack")(
         vals.data_ptr(), idx_lo.data_ptr(), words.data_ptr(), q.data_ptr(),
         scales.data_ptr(), k, width, W, m, scale_block, eps, _stream(dev)),
         "quantize_pack")

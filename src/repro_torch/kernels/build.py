@@ -38,7 +38,7 @@ SIGNATURES = {
                                           _P, _P, _L, _I, _I, _I, _P]},
     "block_topk": {"block_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "bitpack": {"pack_bits": [_P, _P, _I, _I, _I, _P],
-                "unpack_bits": [_P, _P, _I, _I, _I, _P],
+                "unpack_bits": [_P, _P, _I, _I, _I, _I, _P],
                 "quantize_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _P]},
 }

@@ -1,7 +1,8 @@
 """The packed sparse wire's arithmetic against the JAX reference, on the
 CPU and bitwise: the plain versions of K5a/K5b (``pack_bits``,
-``unpack_bits``) and K4 (``quantize_pack``) against
-``repro.kernels.bitpack`` in interpret mode, the int8 quantizer against
+``unpack_bits``, the latter also on a (B, width, W) stack, row by row)
+and K4 (``quantize_pack``) against ``repro.kernels.bitpack`` in
+interpret mode, the int8 quantizer against
 the jitted ``repro.dist.quantize`` (the reference runs it under ``jit``),
 and every codec payload and decoded pair against the jitted
 ``repro.dist.packed``."""
@@ -47,8 +48,30 @@ def _equal(ours, ref, what=""):
     np.testing.assert_array_equal(_bits(ours), _bits(ref), err_msg=what)
 
 
-@pytest.mark.parametrize("width", range(1, BP.MAX_WIDTH + 1))
-def test_pack_unpack_match_reference(width):
+# a gathered table: B stacked payloads of random words, unpacked in one call
+BATCHED_K = (1, 33, 4096 + 7)
+BATCHED = [pytest.param(w, b, id=f"{w}-batch{b}") for w in (1, 16, 31)
+           for b in (1, 3)]
+
+
+@pytest.mark.parametrize(
+    "width,batch",
+    [pytest.param(w, 0, id=str(w)) for w in range(1, BP.MAX_WIDTH + 1)]
+    + BATCHED)
+def test_pack_unpack_match_reference(width, batch):
+    if batch:
+        for k in BATCHED_K:
+            r = np.random.default_rng(width * 100 + batch * 10 + k)
+            words = r.integers(-2 ** 31, 2 ** 31, (batch, width,
+                                                   BP.word_count(k)),
+                               dtype=np.int64).astype(np.int32)
+            back = BP.unpack_bits(torch.from_numpy(words), k)
+            assert back.shape == (batch, k)
+            for i in range(batch):
+                _equal(back[i].contiguous(),
+                       RBP.unpack_bits(jnp.asarray(words[i]), k),
+                       f"unpack {width} {k} row {i} of {batch}")
+        return
     ks = ALL_WIDTH_K + (SOME_WIDTH_K if width in (1, 16, 29, 31) else ())
     for k in ks:
         for kind in ("random", "zeros", "max"):

@@ -275,6 +275,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                                      device=card),
                          torch.zeros((40,), dtype=torch.int32, device=card),
                          5, 256, Q._EPS)
+    with pytest.raises(ValueError):                # a stack of stacks
+        BP.unpack_bits(torch.zeros((2, 2, 5, 4), dtype=torch.int32,
+                                   device=card), 100)
+    with pytest.raises(ValueError):                # a non-contiguous stack
+        BP.unpack_bits(torch.zeros((5, 2, 4), dtype=torch.int32,
+                                   device=card).transpose(0, 1), 100)
 
 
 # k: one value, under/at/over one word column, past one 128-word tile,
@@ -310,11 +316,12 @@ def test_pack_unpack_kernels_are_bitwise_their_plain_versions(card, k, kind):
 
 
 @pytest.mark.parametrize("k", [1, 255, 256, 257, 1000, 243287])
-@pytest.mark.parametrize("scale_block", [256, 64])
+@pytest.mark.parametrize("scale_block", [256, 64, 1, 1000])
 def test_quantize_pack_kernel_is_bitwise_its_plain_version(card, k,
                                                            scale_block):
     """K4 against its plain version on values with NaN/±Inf, an all-zero
-    block, exact .5 ties of the scale, and random low index bits."""
+    block, exact .5 ties of the scale, and random low index bits, at
+    widths 1, 16 and 31."""
     r = np.random.default_rng(k)
     v = r.standard_normal(k).astype(np.float32)
     v[::97] = np.nan
@@ -325,16 +332,40 @@ def test_quantize_pack_kernel_is_bitwise_its_plain_version(card, k,
     if k > 320:                 # scale 1.0: x / scale = n + 0.5 exactly
         v[256:300] = np.arange(-22, 22, dtype=np.float32) + 0.5
         v[300] = 127.0
-    idx = r.integers(0, 2 ** 16, k).astype(np.int32)
-    vt, it = torch.from_numpy(v).to(card), torch.from_numpy(idx).to(card)
-    before = LAUNCHES["quantize_pack"]
-    out = BP.quantize_pack(vt, it, 16, scale_block, Q._EPS)
-    torch.cuda.synchronize()
-    assert LAUNCHES["quantize_pack"] == before + 1
-    plain = BP.quantize_pack_plain(vt.cpu(), it.cpu(), 16, scale_block,
-                                   Q._EPS)
-    for a, b in zip(out, plain):
-        assert torch.equal(a.cpu(), b)
+    vt = torch.from_numpy(v).to(card)
+    for width in (1, 16, 31):
+        idx = r.integers(0, 2 ** width, k).astype(np.int32)
+        it = torch.from_numpy(idx).to(card)
+        before = LAUNCHES["quantize_pack"]
+        out = BP.quantize_pack(vt, it, width, scale_block, Q._EPS)
+        torch.cuda.synchronize()
+        assert LAUNCHES["quantize_pack"] == before + 1
+        plain = BP.quantize_pack_plain(vt.cpu(), it.cpu(), width,
+                                       scale_block, Q._EPS)
+        for name, a, b in zip(("words", "q", "scales"), out, plain):
+            assert _same_bits(a.cpu(), b), (name, width)
+
+
+# the path's topk / support PackPlan: 243,296 pairs, 16 low bits, 7603
+# words per plane
+@pytest.mark.parametrize("k", BITPACK_K + [243296])
+@pytest.mark.parametrize("batch", [2, 3])
+def test_batched_unpack_kernel_is_bitwise_its_plain_version(card, k, batch):
+    """K5b on a (B, width, W) stack of random words at every width 1..31:
+    one launch per call, each row the plain version's."""
+    r = np.random.default_rng(k + batch)
+    for width in range(1, BP.MAX_WIDTH + 1):
+        words = r.integers(-2 ** 31, 2 ** 31, (batch, width,
+                                               BP.word_count(k)),
+                           dtype=np.int64).astype(np.int32)
+        wt = torch.from_numpy(words).to(card)
+        before = LAUNCHES["unpack_bits"]
+        got = BP.unpack_bits(wt, k)
+        torch.cuda.synchronize()
+        assert LAUNCHES["unpack_bits"] == before + 1
+        assert got.shape == (batch, k)
+        assert torch.equal(got.cpu(), BP.unpack_bits_plain(
+            torch.from_numpy(words), k)), (width, k, batch)
 
 
 def test_packed_codec_on_the_card_equals_the_cpu(card):
