@@ -44,10 +44,11 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               the path's shapes (the topk / support PackPlan of that
               layout: 243296 pairs, 16 low bits, 7603 words per plane) and
               at edge cases (k from 1 to two tiles, widths 1 to 31, zero
-              and all-ones values; NaN/Inf, all-zero blocks and .5 ties
-              at scale blocks 1, 64, 256 and 1000 for K4), K5b also on a
-              stack of two payloads; then the codec on the card against
-              the CPU, and on a gathered table of two payloads
+              and all-ones values; K5a at every width on values with the
+              bits above the width set; NaN/Inf, all-zero blocks and .5
+              ties at scale blocks 1, 64, 256 and 1000 for K4), K5b also
+              on a stack of two payloads; then the codec on the card
+              against the CPU, and on a gathered table of two payloads
   8. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
@@ -64,10 +65,18 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               mesh wire and on the packed ring (each node's innovations
               through K4, their gathered table through one K5b) and
               lgc_rar_q8 on the int8 ring (--transport ring_q8), each 6
-              steps as lgc_rar.  Each run resets the launch counts before
-              and reads them after; launch counts per phase, finite
-              losses and per-op wire-byte rows (priced for the run's own
-              transport) are checked
+              steps as lgc_rar; then the bucketed wire (--wire-buckets 4):
+              lgc_rar_q8 on ring_q8, and dgc on ring_packed (each node's
+              pairs in 4 buckets through 4 K4 launches, the gathered table
+              of the 8 payloads through one K5b); and lgc_rar with K = 4
+              nodes on a 2 x 2 (pod x data) mesh over the hierarchical ring
+              (--transport ring_hier --pod-shards 2), unbucketed with the
+              garbage collector off, unbucketed with a collect after every
+              step, and in 4 buckets, whose losses must be equal.  Each
+              run resets the launch counts before and reads them after;
+              launch counts per phase, finite losses and per-op
+              wire-byte rows (priced for the run's own transport, mesh
+              and bucket count) are checked
   9. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function (K6 and K3 also per shape, with their ratio to it);
@@ -627,6 +636,14 @@ def bitpack_phase(dev):
                     _edge_ints("random", kk, w, dev), w)])
                 same("unpack_bits_table", [BP.unpack_bits(tbl, kk)],
                      [BP.unpack_bits_plain(tbl, kk)])
+    # K5a's tile pack at every width, on values whose bits above the width
+    # are set (the pack drops them)
+    for kk in (1, 31, 32, 33, 1024, 2 * 32 * 32 + 5):
+        for w in range(1, BP.MAX_WIDTH + 1):
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (kk,), device=dev,
+                              dtype=torch.int32)
+            same("pack_bits", [BP.pack_bits(x, w)],
+                 [BP.pack_bits_plain(x, w)])
     for kk in (1, 255, 256, 257, 1000, 1300):
         for blk in (256, 64, 1, 1000):
             v = torch.randn(kk, device=dev)
@@ -715,11 +732,15 @@ def bitpack_times(dev, batched: bool):
     return out
 
 
-def train_phase(dev, name: str, flags, steps: int, *expects):
+def train_phase(dev, name: str, flags, steps: int, *expects,
+                collect: str = "auto"):
     """One training run through launch.train.run(): the launch counts are
     reset just before and read just after; each ``expect(launches,
     sparsified_steps)`` raises unless the path went through its kernels.
-    Losses must be finite and the per-op wire rows equal the pricer's."""
+    Losses must be finite and the per-op wire rows equal the pricer's for
+    the run's mesh and bucket count.  ``collect``: "auto" leaves the
+    garbage collector to its thresholds, "off" disables it for the run,
+    "step" runs gc.collect() after every step."""
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core import sparsify as SP
@@ -727,15 +748,21 @@ def train_phase(dev, name: str, flags, steps: int, *expects):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
     cfg = dataclasses.replace(get_arch("llama3.2-1b"), n_layers=N_LAYERS)
-    args = train.parse_args(flags + [
+    args = train.parse_args([
         "--data-shards", "2", "--batch", "8", "--seq", "128",
         "--warmup-steps", "2", "--steps", str(steps), "--log-every", "1",
-        "--device", "cuda"])
+        "--device", "cuda"] + flags)
     gc.collect()        # what the phases before left in reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    out = train.run(cfg, args)
+    if collect == "off":
+        gc.disable()
+    try:
+        out = train.run(cfg, args, on_step=(lambda _s: gc.collect())
+                        if collect == "step" else None)
+    finally:
+        gc.enable()
     launches = dict(LAUNCHES)
     hist, comp = out["history"], out["compressor"]
     losses = [h["loss"] for h in hist]
@@ -746,25 +773,28 @@ def train_phase(dev, name: str, flags, steps: int, *expects):
     for phase, rows in out["wire"].items():
         plan = XP.build_plan(comp.cc, comp.layout, comp.K,
                              transport=args.transport, phase=phase)
-        if rows != XP.wire_terms_by_op(plan):
+        priced = XP.wire_terms_by_op(plan, axis_sizes=comp.Ks)
+        if rows != priced:
             raise AssertionError(f"{name} {phase}: measured wire rows {rows}"
-                                 f" != priced {XP.wire_terms_by_op(plan)}")
+                                 f" != priced {priced}")
     step_ms = {}
     for h in hist:
         step_ms.setdefault(h["phase"], []).append(h["ms"])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     emit("train", run=name, transport=args.transport, arch=cfg.name,
          n_layers=N_LAYERS,
          reduced=["n_layers"], d_model=cfg.d_model, dtype=cfg.dtype,
-         n_params=comp.layout.n_total, nodes=comp.K, losses=losses,
+         n_params=comp.layout.n_total, nodes=comp.K, mesh=comp.Ks,
+         wire_buckets=args.wire_buckets, collect=collect, losses=losses,
          step_ms=step_ms, launches=launches, wire=out["wire"],
-         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-         rate_bytes_per_node=out["rate"].bytes_per_node)
+         peak_mem_gib=peak, rate_bytes_per_node=out["rate"].bytes_per_node)
     wire = out["wire"]
     del out, hist, comp
     SP._device_meta.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses, "wire": wire}
+    return {"launches": launches, "losses": losses, "wire": wire,
+            "peak_gib": peak}
 
 
 def launched(*names):
@@ -823,6 +853,7 @@ def main() -> None:
            "--ae-backend", "pallas", "--ae-train-steps", "2"]
     dgc = ["--compression", "dgc", "--topk-backend", "pallas"]
     packed = ["--transport", "ring_packed"]
+    buckets = ["--wire-buckets", "4"]
     ps = ["--compression", "lgc_ps"] + lgc[2:]
     q8 = ["--compression", "lgc_rar_q8"] + lgc[2:] + ["--transport",
                                                       "ring_q8"]
@@ -866,7 +897,44 @@ def main() -> None:
             dev, "lgc_rar_q8 ring_q8", q8, 6,
             per_step(fused_ef_topk=K,
                      compressed={"matmul_bias_lrelu": len(ENCODER) * K})),
+        # the bucketed int8 ring: the scale blocks regroup per bucket
+        "lgc_rar_q8 ring_q8 B4": train_phase(
+            dev, "lgc_rar_q8 ring_q8 B4", q8 + buckets, 6,
+            per_step(fused_ef_topk=K,
+                     compressed={"matmul_bias_lrelu": len(ENCODER) * K})),
+        # topk in 4 buckets: one K4 encode per node and bucket, the
+        # gathered table of the 4 x K payloads through one K5b launch
+        "dgc ring_packed B4": train_phase(
+            dev, "dgc ring_packed B4", dgc + packed + buckets, 5,
+            per_step(block_topk=n_leaves * K, quantize_pack=4 * K,
+                     unpack_bits=1)),
     }
+    # K = 4 nodes on a (2 pod x 2 data) mesh over the hierarchical ring:
+    # unbucketed with the garbage collector off and with a collect after
+    # every step, then in 4 buckets
+    hier = lgc + ["--transport", "ring_hier", "--pod-shards", "2"]
+    hier_expect = per_step(fused_ef_topk=2 * K, compressed={
+        "matmul_bias_lrelu": len(ENCODER) * 2 * K})
+    runs["lgc_rar ring_hier"] = train_phase(
+        dev, "lgc_rar ring_hier", hier, 6, hier_expect, collect="off")
+    runs["lgc_rar ring_hier collect"] = train_phase(
+        dev, "lgc_rar ring_hier collect", hier, 6, hier_expect,
+        collect="step")
+    runs["lgc_rar ring_hier B4"] = train_phase(
+        dev, "lgc_rar ring_hier B4", hier + buckets, 6, hier_expect)
+    hier_runs = [runs[f"lgc_rar ring_hier{x}"]
+                 for x in ("", " collect", " B4")]
+    emit("ring_hier", losses=[r["losses"] for r in hier_runs],
+         peak_gib={"no collect": hier_runs[0]["peak_gib"],
+                   "collect each step": hier_runs[1]["peak_gib"],
+                   "4 buckets": hier_runs[2]["peak_gib"]},
+         equal=all(r["losses"] == hier_runs[0]["losses"]
+                   for r in hier_runs),
+         compressed_rows={b: r["wire"]["compressed"]
+                          for b, r in zip(("B1", "B1", "B4"), hier_runs)})
+    if not all(r["losses"] == hier_runs[0]["losses"] for r in hier_runs):
+        raise AssertionError("ring_hier: bucketed losses differ from "
+                             "unbucketed")
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
     emit("topk_bytes", packed=packed_b, raw=raw_b,

@@ -75,9 +75,12 @@ class CompressionConfig:
     lambda_rec: float = 1.0          # lgc_ps AE loss weights (eq. 7)
     lambda_sim: float = 0.5
     momentum_correction: float = 0.9
-    transport: str = "mesh"          # mesh | ring | ring_q8 | ring_packed
-    wire_buckets: int = 1            # > 1 not ported (the bucketed ring)
+    transport: str = "mesh"  # mesh | ring | ring_q8 | ring_hier | ring_packed
+    wire_buckets: int = 1            # buckets per ring exchange
     q8_scale_block: int = 0          # 0 = SCALE_BLOCK
+    # ring_hier's per-level message caps in values (0: one message a hop)
+    ring_intra_chunk: int = 0
+    ring_inter_chunk: int = 0
     topk_backend: str = "jnp"        # jnp | pallas | fused
     extract_backend: str = "auto"    # auto | loop | bitonic
     ae_backend: str = "jnp"          # jnp | pallas (the fused-matmul kernel)

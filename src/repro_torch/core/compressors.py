@@ -31,7 +31,7 @@ PyTorch version.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -52,6 +52,7 @@ class GradientCompressor:
     cc: CompressionConfig
     layout: SP.GradientLayout
     K: int                        # number of nodes (data-parallel shards)
+    Ks: Tuple[int, ...] = ()      # their dp mesh shape; () = (K,)
 
     def __post_init__(self):
         cc = self.cc
@@ -64,12 +65,9 @@ class GradientCompressor:
             raise ValueError(f"unknown ae_backend {cc.ae_backend!r}")
         if cc.guard != "off":
             raise NotImplementedError("guard policies are ROADMAP.md "
-                                      "Queue 1, 'chaos, guards and resume'")
+                                      "Queue 1 item 2, 'chaos, guards and "
+                                      "resume'")
         self._transport()                       # raises for an unported wire
-        if cc.wire_buckets != 1:
-            raise NotImplementedError("bucketed exchanges (wire_buckets > "
-                                      "1) are ROADMAP.md Queue 1, "
-                                      "'multi-process NCCL transports'")
 
     # -- state ----------------------------------------------------------------
 
@@ -100,8 +98,11 @@ class GradientCompressor:
         return out
 
     def _transport(self):
-        return make_transport(self.cc.transport, self.K,
-                              self.cc.q8_scale_block)
+        cc = self.cc
+        return make_transport(cc.transport, self.K, cc.q8_scale_block,
+                              Ks=self.Ks, wire_buckets=cc.wire_buckets,
+                              intra_chunk=cc.ring_intra_chunk,
+                              inter_chunk=cc.ring_inter_chunk)
 
     # -- per-node pieces -------------------------------------------------------
 
@@ -292,7 +293,7 @@ class GradientCompressor:
         return global_g, states, stats
 
 
-def build_compressor(cc: CompressionConfig, params_template,
-                     K: int) -> GradientCompressor:
+def build_compressor(cc: CompressionConfig, params_template, K: int,
+                     Ks: Tuple[int, ...] = ()) -> GradientCompressor:
     layout = SP.build_layout(params_template, cc.sparsity)
-    return GradientCompressor(cc=cc, layout=layout, K=K)
+    return GradientCompressor(cc=cc, layout=layout, K=K, Ks=tuple(Ks))

@@ -4,22 +4,36 @@ axis.
 The reference runs its rings as ``shard_map`` over K devices, one
 ``ppermute`` per hop, node s sending to s + 1.  Here the K nodes are the
 leading axis of one (K, ...) tensor on one device, and a hop is
-``torch.roll(send, 1, 0)``: row s moves to row s + 1.  The ring's order
-of additions and its bytes per hop are therefore the reference's own.
-Each collective records what one node puts on the wire through
-``record(kind, bytes)`` (a transport's per-op tally), under the
-reference's tally kinds.
+``torch.roll(send, 1)`` along the node axis: row s moves to row s + 1.
+The ring's order of additions and its bytes per hop are therefore the
+reference's own.  Each collective records what one node puts on the wire
+through ``record(kind, bytes)`` (a transport's per-op tally), under the
+reference's tally kinds; a bucketed collective records one row per
+bucket, ``record(kind, bytes, b)``, which the transport files under
+``<op label>#b<b>``.
+
+On a dp mesh of several axes, ``Ks`` = (K_pod, K_data) (any number of
+axes, row-major, the last fastest), node ia·K_data + i1 is row (ia, i1)
+of the (K_pod, K_data, ...) view: a hop on one axis is a roll along its
+dimension, and the other axes are independent rings side by side.
 
 Where every node ends a collective holding the same table (the
 all-gather half of the allreduce, the packed all-gather, the
 broadcasts), the emulation returns that table once instead of K copies;
-it never skips an addition.  The reference's bucketed schedule
-(``--wire-buckets`` > 1, its ``_sw_pipeline``) is not ported: ROADMAP.md
-Queue 1, "multi-process NCCL transports".
+it never skips an addition.  The reference's bucketed schedules
+(``--wire-buckets`` > 1) software-pipeline their buckets
+(``_sw_pipeline``) so that one bucket's hops overlap the next one's
+encode; on one card there is no wire to overlap, so here they are a plain
+loop over the buckets in the reference's order.  Bucketing changes the
+order of the work, never the sums: each column keeps its chunk row, so
+the float rings are bitwise their unbucketed selves.  A bucket's pad
+columns hold zeros that the reference ships and drops; they are priced
+(``dist.plan.padding_overhead_terms``), and computing them would change
+no other column, so the emulation skips them.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +41,9 @@ import torch.nn.functional as F
 from repro_torch.dist import quantize as Q
 from repro_torch.kernels.bitpack import f32_reciprocal
 
-Record = Callable[[str, float], None]
+# record(kind, bytes) for an unbucketed exchange, record(kind, bytes, b)
+# for bucket b of a bucketed one
+Record = Callable[..., None]
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -62,85 +78,257 @@ def node_mean_q8(x: torch.Tensor, scale_block: int = Q.SCALE_BLOCK
     return (out * f32_reciprocal(x.shape[0], x.device)).reshape(x.shape[1:])
 
 
-def _to_chunks(x: torch.Tensor):
-    """(K, ...) -> ((K nodes, K chunks, c), n): each node's values
-    flattened and zero-padded to a multiple of K."""
-    K = x.shape[0]
-    flat = x.reshape(K, -1)
-    n = flat.shape[1]
-    pad = (-n) % K
+def _mean_of(res: torch.Tensor, op: str, K: int) -> torch.Tensor:
+    """``op="mean"``: ``res`` (a fresh tensor) times f32(1/K), in place,
+    as the reference's division by K is compiled under ``jit``."""
+    if op == "mean" and K > 1:
+        res.mul_(f32_reciprocal(K, res.device))
+    return res
+
+
+def bucket_widths(c: int, n_buckets: int) -> Tuple[int, int]:
+    """The bucket split rule the executor and the pricers share (the
+    reference's ``collectives.bucket_widths``): ``c`` payload columns
+    under ``n_buckets`` requested -> (B, cb), B buckets of cb columns with
+    the payload padded to B·cb.  cb = ceil(c / min(n_buckets, c)), then
+    B = ceil(c / cb) drops all-padding buckets, so every bucket carries a
+    real column.  B == 1 is the unbucketed schedule."""
+    if c <= 0:
+        return 1, c
+    B0 = max(1, min(int(n_buckets), c))
+    cb = -(-c // B0)
+    return -(-c // cb), cb
+
+
+def _chunks(xn: torch.Tensor, K: int) -> torch.Tensor:
+    """(..., m) -> (..., K, c): the values zero-padded to K·c, c =
+    ceil(m/K), as K chunks."""
+    pad = (-xn.shape[-1]) % K
     if pad:
-        flat = F.pad(flat, (0, pad))
-    return flat.view(K, K, -1), n
+        xn = F.pad(xn, (0, pad))
+    return xn.reshape(xn.shape[:-1] + (K, -1))
 
 
-def ring_allreduce(x: torch.Tensor, record: Record, op: str = "add"
-                   ) -> torch.Tensor:
-    """The chunked ring allreduce of per-node ``x`` (K, ...) -> the
-    global (...) result.  Reduce-scatter: node i starts from its chunk
+def _hop(send: torch.Tensor, cap: Optional[int]) -> torch.Tensor:
+    """One hop on the node axis (dim -2): node s's row to node s + 1.  A
+    per-message cap (the reference's ``max_chunk_elems``) sends the row in
+    pieces of at most ``cap`` values: on the stacked axis that is the same
+    roll taken piece by piece, so values and bytes do not change."""
+    c = send.shape[-1]
+    if not cap or c <= cap:
+        return torch.roll(send, 1, -2)
+    return torch.cat([torch.roll(send[..., s:s + cap], 1, -2)
+                      for s in range(0, c, cap)], -1)
+
+
+def _reduce_scatter(chunks: torch.Tensor, cap: Optional[int] = None
+                    ) -> torch.Tensor:
+    """The ring's reduce-scatter on (..., K nodes, K chunks, c) -> (...,
+    K, c), row j the fully reduced chunk j.  Node i starts from its chunk
     i; at hop t it receives its predecessor's partial sum and adds its
-    own chunk (i - t - 1) mod K, so chunk c is summed in node order c,
-    c + 1, ..., c + K - 1 (mod K) and ends on node c - 1.  The
-    all-gather then circulates the finished chunks unchanged.  Records
-    2(K-1)·c·itemsize per node as ``ring_allreduce``; ``op="mean"``
-    multiplies by f32(1/K), as the reference's division by K does under
-    ``jit``."""
+    own chunk (i - t - 1) mod K, so chunk j is summed in node order j, j +
+    1, ..., j + K - 1 (mod K) and ends on node j - 1.  Leading dimensions
+    are rings side by side."""
+    K = chunks.shape[-3]
+    send = torch.stack([chunks[..., i, i, :] for i in range(K)], -2)
+    for t in range(K - 1):
+        send = _hop(send, cap)                     # s -> s + 1
+        for i in range(K):
+            send[..., i, :] += chunks[..., i, (i - t - 1) % K, :]
+    # node i holds the reduced chunk (i + 1) mod K: chunk j is send[j - 1]
+    return torch.roll(send, 1, -2)
+
+
+def _ring(xn: torch.Tensor, record: Record, kind: str,
+          cap: Optional[int] = None, n_buckets: int = 1) -> torch.Tensor:
+    """The full ring allreduce along the node axis (dim -2) of ``xn``
+    (..., K, m) -> (..., m): the reduce-scatter, then the all-gather,
+    which circulates the finished chunks unchanged and so leaves every
+    node the same table.  Records 2(K-1)·c·itemsize per node under
+    ``kind`` (c = ceil(m/K)); with B > 1 buckets (:func:`bucket_widths`
+    of c), bucket b is columns [b·cb, (b+1)·cb) of the chunk matrix,
+    recorded at 2(K-1)·cb·itemsize."""
+    K, m = xn.shape[-2:]
+    if K == 1:
+        return xn[..., 0, :]
+    chunks = _chunks(xn, K)                       # (..., K nodes, K, c)
+    c, isz = chunks.shape[-1], xn.element_size()
+    B, cb = bucket_widths(c, n_buckets)
+    if B == 1:
+        record(kind, 2 * (K - 1) * c * isz)
+        table = _reduce_scatter(chunks, cap)
+    else:
+        for b in range(B):
+            record(kind, 2 * (K - 1) * cb * isz, b)
+        table = xn.new_empty(chunks.shape[:-3] + (K, c))
+        for b in range(B):
+            lo, hi = b * cb, min((b + 1) * cb, c)
+            table[..., lo:hi] = _reduce_scatter(chunks[..., lo:hi], cap)
+    return table.flatten(-2)[..., :m]
+
+
+def ring_allreduce(x: torch.Tensor, record: Record, op: str = "add",
+                   Ks: Optional[Sequence[int]] = None, n_buckets: int = 1,
+                   cap: Optional[int] = None) -> torch.Tensor:
+    """The chunked ring allreduce of per-node ``x`` (K, ...) -> the global
+    (...) result (:func:`_ring`), recorded as ``ring_allreduce``.  On a
+    mesh of several dp axes ``Ks`` it chains one full ring per axis, the
+    first axis first, each over the whole vector (the reference's
+    ``ring_allreduce_multi``).  ``op="mean"`` multiplies by f32(1/K) once
+    at the end.  ``n_buckets`` > 1 buckets every ring's columns; the
+    result is bitwise the unbucketed one."""
     assert op in ("add", "mean"), op
     K = x.shape[0]
     if K == 1:
         return x[0].clone()
-    chunks, n = _to_chunks(x)
-    record("ring_allreduce",
-           2 * (K - 1) * chunks.shape[2] * x.element_size())
-    send = torch.stack([chunks[i, i] for i in range(K)])
-    for t in range(K - 1):
-        send = torch.roll(send, 1, 0)                  # s -> s + 1
-        for i in range(K):
-            send[i] += chunks[i, (i - t - 1) % K]
-    # node i holds the reduced chunk (i + 1) mod K: chunk c is send[c - 1]
-    out = torch.roll(send, 1, 0).reshape(-1)[:n].reshape(x.shape[1:])
-    if op == "mean":
-        out.mul_(f32_reciprocal(K, out.device))     # out is a fresh tensor
-    return out
+    xs = x.reshape(tuple(Ks or (K,)) + (-1,))
+    for _ in range(xs.dim() - 1):
+        xs = _ring(xs.movedim(0, -2), record, "ring_allreduce", cap,
+                   n_buckets)
+    return _mean_of(xs.reshape(x.shape[1:]), op, K)
 
 
-def ring_allreduce_q8(x: torch.Tensor, record: Record, op: str = "add",
-                      scale_block: int = Q.SCALE_BLOCK) -> torch.Tensor:
-    """The int8 ring allreduce of per-node ``x`` (K, ...) -> the global
-    (...) result, whose hops carry int8 values + one f32 scale per
-    ``scale_block`` values.  Reduce-scatter as :func:`ring_allreduce`,
-    but each node quantizes its partial chunk before the hop and the
-    receiver dequantizes it into its own chunk (i - t - 1) mod K, product
-    and sum one FMA as XLA compiles the reference's; the finished chunk
-    is quantized once and that payload circulates unchanged, so every
-    node decodes the same value.  Scale blocks are per chunk.  Records
-    2(K-1)·wire_nbytes(c) per node as ``ring_allreduce_q8``; ``op="mean"``
-    multiplies by f32(1/K), as the reference's division by K does under
-    ``jit``.  At K = 1 nothing moves, and the value still makes one
-    quantize -> dequantize round trip."""
+def hierarchical_ring_allreduce(x: torch.Tensor, Ks: Sequence[int],
+                                record: Record, op: str = "add",
+                                intra_cap: Optional[int] = None,
+                                inter_cap: Optional[int] = None,
+                                n_buckets: int = 1) -> torch.Tensor:
+    """The reference's ``hierarchical_ring_allreduce`` on the stacked
+    (*Ks) node grid, the last axis intra-pod: the intra-pod
+    reduce-scatter leaves node (ia, i1) its pod's reduced chunk (i1 + 1)
+    mod K1 (c = ceil(n/K1) values); that shard is ring-allreduced over
+    each inter-pod axis in turn (recorded as ``ring_hier_inter``,
+    2(Ka-1)·ceil(c/Ka)·itemsize); the intra-pod all-gather then leaves
+    every node the table (``ring_hier_intra``, 2(K1-1)·c·itemsize).  With
+    one axis it is :func:`ring_allreduce`, the same schedule.
+    ``intra_cap`` / ``inter_cap`` cap each level's message
+    (:func:`_hop`).  ``op="mean"`` multiplies by f32(1/K) at the end.
+
+    ``n_buckets`` > 1 on two axes: bucket b is inter columns [b·cab,
+    (b+1)·cab) of every inter chunk row ra, i.e. shard positions ra·ca +
+    col, gathered out of the intra chunk matrix (positions past c are its
+    zero pad), so each element keeps its chunk row at both levels and the
+    result is bitwise the unbucketed one; records per bucket
+    2(K1-1)·Ka·cab and 2(Ka-1)·cab values.  With three or more axes it
+    runs unbucketed, as the reference does."""
     assert op in ("add", "mean"), op
+    Ks = tuple(Ks)
     K = x.shape[0]
-    if K == 1:
-        return Q.fake_quantize(x[0], scale_block)
-    chunks, n = _to_chunks(x.to(torch.float32))
-    c = chunks.shape[2]
-    record("ring_allreduce_q8", 2 * (K - 1) * Q.wire_nbytes(c, scale_block))
+    if len(Ks) == 1:
+        return ring_allreduce(x, record, op, n_buckets=n_buckets,
+                              cap=intra_cap)
+    Ka, K1 = Ks[0], Ks[-1]
+    xs = x.reshape(Ks + (-1,))
+    n = xs.shape[-1]
+    chunks = _chunks(xs, K1)                  # (*Ks, K1 chunks, c)
+    c, isz = chunks.shape[-1], x.element_size()
+    ca = -(-c // Ka)
+    B, cab = bucket_widths(ca, n_buckets) if len(Ks) == 2 else (1, ca)
+    if B == 1:
+        if K1 > 1:
+            record("ring_hier_intra", 2 * (K1 - 1) * c * isz)
+        shard = _reduce_scatter(chunks, intra_cap)   # (*Ks[:-1], K1, c)
+        for _ in Ks[:-1]:
+            shard = _ring(shard.movedim(0, -2), record, "ring_hier_inter",
+                          inter_cap)
+        res = shard.reshape(-1)[:n]
+    else:
+        for b in range(B):
+            if K1 > 1:
+                record("ring_hier_intra", 2 * (K1 - 1) * Ka * cab * isz, b)
+            if Ka > 1:
+                record("ring_hier_inter", 2 * (Ka - 1) * cab * isz, b)
+        out = x.new_empty((K1, Ka, ca))
+        for b in range(B):
+            lo, hi = b * cab, min((b + 1) * cab, ca)
+            blk = chunks.new_zeros(chunks.shape[:-1] + (Ka, hi - lo))
+            for ra in range(Ka):
+                s, e = ra * ca + lo, min(ra * ca + hi, c)
+                if e > s:
+                    blk[..., ra, :e - s] = chunks[..., s:e]
+            # intra reduce-scatter: (Ka pods, K1 chunks, Ka·w); then each
+            # intra chunk's inter ring over the pods, on its (Ka, w) rows
+            piece = _reduce_scatter(blk.flatten(-2), intra_cap)
+            piece = piece.view(Ka, K1, Ka, hi - lo).transpose(0, 1)
+            out[:, :, lo:hi] = _reduce_scatter(piece, inter_cap)
+        res = out.view(K1, Ka * ca)[:, :c].reshape(-1)[:n]
+    return _mean_of(res.reshape(x.shape[1:]), op, K)
+
+
+def _q8_table(chunks: torch.Tensor, scale_block: int) -> torch.Tensor:
+    """The int8 ring on one (K nodes, K chunks, w) chunk matrix -> (K, w),
+    row j chunk j as every node decodes it.  Reduce-scatter as
+    :func:`_reduce_scatter`, but each node quantizes its partial chunk
+    before the hop and the receiver dequantizes it into its own chunk (i -
+    t - 1) mod K, product and sum one FMA as XLA compiles the reference's;
+    the finished chunk is quantized once and that payload circulates
+    unchanged, so every node decodes the same value.  Scale blocks are
+    per chunk."""
+    K, w = chunks.shape[0], chunks.shape[-1]
     send = [chunks[i, i] for i in range(K)]
     for t in range(K - 1):
         wire = [Q.quantize_i8(s, scale_block) for s in send]
         # node i receives node i - 1's payload (a roll of the node axis)
-        send = [Q.dequantize_add_i8(*wire[(i - 1) % K], c,
+        send = [Q.dequantize_add_i8(*wire[(i - 1) % K], w,
                                     chunks[i, (i - t - 1) % K])
                 for i in range(K)]
     # node i holds the finished chunk (i + 1) mod K, quantized once
-    out = torch.empty((K, c), dtype=torch.float32, device=x.device)
+    out = chunks.new_empty((K, w))
     for i in range(K):
         out[(i + 1) % K] = Q.dequantize_i8(*Q.quantize_i8(send[i],
-                                                          scale_block), c)
-    res = out.reshape(-1)[:n].reshape(x.shape[1:])
-    if op == "mean":
-        res.mul_(f32_reciprocal(K, res.device))
-    return res
+                                                          scale_block), w)
+    return out
+
+
+def _ring_q8(xn: torch.Tensor, record: Record, scale_block: int,
+             n_buckets: int) -> torch.Tensor:
+    """:func:`_ring` on the int8 wire, (..., K, m) f32 -> (..., m), ring
+    after ring for the leading dimensions.  Records 2(K-1)·wire_nbytes(c)
+    per node, or per bucket 2(K-1)·wire_nbytes(cb): the scale blocks
+    regroup per bucket.  At K = 1 nothing moves, and each node's value
+    still makes one quantize -> dequantize round trip."""
+    K, m = xn.shape[-2:]
+    lead, rows = xn.shape[:-2], xn.reshape((-1, K, m))
+    if K == 1:
+        return torch.stack([Q.fake_quantize(r[0], scale_block)
+                            for r in rows]).reshape(lead + (m,))
+    c = -(-m // K)
+    B, cb = bucket_widths(c, n_buckets)
+    if B == 1:
+        record("ring_allreduce_q8",
+               2 * (K - 1) * Q.wire_nbytes(c, scale_block))
+    else:
+        for b in range(B):
+            record("ring_allreduce_q8",
+                   2 * (K - 1) * Q.wire_nbytes(cb, scale_block), b)
+    out = []
+    for r in rows:
+        ch = _chunks(r, K)                              # (K, K, c)
+        table = torch.cat([_q8_table(ch[..., lo:min(lo + cb, c)],
+                                     scale_block)
+                           for lo in range(0, c, cb)], -1)
+        out.append(table.reshape(-1)[:m])
+    return torch.stack(out).reshape(lead + (m,))
+
+
+def ring_allreduce_q8(x: torch.Tensor, record: Record, op: str = "add",
+                      scale_block: int = Q.SCALE_BLOCK,
+                      Ks: Optional[Sequence[int]] = None,
+                      n_buckets: int = 1) -> torch.Tensor:
+    """The int8 ring allreduce of per-node ``x`` (K, ...) -> the global
+    (...) result, whose hops carry int8 values + one f32 scale per
+    ``scale_block`` values (:func:`_ring_q8`), recorded as
+    ``ring_allreduce_q8``.  On several dp axes ``Ks``, one int8 ring per
+    axis in turn (the reference's ``ring_allreduce_q8_multi``).
+    ``op="mean"`` multiplies by f32(1/K) at the end, after the sums.
+    Bucketed, the scale blocks regroup per bucket: the result is the
+    reference's bucketed one, not its unbucketed one."""
+    assert op in ("add", "mean"), op
+    K = x.shape[0]
+    xs = x.to(torch.float32).reshape(tuple(Ks or (K,)) + (-1,))
+    for _ in range(xs.dim() - 1):
+        xs = _ring_q8(xs.movedim(0, -2), record, scale_block, n_buckets)
+    return _mean_of(xs.reshape(x.shape[1:]), op, K)
 
 
 def ring_broadcast(x: torch.Tensor, leader: int, record: Record
@@ -154,14 +342,18 @@ def ring_broadcast(x: torch.Tensor, leader: int, record: Record
 
 
 def all_gather_packed(payloads: Sequence[Tuple[torch.Tensor, ...]],
-                      record: Record) -> Tuple[torch.Tensor, ...]:
+                      record: Record, bucket: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """Ring all-gather of each node's packed payload tuple (``payloads[i]``
     is node i's): K - 1 hops per node, recorded as ``all_gather_packed``
-    at (K-1)·Σ nbytes per node.  Returns the (K, ...) table every node
-    ends with, in node order."""
-    K = len(payloads)
-    record("all_gather_packed",
-           (K - 1) * sum(_nbytes(a) for a in payloads[0]))
+    at (K-1)·Σ nbytes per node (on several dp axes one circulation per
+    axis, whose bytes sum to the same), under bucket ``bucket`` if given.
+    Returns the (K, ...) table every node ends with, in node order."""
+    nbytes = (len(payloads) - 1) * sum(_nbytes(a) for a in payloads[0])
+    if bucket is None:
+        record("all_gather_packed", nbytes)
+    else:
+        record("all_gather_packed", nbytes, bucket)
     return tuple(torch.stack(parts) for parts in zip(*payloads))
 
 

@@ -18,7 +18,7 @@ planes with K5b and re-expands the histogram, one launch for a whole
 gathered table; :func:`encode_indices` /
 :func:`decode_indices` carry an index set alone (K5a / K5b), bit-exact.
 The guard's checksum word and payload validation wait for the guard
-policies (ROADMAP.md Queue 1, "chaos, guards and resume").
+policies (ROADMAP.md Queue 1 item 2, "chaos, guards and resume").
 """
 from __future__ import annotations
 
@@ -112,7 +112,8 @@ def wire_nbytes(plan: PackPlan) -> int:
 def _no_checksum(plan: PackPlan) -> None:
     if plan.checksum:
         raise NotImplementedError("the guard's checksum word is ROADMAP.md "
-                                  "Queue 1, 'chaos, guards and resume'")
+                                  "Queue 1 item 2, 'chaos, guards and "
+                                  "resume'")
 
 
 def _sort_pairs(vals: torch.Tensor, idx: torch.Tensor):

@@ -1,7 +1,8 @@
 """The exchange-plan IR (counterpart of ``repro.dist.plan``), for the six
 methods (``none``, ``sparse_gd``, ``dgc``, ``lgc_ps``, ``lgc_rar``,
-``lgc_rar_q8``) on the ``mesh``, ``ring``, ``ring_q8`` and
-``ring_packed`` transports (one dp axis, one bucket).
+``lgc_rar_q8``) on the ``mesh``, ``ring``, ``ring_q8``, ``ring_hier`` and
+``ring_packed`` transports, on one dp axis or several (``axis_sizes``),
+with the exchanges bucketed or not (``Plan.wire_buckets``).
 
 :func:`build_plan` compiles (config, layout, K, phase) into an ordered
 tuple of typed exchange ops; :func:`execute` runs them against a transport
@@ -16,13 +17,16 @@ the PS ops (the innovations' all-gather while the AE trains, then the
 leader's common encoding as a :class:`LeaderBroadcast` and the
 innovations as a packed ``mode="gather"`` exchange); ``lgc_rar_q8``'s
 encoding is a :class:`Reduce` with ``wire="q8"``, int8 on ``ring_q8``
-and f32 elsewhere.  The hierarchical ring, the bucketed schedule and the
-guard policies are not ported yet (ROADMAP.md Queue 1).
+and f32 elsewhere.  :func:`bucket_plan` prices one op as the executing
+collective splits it (``<label>#b<i>`` rows per bucket), and
+:func:`padding_overhead_terms` the part of its bytes that is padding, so
+that accounted == ideal + overhead at every bucket count.  The guard
+policies are not ported yet (ROADMAP.md Queue 1 item 2).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +36,7 @@ from repro_torch.core.phases import (PHASE_COMPRESSED, PHASE_TOPK_AE,
                                      PHASE_WARMUP)
 from repro_torch.core.sparsify import (GradientLayout, innovation_frac,
                                        innovation_k)
+from repro_torch.dist import collectives as C
 from repro_torch.dist import packed as PK
 from repro_torch.dist import quantize as Q
 
@@ -116,6 +121,9 @@ class Plan:
     K: int
     scale_block: int
     ops: Tuple[Op, ...]
+    # buckets per ring exchange (1 = unbucketed): the pricers predict the
+    # per-bucket rows the executor records
+    wire_buckets: int = 1
 
     @property
     def labels(self) -> Tuple[str, ...]:
@@ -144,7 +152,8 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
 
     def _plan(ops) -> Plan:
         return Plan(method=method, phase=phase, transport=tkind, K=K,
-                    scale_block=sb, ops=tuple(ops))
+                    scale_block=sb, ops=tuple(ops),
+                    wire_buckets=cc.wire_buckets or 1)
 
     if phase == PHASE_WARMUP or method == "none":
         return _plan([DenseReduce("grad", n_vals=n)])
@@ -230,81 +239,212 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
     return env
 
 
-WIRE_TRANSPORTS = ("mesh", "ring", "ring_q8", "ring_packed")
+WIRE_TRANSPORTS = ("mesh", "ring", "ring_q8", "ring_hier", "ring_packed")
 
 
-def op_wire_terms(op: Op, tkind: str, K: int, sb: int = Q.SCALE_BLOCK
-                  ) -> Dict[str, Dict[str, float]]:
-    """{op label: {collective kind: bytes}} one op moves per node, as the
-    reference's ``bucket_plan`` prices one dp axis and one bucket.
-    ``mesh`` is the lax collectives (all_reduce 2(K-1)/K of the buffer,
-    all_gather (K-1) buffers, broadcast (K-1)/K); ``ring`` reduces through
-    the chunked ring (2(K-1) chunks of ceil(n/K) values); ``ring_q8``
-    moves a q8 reduction's chunks as int8 + scales (``sb`` values per
-    scale); ``ring_packed`` adds the packed payloads of the packed
-    exchanges and the index broadcast.  Everywhere else a packed exchange
-    moves its exact pairs."""
+def bucket_plan(op: Op, n_buckets: int, tkind: str, Ks: Tuple[int, ...],
+                K: int, sb: int = Q.SCALE_BLOCK
+                ) -> Dict[str, Dict[str, float]]:
+    """{row label: {collective kind: bytes}} one op moves per node, as the
+    reference's ``bucket_plan`` prices it: the op's own label unbucketed,
+    one ``<label>#b<i>`` row per bucket where the executing collective
+    buckets (:func:`collectives.bucket_widths` of each ring's chunk
+    columns; of the two-axis hierarchical ring's inter columns, three or
+    more axes unbucketed; of the packed gather's sorted pairs, each
+    bucket a ``packed.bucket_plan`` payload).  ``mesh`` is the lax
+    collectives (all_reduce 2(K-1)/K of the buffer, all_gather (K-1)
+    buffers, broadcast (K-1)/K) and never buckets; ``ring`` reduces
+    through one chunked ring per axis of ``Ks``; ``ring_hier`` through
+    the intra/inter levels; ``ring_q8`` moves a q8 reduction's chunks as
+    int8 + scales (``sb`` values per scale); ``ring_packed`` adds the
+    packed payloads of the packed exchanges and the index broadcast.
+    Everywhere else a packed exchange moves its exact pairs."""
     if tkind not in WIRE_TRANSPORTS:
-        raise NotImplementedError(
-            f"pricing for transport {tkind!r} is not ported (ROADMAP.md "
-            "Queue 1, 'multi-process NCCL transports')")
+        raise ValueError(f"no pricing for transport {tkind!r}; known: "
+                         f"{WIRE_TRANSPORTS}")
     out: Dict[str, Dict[str, float]] = {}
 
-    def add(kind: str, b: float) -> None:
+    def add(bucket: Optional[int], kind: str, b: float) -> None:
         if b:
-            row = out.setdefault(op.label, {})
+            lbl = op.label if bucket is None else f"{op.label}#b{bucket}"
+            row = out.setdefault(lbl, {})
             row[kind] = row.get(kind, 0.0) + float(b)
 
-    packed = tkind == "ring_packed"
-    if isinstance(op, Reduce) and op.wire == "q8" and tkind == "ring_q8":
-        if K > 1:
-            add("ring_allreduce_q8",
-                2 * (K - 1) * Q.wire_nbytes(-(-op.n_vals // K), sb))
-    elif isinstance(op, (DenseReduce, Reduce)):
-        if op.n_vals > 0:
-            if tkind == "mesh":
-                add("all_reduce", 2 * (K - 1) / K * op.n_vals * BYTES_F32)
+    mesh = tkind == "mesh"
+    WB = 1 if mesh else max(int(n_buckets), 1)
+
+    def ring(kind: str, n_vals: int, nbytes) -> None:
+        # one ring per axis, each over the whole vector
+        for Ka in Ks:
+            if Ka > 1:
+                c = -(-n_vals // Ka)
+                B, cb = C.bucket_widths(c, WB)
+                if B == 1:
+                    add(None, kind, 2 * (Ka - 1) * nbytes(c))
+                else:
+                    for b in range(B):
+                        add(b, kind, 2 * (Ka - 1) * nbytes(cb))
+
+    def reduce_f32(n_vals: int) -> None:
+        if n_vals <= 0:
+            return
+        if mesh:
+            add(None, "all_reduce", 2 * (K - 1) / K * n_vals * BYTES_F32)
+        elif tkind == "ring_hier" and len(Ks) > 1:
+            K1, Ka = Ks[-1], Ks[0]
+            c = -(-n_vals // K1)
+            B, cab = C.bucket_widths(-(-c // Ka), WB) if len(Ks) == 2 \
+                else (1, 0)
+            if B == 1:
+                if K1 > 1:
+                    add(None, "ring_hier_intra",
+                        2 * (K1 - 1) * c * BYTES_F32)
+                for Ki in Ks[:-1]:
+                    if Ki > 1:
+                        add(None, "ring_hier_inter",
+                            2 * (Ki - 1) * -(-c // Ki) * BYTES_F32)
             else:
-                add("ring_allreduce",
-                    2 * (K - 1) * -(-op.n_vals // K) * BYTES_F32)
+                for b in range(B):
+                    if K1 > 1:
+                        add(b, "ring_hier_intra",
+                            2 * (K1 - 1) * Ka * cab * BYTES_F32)
+                    if Ka > 1:
+                        add(b, "ring_hier_inter",
+                            2 * (Ka - 1) * cab * BYTES_F32)
+        else:
+            ring("ring_allreduce", n_vals, lambda c: c * BYTES_F32)
+
+    if isinstance(op, Reduce) and op.wire == "q8" and tkind == "ring_q8":
+        ring("ring_allreduce_q8", op.n_vals,
+             lambda c: Q.wire_nbytes(c, sb))
+    elif isinstance(op, (DenseReduce, Reduce)):
+        reduce_f32(op.n_vals)
     elif isinstance(op, AllGather):
-        add("all_gather", (K - 1) * op.n_vals * BYTES_F32)
-    elif isinstance(op, PackedSparseExchange) and packed:
+        add(None, "all_gather", (K - 1) * op.n_vals * BYTES_F32)
+    elif isinstance(op, PackedSparseExchange) and tkind == "ring_packed":
         if op.k > 0:
-            add("all_gather_packed", (K - 1) * PK.wire_nbytes(op.pack))
+            B, kb = (1, op.k) if op.pack.raw_index else \
+                C.bucket_widths(op.k, WB)
+            if B == 1:
+                add(None, "all_gather_packed",
+                    (K - 1) * PK.wire_nbytes(op.pack))
+            else:
+                sub = PK.bucket_plan(op.pack, kb)
+                for b in range(B):
+                    add(b, "all_gather_packed",
+                        (K - 1) * PK.wire_nbytes(sub))
     elif isinstance(op, (SparseExchange, PackedSparseExchange)):
         if op.k > 0:
-            add("all_gather", (K - 1) * op.k * (BYTES_F32 + BYTES_I32))
+            add(None, "all_gather", (K - 1) * op.k * (BYTES_F32 + BYTES_I32))
     elif isinstance(op, IndexBroadcast):
-        if packed:
-            add("broadcast_packed", (K - 1) / K * PK.index_nbytes(op.pack))
+        if tkind == "ring_packed":
+            add(None, "broadcast_packed",
+                (K - 1) / K * PK.index_nbytes(op.pack))
         else:
-            add("broadcast", (K - 1) / K * op.k * BYTES_I32)
+            add(None, "broadcast", (K - 1) / K * op.k * BYTES_I32)
     elif isinstance(op, LeaderBroadcast):
-        add("broadcast", (K - 1) / K * op.n_vals * BYTES_F32)
+        add(None, "broadcast", (K - 1) / K * op.n_vals * BYTES_F32)
     else:
         raise TypeError(op)
     return out
 
 
-def wire_terms_by_op(plan: Plan, transport: Optional[str] = None,
-                     ) -> Dict[str, Dict[str, float]]:
-    """{op label: {collective kind: bytes}}: what one executed step of the
-    plan moves per node, op by op (ops that move nothing are omitted)."""
+def _wire_ctx(plan: Plan, transport: Optional[str],
+              axis_sizes: Optional[Sequence[int]],
+              wire_buckets: Optional[int]):
     tkind = transport if transport is not None else plan.transport
+    Ks = tuple(axis_sizes) if axis_sizes else (plan.K,)
+    if int(np.prod(Ks)) != plan.K:
+        raise ValueError(f"mesh shape {Ks} does not hold {plan.K} nodes")
+    WB = wire_buckets if wire_buckets is not None else plan.wire_buckets
+    return tkind, Ks, WB
+
+
+def wire_terms_by_op(plan: Plan, transport: Optional[str] = None,
+                     axis_sizes: Optional[Sequence[int]] = None,
+                     wire_buckets: Optional[int] = None,
+                     ) -> Dict[str, Dict[str, float]]:
+    """{row label: {collective kind: bytes}}: what one executed step of
+    the plan moves per node, op by op and, bucketed, bucket by bucket
+    (ops that move nothing are omitted), on ``transport`` (default: the
+    plan's) over a dp mesh of shape ``axis_sizes`` (default (K,)) with
+    ``wire_buckets`` (default: the plan's)."""
+    tkind, Ks, WB = _wire_ctx(plan, transport, axis_sizes, wire_buckets)
     out: Dict[str, Dict[str, float]] = {}
     for op in plan.ops:
-        out.update(op_wire_terms(op, tkind, plan.K, plan.scale_block))
+        for lbl, terms in bucket_plan(op, WB, tkind, Ks, plan.K,
+                                      plan.scale_block).items():
+            row = out.setdefault(lbl, {})
+            for kind, b in terms.items():
+                row[kind] = row.get(kind, 0.0) + b
     return out
 
 
-def wire_terms(plan: Plan, transport: Optional[str] = None
-               ) -> Dict[str, float]:
+def wire_terms(plan: Plan, transport: Optional[str] = None,
+               axis_sizes: Optional[Sequence[int]] = None,
+               wire_buckets: Optional[int] = None) -> Dict[str, float]:
     out: Dict[str, float] = {}
-    for terms in wire_terms_by_op(plan, transport).values():
+    for terms in wire_terms_by_op(plan, transport, axis_sizes,
+                                  wire_buckets).values():
         for kind, b in terms.items():
             out[kind] = out.get(kind, 0.0) + b
     return out
+
+
+def padding_overhead_terms(plan: Plan, transport: Optional[str] = None,
+                           axis_sizes: Optional[Sequence[int]] = None,
+                           wire_buckets: Optional[int] = None,
+                           ) -> Dict[str, float]:
+    """{op label: pad bytes}: the part of each op's accounted bytes that
+    is padding (a ring's ceil-pad of its chunks, the bucket pad columns,
+    the packed wire's per-bucket histograms and sentinel pairs), as
+    accounted minus :func:`_op_ideal_bytes`; ops with no padding are
+    omitted.  accounted == ideal + overhead at every bucket count."""
+    tkind, Ks, WB = _wire_ctx(plan, transport, axis_sizes, wire_buckets)
+    out: Dict[str, float] = {}
+    for op in plan.ops:
+        accounted = sum(sum(t.values()) for t in bucket_plan(
+            op, WB, tkind, Ks, plan.K, plan.scale_block).values())
+        pad = accounted - _op_ideal_bytes(op, tkind, Ks, plan.K,
+                                          plan.scale_block)
+        if pad > 1e-9:
+            out[op.label] = pad
+    return out
+
+
+def _op_ideal_bytes(op: Op, tkind: str, Ks: Tuple[int, ...], K: int,
+                    sb: int) -> float:
+    """The pad-free wire bytes of one op: what it would move if every
+    chunk split divided exactly (2(Ka-1)/Ka of the bytes per ring axis;
+    the hierarchical ring's inter levels on 1/K1 of them; the packed
+    gather at its parent PackPlan).  Gathers, broadcasts and ``mesh``
+    move exactly-sized payloads: ideal == accounted."""
+    def exact() -> float:
+        return sum(sum(t.values()) for t in
+                   bucket_plan(op, 1, tkind, Ks, K, sb).values())
+
+    def ring_ideal(n_vals: float, per_val: float) -> float:
+        if n_vals <= 0:
+            return 0.0
+        if tkind == "ring_hier" and len(Ks) > 1:
+            K1 = Ks[-1]
+            total = 2 * (K1 - 1) / K1 * n_vals * per_val
+            for Ka in Ks[:-1]:
+                total += 2 * (Ka - 1) / Ka * (n_vals / K1) * per_val
+            return total
+        return sum(2 * (Ka - 1) / Ka * n_vals * per_val
+                   for Ka in Ks if Ka > 1)
+
+    if tkind == "mesh":
+        return exact()
+    if isinstance(op, Reduce) and op.wire == "q8" and tkind == "ring_q8":
+        return ring_ideal(op.n_vals, 1.0 + 4.0 / sb)
+    if isinstance(op, (DenseReduce, Reduce)):
+        return ring_ideal(op.n_vals, BYTES_F32)
+    if isinstance(op, PackedSparseExchange) and op.k > 0 \
+            and tkind == "ring_packed":
+        return float((K - 1) * PK.wire_nbytes(op.pack))
+    return exact()
 
 
 def _op_rate_bytes(op: Op, tkind: str, sb: int, idx: Optional[np.ndarray],

@@ -18,10 +18,22 @@ the trainer's per-op byte rows can be held against
   RingQ8Transport      the ring whose q8 reduction (``lgc_rar_q8``'s
                        encoding) ships int8 values + per-block f32 scales
                        through ``ring_allreduce_q8``
+  RingHierTransport    the ring whose reductions run the reference's
+                       hierarchical intra-pod / inter-pod schedule
+                       (``hierarchical_ring_allreduce``) on a (K_pod,
+                       K_data) node grid
   RingPackedTransport  the ring whose packed sparse exchanges ship the
                        real packed payload (``dist.packed``: bit-packed
                        indices, int8 values, f32 scales) and whose leader
                        index set rides the packed index wire
+
+``Ks`` is the dp mesh's shape, (K,) or (K_pod, K_data) with node ia·K_data
++ i1 (the reference's row-major ("pod", "data") order): the rings reduce
+over one axis after the other, the hierarchical ring level by level.
+``wire_buckets`` > 1 buckets every ring exchange and the packed gather,
+recording one ``<op label>#b<i>`` row per bucket, as the reference's
+bucketed schedule does; ``mesh`` ignores both, as the reference's lax
+collectives do.
 
 On the float wires ``mean_q8`` fake-quantizes each node's values (the
 quantize -> dequantize round trip of ``dist.quantize``) and reduces them
@@ -29,15 +41,17 @@ in f32, moving f32 bytes, as the reference does.
 
 Every mean over nodes is :func:`collectives.node_mean`, the reference's
 order of additions under ``jit``.  Real multi-process transports (NCCL)
-are ROADMAP.md Queue 1, "multi-process NCCL transports".
+are ROADMAP.md Queue 1 item 6, "multi-process transports".
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.dist import collectives as C
 from repro_torch.dist import packed as PK
@@ -61,6 +75,8 @@ def _scatter_rows(rows, n: int, dtype, device) -> torch.Tensor:
 class SimTransport:
     K: int
     scale_block: int = Q.SCALE_BLOCK       # values per int8-wire scale
+    Ks: Tuple[int, ...] = ()               # dp mesh shape; () = (K,)
+    wire_buckets: int = 1                  # buckets per ring exchange
     # {op label: {collective kind: bytes per node}} recorded since creation
     tally: Dict[str, Dict[str, float]] = field(default_factory=dict)
     _label: Optional[str] = None
@@ -75,9 +91,20 @@ class SimTransport:
         finally:
             self._label = prev
 
-    def _record(self, kind: str, nbytes: float) -> None:
+    def __post_init__(self):
+        self.Ks = tuple(self.Ks) or (self.K,)
+        if math.prod(self.Ks) != self.K:
+            raise ValueError(f"mesh shape {self.Ks} does not hold "
+                             f"{self.K} nodes")
+
+    def _record(self, kind: str, nbytes: float,
+                bucket: Optional[int] = None) -> None:
+        """Add ``nbytes`` under ``kind`` to the current op's row, or to
+        row ``<op>#b<bucket>`` for bucket ``bucket``."""
         if nbytes and self._label is not None:
-            row = self.tally.setdefault(self._label, {})
+            label = self._label if bucket is None \
+                else f"{self._label}#b{bucket}"
+            row = self.tally.setdefault(label, {})
             row[kind] = row.get(kind, 0.0) + float(nbytes)
 
     def mean(self, x):
@@ -130,17 +157,20 @@ class SimTransport:
 
 
 class RingTransport(SimTransport):
-    """Every cross-node reduction through the chunked ring and the leader
-    exchange through the forwarding broadcast; all_gathers and the exact
-    sparse exchanges as on :class:`SimTransport`."""
+    """Every cross-node reduction through the chunked ring (one ring per
+    dp axis) and the leader exchange through the forwarding broadcast;
+    all_gathers and the exact sparse exchanges as on
+    :class:`SimTransport`."""
 
     kind = "ring"
 
     def mean(self, x):
-        return C.ring_allreduce(x, self._record, op="mean")
+        return C.ring_allreduce(x, self._record, op="mean", Ks=self.Ks,
+                                n_buckets=self.wire_buckets)
 
     def sum(self, x):
-        return C.ring_allreduce(x, self._record, op="add")
+        return C.ring_allreduce(x, self._record, op="add", Ks=self.Ks,
+                                n_buckets=self.wire_buckets)
 
     def from_leader(self, x, leader: int):
         return C.ring_broadcast(x, leader, self._record)
@@ -161,7 +191,37 @@ class RingQ8Transport(RingTransport):
 
     def mean_q8(self, x):
         return C.ring_allreduce_q8(x, self._record, op="mean",
-                                   scale_block=self.scale_block)
+                                   scale_block=self.scale_block, Ks=self.Ks,
+                                   n_buckets=self.wire_buckets)
+
+
+@dataclass
+class RingHierTransport(RingTransport):
+    """The ring whose ``mean`` and ``sum`` run the hierarchical schedule
+    (:func:`collectives.hierarchical_ring_allreduce`): reduce-scatter
+    inside each pod (the last dp axis), ring-allreduce the owned shard
+    across the pods, all-gather inside each pod, so the inter-pod stage
+    moves K_data times fewer bytes than the chained rings of
+    :class:`RingTransport`.  ``intra_chunk`` / ``inter_chunk`` cap each
+    level's message (None: one message a hop); on the stacked axis a
+    capped message is the same roll taken in pieces, so values and bytes
+    do not change.  On one dp axis it is :class:`RingTransport`'s
+    schedule; everything but the reductions is inherited."""
+    intra_chunk: Optional[int] = None
+    inter_chunk: Optional[int] = None
+
+    kind = "ring_hier"
+
+    def _hier(self, x, op: str):
+        return C.hierarchical_ring_allreduce(
+            x, self.Ks, self._record, op, intra_cap=self.intra_chunk,
+            inter_cap=self.inter_chunk, n_buckets=self.wire_buckets)
+
+    def mean(self, x):
+        return self._hier(x, "mean")
+
+    def sum(self, x):
+        return self._hier(x, "add")
 
 
 class RingPackedTransport(RingTransport):
@@ -173,7 +233,16 @@ class RingPackedTransport(RingTransport):
     whole, so one decode of it serves all.  The leader's index set is
     encoded once (K5a) and decoded once (K5b) where the reference, being
     SPMD, encodes on every node and adopts the leader's payload: the same
-    numbers."""
+    numbers.
+
+    Bucketed (``wire_buckets`` > 1, a plan that packs its indices), each
+    node's pairs are sorted once and padded with sentinels (value 0,
+    index n) to B·kb pairs; bucket b, pairs [b·kb, (b+1)·kb), is a
+    self-contained payload under ``packed.bucket_plan``, encoded by its
+    own K4 launch (B·K an exchange) and gathered on its own, and the B·K
+    gathered payloads decode in one K5b launch.  Each node's result is
+    the sum of its B per-bucket scatters in bucket order, as the
+    reference adds them."""
 
     kind = "ring_packed"
 
@@ -183,12 +252,37 @@ class RingPackedTransport(RingTransport):
             return super().sparse_gather_packed(vals, idx, n)
         # the exchange plan's PackPlan, priced for this same (n, k)
         assert plan is not None and (plan.n, plan.k) == (n, k), (plan, n, k)
-        table = C.all_gather_packed(
-            [PK.encode_sparse_fused(vals[i], idx[i], plan)
-             for i in range(self.K)], self._record)
-        vals_t, idx_t = PK.decode_sparse(table, plan)
-        return _scatter_rows(list(zip(vals_t, idx_t)), n, vals.dtype,
-                             vals.device)
+        B, kb = (1, k) if plan.raw_index else \
+            C.bucket_widths(k, self.wire_buckets)
+        if B == 1:
+            table = C.all_gather_packed(
+                [PK.encode_sparse_fused(vals[i], idx[i], plan)
+                 for i in range(self.K)], self._record)
+            vals_t, idx_t = PK.decode_sparse(table, plan)
+            return _scatter_rows(list(zip(vals_t, idx_t)), n, vals.dtype,
+                                 vals.device)
+        sub = PK.bucket_plan(plan, kb)
+        pad = B * kb - k
+        pairs = []
+        for i in range(self.K):
+            vs, is_ = PK._sort_pairs(vals[i], idx[i])
+            pairs.append((F.pad(vs, (0, pad)),
+                          F.pad(is_, (0, pad), value=n)))
+        tables = [C.all_gather_packed(
+            [PK.encode_sparse_fused(vs[b * kb:(b + 1) * kb],
+                                    is_[b * kb:(b + 1) * kb], sub)
+             for vs, is_ in pairs], self._record, bucket=b)
+            for b in range(B)]
+        # the B·K payloads, bucket-major, decoded in one launch
+        vals_t, idx_t = PK.decode_sparse(
+            tuple(torch.cat(parts) for parts in zip(*tables)), sub)
+        vals_t, idx_t = vals_t.view(B, self.K, kb), idx_t.view(B, self.K, kb)
+        out = torch.zeros((self.K, n), dtype=vals.dtype, device=vals.device)
+        for i in range(self.K):
+            for b in range(B):
+                out[i] += _scatter_rows([(vals_t[b, i], idx_t[b, i])], n,
+                                        vals.dtype, vals.device)[0]
+        return out
 
     def broadcast_packed(self, idx, leader: int, n: int, plan=None):
         k = idx.shape[-1]
@@ -202,21 +296,32 @@ class RingPackedTransport(RingTransport):
 
 
 TRANSPORTS = {"mesh": SimTransport, "ring": RingTransport,
-              "ring_q8": RingQ8Transport, "ring_packed": RingPackedTransport}
+              "ring_q8": RingQ8Transport, "ring_hier": RingHierTransport,
+              "ring_packed": RingPackedTransport}
 
 
-def make_transport(kind: str, K: int, scale_block: int = 0):
+def make_transport(kind: str, K: int, scale_block: int = 0, *,
+                   Ks: Optional[Tuple[int, ...]] = None,
+                   wire_buckets: int = 1,
+                   intra_chunk: Optional[int] = None,
+                   inter_chunk: Optional[int] = None):
     """The emulated transport for ``CompressionConfig.transport``:
     ``mesh`` is :class:`SimTransport`, whose tally the mesh pricer
     predicts.  ``scale_block`` (0 = ``quantize.SCALE_BLOCK``) is the int8
-    wires' scale granularity."""
-    if kind in TRANSPORTS:
-        return TRANSPORTS[kind](K, scale_block or Q.SCALE_BLOCK)
+    wires' scale granularity; ``Ks`` the dp mesh's shape (default (K,));
+    ``wire_buckets`` the ring exchanges' bucket count; ``intra_chunk`` /
+    ``inter_chunk`` (0 or None: uncapped) the hierarchical ring's
+    per-level message caps."""
+    sb = scale_block or Q.SCALE_BLOCK
+    wb = max(int(wire_buckets or 1), 1)
+    Ks = tuple(Ks or (K,))
     if kind == "ring_hier":
-        raise NotImplementedError("transport 'ring_hier' is ROADMAP.md "
-                                  "Queue 1, 'multi-process NCCL "
-                                  "transports'")
+        return RingHierTransport(K, sb, Ks, wb,
+                                 intra_chunk=intra_chunk or None,
+                                 inter_chunk=inter_chunk or None)
+    if kind in TRANSPORTS:
+        return TRANSPORTS[kind](K, sb, Ks, wb)
     if kind.startswith("chaos:"):
         raise NotImplementedError(f"transport {kind!r} is ROADMAP.md Queue "
-                                  "1, 'chaos, guards and resume'")
+                                  "1 item 2, 'chaos, guards and resume'")
     raise ValueError(f"unknown transport {kind!r}")

@@ -32,10 +32,12 @@
 //        once, coalesced; rows padded to 33 words against bank
 //        conflicts); a warp makes plane b's word of column c with one
 //        __ballot_sync((x >> b) & 1) over the 32 rows (lane r's bit is
-//        bit r of the word: pack_word's sum), keeps it in lane c and
-//        stores the plane's 32 words of the tile as one 128-byte row.
-//   K5a  one thread per output word, reading its 32 values with
-//        neighbouring threads on neighbouring words (pack_word).
+//        bit r of the word, as the reference sums them), keeps it in lane
+//        c and stores the plane's 32 words of the tile as one 128-byte
+//        row (pack_tile).
+//   K5a  K4's pack half alone: one CTA per 32-column tile runs the same
+//        pack_tile, so every value is read once, in 128-byte rows, where
+//        one thread per word read each value width times.
 // The words are built in uint32, so bit 31 is just a bit.  The scale
 // multiplies by the f32 reciprocal of 127, as XLA compiles the reference's
 // division by the constant 127 under jit; x / scale stays a true IEEE
@@ -53,28 +55,6 @@ constexpr int kMaxWidth = 31;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ unsigned pack_word(const int* __restrict__ x,
-                                              int k, int W, int b, int j) {
-  unsigned word = 0;
-#pragma unroll
-  for (int r = 0; r < kGroup; ++r) {
-    const long long i = (long long)r * W + j;
-    const unsigned v = i < k ? (unsigned)x[i] : 0u;
-    word |= ((v >> b) & 1u) << r;
-  }
-  return word;
-}
-
-__global__ void pack_kernel(const int* __restrict__ x, int* __restrict__ words,
-                            int k, int width, int W) {
-  const long long total = (long long)width * W;
-  for (long long o = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       o < total; o += (long long)gridDim.x * blockDim.x) {
-    const int b = (int)(o / W), j = (int)(o - (long long)b * W);
-    words[o] = (int)pack_word(x, k, W, b, j);
-  }
-}
 
 // One CTA per 32-column tile of stack entry blockIdx.y: the tile's planes
 // are read once into shared memory, then each lane holds its column's
@@ -191,6 +171,12 @@ __device__ void pack_tile(const int* __restrict__ x, int* __restrict__ words,
   }
 }
 
+// K5a: one CTA per 32-column tile of the planes.
+__global__ void pack_kernel(const int* __restrict__ x, int* __restrict__ words,
+                            int k, int width, int W) {
+  pack_tile(x, words, k, width, W, blockIdx.x);
+}
+
 // Blocks [0, n_q) quantize kWarps scale blocks each, a warp a block;
 // blocks [n_q, gridDim.x) pack one 32-column tile of the index words each.
 __global__ void quantize_pack_kernel(const float* __restrict__ vals,
@@ -209,18 +195,13 @@ __global__ void quantize_pack_kernel(const float* __restrict__ vals,
     quantize_block(vals, q, scales, blk, k, sb, eps, vec, threadIdx.x & 31);
 }
 
-int grid_for(long long n) {
-  const long long g = (n + kThreads - 1) / kThreads;
-  return (int)(g < 1 ? 1 : (g > 65535 ? 65535 : g));
-}
-
 }  // namespace
 
 extern "C" int pack_bits(const int* x, int* words, int k, int width, int W,
                          void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  pack_kernel<<<grid_for((long long)width * W), kThreads, 0, st>>>(
-      x, words, k, width, W);
+  pack_kernel<<<(W + kGroup - 1) / kGroup, kThreads, 0, st>>>(x, words, k,
+                                                              width, W);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,7 @@ exchange is the whole cross-node traffic.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -82,7 +82,12 @@ class LGCTrainStep:
 
 
 def make_lgc_train_step(model: Model, tc: TrainConfig, K: int,
-                        device: torch.device) -> LGCTrainStep:
+                        device: torch.device, Ks: Tuple[int, ...] = ()
+                        ) -> LGCTrainStep:
+    """``Ks``: the K nodes' dp mesh shape, (K_pod, K_data) for a pod
+    axis; node ia·K_data + i1 takes batch shard ia·K_data + i1, the
+    reference's order over ("pod", "data")."""
     template = model.init(torch.Generator(), "meta")
-    return LGCTrainStep(model, build_compressor(tc.compression, template, K),
+    return LGCTrainStep(model,
+                        build_compressor(tc.compression, template, K, Ks),
                         build_optimizer(tc), device)

@@ -9,15 +9,17 @@ Runs the three-phase LGC schedule (warm-up -> top-k + online AE ->
 compressed; sparse_gd and dgc: warm-up -> top-k) for every method of the
 reference (``--compression none|sparse_gd|dgc|lgc_ps|lgc_rar|
 lgc_rar_q8``) with the K data-parallel nodes emulated on one device over
-the ``--transport`` wire (``mesh``, ``ring``, ``ring_q8`` or
-``ring_packed``), and logs what the reference trainer logs: the
+the ``--transport`` wire (``mesh``, ``ring``, ``ring_q8``, ``ring_hier``
+or ``ring_packed``), and logs what the reference trainer logs: the
 per-phase loss, the rate report, and per phase the wire bytes each node
-moves, per exchange op.  Runs on the card unless ``--device cpu``; with
-no card it raises.  Flags follow ``repro.launch.train``; the values not
-ported yet raise NotImplementedError naming their ROADMAP.md item:
-``--transport ring_hier``, ``--wire-buckets`` > 1 (multi-process NCCL
-transports), ``--transport chaos:<base>`` and ``--guard`` other than
-``off`` (chaos, guards and resume).
+moves, per exchange op.  ``--pod-shards`` P > 1 makes the dp mesh (P,
+``--data-shards``), K = P x data-shards nodes, the two levels of
+``ring_hier``; ``--wire-buckets`` B > 1 buckets the ring exchanges.
+Runs on the card unless ``--device cpu``; with no card it raises.  Flags
+follow ``repro.launch.train``; the values not ported yet raise
+NotImplementedError naming their ROADMAP.md item: ``--transport
+chaos:<base>`` and ``--guard`` other than ``off`` (Queue 1 item 2,
+chaos, guards and resume).
 """
 from __future__ import annotations
 
@@ -60,10 +62,12 @@ def parse_args(argv=None):
                    help="the emulated wire between the nodes (all run on "
                         "one device): mesh = the lax collectives, ring = "
                         "the chunked ring, ring_q8 = the ring with an int8 "
-                        "q8 reduction (lgc_rar_q8's encoding), ring_packed "
-                        "= the ring with the packed sparse payloads")
+                        "q8 reduction (lgc_rar_q8's encoding), ring_hier = "
+                        "the intra-/inter-pod rings (with --pod-shards), "
+                        "ring_packed = the ring with the packed sparse "
+                        "payloads")
     p.add_argument("--wire-buckets", type=int, default=1,
-                   help="buckets per exchange (> 1 is not ported)")
+                   help="buckets per ring exchange (1 = unbucketed)")
     p.add_argument("--guard", default="off",
                    choices=["off", "scrub", "skip_round", "fail_fast"],
                    help="exchange guard policy (only off is ported)")
@@ -85,7 +89,10 @@ def parse_args(argv=None):
                    choices=["adamw", "sgd_momentum"])
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--data-shards", type=int, default=1,
-                   help="K, the number of emulated data-parallel nodes")
+                   help="emulated data-parallel nodes per pod")
+    p.add_argument("--pod-shards", type=int, default=1,
+                   help="pods: the dp mesh becomes (pod x data), K = pod "
+                        "x data nodes, the two levels of ring_hier")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default="")
@@ -118,13 +125,16 @@ def run(cfg: ModelConfig, args,
     tc = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
                      steps=args.steps, seed=args.seed, compression=cc)
     model = build_model(cfg)
-    lts = make_lgc_train_step(model, tc, args.data_shards, device)
+    Ks = (args.pod_shards, args.data_shards) if args.pod_shards > 1 \
+        else (args.data_shards,)
+    K = args.pod_shards * args.data_shards
+    lts = make_lgc_train_step(model, tc, K, device, Ks)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, opt_state, comp_state = lts.init(gen)
     layout = lts.compressor.layout
-    log.info("arch=%s params=%s device=%s nodes=%d", cfg.name,
-             f"{layout.n_total:,}", device, args.data_shards)
-    report = rate_report(cc, layout, args.data_shards)
+    log.info("arch=%s params=%s device=%s nodes=%d mesh=%s", cfg.name,
+             f"{layout.n_total:,}", device, K, Ks)
+    report = rate_report(cc, layout, K)
     log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
              report.compression_ratio, report.bytes_per_node)
 

@@ -58,19 +58,23 @@ def tree_flatten_vector(tree: Any, dtype=torch.float32) -> torch.Tensor:
     return torch.cat([l.reshape(-1).to(dtype) for l in tree_leaves(tree)])
 
 
+def _rebuild(tree: Any, by_path: dict, prefix: Tuple = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], by_path, prefix + (k,)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(x, by_path, prefix + (i,))
+                          for i, x in enumerate(tree))
+    return by_path[prefix]
+
+
 def tree_unflatten(like: Any, leaves: list) -> Any:
     """A tree shaped like ``like`` holding ``leaves``, given in
-    :func:`tree_leaves` order."""
+    :func:`tree_leaves` order.  The recursion is a module function: a
+    nested one that calls itself is a reference cycle (function -> its
+    closure cell -> function), which would keep every leaf alive until
+    the garbage collector runs."""
     by_path = dict(zip((p for p, _ in tree_leaves_with_path(like)), leaves))
-
-    def rebuild(tree, prefix=()):
-        if isinstance(tree, dict):
-            return {k: rebuild(tree[k], prefix + (k,)) for k in tree}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(rebuild(x, prefix + (i,))
-                              for i, x in enumerate(tree))
-        return by_path[prefix]
-    return rebuild(like)
+    return _rebuild(like, by_path)
 
 
 def tree_unflatten_vector(vector: torch.Tensor, like: Any) -> Any:

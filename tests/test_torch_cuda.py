@@ -315,6 +315,25 @@ def test_pack_unpack_kernels_are_bitwise_their_plain_versions(card, k, kind):
         assert torch.equal(back, x), (width, k, kind)
 
 
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1024, 2 * 32 * 32 + 5,
+                               243296])
+@pytest.mark.parametrize("width", [1, 16, 31])
+def test_pack_bits_tile_kernel_is_bitwise_its_plain_version(card, k, width):
+    """K5a, one CTA per 32-column tile, at the path's shape (243,296
+    values) and around one and two tiles, on values whose bits above the
+    width are set as well as on values in range; one launch a call."""
+    r = np.random.default_rng(k + width)
+    for x in (r.integers(-2 ** 31, 2 ** 31, k, dtype=np.int64),
+              r.integers(0, 2 ** width, k)):
+        xt = torch.from_numpy(x.astype(np.int32)).to(card)
+        before = LAUNCHES["pack_bits"]
+        words = BP.pack_bits(xt, width)
+        torch.cuda.synchronize()
+        assert LAUNCHES["pack_bits"] == before + 1
+        assert words.shape == (width, BP.word_count(k))
+        assert torch.equal(words.cpu(), BP.pack_bits_plain(xt.cpu(), width))
+
+
 @pytest.mark.parametrize("k", [1, 255, 256, 257, 1000, 243287])
 @pytest.mark.parametrize("scale_block", [256, 64, 1, 1000])
 def test_quantize_pack_kernel_is_bitwise_its_plain_version(card, k,
@@ -456,3 +475,32 @@ def test_fused_ef_topk_momentum_is_one_fma(card):
     assert torch.equal(out[0].cpu().view(torch.int32),
                        want.view(torch.int32))
     assert not torch.equal(want, 0.9 * u.cpu() + g.cpu())
+
+
+@pytest.mark.parametrize("B", [2, 4, 5])
+def test_bucketed_packed_gather_on_the_card_equals_the_cpu(card, B):
+    """RingPackedTransport's bucketed gather (K = 2 nodes, each node's
+    sorted pairs in B sentinel-padded buckets) on the card (B x K K4
+    launches, one K5b for the gathered table) and on the CPU (their plain
+    versions): the same dense scatters, bitwise, and the same byte rows."""
+    from repro_torch.dist.transport import RingPackedTransport
+    n, k, K = 5_000_003, 60_001, 2
+    plan = PK.make_plan(n, k)
+    r = np.random.default_rng(B)
+    idx = np.stack([np.concatenate([r.choice(n, k - 2, replace=False),
+                                    [n, n]]) for _ in range(K)])
+    vals = (r.standard_normal((K, k)) * 1e-3).astype(np.float32)
+    tv, ti = torch.from_numpy(vals), torch.from_numpy(idx.astype(np.int32))
+    got, want = {}, {}
+    for dev, res in ((card, got), (torch.device("cpu"), want)):
+        t = RingPackedTransport(K, wire_buckets=B)
+        before = (LAUNCHES["quantize_pack"], LAUNCHES["unpack_bits"])
+        with t.wire_op("topk"):
+            res["out"] = t.sparse_gather_packed(tv.to(dev), ti.to(dev), n,
+                                                plan=plan).cpu()
+        res["rows"] = t.tally
+        res["launches"] = (LAUNCHES["quantize_pack"] - before[0],
+                           LAUNCHES["unpack_bits"] - before[1])
+    assert got["launches"] == (B * K, 1) and want["launches"] == (0, 0)
+    assert _same_bits(got["out"], want["out"])
+    assert got["rows"] == want["rows"] and len(got["rows"]) == B

@@ -24,7 +24,8 @@ from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.compressors import build_compressor
 from repro_torch.dist import packed as PK
 from repro_torch.dist import plan as XP
-from repro_torch.dist.transport import (RingPackedTransport, RingQ8Transport,
+from repro_torch.dist.transport import (RingHierTransport,
+                                        RingPackedTransport, RingQ8Transport,
                                         RingTransport, SimTransport,
                                         make_transport)
 from repro_torch.utils.convert import ae_from_numpy
@@ -265,8 +266,9 @@ def test_make_transport_kinds():
     assert type(make_transport("ring", 2)) is RingTransport
     assert type(make_transport("ring_q8", 2)) is RingQ8Transport
     assert type(make_transport("ring_packed", 2)) is RingPackedTransport
+    assert type(make_transport("ring_hier", 2)) is RingHierTransport
     assert make_transport("ring_q8", 2, scale_block=64).scale_block == 64
-    for kind in ("ring_hier", "chaos:ring"):
+    for kind in ("chaos:ring",):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_transport(kind, 2)
     with pytest.raises(ValueError):
