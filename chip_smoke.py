@@ -71,8 +71,9 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               of the 8 payloads through one K5b); and lgc_rar with K = 4
               nodes on a 2 x 2 (pod x data) mesh over the hierarchical ring
               (--transport ring_hier --pod-shards 2), unbucketed with the
-              garbage collector off, unbucketed with a collect after every
-              step, and in 4 buckets, whose losses must be equal.  Each
+              garbage collector off (its peak held under a stated bound:
+              a tensor kept alive by a reference cycle raises it) and in
+              4 buckets, whose losses must be equal.  Each
               run resets the launch counts before and reads them after;
               launch counts per phase, finite losses and per-op
               wire-byte rows (priced for the run's own transport, mesh
@@ -107,6 +108,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
 N_LAYERS = 4                       # the only cut: 16 -> 4 layers
+# lgc_rar ring_hier's peak at K = 4 with the garbage collector off,
+# 45.49 GiB on the H100, plus 1 GiB: less than one n-sized f32 tensor
+# (1.88 GiB) kept alive by a reference cycle
+HIER_PEAK_GIB = 46.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -733,14 +738,14 @@ def bitpack_times(dev, batched: bool):
 
 
 def train_phase(dev, name: str, flags, steps: int, *expects,
-                collect: str = "auto"):
+                gc_off: bool = False):
     """One training run through launch.train.run(): the launch counts are
     reset just before and read just after; each ``expect(launches,
     sparsified_steps)`` raises unless the path went through its kernels.
     Losses must be finite and the per-op wire rows equal the pricer's for
-    the run's mesh and bucket count.  ``collect``: "auto" leaves the
-    garbage collector to its thresholds, "off" disables it for the run,
-    "step" runs gc.collect() after every step."""
+    the run's mesh and bucket count.  ``gc_off`` disables the garbage
+    collector for the run, so whatever a reference cycle holds stays
+    until the end and shows in the peak."""
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core import sparsify as SP
@@ -756,11 +761,10 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    if collect == "off":
+    if gc_off:
         gc.disable()
     try:
-        out = train.run(cfg, args, on_step=(lambda _s: gc.collect())
-                        if collect == "step" else None)
+        out = train.run(cfg, args)
     finally:
         gc.enable()
     launches = dict(LAUNCHES)
@@ -785,7 +789,7 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
          n_layers=N_LAYERS,
          reduced=["n_layers"], d_model=cfg.d_model, dtype=cfg.dtype,
          n_params=comp.layout.n_total, nodes=comp.K, mesh=comp.Ks,
-         wire_buckets=args.wire_buckets, collect=collect, losses=losses,
+         wire_buckets=args.wire_buckets, gc_off=gc_off, losses=losses,
          step_ms=step_ms, launches=launches, wire=out["wire"],
          peak_mem_gib=peak, rate_bytes_per_node=out["rate"].bytes_per_node)
     wire = out["wire"]
@@ -910,31 +914,30 @@ def main() -> None:
                      unpack_bits=1)),
     }
     # K = 4 nodes on a (2 pod x 2 data) mesh over the hierarchical ring:
-    # unbucketed with the garbage collector off and with a collect after
-    # every step, then in 4 buckets
+    # unbucketed with the garbage collector off, then in 4 buckets
     hier = lgc + ["--transport", "ring_hier", "--pod-shards", "2"]
     hier_expect = per_step(fused_ef_topk=2 * K, compressed={
         "matmul_bias_lrelu": len(ENCODER) * 2 * K})
     runs["lgc_rar ring_hier"] = train_phase(
-        dev, "lgc_rar ring_hier", hier, 6, hier_expect, collect="off")
-    runs["lgc_rar ring_hier collect"] = train_phase(
-        dev, "lgc_rar ring_hier collect", hier, 6, hier_expect,
-        collect="step")
+        dev, "lgc_rar ring_hier", hier, 6, hier_expect, gc_off=True)
     runs["lgc_rar ring_hier B4"] = train_phase(
         dev, "lgc_rar ring_hier B4", hier + buckets, 6, hier_expect)
-    hier_runs = [runs[f"lgc_rar ring_hier{x}"]
-                 for x in ("", " collect", " B4")]
+    hier_runs = [runs["lgc_rar ring_hier"], runs["lgc_rar ring_hier B4"]]
     emit("ring_hier", losses=[r["losses"] for r in hier_runs],
-         peak_gib={"no collect": hier_runs[0]["peak_gib"],
-                   "collect each step": hier_runs[1]["peak_gib"],
-                   "4 buckets": hier_runs[2]["peak_gib"]},
-         equal=all(r["losses"] == hier_runs[0]["losses"]
-                   for r in hier_runs),
+         peak_gib={"B1 collector off": hier_runs[0]["peak_gib"],
+                   "B4": hier_runs[1]["peak_gib"]},
+         peak_bound_gib=HIER_PEAK_GIB,
+         equal=hier_runs[0]["losses"] == hier_runs[1]["losses"],
          compressed_rows={b: r["wire"]["compressed"]
-                          for b, r in zip(("B1", "B1", "B4"), hier_runs)})
-    if not all(r["losses"] == hier_runs[0]["losses"] for r in hier_runs):
+                          for b, r in zip(("B1", "B4"), hier_runs)})
+    if hier_runs[0]["losses"] != hier_runs[1]["losses"]:
         raise AssertionError("ring_hier: bucketed losses differ from "
                              "unbucketed")
+    if hier_runs[0]["peak_gib"] > HIER_PEAK_GIB:
+        raise AssertionError(
+            f"ring_hier: peak {hier_runs[0]['peak_gib']} GiB with the "
+            f"collector off exceeds {HIER_PEAK_GIB} GiB: a reference cycle "
+            "keeps tensors alive")
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
     emit("topk_bytes", packed=packed_b, raw=raw_b,

@@ -78,9 +78,6 @@ class CompressionConfig:
     transport: str = "mesh"  # mesh | ring | ring_q8 | ring_hier | ring_packed
     wire_buckets: int = 1            # buckets per ring exchange
     q8_scale_block: int = 0          # 0 = SCALE_BLOCK
-    # ring_hier's per-level message caps in values (0: one message a hop)
-    ring_intra_chunk: int = 0
-    ring_inter_chunk: int = 0
     topk_backend: str = "jnp"        # jnp | pallas | fused
     extract_backend: str = "auto"    # auto | loop | bitonic
     ae_backend: str = "jnp"          # jnp | pallas (the fused-matmul kernel)

@@ -100,9 +100,7 @@ class GradientCompressor:
     def _transport(self):
         cc = self.cc
         return make_transport(cc.transport, self.K, cc.q8_scale_block,
-                              Ks=self.Ks, wire_buckets=cc.wire_buckets,
-                              intra_chunk=cc.ring_intra_chunk,
-                              inter_chunk=cc.ring_inter_chunk)
+                              Ks=self.Ks, wire_buckets=cc.wire_buckets)
 
     # -- per-node pieces -------------------------------------------------------
 

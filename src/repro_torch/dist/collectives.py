@@ -23,13 +23,15 @@ broadcasts), the emulation returns that table once instead of K copies;
 it never skips an addition.  The reference's bucketed schedules
 (``--wire-buckets`` > 1) software-pipeline their buckets
 (``_sw_pipeline``) so that one bucket's hops overlap the next one's
-encode; on one card there is no wire to overlap, so here they are a plain
-loop over the buckets in the reference's order.  Bucketing changes the
-order of the work, never the sums: each column keeps its chunk row, so
-the float rings are bitwise their unbucketed selves.  A bucket's pad
-columns hold zeros that the reference ships and drops; they are priced
-(``dist.plan.padding_overhead_terms``), and computing them would change
-no other column, so the emulation skips them.
+encode; on one card there is no wire to overlap.  Bucketing changes the
+order of the work, never the float rings' sums: each column keeps its
+chunk row and columns never meet, so those rings are bitwise their
+unbucketed selves, and here they run the unbucketed schedule and record
+one row per bucket.  A bucket's pad columns hold zeros that the reference
+ships and drops; they are priced (``dist.plan.padding_overhead_terms``).
+Only where bucketing changes values, the int8 ring (its scale blocks
+regroup per bucket) and the packed gather (``transport``), do the
+buckets run, as a plain loop in the reference's order.
 """
 from __future__ import annotations
 
@@ -109,20 +111,7 @@ def _chunks(xn: torch.Tensor, K: int) -> torch.Tensor:
     return xn.reshape(xn.shape[:-1] + (K, -1))
 
 
-def _hop(send: torch.Tensor, cap: Optional[int]) -> torch.Tensor:
-    """One hop on the node axis (dim -2): node s's row to node s + 1.  A
-    per-message cap (the reference's ``max_chunk_elems``) sends the row in
-    pieces of at most ``cap`` values: on the stacked axis that is the same
-    roll taken piece by piece, so values and bytes do not change."""
-    c = send.shape[-1]
-    if not cap or c <= cap:
-        return torch.roll(send, 1, -2)
-    return torch.cat([torch.roll(send[..., s:s + cap], 1, -2)
-                      for s in range(0, c, cap)], -1)
-
-
-def _reduce_scatter(chunks: torch.Tensor, cap: Optional[int] = None
-                    ) -> torch.Tensor:
+def _reduce_scatter(chunks: torch.Tensor) -> torch.Tensor:
     """The ring's reduce-scatter on (..., K nodes, K chunks, c) -> (...,
     K, c), row j the fully reduced chunk j.  Node i starts from its chunk
     i; at hop t it receives its predecessor's partial sum and adds its
@@ -132,7 +121,7 @@ def _reduce_scatter(chunks: torch.Tensor, cap: Optional[int] = None
     K = chunks.shape[-3]
     send = torch.stack([chunks[..., i, i, :] for i in range(K)], -2)
     for t in range(K - 1):
-        send = _hop(send, cap)                     # s -> s + 1
+        send = torch.roll(send, 1, -2)             # s -> s + 1
         for i in range(K):
             send[..., i, :] += chunks[..., i, (i - t - 1) % K, :]
     # node i holds the reduced chunk (i + 1) mod K: chunk j is send[j - 1]
@@ -140,7 +129,7 @@ def _reduce_scatter(chunks: torch.Tensor, cap: Optional[int] = None
 
 
 def _ring(xn: torch.Tensor, record: Record, kind: str,
-          cap: Optional[int] = None, n_buckets: int = 1) -> torch.Tensor:
+          n_buckets: int = 1) -> torch.Tensor:
     """The full ring allreduce along the node axis (dim -2) of ``xn``
     (..., K, m) -> (..., m): the reduce-scatter, then the all-gather,
     which circulates the finished chunks unchanged and so leaves every
@@ -154,22 +143,14 @@ def _ring(xn: torch.Tensor, record: Record, kind: str,
     chunks = _chunks(xn, K)                       # (..., K nodes, K, c)
     c, isz = chunks.shape[-1], xn.element_size()
     B, cb = bucket_widths(c, n_buckets)
-    if B == 1:
-        record(kind, 2 * (K - 1) * c * isz)
-        table = _reduce_scatter(chunks, cap)
-    else:
-        for b in range(B):
-            record(kind, 2 * (K - 1) * cb * isz, b)
-        table = xn.new_empty(chunks.shape[:-3] + (K, c))
-        for b in range(B):
-            lo, hi = b * cb, min((b + 1) * cb, c)
-            table[..., lo:hi] = _reduce_scatter(chunks[..., lo:hi], cap)
-    return table.flatten(-2)[..., :m]
+    for b in range(B):
+        record(kind, 2 * (K - 1) * cb * isz, *((b,) if B > 1 else ()))
+    return _reduce_scatter(chunks).flatten(-2)[..., :m]
 
 
 def ring_allreduce(x: torch.Tensor, record: Record, op: str = "add",
-                   Ks: Optional[Sequence[int]] = None, n_buckets: int = 1,
-                   cap: Optional[int] = None) -> torch.Tensor:
+                   Ks: Optional[Sequence[int]] = None, n_buckets: int = 1
+                   ) -> torch.Tensor:
     """The chunked ring allreduce of per-node ``x`` (K, ...) -> the global
     (...) result (:func:`_ring`), recorded as ``ring_allreduce``.  On a
     mesh of several dp axes ``Ks`` it chains one full ring per axis, the
@@ -183,15 +164,12 @@ def ring_allreduce(x: torch.Tensor, record: Record, op: str = "add",
         return x[0].clone()
     xs = x.reshape(tuple(Ks or (K,)) + (-1,))
     for _ in range(xs.dim() - 1):
-        xs = _ring(xs.movedim(0, -2), record, "ring_allreduce", cap,
-                   n_buckets)
+        xs = _ring(xs.movedim(0, -2), record, "ring_allreduce", n_buckets)
     return _mean_of(xs.reshape(x.shape[1:]), op, K)
 
 
 def hierarchical_ring_allreduce(x: torch.Tensor, Ks: Sequence[int],
                                 record: Record, op: str = "add",
-                                intra_cap: Optional[int] = None,
-                                inter_cap: Optional[int] = None,
                                 n_buckets: int = 1) -> torch.Tensor:
     """The reference's ``hierarchical_ring_allreduce`` on the stacked
     (*Ks) node grid, the last axis intra-pod: the intra-pod
@@ -201,58 +179,38 @@ def hierarchical_ring_allreduce(x: torch.Tensor, Ks: Sequence[int],
     2(Ka-1)·ceil(c/Ka)·itemsize); the intra-pod all-gather then leaves
     every node the table (``ring_hier_intra``, 2(K1-1)·c·itemsize).  With
     one axis it is :func:`ring_allreduce`, the same schedule.
-    ``intra_cap`` / ``inter_cap`` cap each level's message
-    (:func:`_hop`).  ``op="mean"`` multiplies by f32(1/K) at the end.
+    ``op="mean"`` multiplies by f32(1/K) at the end.  The reference's
+    per-level message caps (``ring_intra_chunk`` / ``ring_inter_chunk``)
+    would change neither values nor bytes on the stacked axis, so the
+    port has none.
 
     ``n_buckets`` > 1 on two axes: bucket b is inter columns [b·cab,
-    (b+1)·cab) of every inter chunk row ra, i.e. shard positions ra·ca +
-    col, gathered out of the intra chunk matrix (positions past c are its
-    zero pad), so each element keeps its chunk row at both levels and the
-    result is bitwise the unbucketed one; records per bucket
-    2(K1-1)·Ka·cab and 2(Ka-1)·cab values.  With three or more axes it
-    runs unbucketed, as the reference does."""
+    (b+1)·cab) of every inter chunk row, recorded per bucket at
+    2(K1-1)·Ka·cab and 2(Ka-1)·cab values; each element keeps its chunk
+    row at both levels, so the values are the unbucketed ones.  With three
+    or more axes it runs unbucketed, as the reference does."""
     assert op in ("add", "mean"), op
     Ks = tuple(Ks)
     K = x.shape[0]
     if len(Ks) == 1:
-        return ring_allreduce(x, record, op, n_buckets=n_buckets,
-                              cap=intra_cap)
+        return ring_allreduce(x, record, op, n_buckets=n_buckets)
     Ka, K1 = Ks[0], Ks[-1]
     xs = x.reshape(Ks + (-1,))
     n = xs.shape[-1]
     chunks = _chunks(xs, K1)                  # (*Ks, K1 chunks, c)
     c, isz = chunks.shape[-1], x.element_size()
     ca = -(-c // Ka)
-    B, cab = bucket_widths(ca, n_buckets) if len(Ks) == 2 else (1, ca)
-    if B == 1:
-        if K1 > 1:
-            record("ring_hier_intra", 2 * (K1 - 1) * c * isz)
-        shard = _reduce_scatter(chunks, intra_cap)   # (*Ks[:-1], K1, c)
-        for _ in Ks[:-1]:
-            shard = _ring(shard.movedim(0, -2), record, "ring_hier_inter",
-                          inter_cap)
-        res = shard.reshape(-1)[:n]
-    else:
+    nb = n_buckets if len(Ks) == 2 else 1
+    B, cab = bucket_widths(ca, nb)
+    if K1 > 1 and B == 1:
+        record("ring_hier_intra", 2 * (K1 - 1) * c * isz)
+    elif K1 > 1:
         for b in range(B):
-            if K1 > 1:
-                record("ring_hier_intra", 2 * (K1 - 1) * Ka * cab * isz, b)
-            if Ka > 1:
-                record("ring_hier_inter", 2 * (Ka - 1) * cab * isz, b)
-        out = x.new_empty((K1, Ka, ca))
-        for b in range(B):
-            lo, hi = b * cab, min((b + 1) * cab, ca)
-            blk = chunks.new_zeros(chunks.shape[:-1] + (Ka, hi - lo))
-            for ra in range(Ka):
-                s, e = ra * ca + lo, min(ra * ca + hi, c)
-                if e > s:
-                    blk[..., ra, :e - s] = chunks[..., s:e]
-            # intra reduce-scatter: (Ka pods, K1 chunks, Ka·w); then each
-            # intra chunk's inter ring over the pods, on its (Ka, w) rows
-            piece = _reduce_scatter(blk.flatten(-2), intra_cap)
-            piece = piece.view(Ka, K1, Ka, hi - lo).transpose(0, 1)
-            out[:, :, lo:hi] = _reduce_scatter(piece, inter_cap)
-        res = out.view(K1, Ka * ca)[:, :c].reshape(-1)[:n]
-    return _mean_of(res.reshape(x.shape[1:]), op, K)
+            record("ring_hier_intra", 2 * (K1 - 1) * Ka * cab * isz, b)
+    shard = _reduce_scatter(chunks)               # (*Ks[:-1], K1, c)
+    for _ in Ks[:-1]:       # the inter rows: _ring buckets ca as above
+        shard = _ring(shard.movedim(0, -2), record, "ring_hier_inter", nb)
+    return _mean_of(shard.reshape(-1)[:n].reshape(x.shape[1:]), op, K)
 
 
 def _q8_table(chunks: torch.Tensor, scale_block: int) -> torch.Tensor:

@@ -195,27 +195,20 @@ class RingQ8Transport(RingTransport):
                                    n_buckets=self.wire_buckets)
 
 
-@dataclass
 class RingHierTransport(RingTransport):
     """The ring whose ``mean`` and ``sum`` run the hierarchical schedule
     (:func:`collectives.hierarchical_ring_allreduce`): reduce-scatter
     inside each pod (the last dp axis), ring-allreduce the owned shard
     across the pods, all-gather inside each pod, so the inter-pod stage
     moves K_data times fewer bytes than the chained rings of
-    :class:`RingTransport`.  ``intra_chunk`` / ``inter_chunk`` cap each
-    level's message (None: one message a hop); on the stacked axis a
-    capped message is the same roll taken in pieces, so values and bytes
-    do not change.  On one dp axis it is :class:`RingTransport`'s
+    :class:`RingTransport`.  On one dp axis it is :class:`RingTransport`'s
     schedule; everything but the reductions is inherited."""
-    intra_chunk: Optional[int] = None
-    inter_chunk: Optional[int] = None
 
     kind = "ring_hier"
 
     def _hier(self, x, op: str):
-        return C.hierarchical_ring_allreduce(
-            x, self.Ks, self._record, op, intra_cap=self.intra_chunk,
-            inter_cap=self.inter_chunk, n_buckets=self.wire_buckets)
+        return C.hierarchical_ring_allreduce(x, self.Ks, self._record, op,
+                                             n_buckets=self.wire_buckets)
 
     def mean(self, x):
         return self._hier(x, "mean")
@@ -242,7 +235,8 @@ class RingPackedTransport(RingTransport):
     own K4 launch (B·K an exchange) and gathered on its own, and the B·K
     gathered payloads decode in one K5b launch.  Each node's result is
     the sum of its B per-bucket scatters in bucket order, as the
-    reference adds them."""
+    reference adds them; as each index lies in one bucket and lands on a
+    zero, that sum is bitwise one scatter of all the node's pairs."""
 
     kind = "ring_packed"
 
@@ -277,12 +271,10 @@ class RingPackedTransport(RingTransport):
         vals_t, idx_t = PK.decode_sparse(
             tuple(torch.cat(parts) for parts in zip(*tables)), sub)
         vals_t, idx_t = vals_t.view(B, self.K, kb), idx_t.view(B, self.K, kb)
-        out = torch.zeros((self.K, n), dtype=vals.dtype, device=vals.device)
-        for i in range(self.K):
-            for b in range(B):
-                out[i] += _scatter_rows([(vals_t[b, i], idx_t[b, i])], n,
-                                        vals.dtype, vals.device)[0]
-        return out
+        return _scatter_rows([(vals_t[:, i].reshape(-1),
+                               idx_t[:, i].reshape(-1))
+                              for i in range(self.K)], n, vals.dtype,
+                             vals.device)
 
     def broadcast_packed(self, idx, leader: int, n: int, plan=None):
         k = idx.shape[-1]
@@ -302,25 +294,16 @@ TRANSPORTS = {"mesh": SimTransport, "ring": RingTransport,
 
 def make_transport(kind: str, K: int, scale_block: int = 0, *,
                    Ks: Optional[Tuple[int, ...]] = None,
-                   wire_buckets: int = 1,
-                   intra_chunk: Optional[int] = None,
-                   inter_chunk: Optional[int] = None):
+                   wire_buckets: int = 1):
     """The emulated transport for ``CompressionConfig.transport``:
     ``mesh`` is :class:`SimTransport`, whose tally the mesh pricer
     predicts.  ``scale_block`` (0 = ``quantize.SCALE_BLOCK``) is the int8
     wires' scale granularity; ``Ks`` the dp mesh's shape (default (K,));
-    ``wire_buckets`` the ring exchanges' bucket count; ``intra_chunk`` /
-    ``inter_chunk`` (0 or None: uncapped) the hierarchical ring's
-    per-level message caps."""
+    ``wire_buckets`` the ring exchanges' bucket count."""
     sb = scale_block or Q.SCALE_BLOCK
     wb = max(int(wire_buckets or 1), 1)
-    Ks = tuple(Ks or (K,))
-    if kind == "ring_hier":
-        return RingHierTransport(K, sb, Ks, wb,
-                                 intra_chunk=intra_chunk or None,
-                                 inter_chunk=inter_chunk or None)
     if kind in TRANSPORTS:
-        return TRANSPORTS[kind](K, sb, Ks, wb)
+        return TRANSPORTS[kind](K, sb, tuple(Ks or (K,)), wb)
     if kind.startswith("chaos:"):
         raise NotImplementedError(f"transport {kind!r} is ROADMAP.md Queue "
                                   "1 item 2, 'chaos, guards and resume'")

@@ -4,8 +4,7 @@ collectives, bitwise: the hierarchical ring (``ring_hier``) on one axis
 rings of ``ring`` and ``ring_q8`` on that mesh, and the bucketed
 exchanges (``wire_buckets`` B in {2, 3, 5}, last buckets padded) of
 ``ring``, ``ring_q8``, ``ring_hier`` and ``ring_packed``: results and per-op
-tallies, ``<op>#b<i>`` rows included; the per-level message caps, which
-change neither; one ``GradientCompressor`` step of lgc_rar on
+tallies, ``<op>#b<i>`` rows included; one ``GradientCompressor`` step of lgc_rar on
 ``ring_hier`` (2 x 2) and of dgc on ``ring_packed`` with B = 4 against the
 reference's ``dist_step``, from accumulators u, v that are not zero; and
 the pricer (``wire_terms_by_op``, ``padding_overhead_terms``) against the
@@ -41,19 +40,17 @@ BUCKETS = (1, 2, 3, 5)
 
 
 def _cases(Ks):
-    """(label, transport, call, B, (intra_chunk, inter_chunk)) run on both
-    sides for the mesh ``Ks``."""
+    """(label, transport, call, B) run on both sides for the mesh
+    ``Ks``."""
     out = []
     for B in BUCKETS:
-        out += [(f"ring_mean_b{B}", "ring", "mean", B, (0, 0)),
-                (f"ring_sum_b{B}", "ring", "sum", B, (0, 0)),
-                (f"hier_mean_b{B}", "ring_hier", "mean", B, (0, 0)),
-                (f"packed_b{B}", "ring_packed", "gather", B, (0, 0))]
-    out += [(f"q8_b{B}", "ring_q8", "mean_q8", B, (0, 0)) for B in (1, 3)]
-    out += [(f"hier_capped_b{B}", "ring_hier", "mean", B, (7, 5))
-            for B in (1, 3)]
+        out += [(f"ring_mean_b{B}", "ring", "mean", B),
+                (f"ring_sum_b{B}", "ring", "sum", B),
+                (f"hier_mean_b{B}", "ring_hier", "mean", B),
+                (f"packed_b{B}", "ring_packed", "gather", B)]
+    out += [(f"q8_b{B}", "ring_q8", "mean_q8", B) for B in (1, 3)]
     if len(Ks) == 2:
-        out += [("hier_sum_b3", "ring_hier", "sum", 3, (0, 0))]
+        out += [("hier_sum_b3", "ring_hier", "sum", 3)]
     return out
 
 
@@ -126,9 +123,8 @@ def spmd(label, fn, *args):
 
 
 plan = PK.make_plan(N, KP)
-for label, kind, call, B, (ic, ec) in CASES:
-    t = make_transport(kind, K, axes=axes, wire_buckets=B,
-                       intra_chunk=ic, inter_chunk=ec)
+for label, kind, call, B in CASES:
+    t = make_transport(kind, K, axes=axes, wire_buckets=B)
     if call == "gather":
         spmd(label, lambda v, i: t.sparse_gather_packed(v, i, N, plan=plan),
              d["vals"], d["idx"])
@@ -196,10 +192,9 @@ def _equal(ours, ref, what):
     np.testing.assert_array_equal(_bits(ours), _bits(ref), err_msg=what)
 
 
-def _run(Ks, d, label, kind, call, B, caps):
+def _run(Ks, d, label, kind, call, B):
     K = int(np.prod(Ks))
-    t = make_transport(kind, K, Ks=Ks, wire_buckets=B, intra_chunk=caps[0],
-                       inter_chunk=caps[1])
+    t = make_transport(kind, K, Ks=Ks, wire_buckets=B)
     with t.wire_op(label):
         if call == "gather":
             res = t.sparse_gather_packed(
@@ -217,8 +212,8 @@ def test_wire_matches_reference(reference, mesh):
     exchange's ``#b<i>`` rows included) equal to the reference's."""
     Ks = MESHES[mesh]
     d, ref, wire = reference[mesh]
-    for label, kind, call, B, caps in _cases(Ks):
-        res, tally = _run(Ks, d, label, kind, call, B, caps)
+    for label, kind, call, B in _cases(Ks):
+        res, tally = _run(Ks, d, label, kind, call, B)
         _equal(res, ref[label], f"{mesh} {label}")
         assert tally == wire[label], (mesh, label, tally, wire[label])
         if B > 1:
@@ -228,8 +223,8 @@ def test_wire_matches_reference(reference, mesh):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_bucketed_equals_unbucketed(reference, mesh):
     """The float rings bucketed are bitwise their unbucketed selves (each
-    column keeps its chunk row); the per-level caps change neither values
-    nor bytes; on one axis ring_hier is the ring, rows and all.  The int8
+    column keeps its chunk row); on one axis ring_hier is the ring, rows
+    and all.  The int8
     wires regroup their scale blocks per bucket, so they are held to the
     reference's bucketed results (above), and here the packed gather to
     its unbucketed self within the two quantizations' bound, max|x| /
@@ -244,15 +239,11 @@ def test_bucketed_equals_unbucketed(reference, mesh):
                    f"{mesh} {name} B={B}")
         got, want = ref[f"packed_b{B}"], ref["packed_b1"]
         assert np.abs(got - want).max() <= bound, (mesh, B)
-    for B in (1, 3):
-        args = (f"hier_mean_b{B}", "ring_hier", "mean", B)
-        capped, tc = _run(Ks, d, *args, (7, 5))
-        plain, tp = _run(Ks, d, *args, (0, 0))
-        assert torch.equal(capped, plain) and tc == tp
-        if len(Ks) == 1:
-            ring, tr = _run(Ks, d, f"hier_mean_b{B}", "ring", "mean", B,
-                            (0, 0))
-            assert torch.equal(plain, ring) and tp == tr
+    if len(Ks) == 1:
+        for B in (1, 3):
+            hier, th = _run(Ks, d, f"b{B}", "ring_hier", "mean", B)
+            ring, tr = _run(Ks, d, f"b{B}", "ring", "mean", B)
+            assert torch.equal(hier, ring) and th == tr
 
 
 def test_hierarchical_bytes_beat_chained(reference):
@@ -272,12 +263,10 @@ def test_hierarchical_bytes_beat_chained(reference):
         assert total(f"hier_mean_b{B}") < total(f"ring_mean_b{B}"), B
 
 
-def test_make_transport_carries_the_mesh_and_caps():
-    t = make_transport("ring_hier", 4, Ks=(2, 2), wire_buckets=3,
-                       intra_chunk=7, inter_chunk=0)
+def test_make_transport_carries_the_mesh():
+    t = make_transport("ring_hier", 4, Ks=(2, 2), wire_buckets=3)
     assert type(t) is RingHierTransport
-    assert (t.Ks, t.wire_buckets, t.intra_chunk, t.inter_chunk) == \
-        ((2, 2), 3, 7, None)
+    assert (t.Ks, t.wire_buckets) == ((2, 2), 3)
     assert make_transport("ring", 3).Ks == (3,)
     with pytest.raises(ValueError, match="mesh shape"):
         make_transport("ring_hier", 4, Ks=(2, 3))
