@@ -78,7 +78,26 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               launch counts per phase, finite losses and per-op
               wire-byte rows (priced for the run's own transport, mesh
               and bucket count) are checked
-  9. timings  each kernel's ms beside its plain version's, its bound and,
+  9. guard    the chaos wire under the guard policies: (a) dgc on
+              chaos:ring_packed with the checksum word, --guard scrub and
+              2 bit flips, 2 NaNs and 1 inf on its top-k exchange each
+              step: the fault tally, fault/topk >= 3 and guard_ok = 0 on
+              every sparsified step, +4 bytes per payload, and the
+              composed encode (K5a per node, no K4: K4 cannot count the
+              non-finites it zeroes); (b) lgc_rar_q8 on chaos:ring_q8
+              with --guard skip_round and a NaN on its encoding: every
+              compressed step guard_ok = 0, and one compressed step of
+              the run's compressor driven directly gives a zero gradient
+              and leaves each node's u, v its accumulators before the
+              clear; (c) lgc_rar on chaos:mesh with --guard fail_fast
+              must raise WireFaultError naming the encoding at step 4
+ 10. resume   lgc_rar with a checkpoint every 3 steps, stopped after step
+              3, then resumed from the file (the full state: bf16
+              params, AdamW moments, both nodes' u and v, the AE): its
+              losses at steps 4 and 5 must equal the uninterrupted
+              lgc_rar run's bit for bit; the file's bytes and the save
+              and load seconds; the file is deleted
+ 11. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function (K6 and K3 also per shape, with their ratio to it);
               K4, K5a and K5b (one payload and the two-payload table) also
@@ -737,15 +756,22 @@ def bitpack_times(dev, batched: bool):
     return out
 
 
+class _Interrupt(Exception):
+    """Raised by a run's step hook to stop it after a given step, as a
+    crash would (the resume check)."""
+
+
 def train_phase(dev, name: str, flags, steps: int, *expects,
-                gc_off: bool = False):
+                gc_off: bool = False, stop_after=None, raises=None):
     """One training run through launch.train.run(): the launch counts are
     reset just before and read just after; each ``expect(launches,
-    sparsified_steps)`` raises unless the path went through its kernels.
-    Losses must be finite and the per-op wire rows equal the pricer's for
-    the run's mesh and bucket count.  ``gc_off`` disables the garbage
-    collector for the run, so whatever a reference cycle holds stays
-    until the end and shows in the peak."""
+    phases)`` raises unless the path went through its kernels (``phases``:
+    those of the steps that finished).  Losses must be finite and the
+    per-op wire rows equal the pricer's for the run's mesh and bucket
+    count.  ``gc_off`` disables the garbage collector for the run, so
+    whatever a reference cycle holds stays until the end and shows in the
+    peak.  ``stop_after`` stops the run after that step; ``raises`` is
+    the exception class the run must raise (nothing else is caught)."""
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core import sparsify as SP
@@ -757,48 +783,76 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
         "--data-shards", "2", "--batch", "8", "--seq", "128",
         "--warmup-steps", "2", "--steps", str(steps), "--log-every", "1",
         "--device", "cuda"] + flags)
+    records = []
+
+    def on_step(rec):
+        records.append(rec)
+        if rec["step"] == stop_after:
+            raise _Interrupt
+
     gc.collect()        # what the phases before left in reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     if gc_off:
         gc.disable()
+    out, error = None, None
     try:
-        out = train.run(cfg, args)
+        out = train.run(cfg, args, on_step=on_step)
+    except (raises or _Interrupt) as e:
+        # the type and message only: the traceback holds the run's frames,
+        # and with them its state
+        error = (type(e), str(e))
     finally:
         gc.enable()
     launches = dict(LAUNCHES)
-    hist, comp = out["history"], out["compressor"]
-    losses = [h["loss"] for h in hist]
+    if raises is not None and (error is None or error[0] is not raises):
+        raise AssertionError(f"{name}: the run did not raise "
+                             f"{raises.__name__}")
+    if stop_after is not None and (error is None
+                                   or error[0] is not _Interrupt):
+        raise AssertionError(f"{name}: the run was not stopped")
+    losses = [h["loss"] for h in records]
     if not all(map(lambda l: l == l and abs(l) != float("inf"), losses)):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     for expect in expects:
-        expect(launches, [h["phase"] for h in hist])
-    for phase, rows in out["wire"].items():
-        plan = XP.build_plan(comp.cc, comp.layout, comp.K,
-                             transport=args.transport, phase=phase)
+        expect(launches, [h["phase"] for h in records])
+    wire = out["wire"] if out is not None else {}
+    comp = out["compressor"] if out is not None else None
+    for phase, rows in wire.items():
+        plan = XP.build_plan(comp.cc, comp.layout, comp.K, phase=phase)
         priced = XP.wire_terms_by_op(plan, axis_sizes=comp.Ks)
         if rows != priced:
             raise AssertionError(f"{name} {phase}: measured wire rows {rows}"
                                  f" != priced {priced}")
     step_ms = {}
-    for h in hist:
+    for h in records:
         step_ms.setdefault(h["phase"], []).append(h["ms"])
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    guard = {h["step"]: {k: h[k] for k in ("guard_ok", "fault", "faults",
+                                           "fault_ops") if k in h}
+             for h in records if "guard_ok" in h or "fault_ops" in h}
     emit("train", run=name, transport=args.transport, arch=cfg.name,
          n_layers=N_LAYERS,
          reduced=["n_layers"], d_model=cfg.d_model, dtype=cfg.dtype,
-         n_params=comp.layout.n_total, nodes=comp.K, mesh=comp.Ks,
+         n_params=comp.layout.n_total if comp else None,
+         nodes=args.pod_shards * args.data_shards,
+         mesh=comp.Ks if comp else None,
          wire_buckets=args.wire_buckets, gc_off=gc_off, losses=losses,
-         step_ms=step_ms, launches=launches, wire=out["wire"],
-         peak_mem_gib=peak, rate_bytes_per_node=out["rate"].bytes_per_node)
-    wire = out["wire"]
-    del out, hist, comp
+         step_ms=step_ms, launches=launches, wire=wire, peak_mem_gib=peak,
+         guard=guard or None,
+         error=None if error is None else f"{error[0].__name__}: {error[1]}",
+         rate_bytes_per_node=out["rate"].bytes_per_node if out else None)
+    result = {"launches": launches, "losses": losses, "wire": wire,
+              "peak_gib": peak, "history": records,
+              "error": None if error is None else error[1],
+              "compressor": comp,
+              "resumed": out["resumed"] if out is not None else None}
+    del out, comp
     SP._device_meta.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses, "wire": wire,
-            "peak_gib": peak}
+    return result
 
 
 def launched(*names):
@@ -829,6 +883,133 @@ def per_step(compressed=None, **per_sparsified_step):
                     f"steps: {launches}")
     return expect
 
+
+
+def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
+    """The chaos wire under the guard policies, at the path's widths: (a)
+    dgc on the packed ring with the checksum word, bit flips, NaNs and
+    infs on its top-k exchange, scrubbed; (b) lgc_rar_q8 on the int8 ring
+    with a NaN on its encoding, the round skipped, and one compressed
+    step of that run's compressor driven directly, whose gradient must be
+    zero and whose u, v must be the nodes' accumulators before the clear;
+    (c) lgc_rar under fail_fast, which must raise WireFaultError naming
+    the encoding at the first compressed step."""
+    from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
+    from repro_torch.dist import chaos as CH
+    faults = ["--fault-seed", "3", "--fault-nans", "2", "--fault-infs", "1",
+              "--fault-bitflips", "2", "--fault-ops", "topk"]
+    # under a guard the packed encode is the composed one (the quantizer
+    # in torch, each node's low bits through K5a), as in the reference: K4
+    # cannot count the non-finites it zeroes.  The gathered table is still
+    # decoded once (K5b), and that decode is what each payload's
+    # validation reads
+    a = runs["dgc chaos:ring_packed scrub"] = train_phase(
+        dev, "dgc chaos:ring_packed scrub",
+        dgc + ["--transport", "chaos:ring_packed", "--guard", "scrub",
+               "--guard-checksum"] + faults, 5,
+        per_step(block_topk=n_leaves * K, quantize_pack=0, pack_bits=K,
+                 unpack_bits=1))
+    injected = {"topk": {"bitflip": 2, "nan": 2, "inf": 1}}
+    for h in a["history"]:
+        sparsified = h["phase"] != "warmup"
+        if sparsified and not (h.get("fault_ops") == injected
+                               and h["fault"]["topk"] >= 3
+                               and h["guard_ok"] == 0):
+            raise AssertionError(f"dgc chaos:ring_packed step {h}")
+        if not sparsified and (h["guard_ok"] != 1 or "fault_ops" in h):
+            raise AssertionError(f"dgc chaos:ring_packed warm-up step {h}")
+    plain = runs["dgc ring_packed"]["wire"]["topk_ae"]
+    extra = {op: row["all_gather_packed"] - plain[op]["all_gather_packed"]
+             for op, row in a["wire"]["topk_ae"].items()
+             if "all_gather_packed" in row}
+    emit("guard_checksum_bytes", extra_per_node=extra,
+         per_payload=4, nodes=K)
+    if set(extra.values()) != {4 * (K - 1)}:
+        raise AssertionError(f"the checksum word costs {extra}, not 4 bytes "
+                             f"per payload")
+
+    b = runs["lgc_rar_q8 chaos:ring_q8 skip_round"] = train_phase(
+        dev, "lgc_rar_q8 chaos:ring_q8 skip_round",
+        q8[:-1] + ["chaos:ring_q8", "--guard", "skip_round",
+                   "--fault-nans", "1", "--fault-ops", "encoding"], 6,
+        per_step(fused_ef_topk=K,
+                 compressed={"matmul_bias_lrelu": len(ENCODER) * K}))
+    for h in b["history"]:
+        if h["phase"] == "compressed" and not (
+                h["guard_ok"] == 0 and h["fault"]["encoding"] >= 1
+                and h["fault_ops"] == {"encoding": {"nan": 1}}):
+            raise AssertionError(f"lgc_rar_q8 chaos:ring_q8 step {h}")
+    comp = b["compressor"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    states = comp.init_sim_states(gen, dev)
+    g = torch.randn(states["u"].shape, generator=gen, device=dev) * 1e-3
+    states["u"].normal_(generator=gen).mul_(1e-3)
+    states["v"].normal_(generator=gen).mul_(1e-3)
+    want_u, want_v = states["u"].clone(), states["v"].clone()
+    for k in range(K):
+        comp._accumulate_select(want_u[k], want_v[k], g[k])
+    CH.reset_fault_tally()
+    gg, states, stats = comp.sim_step(states, g, 4, "compressed")
+    checks = {"guard_ok": stats["guard_ok"] == 0,
+              "gradient_zero": int(gg.count_nonzero()) == 0,
+              "u_uncleared": same_bits(states["u"], want_u),
+              "v_uncleared": same_bits(states["v"], want_v)}
+    emit("skip_round_step", fault={k: v for k, v in stats.items()
+                                   if k.startswith("fault/")},
+         fault_ops=CH.fault_report(), checks=checks)
+    del states, g, gg, want_u, want_v, comp
+    b["compressor"] = None
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"skip_round step: {checks}")
+
+    c = runs["lgc_rar chaos:mesh fail_fast"] = train_phase(
+        dev, "lgc_rar chaos:mesh fail_fast",
+        lgc + ["--transport", "chaos:mesh", "--guard", "fail_fast",
+               "--fault-nans", "1", "--fault-ops", "encoding"], 6,
+        launched("fused_ef_topk", "matmul_bias_lrelu"),
+        raises=CH.WireFaultError)
+    if "encoding" not in c["error"] or "at step 4" not in c["error"]:
+        raise AssertionError(f"fail_fast raised {c['error']!r}, not at "
+                             f"step 4 on the encoding")
+
+
+def resume_run(dev, runs, K: int, lgc) -> None:
+    """(d) lgc_rar with the main path's flags and a checkpoint every 3
+    steps, stopped after step 3 as a crash would stop it (the file then
+    holds the state after step 3, to resume at step 4), then resumed from
+    that file: steps 4 and 5, the compressed phase on the u, v and AE
+    read back, must give the uninterrupted lgc_rar run's losses bit for
+    bit.  The file's bytes and the save and load seconds are printed; the
+    file is deleted."""
+    import shutil
+    from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
+    ckdir = os.path.join(ROOT, "build", "ckpt_smoke")
+    path = os.path.join(ckdir, "ckpt.npz")
+    try:
+        first = runs["lgc_rar stopped"] = train_phase(
+            dev, "lgc_rar stopped after step 3",
+            lgc + ["--checkpoint-dir", ckdir, "--checkpoint-every", "3"], 6,
+            per_step(fused_ef_topk=K), stop_after=3)
+        nbytes = os.path.getsize(path)
+        second = runs["lgc_rar resumed"] = train_phase(
+            dev, "lgc_rar resumed at step 4", lgc + ["--resume", path], 6,
+            per_step(fused_ef_topk=K,
+                     compressed={"matmul_bias_lrelu": len(ENCODER) * K}))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    want = runs["lgc_rar"]["losses"]
+    equal = first["losses"] == want[:4] and second["losses"] == want[4:] \
+        and [h["step"] for h in second["history"]] == [4, 5]
+    emit("resume", file_bytes=nbytes,
+         save_s=first["history"][3]["checkpoint_s"],
+         load_s=second["resumed"]["seconds"],
+         resumed_at=second["resumed"]["step"],
+         losses={"uninterrupted": want, "stopped": first["losses"],
+                 "resumed": second["losses"]}, bitwise=equal)
+    if not equal:
+        raise AssertionError("the resumed run's losses differ from the "
+                             "uninterrupted run's")
 
 
 def main() -> None:
@@ -938,6 +1119,8 @@ def main() -> None:
             f"ring_hier: peak {hier_runs[0]['peak_gib']} GiB with the "
             f"collector off exceeds {HIER_PEAK_GIB} GiB: a reference cycle "
             "keeps tensors alive")
+    guard_runs(dev, runs, n_leaves, K, lgc, dgc, q8)
+    resume_run(dev, runs, K, lgc)
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
     emit("topk_bytes", packed=packed_b, raw=raw_b,

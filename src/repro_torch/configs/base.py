@@ -81,7 +81,21 @@ class CompressionConfig:
     topk_backend: str = "jnp"        # jnp | pallas | fused
     extract_backend: str = "auto"    # auto | loop | bitonic
     ae_backend: str = "jnp"          # jnp | pallas (the fused-matmul kernel)
+    # exchange guard policy (dist.chaos.GUARD_POLICIES): off | scrub |
+    # skip_round | fail_fast
     guard: str = "off"
+    # one int32 checksum word on every packed payload (+4 bytes, priced)
+    guard_checksum: bool = False
+    # seeded fault injection (dist.chaos.FaultSpec); any count or node set
+    # wraps the transport in chaos:<base>.  fault_ops: comma-separated
+    # plan-op labels to target ("" = all ops)
+    fault_seed: int = 0
+    fault_bitflips: int = 0
+    fault_nans: int = 0
+    fault_infs: int = 0
+    fault_drop_node: int = -1
+    fault_stale_node: int = -1
+    fault_ops: str = ""
 
 
 @dataclass(frozen=True)

@@ -15,7 +15,11 @@
 
 Each step compiles its exchanges with ``dist.plan.build_plan`` and runs
 them with ``dist.plan.execute`` against a transport, supplying the
-per-node compute as feed callbacks, as the reference does.  The K nodes'
+per-node compute as feed callbacks, as the reference does.  Under a guard
+policy (``cc.guard``) the step's stats carry ``fault/<label>`` and
+``guard_ok``; each node clears its u, v only after a clean round, and
+``skip_round`` drops a faulty round's gradient.  A fault set in the
+config (``cc.fault_*``) wraps the transport in ``chaos:<base>``.  The K nodes'
 accumulators ``u``/``v`` are (K, n) tensors updated IN PLACE, node after
 node: at llama3.2-1b width each is gigabytes, and sweeping the nodes one
 after another keeps only one node's temporaries alive.
@@ -39,6 +43,7 @@ from repro_torch.configs.base import CompressionConfig
 from repro_torch.core import autoencoder as AE
 from repro_torch.core import sparsify as SP
 from repro_torch.core.phases import PHASE_TOPK_AE, PHASE_WARMUP
+from repro_torch.dist import chaos as CH
 from repro_torch.dist import collectives as C
 from repro_torch.dist import plan as XP
 from repro_torch.dist.transport import make_transport
@@ -63,11 +68,7 @@ class GradientCompressor:
             raise ValueError(f"unknown topk_backend {cc.topk_backend!r}")
         if cc.ae_backend not in ("jnp", "pallas"):
             raise ValueError(f"unknown ae_backend {cc.ae_backend!r}")
-        if cc.guard != "off":
-            raise NotImplementedError("guard policies are ROADMAP.md "
-                                      "Queue 1 item 2, 'chaos, guards and "
-                                      "resume'")
-        self._transport()                       # raises for an unported wire
+        self._transport()          # raises for an unknown wire or guard
 
     # -- state ----------------------------------------------------------------
 
@@ -98,9 +99,12 @@ class GradientCompressor:
         return out
 
     def _transport(self):
+        """``cc.transport``, wrapped in chaos:<base> when the config sets
+        a fault, with ``cc.guard``."""
         cc = self.cc
         return make_transport(cc.transport, self.K, cc.q8_scale_block,
-                              Ks=self.Ks, wire_buckets=cc.wire_buckets)
+                              Ks=self.Ks, wire_buckets=cc.wire_buckets,
+                              guard=cc.guard, fault=CH.spec_from_config(cc))
 
     # -- per-node pieces -------------------------------------------------------
 
@@ -169,6 +173,31 @@ class GradientCompressor:
         return (tree_unflatten(state["ae"], ae),
                 tree_unflatten(state["ae_mom"], mom), ae_loss.detach())
 
+    # -- the guard's gates -----------------------------------------------------
+
+    @staticmethod
+    def _guard_gate(env, stats):
+        """The executor's guard counts into the stats, ``fault/<label>``
+        and ``guard_ok`` as node 0 holds them (the reference's step stats
+        leave its shard_map replicated, as node 0's); returns (each node's
+        ok, policy), or None when no guard ran."""
+        g = env.get("__guard__")
+        if g is None:
+            return None
+        ok = g["ok"].tolist()
+        for lbl, bad in g["bad"].items():
+            stats[f"fault/{lbl}"] = int(bad[0])
+        stats["guard_ok"] = int(ok[0])
+        return ok, g["policy"]
+
+    @staticmethod
+    def _gate_round(gate, global_g):
+        """skip_round: a round that saw a fault gives the optimizer zeros
+        (node 0's round, whose gradient the step returns)."""
+        if gate is None or gate[1] != "skip_round" or gate[0][0]:
+            return global_g
+        return torch.zeros_like(global_g)
+
     # ==========================================================================
 
     @torch.no_grad()
@@ -182,7 +211,8 @@ class GradientCompressor:
                              phase=phase)
         if phase == PHASE_WARMUP or cc.method == "none":
             env = XP.execute(plan, t, {"grad": lambda env: g})
-            return env["grad"], state, stats
+            gate = self._guard_gate(env, stats)
+            return self._gate_round(gate, env["grad"]), state, stats
 
         u, v = state["u"], state["v"]
         sel = [self._accumulate_select(u[k], v[k], g[k])
@@ -197,22 +227,28 @@ class GradientCompressor:
             "exempt_last": lambda env: (last_vals, last_idx),
         }
 
-        def finish(env, global_g, idx_nodes):
+        def finish(env, gate, global_g, idx_nodes):
             # (sent + dense) + last, the reference's order of additions;
-            # then zero u, v where each node's pairs were sent
+            # then zero u, v where each node's pairs were sent, on each
+            # node whose round was clean (under a guard, a node that saw
+            # a fault keeps its accumulators, so what was scrubbed ships
+            # again)
             global_g += SP.scatter_dense_segments(env["exempt_dense"],
                                                   layout, n)
             global_g += env["exempt_last"]
             for k in range(self.K):
-                SP.clear_sent_merged(u[k], v[k], idx_nodes[k], last_idx[k],
-                                     n)
-            return global_g
+                if gate is None or gate[0][k]:
+                    SP.clear_sent_merged(u[k], v[k], idx_nodes[k],
+                                         last_idx[k], n)
+            return self._gate_round(gate, global_g)
 
         if cc.method in ("sparse_gd", "dgc"):
             # each node ships its own (vals, idx); each clears its own set
             feeds["topk"] = lambda env: (vals, own_idx)
             env = XP.execute(plan, t, feeds)
-            return finish(env, env["topk"], own_idx), dict(state), stats
+            gate = self._guard_gate(env, stats)
+            return finish(env, gate, env["topk"], own_idx), dict(state), \
+                stats
 
         # lgc: the rotating leader's sorted index set is every node's
         # support, and every node clears that shared set
@@ -249,10 +285,14 @@ class GradientCompressor:
             if is_ps:
                 feeds["gather_inno"] = lambda env: inno_of(env)[0]
             env = XP.execute(plan, t, feeds)
+            gate = self._guard_gate(env, stats)
             sent = env["support_vals"]
             ae, ae_mom, ae_loss = self._ae_update(
                 state, env["gather_vals"], env.get("gather_inno"), step)
-            new_state.update(ae=ae, ae_mom=ae_mom)
+            # the AE is not trained on a round that saw a fault (node 0's,
+            # whose AE the step returns)
+            if gate is None or gate[0][0]:
+                new_state.update(ae=ae, ae_mom=ae_mom)
             stats["ae_loss"] = ae_loss
         elif is_ps:
             # the leader ships E_c(g~) and every node its innovation; the
@@ -266,6 +306,7 @@ class GradientCompressor:
             feeds["z_common"] = z_common
             feeds["innovations"] = lambda env: inno_of(env)[1:]
             env = XP.execute(plan, t, feeds)
+            gate = self._guard_gate(env, stats)
             recs = AE.lgc_decode_ps(state["ae"], env["z_common"],
                                     env["innovations"])    # (K, mu_pad)
             sent = C.node_mean(recs)
@@ -274,9 +315,10 @@ class GradientCompressor:
             feeds["encoding"] = lambda env: torch.stack(
                 [self._encode(state["ae"], x) for x in vals_of(env)])
             env = XP.execute(plan, t, feeds)
+            gate = self._guard_gate(env, stats)
             sent = AE.lgc_decode_rar(state["ae"], env["encoding"][None])[0]
         idx = env["support"]
-        global_g = finish(env, SP.scatter_to_dense(sent, idx, n),
+        global_g = finish(env, gate, SP.scatter_to_dense(sent, idx, n),
                           [idx] * self.K)
         return global_g, new_state, stats
 

@@ -37,9 +37,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import chaos as CH
 from repro_torch.dist import quantize as Q
 from repro_torch.kernels.bitpack import f32_reciprocal
 
@@ -73,7 +75,10 @@ def node_mean_q8(x: torch.Tensor, scale_block: int = Q.SCALE_BLOCK
     node's dequantize into the sum, so node k >= 1 is added as one FMA of
     its int8 values and scales."""
     n = x[0].numel()
-    wire = [Q.quantize_i8(x[k], scale_block) for k in range(x.shape[0])]
+    wire = []
+    for k in range(x.shape[0]):
+        with CH.on_node(k):
+            wire.append(Q.quantize_i8(x[k], scale_block))
     out = Q.dequantize_i8(*wire[0], n)
     for q, s in wire[1:]:
         out = Q.dequantize_add_i8(q, s, n, out)
@@ -213,7 +218,8 @@ def hierarchical_ring_allreduce(x: torch.Tensor, Ks: Sequence[int],
     return _mean_of(shard.reshape(-1)[:n].reshape(x.shape[1:]), op, K)
 
 
-def _q8_table(chunks: torch.Tensor, scale_block: int) -> torch.Tensor:
+def _q8_table(chunks: torch.Tensor, scale_block: int,
+              nodes) -> torch.Tensor:
     """The int8 ring on one (K nodes, K chunks, w) chunk matrix -> (K, w),
     row j chunk j as every node decodes it.  Reduce-scatter as
     :func:`_reduce_scatter`, but each node quantizes its partial chunk
@@ -221,11 +227,17 @@ def _q8_table(chunks: torch.Tensor, scale_block: int) -> torch.Tensor:
     t - 1) mod K, product and sum one FMA as XLA compiles the reference's;
     the finished chunk is quantized once and that payload circulates
     unchanged, so every node decodes the same value.  Scale blocks are
-    per chunk."""
+    per chunk.  ``nodes[i]``: the node(s) at ring position i, whose
+    quantizer counts a guard's sink gets."""
     K, w = chunks.shape[0], chunks.shape[-1]
+
+    def quantize(i, x):
+        with CH.on_node(nodes[i]):
+            return Q.quantize_i8(x, scale_block)
+
     send = [chunks[i, i] for i in range(K)]
     for t in range(K - 1):
-        wire = [Q.quantize_i8(s, scale_block) for s in send]
+        wire = [quantize(i, s) for i, s in enumerate(send)]
         # node i receives node i - 1's payload (a roll of the node axis)
         send = [Q.dequantize_add_i8(*wire[(i - 1) % K], w,
                                     chunks[i, (i - t - 1) % K])
@@ -233,23 +245,26 @@ def _q8_table(chunks: torch.Tensor, scale_block: int) -> torch.Tensor:
     # node i holds the finished chunk (i + 1) mod K, quantized once
     out = chunks.new_empty((K, w))
     for i in range(K):
-        out[(i + 1) % K] = Q.dequantize_i8(*Q.quantize_i8(send[i],
-                                                          scale_block), w)
+        out[(i + 1) % K] = Q.dequantize_i8(*quantize(i, send[i]), w)
     return out
 
 
 def _ring_q8(xn: torch.Tensor, record: Record, scale_block: int,
-             n_buckets: int) -> torch.Tensor:
+             n_buckets: int, nodes: np.ndarray) -> torch.Tensor:
     """:func:`_ring` on the int8 wire, (..., K, m) f32 -> (..., m), ring
-    after ring for the leading dimensions.  Records 2(K-1)·wire_nbytes(c)
-    per node, or per bucket 2(K-1)·wire_nbytes(cb): the scale blocks
-    regroup per bucket.  At K = 1 nothing moves, and each node's value
-    still makes one quantize -> dequantize round trip."""
+    after ring for the leading dimensions; ``nodes[r, i]`` the node(s) at
+    position i of ring r.  Records 2(K-1)·wire_nbytes(c) per node, or per
+    bucket 2(K-1)·wire_nbytes(cb): the scale blocks regroup per bucket.
+    At K = 1 nothing moves, and each node's value still makes one
+    quantize -> dequantize round trip."""
     K, m = xn.shape[-2:]
     lead, rows = xn.shape[:-2], xn.reshape((-1, K, m))
     if K == 1:
-        return torch.stack([Q.fake_quantize(r[0], scale_block)
-                            for r in rows]).reshape(lead + (m,))
+        out = []
+        for r, row in enumerate(rows):
+            with CH.on_node(nodes[r, 0]):
+                out.append(Q.fake_quantize(row[0], scale_block))
+        return torch.stack(out).reshape(lead + (m,))
     c = -(-m // K)
     B, cb = bucket_widths(c, n_buckets)
     if B == 1:
@@ -260,10 +275,10 @@ def _ring_q8(xn: torch.Tensor, record: Record, scale_block: int,
             record("ring_allreduce_q8",
                    2 * (K - 1) * Q.wire_nbytes(cb, scale_block), b)
     out = []
-    for r in rows:
-        ch = _chunks(r, K)                              # (K, K, c)
+    for r, row in enumerate(rows):
+        ch = _chunks(row, K)                            # (K, K, c)
         table = torch.cat([_q8_table(ch[..., lo:min(lo + cb, c)],
-                                     scale_block)
+                                     scale_block, nodes[r])
                            for lo in range(0, c, cb)], -1)
         out.append(table.reshape(-1)[:m])
     return torch.stack(out).reshape(lead + (m,))
@@ -283,9 +298,17 @@ def ring_allreduce_q8(x: torch.Tensor, record: Record, op: str = "add",
     reference's bucketed one, not its unbucketed one."""
     assert op in ("add", "mean"), op
     K = x.shape[0]
-    xs = x.to(torch.float32).reshape(tuple(Ks or (K,)) + (-1,))
-    for _ in range(xs.dim() - 1):
-        xs = _ring_q8(xs.movedim(0, -2), record, scale_block, n_buckets)
+    Ks = tuple(Ks or (K,))
+    xs = x.to(torch.float32).reshape(Ks + (-1,))
+    grid = np.arange(K).reshape(Ks)
+    for a in range(len(Ks)):
+        # ring r, position i of axis a: the nodes at (any earlier axes, i,
+        # r's coordinates on the later axes), which hold the same value
+        sub = grid.reshape((-1,) + Ks[a:])
+        nodes = np.moveaxis(sub, 1, -1).reshape(sub.shape[0], -1, Ks[a]
+                                                ).transpose(1, 2, 0)
+        xs = _ring_q8(xs.movedim(0, -2), record, scale_block, n_buckets,
+                      nodes)
     return _mean_of(xs.reshape(x.shape[1:]), op, K)
 
 

@@ -20,8 +20,14 @@ encoding is a :class:`Reduce` with ``wire="q8"``, int8 on ``ring_q8``
 and f32 elsewhere.  :func:`bucket_plan` prices one op as the executing
 collective splits it (``<label>#b<i>`` rows per bucket), and
 :func:`padding_overhead_terms` the part of its bytes that is padding, so
-that accounted == ideal + overhead at every bucket count.  The guard
-policies are not ported yet (ROADMAP.md Queue 1 item 2).
+that accounted == ideal + overhead at every bucket count.  With
+``cc.guard_checksum`` every PackPlan carries the checksum word, priced.
+
+Under a guard policy (``dist.chaos.GUARD_POLICIES``) :func:`execute`
+scrubs each op's result (:func:`_guard_result`) and counts, per node, the
+bad elements of the result and what the transport's validators report
+into the op's sink; ``env["__guard__"]`` carries the (K,) counts per op
+and each node's ok, as each of the reference's nodes holds its own.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core import autoencoder as AE
@@ -36,6 +43,7 @@ from repro_torch.core.phases import (PHASE_COMPRESSED, PHASE_TOPK_AE,
                                      PHASE_WARMUP)
 from repro_torch.core.sparsify import (GradientLayout, innovation_frac,
                                        innovation_k)
+from repro_torch.dist import chaos as CH
 from repro_torch.dist import collectives as C
 from repro_torch.dist import packed as PK
 from repro_torch.dist import quantize as Q
@@ -146,6 +154,9 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; known: {METHODS}")
     tkind = transport if transport is not None else (cc.transport or "mesh")
+    # a chaos:<base> wire moves what its base moves (the reference prices
+    # the prefixed name as a float wire in its rate report)
+    tkind = tkind.split(":", 1)[-1]
     phase = phase if phase is not None else steady_phase(method)
     sb = cc.q8_scale_block or Q.SCALE_BLOCK
     n = layout.n_total
@@ -158,12 +169,14 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
     if phase == PHASE_WARMUP or method == "none":
         return _plan([DenseReduce("grad", n_vals=n)])
     packed = method in PK.PACKED_METHODS
+    chk = cc.guard_checksum
 
     def sparse(label, n_vec, k, k_rate, mode="mean"):
         if packed:
             return PackedSparseExchange(
                 label, n_vec=n_vec, k=k, k_rate=k_rate,
-                pack=PK.make_plan(n_vec, k, sb) if k else None, mode=mode)
+                pack=PK.make_plan(n_vec, k, sb, checksum=chk) if k else None,
+                mode=mode)
         return SparseExchange(label, n_vec=n_vec, k=k, k_rate=k_rate)
 
     mp = layout.mu_pad
@@ -175,7 +188,7 @@ def build_plan(cc: CompressionConfig, layout: GradientLayout, K: int,
         ops.append(sparse("topk", n, mp, layout.mu))
         return _plan(ops)
     ops.append(IndexBroadcast("support", n_vec=n, k=mp, k_rate=layout.mu,
-                              pack=PK.make_plan(n, mp, sb)))
+                              pack=PK.make_plan(n, mp, sb, checksum=chk)))
     zl = AE.compressed_length(mp)
     if phase == PHASE_TOPK_AE:
         ops.append(Reduce("support_vals", n_vals=mp))
@@ -217,25 +230,74 @@ def _run_op(op: Op, t, args: tuple):
     raise TypeError(op)
 
 
-def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
+def _guard_result(op: Op, res: torch.Tensor):
+    """One op's result under a guard -> (scrubbed result, bad count).
+    Float elements that are non-finite or have |x| > ``chaos.GUARD_MAX``
+    are zeroed and counted: the compressor clears u, v only where the
+    round was clean, so what was zeroed ships again.  An IndexBroadcast
+    result with entries outside [0, n_vec] or out of order is clipped and
+    sorted again, each such entry counted."""
+    if isinstance(op, IndexBroadcast):
+        bad = ((res < 0) | (res > op.n_vec)).sum()
+        if res.shape[0] > 1:
+            bad = bad + (res[1:] < res[:-1]).sum()
+        fixed = torch.sort(res.clamp(0, op.n_vec))[0]
+        return torch.where(bad > 0, fixed, res), bad
+    if res.is_floating_point():
+        mask = ~torch.isfinite(res) | (res.abs() > CH.GUARD_MAX)
+        return torch.where(mask, torch.zeros_like(res), res), mask.sum()
+    return res, torch.zeros((), dtype=torch.int64, device=res.device)
+
+
+def execute(plan: Plan, t, feeds: Dict[str, Callable],
+            guard: Optional[str] = None) -> Dict[str, Any]:
     """Run ``plan.ops`` in order against transport ``t``.  ``feeds[label]
     (env)`` gives each op's arguments; ``env`` holds earlier ops' results
     (and memoized per-node values under underscore keys).  Every op needs
     exactly one feed and vice versa.  Each transport call runs under its
-    op label, so the transport's tally attributes bytes to the op."""
+    op label, so the transport's tally attributes bytes to the op.
+
+    ``guard`` (default: the transport's ``guard``) other than "off"
+    scrubs each result through :func:`_guard_result` and drains the
+    counts the transport's validators report (``chaos.structural_sink``)
+    into the op's (K,) per-node count; ``env["__guard__"]`` is then
+    {"policy", "bad": {label: (K,) counts}, "ok": (K,) bool}."""
     labels = set(plan.labels)
     missing, extra = labels - set(feeds), set(feeds) - labels
     if missing or extra:
         raise ValueError(f"plan/feeds mismatch for {plan.method}/"
                          f"{plan.phase}: missing feeds {sorted(missing)}, "
                          f"unplanned feeds {sorted(extra)}")
+    guard = guard if guard is not None else getattr(t, "guard", "off")
+    if guard not in CH.GUARD_POLICIES:
+        raise ValueError(f"unknown guard {guard!r}; known: "
+                         f"{CH.GUARD_POLICIES}")
     env: Dict[str, Any] = {}
+    bad_by_op: Dict[str, torch.Tensor] = {}
     for op in plan.ops:
         args = feeds[op.label](env)
         if not isinstance(args, tuple):
             args = (args,)
-        with t.wire_op(op.label):
-            env[op.label] = _run_op(op, t, args)
+        if guard == "off":
+            with t.wire_op(op.label):
+                env[op.label] = _run_op(op, t, args)
+            continue
+        sink: list = []
+        with t.wire_op(op.label), CH.structural_sink(sink):
+            res = _run_op(op, t, args)
+        res, bad = _guard_result(op, res)
+        per_node = torch.zeros(t.K, dtype=torch.int64,
+                               device=res.device) + bad
+        for nodes, count in sink:
+            if nodes is None:
+                per_node += count
+            else:
+                per_node[list(nodes)] += count
+        env[op.label] = res
+        bad_by_op[op.label] = per_node
+    if guard != "off":
+        env["__guard__"] = {"policy": guard, "bad": bad_by_op,
+                            "ok": sum(bad_by_op.values()) == 0}
     return env
 
 

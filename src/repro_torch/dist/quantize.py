@@ -4,7 +4,8 @@ the int8 byte count every pricer charges.
 
 The flat values are zero-padded to a multiple of ``scale_block``; each
 block gets one f32 scale, max(max|x|, eps) · f32(1/127), and its values
-round half to even into [-127, 127].  Non-finite values quantize to 0.
+round half to even into [-127, 127].  Non-finite values quantize to 0
+and, under a guard, are counted.
 The scale multiplies by the f32 reciprocal because that is what the
 reference computes where it runs, under ``jit``: XLA turns its division
 by the constant 127 into that multiplication (an eager call of the
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import chaos as CH
 from repro_torch.kernels import bitpack as BP
 from repro_torch.utils import fma_f32
 
@@ -31,9 +33,13 @@ def _blocked(x: torch.Tensor, scale_block: int) -> torch.Tensor:
 
 def quantize_i8(x: torch.Tensor, scale_block: int = SCALE_BLOCK):
     """-> (q int8 (m, scale_block), scales f32 (m,)) of the flattened,
-    zero-padded ``x``."""
+    zero-padded ``x``.  Non-finite values quantize to 0, and their count
+    goes to the guard's sink when one is open."""
     xb = _blocked(x.to(torch.float32), scale_block)
-    xb = torch.where(torch.isfinite(xb), xb, torch.zeros_like(xb))
+    finite = torch.isfinite(xb)
+    if CH.structural_sink_active():
+        CH.report_structural((~finite).sum())
+    xb = torch.where(finite, xb, torch.zeros_like(xb))
     scales = torch.clamp(xb.abs().amax(1), min=_EPS) \
         * BP.f32_reciprocal(127, xb.device)
     q = torch.clamp(torch.round(xb / scales[:, None]), -127, 127)

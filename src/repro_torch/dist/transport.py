@@ -40,7 +40,13 @@ quantize -> dequantize round trip of ``dist.quantize``) and reduces them
 in f32, moving f32 bytes, as the reference does.
 
 Every mean over nodes is :func:`collectives.node_mean`, the reference's
-order of additions under ``jit``.  Real multi-process transports (NCCL)
+order of additions under ``jit``.
+
+Under a guard policy (``guard``, which the executor reads) the packed
+ring validates every received payload (``packed.validate_payload``) and
+zeroes one that fails, and each node's quantizer work reports its
+non-finite count as that node's (``chaos.on_node``).  ``make_transport``
+wraps any of them as ``chaos:<base>`` (``chaos.ChaosTransport``).  Real multi-process transports (NCCL)
 are ROADMAP.md Queue 1 item 6, "multi-process transports".
 """
 from __future__ import annotations
@@ -53,6 +59,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import chaos as CH
 from repro_torch.dist import collectives as C
 from repro_torch.dist import packed as PK
 from repro_torch.dist import quantize as Q
@@ -77,6 +84,7 @@ class SimTransport:
     scale_block: int = Q.SCALE_BLOCK       # values per int8-wire scale
     Ks: Tuple[int, ...] = ()               # dp mesh shape; () = (K,)
     wire_buckets: int = 1                  # buckets per ring exchange
+    guard: str = "off"                     # the executor's guard policy
     # {op label: {collective kind: bytes per node}} recorded since creation
     tally: Dict[str, Dict[str, float]] = field(default_factory=dict)
     _label: Optional[str] = None
@@ -156,6 +164,15 @@ class SimTransport:
         return C.node_mean(self.sparse_gather_packed(vals, idx, n, plan))
 
 
+def _fake_quantize_nodes(x, scale_block: int) -> torch.Tensor:
+    """Each node's values through its own int8 round trip."""
+    out = []
+    for k in range(x.shape[0]):
+        with CH.on_node(k):
+            out.append(Q.fake_quantize(x[k], scale_block))
+    return torch.stack(out)
+
+
 class RingTransport(SimTransport):
     """Every cross-node reduction through the chunked ring (one ring per
     dp axis) and the leader exchange through the forwarding broadcast;
@@ -178,8 +195,7 @@ class RingTransport(SimTransport):
     def mean_q8(self, x):
         """Each node's values through the int8 round trip, then the f32
         ring mean (f32 bytes on the wire)."""
-        return self.mean(torch.stack([Q.fake_quantize(x[k], self.scale_block)
-                                      for k in range(self.K)]))
+        return self.mean(_fake_quantize_nodes(x, self.scale_block))
 
 
 class RingQ8Transport(RingTransport):
@@ -240,6 +256,29 @@ class RingPackedTransport(RingTransport):
 
     kind = "ring_packed"
 
+    def _encode(self, pairs, plan):
+        """Each node's payload; under a guard each node's quantizer count
+        is its own."""
+        out = []
+        for i, (vals, idx) in enumerate(pairs):
+            with CH.on_node(i):
+                out.append(PK.encode_sparse_fused(vals, idx, plan))
+        return out
+
+    def _decode_table(self, table, plan):
+        """The gathered table -> (vals, idx), (B, k) each, in one decode.
+        Under a guard each payload is validated on that decode; one that
+        fails contributes zeros (its pairs stay in the sender's u, v) and
+        its failed checks are reported for every node, since every node
+        checks every payload."""
+        vals_t, idx_t = PK.decode_sparse(table, plan)
+        if self.guard != "off":
+            ok, bad = PK.validate_payload(table, plan, idx=idx_t)
+            CH.report_structural(bad.sum())
+            vals_t = torch.where(ok[:, None], vals_t,
+                                 torch.zeros_like(vals_t))
+        return vals_t, idx_t
+
     def sparse_gather_packed(self, vals, idx, n: int, plan=None):
         k = vals.shape[-1]
         if k == 0:
@@ -250,9 +289,8 @@ class RingPackedTransport(RingTransport):
             C.bucket_widths(k, self.wire_buckets)
         if B == 1:
             table = C.all_gather_packed(
-                [PK.encode_sparse_fused(vals[i], idx[i], plan)
-                 for i in range(self.K)], self._record)
-            vals_t, idx_t = PK.decode_sparse(table, plan)
+                self._encode(zip(vals, idx), plan), self._record)
+            vals_t, idx_t = self._decode_table(table, plan)
             return _scatter_rows(list(zip(vals_t, idx_t)), n, vals.dtype,
                                  vals.device)
         sub = PK.bucket_plan(plan, kb)
@@ -263,12 +301,12 @@ class RingPackedTransport(RingTransport):
             pairs.append((F.pad(vs, (0, pad)),
                           F.pad(is_, (0, pad), value=n)))
         tables = [C.all_gather_packed(
-            [PK.encode_sparse_fused(vs[b * kb:(b + 1) * kb],
-                                    is_[b * kb:(b + 1) * kb], sub)
-             for vs, is_ in pairs], self._record, bucket=b)
+            self._encode([(vs[b * kb:(b + 1) * kb], is_[b * kb:(b + 1) * kb])
+                          for vs, is_ in pairs], sub),
+            self._record, bucket=b)
             for b in range(B)]
         # the B·K payloads, bucket-major, decoded in one launch
-        vals_t, idx_t = PK.decode_sparse(
+        vals_t, idx_t = self._decode_table(
             tuple(torch.cat(parts) for parts in zip(*tables)), sub)
         vals_t, idx_t = vals_t.view(B, self.K, kb), idx_t.view(B, self.K, kb)
         return _scatter_rows([(vals_t[:, i].reshape(-1),
@@ -284,7 +322,13 @@ class RingPackedTransport(RingTransport):
         assert plan is not None and (plan.n, plan.k) == (n, k), (plan, n, k)
         got = C.ring_broadcast_packed(PK.encode_indices(idx[leader], plan),
                                       self.K, self._record)
-        return PK.decode_indices(got, plan)
+        out = PK.decode_indices(got, plan)
+        if self.guard != "off":
+            # the executor repairs the decoded set; here the payload's
+            # failed checks are counted
+            CH.report_structural(PK.validate_payload(
+                got, plan, values=False, idx=out)[1])
+        return out
 
 
 TRANSPORTS = {"mesh": SimTransport, "ring": RingTransport,
@@ -294,17 +338,30 @@ TRANSPORTS = {"mesh": SimTransport, "ring": RingTransport,
 
 def make_transport(kind: str, K: int, scale_block: int = 0, *,
                    Ks: Optional[Tuple[int, ...]] = None,
-                   wire_buckets: int = 1):
+                   wire_buckets: int = 1, guard: str = "off",
+                   fault: Optional[CH.FaultSpec] = None):
     """The emulated transport for ``CompressionConfig.transport``:
     ``mesh`` is :class:`SimTransport`, whose tally the mesh pricer
     predicts.  ``scale_block`` (0 = ``quantize.SCALE_BLOCK``) is the int8
     wires' scale granularity; ``Ks`` the dp mesh's shape (default (K,));
-    ``wire_buckets`` the ring exchanges' bucket count."""
-    sb = scale_block or Q.SCALE_BLOCK
-    wb = max(int(wire_buckets or 1), 1)
-    if kind in TRANSPORTS:
-        return TRANSPORTS[kind](K, sb, tuple(Ks or (K,)), wb)
+    ``wire_buckets`` the ring exchanges' bucket count; ``guard`` the
+    executor's policy, which also arms the packed ring's validation.
+    ``chaos:<base>`` wraps the base in a :class:`chaos.ChaosTransport`
+    with ``fault`` (default: no fault); an active ``fault`` wraps any
+    base."""
+    spec = None
     if kind.startswith("chaos:"):
-        raise NotImplementedError(f"transport {kind!r} is ROADMAP.md Queue "
-                                  "1 item 2, 'chaos, guards and resume'")
-    raise ValueError(f"unknown transport {kind!r}")
+        kind = kind[len("chaos:"):]
+        spec = fault if fault is not None else CH.FaultSpec()
+    elif fault is not None and fault.active:
+        spec = fault
+    if kind not in TRANSPORTS:
+        raise ValueError(f"unknown transport {kind!r}; known: "
+                         f"{tuple(TRANSPORTS)} (optionally chaos:<base>)")
+    if guard not in CH.GUARD_POLICIES:
+        raise ValueError(f"unknown guard {guard!r}; known: "
+                         f"{CH.GUARD_POLICIES}")
+    base = TRANSPORTS[kind](K, scale_block or Q.SCALE_BLOCK,
+                            tuple(Ks or (K,)),
+                            max(int(wire_buckets or 1), 1), guard)
+    return CH.ChaosTransport(base, spec) if spec is not None else base

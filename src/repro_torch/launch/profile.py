@@ -59,7 +59,8 @@ def main(argv=None):
     traces = {}
     live = []
 
-    def on_step(step):
+    def on_step(rec):
+        step = rec["step"]
         if live:
             live[0].stop()
             traces[step] = kernel_times(live.pop())

@@ -10,33 +10,43 @@ compressed; sparse_gd and dgc: warm-up -> top-k) for every method of the
 reference (``--compression none|sparse_gd|dgc|lgc_ps|lgc_rar|
 lgc_rar_q8``) with the K data-parallel nodes emulated on one device over
 the ``--transport`` wire (``mesh``, ``ring``, ``ring_q8``, ``ring_hier``
-or ``ring_packed``), and logs what the reference trainer logs: the
-per-phase loss, the rate report, and per phase the wire bytes each node
-moves, per exchange op.  ``--pod-shards`` P > 1 makes the dp mesh (P,
-``--data-shards``), K = P x data-shards nodes, the two levels of
-``ring_hier``; ``--wire-buckets`` B > 1 buckets the ring exchanges.
-Runs on the card unless ``--device cpu``; with no card it raises.  Flags
-follow ``repro.launch.train``; the values not ported yet raise
-NotImplementedError naming their ROADMAP.md item: ``--transport
-chaos:<base>`` and ``--guard`` other than ``off`` (Queue 1 item 2,
-chaos, guards and resume).
+or ``ring_packed``, each also as ``chaos:<base>``), and logs what the
+reference trainer logs: the per-phase loss, the rate report, and per
+phase the wire bytes each node moves, per exchange op.  ``--pod-shards``
+P > 1 makes the dp mesh (P, ``--data-shards``), K = P x data-shards
+nodes, the two levels of ``ring_hier``; ``--wire-buckets`` B > 1 buckets
+the ring exchanges.
+
+The wire's failure behaviour: ``--fault-*`` injects seeded faults (and
+wraps the wire in ``chaos:<base>``), ``--guard scrub|skip_round|
+fail_fast`` validates every exchange (fail_fast raises
+``WireFaultError`` after the step that saw a fault), and
+``--guard-checksum`` adds the checksum word to every packed payload.
+``--checkpoint-dir`` with ``--checkpoint-every`` saves the full train
+state (params, optimizer moments and the compressor's state, its EF
+residuals included) and ``--resume`` continues from such a file, bit for
+bit as an uninterrupted run.  Runs on the card unless ``--device cpu``;
+with no card it raises.  Flags follow ``repro.launch.train``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import (CompressionConfig, ModelConfig,
                                       TrainConfig)
 from repro_torch.core.phases import phase_for_step
 from repro_torch.core.rate import rate_report
 from repro_torch.data import synthetic_token_batches
+from repro_torch.dist import chaos
 from repro_torch.launch.steps import make_lgc_train_step
 from repro_torch.models.model import build_model
 from repro_torch.utils import resolve_device
@@ -65,12 +75,41 @@ def parse_args(argv=None):
                         "q8 reduction (lgc_rar_q8's encoding), ring_hier = "
                         "the intra-/inter-pod rings (with --pod-shards), "
                         "ring_packed = the ring with the packed sparse "
-                        "payloads")
+                        "payloads.  A chaos:<base> prefix wraps the wire "
+                        "in the seeded fault injector (--fault-*); any "
+                        "--fault-* flag wraps it too")
     p.add_argument("--wire-buckets", type=int, default=1,
                    help="buckets per ring exchange (1 = unbucketed)")
     p.add_argument("--guard", default="off",
                    choices=["off", "scrub", "skip_round", "fail_fast"],
-                   help="exchange guard policy (only off is ported)")
+                   help="exchange guard policy (repro_torch.dist.chaos): "
+                        "scrub zeroes non-finite or invalid wire payloads "
+                        "(the masked gradient stays in the EF residual), "
+                        "skip_round also drops a faulty round's whole "
+                        "gradient, fail_fast raises WireFaultError naming "
+                        "the faulting op labels")
+    p.add_argument("--guard-checksum", action="store_true",
+                   help="append one int32 checksum word to every packed "
+                        "payload (+4 wire bytes, priced)")
+    p.add_argument("--fault-seed", type=int, default=0)
+    p.add_argument("--fault-bitflips", type=int, default=0,
+                   help="XOR this many seeded bits into each targeted "
+                        "op's result per step")
+    p.add_argument("--fault-nans", type=int, default=0,
+                   help="overwrite this many seeded result elements with "
+                        "NaN per targeted op per step")
+    p.add_argument("--fault-infs", type=int, default=0,
+                   help="overwrite this many seeded result elements with "
+                        "+inf per targeted op per step")
+    p.add_argument("--fault-drop-node", type=int, default=-1,
+                   help="this node's contribution to every targeted "
+                        "collective becomes zeros")
+    p.add_argument("--fault-stale-node", type=int, default=-1,
+                   help="this node contributes a rolled (finite, wrong) "
+                        "payload to every targeted collective")
+    p.add_argument("--fault-ops", default="",
+                   help="comma-separated exchange-plan op labels to target "
+                        "(default: all ops)")
     p.add_argument("--topk-backend", default="jnp",
                    choices=["jnp", "pallas", "fused"],
                    help="residual top-k selection (pallas = the block "
@@ -94,20 +133,40 @@ def parse_args(argv=None):
                    help="pods: the dp mesh becomes (pod x data), K = pod "
                         "x data nodes, the two levels of ring_hier")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", default="",
+                   help="checkpoint .npz to resume from: restores the full "
+                        "train state, EF residuals included, fast-forwards "
+                        "the data stream and continues at the saved step, "
+                        "bit for bit as an uninterrupted run")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default="")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
 
 
+def _state_tree(cc: CompressionConfig, params, opt_state, comp_state):
+    """What a checkpoint holds: the full train state, without the
+    compressor's for ``none`` (the reference's dense trainer has none)."""
+    tree = {"params": params, "opt_state": opt_state}
+    if cc.method != "none":
+        tree["comp_state"] = comp_state
+    return tree
+
+
 def run(cfg: ModelConfig, args,
-        on_step: Optional[Callable[[int], None]] = None) -> Dict[str, Any]:
+        on_step: Optional[Callable[[Dict[str, Any]], None]] = None
+        ) -> Dict[str, Any]:
     """Train ``cfg`` as ``args`` says; returns {"history": per-step
-    records (step, phase, loss, ms), "wire": {phase: {op: {kind: bytes}}},
-    "rate": the RateReport, "compressor": the GradientCompressor,
-    "params": the trained parameters}.
-    ``on_step(step)`` runs after each step has finished on the device
-    (a profiler's step marker)."""
+    records (step, phase, loss, ms; under a guard guard_ok, the step's
+    fault counts per op label and the running total ``faults``; with
+    injected faults the step's ``fault_ops``; ``checkpoint_s`` where the
+    step saved), "wire": {phase: {op: {kind: bytes}}}, "rate": the
+    RateReport, "compressor": the GradientCompressor, "params": the
+    trained parameters, "resumed": {path, step, seconds} or None}.
+    ``on_step(record)`` runs after each step has finished on the device
+    and after its checkpoint."""
     device = resolve_device(args.device)
     # the reference is f32 where it says f32; on the card f32 matmuls and
     # cuDNN convolutions would otherwise be allowed TF32 (cuDNN's default)
@@ -119,6 +178,14 @@ def run(cfg: ModelConfig, args,
                            transport=args.transport,
                            wire_buckets=args.wire_buckets,
                            guard=args.guard,
+                           guard_checksum=args.guard_checksum,
+                           fault_seed=args.fault_seed,
+                           fault_bitflips=args.fault_bitflips,
+                           fault_nans=args.fault_nans,
+                           fault_infs=args.fault_infs,
+                           fault_drop_node=args.fault_drop_node,
+                           fault_stale_node=args.fault_stale_node,
+                           fault_ops=args.fault_ops,
                            topk_backend=args.topk_backend,
                            ae_backend=args.ae_backend,
                            extract_backend=args.extract_backend)
@@ -134,17 +201,36 @@ def run(cfg: ModelConfig, args,
     layout = lts.compressor.layout
     log.info("arch=%s params=%s device=%s nodes=%d mesh=%s", cfg.name,
              f"{layout.n_total:,}", device, K, Ks)
+    start, resumed = 0, None
+    if args.resume:
+        # the fresh state is the template: shapes, dtypes and the device
+        t0 = time.perf_counter()
+        loaded, start = load_checkpoint(
+            args.resume, _state_tree(cc, params, opt_state, comp_state))
+        params, opt_state = loaded["params"], loaded["opt_state"]
+        comp_state = loaded.get("comp_state", comp_state)
+        del loaded
+        resumed = {"path": args.resume, "step": start,
+                   "seconds": time.perf_counter() - t0}
+        log.info("resumed the full train state from %s at step %d",
+                 args.resume, start)
     report = rate_report(cc, layout, K)
     log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
              report.compression_ratio, report.bytes_per_node)
 
     data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq,
                                    seed=args.seed)
+    for _ in range(start):
+        # step s trains on the stream's s-th batch, resumed or not
+        next(data)
+    ckpt = os.path.join(args.checkpoint_dir, "ckpt.npz")
+    guard_on, faults = cc.guard != "off", 0
     history, wire = [], {}
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         phase = phase_for_step(step, cc)
         batch = {k: torch.from_numpy(x).to(device).long()
                  for k, x in next(data).items()}
+        chaos.reset_fault_tally()
         t0 = time.perf_counter()
         params, opt_state, comp_state, metrics = lts.step(
             params, opt_state, comp_state, batch, step, phase)
@@ -152,10 +238,16 @@ def run(cfg: ModelConfig, args,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t0) * 1e3
-        history.append({"step": step, "phase": phase, "loss": loss,
-                        "ms": ms})
-        if on_step is not None:
-            on_step(step)
+        rec = {"step": step, "phase": phase, "loss": loss, "ms": ms}
+        if guard_on:
+            counts = {k[len("fault/"):]: v for k, v in metrics.items()
+                      if k.startswith("fault/")}
+            faults += sum(counts.values())
+            rec.update(guard_ok=metrics["guard_ok"], fault=counts,
+                       faults=faults)
+        if chaos.fault_report():
+            rec["fault_ops"] = chaos.fault_report()
+        history.append(rec)
         if phase not in wire:
             wire[phase] = metrics["wire"]
             log.info("phase=%s wire bytes/node/step by op: %s", phase,
@@ -164,11 +256,26 @@ def run(cfg: ModelConfig, args,
         if step % args.log_every == 0 or step == args.steps - 1:
             log.info("step %4d  phase=%-10s loss=%.4f  %.1f ms", step,
                      phase, loss, ms)
+        if cc.guard == "fail_fast":
+            chaos.raise_on_faults(metrics, step=step)
+        if args.checkpoint_every and args.checkpoint_dir \
+                and step and step % args.checkpoint_every == 0:
+            # step + 1: the next step to run on resume
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt, _state_tree(cc, params, opt_state,
+                                              comp_state), step + 1)
+            rec["checkpoint_s"] = time.perf_counter() - t0
+        if on_step is not None:
+            on_step(rec)
+    if args.checkpoint_dir:
+        save_checkpoint(ckpt, _state_tree(cc, params, opt_state,
+                                          comp_state), args.steps)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=1)
     return {"history": history, "wire": wire, "rate": report,
-            "compressor": lts.compressor, "params": params}
+            "compressor": lts.compressor, "params": params,
+            "resumed": resumed}
 
 
 def main(argv=None):

@@ -204,6 +204,24 @@ def test_codec_matches_reference(n, k, n_sentinel):
 
 
 def test_checksum_plans_wait_for_the_guard():
+    """A checksum plan's round trip (the test's name is from before the
+    guard was ported): the index and pair payloads carry one more int32
+    word, equal to the reference's, and decode as without it."""
     plan = PK.make_plan(1000, 50, checksum=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PK.encode_indices(torch.arange(50, dtype=torch.int32), plan)
+    idx = torch.arange(0, 1000, 20, dtype=torch.int32)
+    vals = torch.linspace(-1.0, 1.0, 50)
+    ipay = PK.encode_indices(idx, plan)
+    pay = PK.encode_sparse(vals, idx, plan)
+    assert ipay[-1].shape == pay[-1].shape == (1,)
+    assert sum(a.numel() * a.element_size() for a in pay) \
+        == PK.wire_nbytes(plan)
+    rplan = RPK.make_plan(1000, 50, checksum=True)
+    rpay = jax.jit(functools.partial(RPK.encode_sparse, plan=rplan))(
+        jnp.asarray(vals.numpy()), jnp.asarray(idx.numpy()))
+    for a, b in zip(pay, rpay):
+        _equal(a, b, "checksum payload")
+    _equal(PK.decode_indices(ipay, plan), idx.numpy())
+    dv, di = PK.decode_sparse(pay, plan)
+    _equal(di, idx.numpy())
+    _equal(dv, jax.jit(functools.partial(RPK.decode_sparse, plan=rplan))(
+        rpay)[0])

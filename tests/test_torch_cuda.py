@@ -504,3 +504,39 @@ def test_bucketed_packed_gather_on_the_card_equals_the_cpu(card, B):
     assert got["launches"] == (B * K, 1) and want["launches"] == (0, 0)
     assert _same_bits(got["out"], want["out"])
     assert got["rows"] == want["rows"] and len(got["rows"]) == B
+
+
+def test_guarded_packed_gather_on_the_card_equals_the_cpu(card):
+    """RingPackedTransport's gather under a guard, through the executor,
+    with the checksum word and a NaN and an inf in node 1's values: on
+    the card (the composed encode, K5a per node and no K4, so that each
+    node's quantizer counts its non-finites; one K5b launch for the
+    gathered table, which the validation reads) and on the CPU, the same
+    scrubbed scatters bitwise and the same per-node counts."""
+    from repro_torch.dist import plan as XP
+    from repro_torch.dist.transport import make_transport
+    n, k, K = 5_000_003, 60_001, 2
+    op = XP.PackedSparseExchange("topk", n_vec=n, k=k, k_rate=k,
+                                 pack=PK.make_plan(n, k, checksum=True))
+    plan = XP.Plan(method="dgc", phase="topk_ae", transport="ring_packed",
+                   K=K, scale_block=Q.SCALE_BLOCK, ops=(op,))
+    r = np.random.default_rng(7)
+    idx = np.stack([np.concatenate([r.choice(n, k - 2, replace=False),
+                                    [n, n]]) for _ in range(K)])
+    vals = (r.standard_normal((K, k)) * 1e-3).astype(np.float32)
+    vals[1, 3], vals[1, 99] = np.nan, np.inf
+    tv, ti = torch.from_numpy(vals), torch.from_numpy(idx.astype(np.int32))
+    got, want = {}, {}
+    for dev, res in ((card, got), (torch.device("cpu"), want)):
+        t = make_transport("ring_packed", K, guard="scrub")
+        names = ("quantize_pack", "pack_bits", "unpack_bits")
+        before = [LAUNCHES[nm] for nm in names]
+        env = XP.execute(plan, t, {"topk": lambda env: (tv.to(dev),
+                                                        ti.to(dev))})
+        res["out"] = env["topk"].cpu()
+        res["bad"] = env["__guard__"]["bad"]["topk"].tolist()
+        res["launches"] = tuple(LAUNCHES[nm] - b
+                                for nm, b in zip(names, before))
+    assert got["launches"] == (0, K, 1) and want["launches"] == (0, 0, 0)
+    assert _same_bits(got["out"], want["out"])
+    assert got["bad"] == want["bad"] == [0, 2]

@@ -314,8 +314,17 @@ def test_ps_q8_run_end_to_end_on_cpu(flags):
 @pytest.mark.parametrize("flags", [["--transport", "chaos:mesh"],
                                    ["--guard", "scrub"]])
 def test_unported_options_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(ARGS + flags + ["--device", "cpu"])
+    """The chaos wire with no fault set, and the scrub guard on a clean
+    wire (the test's name is from before either was ported): the plain
+    mesh run's losses bit for bit; under the guard every step is clean
+    and counts no fault."""
+    plain = train.main(ARGS + ["--device", "cpu"])
+    history = train.main(ARGS + flags + ["--device", "cpu"])
+    assert [h["loss"] for h in history] == [h["loss"] for h in plain]
+    if "--guard" in flags:
+        assert all(h["guard_ok"] == 1 and h["faults"] == 0
+                   and set(h["fault"].values()) == {0} for h in history)
+    assert all("fault_ops" not in h for h in history)
 
 
 @pytest.mark.parametrize("flags", [["--transport", "ring_hier",

@@ -268,11 +268,13 @@ def test_make_transport_kinds():
     assert type(make_transport("ring_packed", 2)) is RingPackedTransport
     assert type(make_transport("ring_hier", 2)) is RingHierTransport
     assert make_transport("ring_q8", 2, scale_block=64).scale_block == 64
-    for kind in ("chaos:ring",):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_transport(kind, 2)
+    chaos = make_transport("chaos:ring", 2, guard="scrub")
+    assert type(chaos.base) is RingTransport and chaos.kind == "ring"
+    assert chaos.guard == "scrub" and not chaos.spec.active
     with pytest.raises(ValueError):
         make_transport("pigeon", 2)
+    with pytest.raises(ValueError):
+        make_transport("ring", 2, guard="panic")
 
 
 @pytest.mark.parametrize("method,phase,step", STEPS)
