@@ -898,16 +898,16 @@ def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
     from repro_torch.dist import chaos as CH
     faults = ["--fault-seed", "3", "--fault-nans", "2", "--fault-infs", "1",
               "--fault-bitflips", "2", "--fault-ops", "topk"]
-    # under a guard the packed encode is the composed one (the quantizer
-    # in torch, each node's low bits through K5a), as in the reference: K4
-    # cannot count the non-finites it zeroes.  The gathered table is still
-    # decoded once (K5b), and that decode is what each payload's
+    # under a guard each node's pairs still go through K4, their
+    # non-finites counted beside it (the reference takes its composed
+    # encode there: the same payload bits and counts).  The gathered table
+    # is decoded once (K5b), and that decode is what each payload's
     # validation reads
     a = runs["dgc chaos:ring_packed scrub"] = train_phase(
         dev, "dgc chaos:ring_packed scrub",
         dgc + ["--transport", "chaos:ring_packed", "--guard", "scrub",
                "--guard-checksum"] + faults, 5,
-        per_step(block_topk=n_leaves * K, quantize_pack=0, pack_bits=K,
+        per_step(block_topk=n_leaves * K, quantize_pack=K, pack_bits=0,
                  unpack_bits=1))
     injected = {"topk": {"bitflip": 2, "nan": 2, "inf": 1}}
     for h in a["history"]:
@@ -950,11 +950,11 @@ def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
         comp._accumulate_select(want_u[k], want_v[k], g[k])
     CH.reset_fault_tally()
     gg, states, stats = comp.sim_step(states, g, 4, "compressed")
-    checks = {"guard_ok": stats["guard_ok"] == 0,
+    checks = {"guard_ok": int(stats["guard_ok"]) == 0,
               "gradient_zero": int(gg.count_nonzero()) == 0,
               "u_uncleared": same_bits(states["u"], want_u),
               "v_uncleared": same_bits(states["v"], want_v)}
-    emit("skip_round_step", fault={k: v for k, v in stats.items()
+    emit("skip_round_step", fault={k: int(v) for k, v in stats.items()
                                    if k.startswith("fault/")},
          fault_ops=CH.fault_report(), checks=checks)
     del states, g, gg, want_u, want_v, comp

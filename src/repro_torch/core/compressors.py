@@ -179,24 +179,25 @@ class GradientCompressor:
     def _guard_gate(env, stats):
         """The executor's guard counts into the stats, ``fault/<label>``
         and ``guard_ok`` as node 0 holds them (the reference's step stats
-        leave its shard_map replicated, as node 0's); returns (each node's
-        ok, policy), or None when no guard ran."""
+        leave its shard_map replicated, as node 0's), 0-d tensors the
+        caller reads once the step is done; returns (each node's ok, a
+        (K,) bool tensor, and the policy), or None when no guard ran.
+        Nothing here waits for the device: the gates act on ``ok`` there."""
         g = env.get("__guard__")
         if g is None:
             return None
-        ok = g["ok"].tolist()
         for lbl, bad in g["bad"].items():
-            stats[f"fault/{lbl}"] = int(bad[0])
-        stats["guard_ok"] = int(ok[0])
-        return ok, g["policy"]
+            stats[f"fault/{lbl}"] = bad[0]
+        stats["guard_ok"] = g["ok"][0].to(torch.int64)
+        return g["ok"], g["policy"]
 
     @staticmethod
     def _gate_round(gate, global_g):
         """skip_round: a round that saw a fault gives the optimizer zeros
-        (node 0's round, whose gradient the step returns)."""
-        if gate is None or gate[1] != "skip_round" or gate[0][0]:
+        (node 0's round, whose gradient the step returns), in place."""
+        if gate is None or gate[1] != "skip_round":
             return global_g
-        return torch.zeros_like(global_g)
+        return global_g.masked_fill_(~gate[0][0], 0.0)
 
     # ==========================================================================
 
@@ -237,9 +238,13 @@ class GradientCompressor:
                                                   layout, n)
             global_g += env["exempt_last"]
             for k in range(self.K):
-                if gate is None or gate[0][k]:
-                    SP.clear_sent_merged(u[k], v[k], idx_nodes[k],
-                                         last_idx[k], n)
+                idx_k, last_k = idx_nodes[k], last_idx[k]
+                if gate is not None:
+                    # a faulty node's indices go to the sentinel n, which
+                    # the clear drops
+                    idx_k = torch.where(gate[0][k], idx_k, n)
+                    last_k = torch.where(gate[0][k], last_k, n)
+                SP.clear_sent_merged(u[k], v[k], idx_k, last_k, n)
             return self._gate_round(gate, global_g)
 
         if cc.method in ("sparse_gd", "dgc"):
@@ -291,8 +296,13 @@ class GradientCompressor:
                 state, env["gather_vals"], env.get("gather_inno"), step)
             # the AE is not trained on a round that saw a fault (node 0's,
             # whose AE the step returns)
-            if gate is None or gate[0][0]:
-                new_state.update(ae=ae, ae_mom=ae_mom)
+            if gate is not None:
+                ok0 = gate[0][0]
+                ae = tree_map(lambda a, b: torch.where(ok0, a, b), ae,
+                              state["ae"])
+                ae_mom = tree_map(lambda a, b: torch.where(ok0, a, b),
+                                  ae_mom, state["ae_mom"])
+            new_state.update(ae=ae, ae_mom=ae_mom)
             stats["ae_loss"] = ae_loss
         elif is_ps:
             # the leader ships E_c(g~) and every node its innovation; the

@@ -214,6 +214,15 @@ class ChaosTransport:
         return np.random.default_rng(
             (self.spec.seed, zlib.crc32(label.encode()), salt))
 
+    @staticmethod
+    def _to(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """Host draws onto ``dev`` without waiting for it: a blocking copy
+        to the card synchronizes its stream, a pinned one does not."""
+        t = torch.from_numpy(a)
+        if dev.type != "cuda":
+            return t
+        return t.pin_memory().to(dev, non_blocking=True)
+
     def _corrupt(self, res: torch.Tensor, label: str) -> torch.Tensor:
         """Bit flips (floats on their f32 bits, indices on their int32
         bits, as the reference holds them), then NaN and +inf overwrites,
@@ -231,12 +240,9 @@ class ChaosTransport:
                                                      torch.int64)):
             m = min(s.bitflips, size)
             rng = self._rng(label, 1)
-            pos = torch.from_numpy(rng.choice(size, size=m, replace=False)
-                                   ).to(dev)
-            masks = torch.from_numpy(
-                (np.uint32(1) << rng.integers(0, 32, size=m,
-                                              dtype=np.uint32))
-                .view(np.int32)).to(dev)
+            pos = self._to(rng.choice(size, size=m, replace=False), dev)
+            masks = self._to((np.uint32(1) << rng.integers(
+                0, 32, size=m, dtype=np.uint32)).view(np.int32), dev)
             if floating:
                 w = flat.to(torch.float32).view(torch.int32)
                 w[pos] = w[pos] ^ masks
@@ -250,9 +256,9 @@ class ChaosTransport:
                                          ("inf", s.infs, 3, float("inf"))):
             if count and floating:
                 m = min(count, size)
-                pos = torch.from_numpy(self._rng(label, salt).choice(
-                    size, size=m, replace=False)).to(dev)
-                flat[pos] = value
+                pos = self._to(self._rng(label, salt).choice(
+                    size, size=m, replace=False), dev)
+                flat.index_fill_(0, pos, value)    # a scalar, not a copy
                 record_fault(label, kind, m)
         return flat.view(res.shape)
 

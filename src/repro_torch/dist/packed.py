@@ -228,13 +228,15 @@ def encode_sparse_fused(vals: torch.Tensor, idx: torch.Tensor,
     """:func:`encode_sparse` with the quantize and the low-bit pack in
     one launch of K4; the same payload bit for bit.  It takes the
     composed path, as the reference does, where the plan has nothing to
-    pack (raw indices) and where a guard's sink is open: K4 zeroes
-    non-finite values without counting them, and a guarded run must not
-    lose a fault."""
-    if plan.raw_index or CH.structural_sink_active():
+    pack (raw indices).  K4 zeroes non-finite values without counting
+    them, so under an open guard sink their count is reported beside it:
+    the quantizer's count, as its zero padding is finite."""
+    if plan.raw_index:
         return encode_sparse(vals, idx, plan)
     assert vals.shape == idx.shape == (plan.k,), (vals.shape, plan)
     vals_s, idx_s = _sort_pairs(vals, idx)
+    if CH.structural_sink_active():
+        CH.report_structural((~torch.isfinite(vals_s)).sum())
     words, q, scales = Q.quantize_pack_fused(
         vals_s, idx_s & _lo_mask(plan), plan.lo_bits, plan.scale_block)
     return _with_checksum((_histogram(idx_s, plan), words, q, scales), plan)

@@ -23,11 +23,12 @@ collective splits it (``<label>#b<i>`` rows per bucket), and
 that accounted == ideal + overhead at every bucket count.  With
 ``cc.guard_checksum`` every PackPlan carries the checksum word, priced.
 
-Under a guard policy (``dist.chaos.GUARD_POLICIES``) :func:`execute`
-scrubs each op's result (:func:`_guard_result`) and counts, per node, the
-bad elements of the result and what the transport's validators report
-into the op's sink; ``env["__guard__"]`` carries the (K,) counts per op
-and each node's ok, as each of the reference's nodes holds its own.
+Under the transport's guard policy (``dist.chaos.GUARD_POLICIES``)
+:func:`execute` scrubs each op's result (:func:`_guard_result`) and
+counts, per node, the bad elements of the result and what the
+transport's validators report into the op's sink; ``env["__guard__"]``
+carries the (K,) counts per op and each node's ok, as each of the
+reference's nodes holds its own.
 """
 from __future__ import annotations
 
@@ -230,13 +231,15 @@ def _run_op(op: Op, t, args: tuple):
     raise TypeError(op)
 
 
-def _guard_result(op: Op, res: torch.Tensor):
+def _guard_result(op: Op, res: torch.Tensor, args: tuple):
     """One op's result under a guard -> (scrubbed result, bad count).
     Float elements that are non-finite or have |x| > ``chaos.GUARD_MAX``
     are zeroed and counted: the compressor clears u, v only where the
-    round was clean, so what was zeroed ships again.  An IndexBroadcast
-    result with entries outside [0, n_vec] or out of order is clipped and
-    sorted again, each such entry counted."""
+    round was clean, so what was zeroed ships again.  The zeroing is in
+    place unless the result shares storage with the op's arguments (an
+    all_gather or a broadcast may hand a feed's tensor back).  An
+    IndexBroadcast result with entries outside [0, n_vec] or out of order
+    is clipped and sorted again, each such entry counted."""
     if isinstance(op, IndexBroadcast):
         bad = ((res < 0) | (res > op.n_vec)).sum()
         if res.shape[0] > 1:
@@ -244,34 +247,39 @@ def _guard_result(op: Op, res: torch.Tensor):
         fixed = torch.sort(res.clamp(0, op.n_vec))[0]
         return torch.where(bad > 0, fixed, res), bad
     if res.is_floating_point():
-        mask = ~torch.isfinite(res) | (res.abs() > CH.GUARD_MAX)
-        return torch.where(mask, torch.zeros_like(res), res), mask.sum()
+        # NaN fails both comparisons, +-inf one of them
+        mask = res.le(CH.GUARD_MAX).logical_and_(res.ge(-CH.GUARD_MAX)) \
+            .logical_not_()
+        ptr = res.untyped_storage().data_ptr()
+        shared = any(isinstance(a, torch.Tensor)
+                     and a.untyped_storage().data_ptr() == ptr
+                     for a in args)
+        res = res.masked_fill(mask, 0) if shared \
+            else res.masked_fill_(mask, 0)
+        return res, mask.sum()
     return res, torch.zeros((), dtype=torch.int64, device=res.device)
 
 
-def execute(plan: Plan, t, feeds: Dict[str, Callable],
-            guard: Optional[str] = None) -> Dict[str, Any]:
+def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
     """Run ``plan.ops`` in order against transport ``t``.  ``feeds[label]
     (env)`` gives each op's arguments; ``env`` holds earlier ops' results
     (and memoized per-node values under underscore keys).  Every op needs
     exactly one feed and vice versa.  Each transport call runs under its
     op label, so the transport's tally attributes bytes to the op.
 
-    ``guard`` (default: the transport's ``guard``) other than "off"
-    scrubs each result through :func:`_guard_result` and drains the
-    counts the transport's validators report (``chaos.structural_sink``)
-    into the op's (K,) per-node count; ``env["__guard__"]`` is then
-    {"policy", "bad": {label: (K,) counts}, "ok": (K,) bool}."""
+    The transport's ``guard`` other than "off" scrubs each result through
+    :func:`_guard_result` and drains the counts the transport's
+    validators report (``chaos.structural_sink``) into the op's (K,)
+    per-node count; ``env["__guard__"]`` is then {"policy", "bad":
+    {label: (K,) counts}, "ok": (K,) bool}, tensors on the result's
+    device (nothing here waits for it)."""
     labels = set(plan.labels)
     missing, extra = labels - set(feeds), set(feeds) - labels
     if missing or extra:
         raise ValueError(f"plan/feeds mismatch for {plan.method}/"
                          f"{plan.phase}: missing feeds {sorted(missing)}, "
                          f"unplanned feeds {sorted(extra)}")
-    guard = guard if guard is not None else getattr(t, "guard", "off")
-    if guard not in CH.GUARD_POLICIES:
-        raise ValueError(f"unknown guard {guard!r}; known: "
-                         f"{CH.GUARD_POLICIES}")
+    guard = t.guard
     env: Dict[str, Any] = {}
     bad_by_op: Dict[str, torch.Tensor] = {}
     for op in plan.ops:
@@ -285,14 +293,17 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable],
         sink: list = []
         with t.wire_op(op.label), CH.structural_sink(sink):
             res = _run_op(op, t, args)
-        res, bad = _guard_result(op, res)
+        res, bad = _guard_result(op, res, args)
         per_node = torch.zeros(t.K, dtype=torch.int64,
                                device=res.device) + bad
         for nodes, count in sink:
             if nodes is None:
                 per_node += count
             else:
-                per_node[list(nodes)] += count
+                # one node at a time: a list index would be copied to the
+                # card, and a blocking copy waits for it
+                for i in nodes:
+                    per_node[i] += count
         env[op.label] = res
         bad_by_op[op.label] = per_node
     if guard != "off":

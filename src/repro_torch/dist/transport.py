@@ -104,6 +104,9 @@ class SimTransport:
         if math.prod(self.Ks) != self.K:
             raise ValueError(f"mesh shape {self.Ks} does not hold "
                              f"{self.K} nodes")
+        if self.guard not in CH.GUARD_POLICIES:
+            raise ValueError(f"unknown guard {self.guard!r}; known: "
+                             f"{CH.GUARD_POLICIES}")
 
     def _record(self, kind: str, nbytes: float,
                 bucket: Optional[int] = None) -> None:
@@ -358,9 +361,6 @@ def make_transport(kind: str, K: int, scale_block: int = 0, *,
     if kind not in TRANSPORTS:
         raise ValueError(f"unknown transport {kind!r}; known: "
                          f"{tuple(TRANSPORTS)} (optionally chaos:<base>)")
-    if guard not in CH.GUARD_POLICIES:
-        raise ValueError(f"unknown guard {guard!r}; known: "
-                         f"{CH.GUARD_POLICIES}")
     base = TRANSPORTS[kind](K, scale_block or Q.SCALE_BLOCK,
                             tuple(Ks or (K,)),
                             max(int(wire_buckets or 1), 1), guard)

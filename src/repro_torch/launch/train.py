@@ -240,10 +240,11 @@ def run(cfg: ModelConfig, args,
         ms = (time.perf_counter() - t0) * 1e3
         rec = {"step": step, "phase": phase, "loss": loss, "ms": ms}
         if guard_on:
-            counts = {k[len("fault/"):]: v for k, v in metrics.items()
+            # the guard's counts stay on the device through the step
+            counts = {k[len("fault/"):]: int(v) for k, v in metrics.items()
                       if k.startswith("fault/")}
             faults += sum(counts.values())
-            rec.update(guard_ok=metrics["guard_ok"], fault=counts,
+            rec.update(guard_ok=int(metrics["guard_ok"]), fault=counts,
                        faults=faults)
         if chaos.fault_report():
             rec["fault_ops"] = chaos.fault_report()

@@ -509,10 +509,10 @@ def test_bucketed_packed_gather_on_the_card_equals_the_cpu(card, B):
 def test_guarded_packed_gather_on_the_card_equals_the_cpu(card):
     """RingPackedTransport's gather under a guard, through the executor,
     with the checksum word and a NaN and an inf in node 1's values: on
-    the card (the composed encode, K5a per node and no K4, so that each
-    node's quantizer counts its non-finites; one K5b launch for the
-    gathered table, which the validation reads) and on the CPU, the same
-    scrubbed scatters bitwise and the same per-node counts."""
+    the card (K4 per node, each node's non-finites counted beside it, no
+    K5a; one K5b launch for the gathered table, which the validation
+    reads) and on the CPU, the same scrubbed scatters bitwise and the
+    same per-node counts."""
     from repro_torch.dist import plan as XP
     from repro_torch.dist.transport import make_transport
     n, k, K = 5_000_003, 60_001, 2
@@ -537,6 +537,54 @@ def test_guarded_packed_gather_on_the_card_equals_the_cpu(card):
         res["bad"] = env["__guard__"]["bad"]["topk"].tolist()
         res["launches"] = tuple(LAUNCHES[nm] - b
                                 for nm, b in zip(names, before))
-    assert got["launches"] == (0, K, 1) and want["launches"] == (0, 0, 0)
+    assert got["launches"] == (K, 0, 1) and want["launches"] == (0, 0, 0)
     assert _same_bits(got["out"], want["out"])
     assert got["bad"] == want["bad"] == [0, 2]
+
+
+@pytest.mark.parametrize("wire", ["ring_packed", "ring_q8"])
+def test_guarded_exchange_does_not_wait_for_the_card(card, wire):
+    """The executor under a guard on the chaos wire (bit flips, NaNs and
+    an inf on the op's result, a NaN in node 1's input) queues its work
+    without waiting for the card: ``torch.cuda.set_sync_debug_mode
+    ("error")`` raises on any call that synchronises, and the guard's
+    counts stay tensors on the card.  The scrubbed result and the
+    per-node counts are bitwise the CPU's."""
+    from repro_torch.dist import chaos as CH
+    from repro_torch.dist import plan as XP
+    from repro_torch.dist.transport import make_transport
+    n, k, K = 5_000_003, 60_001, 2
+    r = np.random.default_rng(11)
+    if wire == "ring_packed":
+        op = XP.PackedSparseExchange("topk", n_vec=n, k=k, k_rate=k,
+                                     pack=PK.make_plan(n, k, checksum=True))
+        idx = np.stack([np.concatenate([r.choice(n, k - 2, replace=False),
+                                        [n, n]]) for _ in range(K)])
+        vals = (r.standard_normal((K, k)) * 1e-3).astype(np.float32)
+        vals[1, 3] = np.nan
+        inputs = (torch.from_numpy(vals),
+                  torch.from_numpy(idx.astype(np.int32)))
+    else:
+        op = XP.Reduce("topk", n_vals=k, wire="q8")
+        x = (r.standard_normal((K, k)) * 1e-3).astype(np.float32)
+        x[1, 3] = np.nan
+        inputs = (torch.from_numpy(x),)
+    plan = XP.Plan(method="dgc", phase="topk_ae", transport=wire, K=K,
+                   scale_block=Q.SCALE_BLOCK, ops=(op,))
+    spec = CH.FaultSpec(seed=3, bitflips=2, nans=2, infs=1)
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        t = make_transport("chaos:" + wire, K, guard="scrub", fault=spec)
+        args = tuple(a.to(dev) for a in inputs)
+        torch.cuda.synchronize(card)
+        torch.cuda.set_sync_debug_mode("error" if dev.type == "cuda"
+                                       else "default")
+        try:
+            env = XP.execute(plan, t, {"topk": lambda env: args})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got[dev.type] = (env["topk"].cpu(),
+                         env["__guard__"]["bad"]["topk"].cpu())
+    assert _same_bits(got["cuda"][0], got["cpu"][0])
+    assert torch.equal(got["cuda"][1], got["cpu"][1])
+    assert got["cpu"][1].tolist()[1] > got["cpu"][1].tolist()[0] > 0
