@@ -97,7 +97,36 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               losses at steps 4 and 5 must equal the uninterrupted
               lgc_rar run's bit for bit; the file's bytes and the save
               and load seconds; the file is deleted
- 11. timings  each kernel's ms beside its plain version's, its bound and,
+ 11. convnet5 the paper's ConvNet5 at its full widths (config(): channels
+              32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
+              of 8 images, through launch.steps.sim_sgd_step (the
+              reference's single-host loop: per-node gradients, sim_step,
+              p - lr g): first K1 (alpha = 0.05), K6 (every leaf shape of
+              alpha = 0.01), K3 (mu_pad 26,784 and 544), and K4, K5a and
+              K5b (every PackPlan of the two ring_packed runs) against
+              their plain versions at its shapes; then lgc_rar (fused sweep,
+              kernel encoder, mesh; alpha = 0.05, 10 warm-up + 20 AE
+              steps of 120, lr 0.08), its 10 warm-up steps held against
+              the same code on the CPU (CONVNET_GRAD_REL on one step's
+              gradients, CONVNET_TRAJ_REL on the trajectory); lgc_ps on
+              ring_packed (alpha = 0.05, innovation 0.005, 60 steps, lr
+              0.05); dgc with the block top-k on ring_packed (alpha =
+              0.01, 10 warm-up of 60 steps, lr 0.05), each checked as the
+              train runs are (launches per step, finite losses, wire rows
+              the pricer's), with the steady step ms per phase, the loss
+              and accuracy of the first and last 15 steps; and the
+              information plane's MI fraction per layer after 10 SGD steps
+              (examples.information_plane.mi_fractions at config())
+ 12. serve    repro_torch.launch.serve's run() on llama3.2-1b at published
+              widths and all 16 layers, bf16: batch 4, prompt 64, gen 32
+              (the entry point's defaults, after one run of them that
+              pays the one-off set-up) and batch 8, prompt 512, gen 64;
+              decoding from the cache equals a full prefill's last-token
+              logits at three positions of each within SERVE_REL; prefill
+              ms, median decode ms per step, tokens/s (decoded tokens over
+              the decode loop's time), peak GiB; one
+              profiled decode step; a prefill alone at batch 4, prompt 4096
+ 13. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function (K6 and K3 also per shape, with their ratio to it);
               K4, K5a and K5b (one payload and the two-payload table) also
@@ -131,6 +160,28 @@ N_LAYERS = 4                       # the only cut: 16 -> 4 layers
 # 45.49 GiB on the H100, plus 1 GiB: less than one n-sized f32 tensor
 # (1.88 GiB) kept alive by a reference cycle
 HIER_PEAK_GIB = 46.5
+CONVNET_K = 4                      # nodes of the ConvNet5 runs
+CONVNET_PER_NODE = 8               # images a node takes per step
+# the card's warm-up steps against the same port code on the CPU.  One
+# step from the same weights and images: the per-node gradients to 1e-5
+# of their largest entry, the CPU tests' tolerance against the reference
+# (f32 sums in another order: cuDNN's convolution algorithms, the card's
+# reductions).  The 10-step trajectory: losses (relative) and weights (of
+# the largest) to 2.5e-4, about 3x the largest reading, since SGD through
+# batch-norm grows each step's rounding differences (on an NVIDIA H100
+# 80GB HBM3, 700 W: 3.0e-6 in one step's gradients became 4.2e-5 to
+# 8.0e-5 in the weights after 10 steps; losses 1.8e-7 to 1.4e-6)
+CONVNET_GRAD_REL = 1e-5
+CONVNET_TRAJ_REL = 2.5e-4
+# decode from the cache against a full prefill, bf16: each keeps 8
+# significant bits (a step of 2^-8 = 0.4% of a value); the prefill's and
+# the decode's matmuls round at other shapes, so single bf16 steps differ
+# and 16 layers carry them on to the logits.  0.05 of the largest logit is
+# ~12 such steps of it
+SERVE_REL = 0.05
+# the prompt of the prefill alone: batch 4 of it puts (4, 32, S, S) f32
+# scores, 8.6 GB, in each layer's full-matrix attention
+SERVE_LONG_PROMPT = 4096
 
 
 def emit(phase: str, **fields) -> None:
@@ -309,10 +360,11 @@ def k1_phase(dev):
 
 def pallas_shapes(layout):
     """{(n_blocks, block, kb): [leaves]}: the block top-k launches that
-    select_topk(backend="pallas") makes for ``layout``, one per leaf."""
+    the pallas backend makes for ``layout``, one per compressed and
+    top-k-only leaf (select_topk, select_topk_last)."""
     from repro_torch.core import sparsify as SP
     shapes = {}
-    for leaf in layout.compressed:
+    for leaf in layout.compressed + layout.topk_only:
         block = SP.pallas_block(leaf.k)
         key = (-(-leaf.size // block), block, min(leaf.k, block))
         shapes.setdefault(key, []).append(leaf)
@@ -775,7 +827,6 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core import sparsify as SP
-    from repro_torch.dist import plan as XP
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
     cfg = dataclasses.replace(get_arch("llama3.2-1b"), n_layers=N_LAYERS)
@@ -812,22 +863,9 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     if stop_after is not None and (error is None
                                    or error[0] is not _Interrupt):
         raise AssertionError(f"{name}: the run was not stopped")
-    losses = [h["loss"] for h in records]
-    if not all(map(lambda l: l == l and abs(l) != float("inf"), losses)):
-        raise AssertionError(f"{name}: non-finite loss: {losses}")
-    for expect in expects:
-        expect(launches, [h["phase"] for h in records])
     wire = out["wire"] if out is not None else {}
     comp = out["compressor"] if out is not None else None
-    for phase, rows in wire.items():
-        plan = XP.build_plan(comp.cc, comp.layout, comp.K, phase=phase)
-        priced = XP.wire_terms_by_op(plan, axis_sizes=comp.Ks)
-        if rows != priced:
-            raise AssertionError(f"{name} {phase}: measured wire rows {rows}"
-                                 f" != priced {priced}")
-    step_ms = {}
-    for h in records:
-        step_ms.setdefault(h["phase"], []).append(h["ms"])
+    losses, step_ms = check_run(name, records, launches, expects, wire, comp)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     guard = {h["step"]: {k: h[k] for k in ("guard_ok", "fault", "faults",
                                            "fault_ops") if k in h}
@@ -853,6 +891,29 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+def check_run(name: str, records, launches, expects, wire, comp):
+    """The checks of every training run: finite losses; each ``expect(
+    launches, phases)``; each phase's measured wire rows equal the
+    pricer's for ``comp``'s plan and mesh.  Returns the losses and the
+    step ms grouped by phase."""
+    from repro_torch.dist import plan as XP
+    losses = [r["loss"] for r in records]
+    if not all(l == l and abs(l) != float("inf") for l in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    for expect in expects:
+        expect(launches, [r["phase"] for r in records])
+    for phase, rows in wire.items():
+        plan = XP.build_plan(comp.cc, comp.layout, comp.K, phase=phase)
+        priced = XP.wire_terms_by_op(plan, axis_sizes=comp.Ks)
+        if rows != priced:
+            raise AssertionError(f"{name} {phase}: measured wire rows {rows}"
+                                 f" != priced {priced}")
+    step_ms = {}
+    for r in records:
+        step_ms.setdefault(r["phase"], []).append(r["ms"])
+    return losses, step_ms
 
 
 def launched(*names):
@@ -1012,6 +1073,470 @@ def resume_run(dev, runs, K: int, lgc) -> None:
                              "uninterrupted run's")
 
 
+def convnet5_layout(sparsity: float):
+    from repro_torch.configs.convnet5 import config
+    from repro_torch.core import sparsify as SP
+    from repro_torch.models.convnet import init_convnet5
+    return SP.build_layout(init_convnet5(torch.Generator(), config()),
+                           sparsity)
+
+
+def convnet5_pack_plans(packed_runs):
+    """Each distinct PackPlan that build_plan gives ConvNet5's runs on the
+    packed ring (``packed_runs``: their CompressionConfig fields), at
+    K = CONVNET_K, in the sparsified phases they take: {(n, k, lo_bits):
+    (label, plan)}, raw-index plans (no bit planes) left out."""
+    from repro_torch.configs.base import CompressionConfig
+    from repro_torch.core.phases import PHASE_TOPK_AE
+    from repro_torch.dist import plan as XP
+    plans = {}
+    for fields in packed_runs:
+        cc = CompressionConfig(**fields)
+        layout = convnet5_layout(cc.sparsity)
+        for phase in sorted({PHASE_TOPK_AE, XP.steady_phase(cc.method)}):
+            for op in XP.build_plan(cc, layout, CONVNET_K, phase=phase).ops:
+                pk = getattr(op, "pack", None)
+                if pk is not None and not pk.raw_index:
+                    plans.setdefault((pk.n, pk.k, pk.lo_bits),
+                                     (f"{cc.method} {op.label}", pk))
+    return plans
+
+
+def convnet5_kernels(dev, packed_runs):
+    """K1, K6, K3, K4, K5a and K5b against their plain versions at
+    ConvNet5's shapes (config(), n = 588,008): K1 bitwise at alpha = 0.05
+    (the lgc runs: 14 slots, BN leaves with k = 3 to 13); K6 bitwise at
+    every leaf shape of alpha = 0.01 (the dgc run: k = 1 on the 64-entry
+    BN leaves), and global_topk against the torch.topk leaf selection; K3
+    within 1e-5 of max(1, max|y|) at the encoder's im2col shapes for alpha
+    = 0.05's mu_pad (26,784) and alpha = 0.001's (544, below one tile);
+    K4, K5a and K5b bitwise at every PackPlan of the ``packed_runs``
+    (k 514 to 26,784 at 8 to 15 low bits): K4 and K5a on each of K
+    payloads, K5b on one payload and on the K-payload table."""
+    import torch.nn.functional as F
+    from repro_torch.core import autoencoder as AE
+    from repro_torch.core import sparsify as SP
+    from repro_torch.dist import quantize as Q
+    from repro_torch.kernels import bitpack as BP
+    from repro_torch.kernels import block_topk as BT
+    from repro_torch.kernels import matmul_lrelu as MM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparsify_ef as EF
+    gen = torch.Generator(device=dev).manual_seed(5)
+    checks, err = {}, {}
+    layout = convnet5_layout(0.05)
+    ex, block, seg, kcap, n_cand, _ = SP._fused_meta(
+        layout, (SP.ROLE_COMPRESSED, SP.ROLE_TOPK_ONLY), "auto")
+    n = layout.n_total
+    g, u, v = (torch.randn(n, generator=gen, device=dev) * 1e-3
+               for _ in range(3))
+    seg_t = torch.from_numpy(seg).to(dev)
+    kcap_t = torch.from_numpy(kcap).to(dev)
+    args = (g, u, v, seg_t, kcap_t, 0.9, True, n_cand, block)
+    out_k = EF.sparsify_ef_topk(*args, active=EF.active_blocks(seg_t, block))
+    torch.cuda.synchronize()
+    out_p = EF.sparsify_ef_topk_plain(*args)
+    checks["k1"] = all(same_bits(a, b) for a, b in zip(out_k, out_p))
+    err["k1"] = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(out_k, out_p))
+    k1 = {"n": n, "extract": ex, "block": block, "n_cand": n_cand,
+          "slots": len(kcap), "k": [int(k) for k in kcap]}
+    k6 = []
+    lay = convnet5_layout(0.01)
+    ok6 = True
+    for (nb, blk, kb), leaves in sorted(pallas_shapes(lay).items()):
+        leaf = leaves[0]
+        x = torch.randn(leaf.size, generator=gen, device=dev) * 1e-3
+        xb = F.pad(x, (0, nb * blk - leaf.size)).view(nb, blk)
+        got = BT.block_topk(xb, kb)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(got, BT.block_topk_plain(xb, kb)))
+        gv, gi = ops.global_topk(x, leaf.k, block=blk)
+        lv, li = SP._leaf_topk(x, leaf.k, 0)
+        equal &= torch.equal(gv, lv) and torch.equal(gi.long(), li)
+        ok6 &= equal
+        k6.append({"leaf": leaf.path, "size": leaf.size, "k": leaf.k,
+                   "n_blocks": nb, "block": blk, "kb": kb,
+                   "leaves": len(leaves), "bitwise": equal})
+    checks["k6"] = ok6
+    ae = AE.init_lgc_autoencoder(gen, dev)
+    k3, err["k3"], ok3 = [], 0.0, True
+    for sparsity in (0.05, 0.001):
+        mu_pad = convnet5_layout(sparsity).mu_pad
+        x = torch.randn((mu_pad, 1), generator=gen, device=dev) * 1e-3
+        for p, (_c, k, st) in zip(ae["encoder"], AE.ENCODER_SPEC):
+            cols = ops._im2col_1d(x, k, st).contiguous()
+            w = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
+            b = torch.randn(p["b"].shape, generator=gen, device=dev) * 0.1
+            y = MM.matmul_bias_lrelu(cols, w, b)
+            torch.cuda.synchronize()
+            yp = MM.matmul_bias_lrelu_plain(cols, w, b)
+            e = float((y - yp).abs().max())
+            tol = 1e-5 * max(1.0, float(yp.abs().max()))
+            ok3 &= e <= tol
+            err["k3"] = max(err["k3"], e)
+            k3.append({"mu_pad": mu_pad, "M": cols.shape[0],
+                       "K": cols.shape[1], "N": w.shape[1],
+                       "max_abs_err": e, "tol": tol})
+            x = y
+    checks["k3"] = ok3
+    k45 = []
+    for (n, k, lo), (label, pk) in sorted(convnet5_pack_plans(
+            packed_runs).items()):
+        pairs = [_sorted_pairs(n, k, dev, 10 + j) for j in range(CONVNET_K)]
+        v = pairs[1][0]
+        v[::97], v[5::101], v[7::103] = (float("nan"), float("inf"),
+                                         -float("inf"))
+        los = [idx & ((1 << lo) - 1) for _, idx in pairs]
+        sb = pk.scale_block
+        got = [BP.quantize_pack(v, x, lo, sb, Q._EPS)
+               for (v, _), x in zip(pairs, los)]
+        words = [BP.pack_bits(x, lo) for x in los]
+        table = torch.stack(words)
+        one, tbl = BP.unpack_bits(words[0], k), BP.unpack_bits(table, k)
+        torch.cuda.synchronize()
+        ok = {"quantize_pack": all(
+                  all(same_bits(a, b) for a, b in zip(
+                      q, BP.quantize_pack_plain(v, x, lo, sb, Q._EPS)))
+                  for q, (v, _), x in zip(got, pairs, los)),
+              "pack_bits": all(torch.equal(w, BP.pack_bits_plain(x, lo))
+                               for w, x in zip(words, los)),
+              "unpack_bits": torch.equal(one, los[0]) and torch.equal(
+                  one, BP.unpack_bits_plain(words[0], k)),
+              "unpack_bits_table": torch.equal(tbl, torch.stack(los))
+              and torch.equal(tbl, BP.unpack_bits_plain(table, k))}
+        k45.append({"plan": label, "n": n, "k": k, "lo_bits": lo,
+                    "words_per_plane": BP.word_count(k), "payloads": CONVNET_K,
+                    "bitwise": ok})
+        for name, equal in ok.items():
+            checks[name] = checks.get(name, True) and equal
+    emit("convnet5_kernels", k1=k1, k6=k6, k3=k3, k4_k5=k45,
+         bitwise_or_within_tol=checks, max_abs_err=err)
+    if not all(checks.values()):
+        raise AssertionError(f"a kernel differs from its plain version at "
+                             f"ConvNet5's shapes: {checks}")
+    SP._device_meta.cache_clear()
+
+
+def convnet5_run(dev, name: str, cc_fields: dict, steps: int, lr: float,
+                 data_seed: int, *expects, cpu_steps: int = 0):
+    """One run of the reference's single-host ConvNet5 loop
+    (launch.steps.sim_sgd_step) at config(), K = 4 nodes of 8 images:
+    launch counts reset before and read after, each ``expect``
+    checked; finite losses; the wire rows of each phase equal the
+    pricer's.  ``cpu_steps`` > 0 runs the first steps again on the CPU
+    from the same weights and holds the card's first step's gradients
+    (CONVNET_GRAD_REL), losses and weights (CONVNET_TRAJ_REL) to
+    them."""
+    from repro_torch.configs.base import CompressionConfig
+    from repro_torch.configs.convnet5 import config
+    from repro_torch.core import sparsify as SP
+    from repro_torch.core.compressors import build_compressor
+    from repro_torch.data import synthetic_image_batches
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import node_grads, sim_sgd_step
+    from repro_torch.models.convnet import convnet5_loss, init_convnet5
+    from repro_torch.utils import disable_tf32
+    from repro_torch.utils.tree import (keystr_path, tree_leaves,
+                                        tree_leaves_with_path, tree_map)
+    disable_tf32()
+    cfg = config()
+    cc = CompressionConfig(**cc_fields)
+
+    def loss_fn(p, b):
+        return convnet5_loss(p, cfg, b)
+
+    def loop(device, n_steps, params, keep_at=-1):
+        """``n_steps`` steps from ``params``; returns the compressor, the
+        per-step records and the params after step ``keep_at``."""
+        gen = torch.Generator(device=device).manual_seed(1)
+        comp = build_compressor(cc, params, CONVNET_K)
+        states = comp.init_sim_states(gen, device)
+        data = synthetic_image_batches(cfg.num_classes,
+                                       CONVNET_K * CONVNET_PER_NODE,
+                                       cfg.image_size, seed=data_seed)
+        records, kept = [], None
+        for step in range(n_steps):
+            batch = {k: torch.from_numpy(x).to(device)
+                     for k, x in next(data).items()}
+            t0 = time.perf_counter()
+            params, states, _, m = sim_sgd_step(loss_fn, comp, params,
+                                                states, batch, step, lr)
+            loss, acc = float(m["loss"]), float(m["accuracy"])
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            records.append({"phase": m["phase"], "loss": loss, "acc": acc,
+                            "ms": (time.perf_counter() - t0) * 1e3,
+                            "wire": m["wire"]})
+            if step == keep_at:
+                kept = tree_map(lambda t: t.cpu(), params)
+        return comp, records, kept
+
+    params0 = init_convnet5(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    comp, records, p_card = loop(dev, steps, tree_map(torch.clone, params0),
+                                 keep_at=cpu_steps - 1)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    wire = {}
+    for r in records:
+        wire.setdefault(r["phase"], r["wire"])
+    losses, step_ms = check_run(f"convnet5 {name}", records, launches,
+                                expects, wire, comp)
+    # a phase's first step pays its one-off set-up
+    steady = {ph: sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+              for ph, ms in step_ms.items()}
+    cpu = None
+    if cpu_steps:
+        # the same code on the CPU from the same weights, for the first
+        # (warm-up) steps
+        _, r_cpu, p_cpu = loop(torch.device("cpu"), cpu_steps,
+                               tree_map(lambda t: t.cpu(), params0),
+                               keep_at=cpu_steps - 1)
+        scale = max(float(t.abs().max()) for t in tree_leaves(p_cpu))
+        p_err = max(float((a - b).abs().max())
+                    for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)))
+        l_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(records, r_cpu))
+        # one step from the same weights and images: the per-node
+        # gradients on the card against the CPU's
+        batch0 = {k: torch.from_numpy(x) for k, x in next(
+            synthetic_image_batches(cfg.num_classes,
+                                    CONVNET_K * CONVNET_PER_NODE,
+                                    cfg.image_size, seed=data_seed)).items()}
+        g_cpu, _ = node_grads(loss_fn, tree_map(lambda t: t.cpu(), params0),
+                              batch0, CONVNET_K, comp.layout.n_total)
+        g_card, _ = node_grads(loss_fn, params0,
+                               {k: x.to(dev) for k, x in batch0.items()},
+                               CONVNET_K, comp.layout.n_total)
+        g_err = float((g_card.cpu() - g_cpu).abs().max()) \
+            / float(g_cpu.abs().max())
+        cpu = {"steps": cpu_steps, "phases": sorted({r["phase"]
+                                                     for r in r_cpu}),
+               "params_max_abs_err_over_max": p_err / scale,
+               "params_err_by_leaf": {
+                   keystr_path(path): float((a - b).abs().max() / scale)
+                   for (path, a), b in zip(tree_leaves_with_path(p_card),
+                                           tree_leaves(p_cpu))},
+               "step0_grad_err_over_max": g_err,
+               "loss_max_rel_err": l_err,
+               "tol": {"grad": CONVNET_GRAD_REL, "traj": CONVNET_TRAJ_REL}}
+        if g_err > CONVNET_GRAD_REL \
+                or p_err > CONVNET_TRAJ_REL * scale \
+                or l_err > CONVNET_TRAJ_REL:
+            raise AssertionError(f"convnet5 {name}: the card's first "
+                                 f"{cpu_steps} steps against the CPU's: {cpu}")
+    accs = [r["acc"] for r in records]
+    emit("convnet5", run=name, arch=cfg.name, channels=list(cfg.channels),
+         num_classes=cfg.num_classes, image_size=cfg.image_size,
+         reduced=[], nodes=CONVNET_K, images_per_node=CONVNET_PER_NODE,
+         n_params=comp.layout.n_total, mu_pad=comp.layout.mu_pad,
+         k_last=comp.layout.k_last, lr=lr, compression=cc_fields,
+         steady_step_ms=steady, launches=launches, wire=wire,
+         peak_mem_gib=peak, losses=losses,
+         first15={"loss": sum(losses[:15]) / 15, "acc": sum(accs[:15]) / 15},
+         last15={"loss": sum(losses[-15:]) / 15, "acc": sum(accs[-15:]) / 15},
+         cpu_check=cpu)
+    SP._device_meta.cache_clear()
+    return {"launches": launches, "losses": losses, "wire": wire,
+            "steady_ms": steady, "peak_gib": peak}
+
+
+def convnet5_phase(dev, runs) -> None:
+    """The paper's ConvNet5 at its full widths, K = 4 nodes of 8 images,
+    through the ported compressors: K1, K6, K3, K4, K5a and K5b at its
+    shapes first; then (1) lgc_rar, fused sweep and kernel encoder, on
+    the mesh wire, alpha = 0.05, 10 warm-up + 20 AE-training steps of
+    120, lr 0.08 (tests/test_system.py), its 10 warm-up steps held
+    against the CPU;
+    (2) lgc_ps on ring_packed, alpha = 0.05, innovation alpha = 0.005
+    (benchmarks/fig14), 60 steps with the same phases, lr 0.05; (3) dgc,
+    block top-k, on ring_packed, alpha = 0.01, 10 warm-up steps of 60,
+    lr 0.05 (benchmarks/fig13); and the information plane's MI fraction
+    per layer after 10 SGD steps (examples/information_plane.py's loop
+    at config())."""
+    from repro_torch.configs.convnet5 import config
+    from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
+    from repro_torch.examples import information_plane as IP
+    from repro_torch.models.convnet import init_convnet5
+    K = CONVNET_K
+    lgc = dict(sparsity=0.05, warmup_steps=10, ae_train_steps=20,
+               topk_backend="fused", ae_backend="pallas")
+    lgc_ps = dict(lgc, method="lgc_ps", innovation_sparsity=0.005,
+                  transport="ring_packed")
+    dgc = dict(method="dgc", sparsity=0.01, warmup_steps=10,
+               topk_backend="pallas", transport="ring_packed")
+    convnet5_kernels(dev, (lgc_ps, dgc))
+    n_leaves = len(convnet5_layout(0.01).compressed) \
+        + len(convnet5_layout(0.01).topk_only)
+    runs["convnet5 lgc_rar"] = convnet5_run(
+        dev, "lgc_rar", dict(lgc, method="lgc_rar"), 120, 0.08, 0,
+        per_step(fused_ef_topk=K,
+                 compressed={"matmul_bias_lrelu": len(ENCODER) * K}),
+        cpu_steps=10)
+    runs["convnet5 lgc_ps ring_packed"] = convnet5_run(
+        dev, "lgc_ps ring_packed", lgc_ps, 60, 0.05, 2,
+        # + the exempt-last pairs (fc/*): each node's through K4 and
+        # their gathered table through one K5b, every sparsified step
+        per_step(fused_ef_topk=K, pack_bits=1, unpack_bits=2,
+                 quantize_pack=K,
+                 compressed={"matmul_bias_lrelu": len(ENCODER),
+                             "quantize_pack": K, "unpack_bits": 1}))
+    runs["convnet5 dgc ring_packed"] = convnet5_run(
+        dev, "dgc ring_packed", dgc, 60, 0.05, 1,
+        # the compressed and the exempt-last pairs: two packed exchanges
+        per_step(block_topk=n_leaves * K, quantize_pack=2 * K,
+                 unpack_bits=2))
+    params = init_convnet5(torch.Generator(device=dev).manual_seed(0),
+                           config(), dev)
+    fracs = IP.mi_fractions(params, config(), steps=11, every=10)
+    emit("convnet5_information_plane", bins=IP.BINS, nodes=IP.NODES,
+         batch=IP.BATCH, lr=IP.LR, mi_fraction_at_step_0=fracs[0],
+         mi_fraction_after_10_sgd_steps=fracs[10])
+    if not all(0.0 <= f <= 1.0 for row in fracs.values() for f in row):
+        raise AssertionError(f"MI fractions out of [0, 1]: {fracs}")
+
+
+def serve_phase(dev) -> dict:
+    """llama3.2-1b at published widths and all 16 layers (no cut), bf16,
+    random weights from seed 0, through repro_torch.launch.serve's run():
+    after one run at the defaults that pays the one-off set-up, the
+    defaults (batch 4, prompt 64, gen 32) and a longer prompt (batch 8,
+    prompt 512, gen 64).  For each, the run's tokens fed
+    back through prefill + decode_step: at three decode positions the
+    logits from the cache must equal a full prefill's last-token logits
+    of the same prefix within SERVE_REL of their largest entry.  Prints
+    the prefill ms, the median decode ms per step (the latency), tokens/s
+    (the batch's decoded tokens over the decode loop's time) and the peak
+    GiB; one profiled decode step (its kernels and device busy ms against
+    the weights' read); and a prefill alone at batch 4, prompt 4096 (the
+    full-matrix attention's f32 scores, 8.6 GB a layer): its ms and peak."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile import kernel_times
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_arch("llama3.2-1b")
+    model = build_model(cfg)
+    # a first run at the defaults pays the one-off set-up (cuBLAS's
+    # handles and heuristics): measured runs follow it
+    params = serve.run(cfg, serve.parse_args([]))["params"]
+    result = {}
+    for batch, plen, gen in ((4, 64, 32), (8, 512, 64)):
+        args = serve.parse_args(["--batch", str(batch), "--prompt-len",
+                                 str(plen), "--gen", str(gen)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = serve.run(cfg, args, params=params)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        params = run["params"]
+        toks = torch.cat([torch.from_numpy(run["prompt"]),
+                          torch.from_numpy(run["tokens"])], 1).to(dev).long()
+        # decoded positions are plen .. plen + gen - 2
+        check_at = (plen, plen + gen // 2, plen + gen - 2)
+        checks, replayed = {}, True
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks[:, :plen]},
+                                     cache_len=plen + gen)
+            for pos in range(plen, plen + gen - 1):
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, pos:pos + 1], pos)
+                replayed &= bool(torch.equal(logits[:, 0].argmax(-1),
+                                             toks[:, pos + 1]))
+                if pos in check_at:
+                    full, _ = model.prefill(params,
+                                            {"tokens": toks[:, :pos + 1]})
+                    scale = float(full.abs().max())
+                    checks[pos] = {
+                        "max_abs_err": float((logits - full).abs().max()),
+                        "max_abs_logit": scale,
+                        "argmax_agree": float((logits.argmax(-1)
+                                               == full.argmax(-1)).float()
+                                              .mean())}
+            del cache
+        ok = all(c["max_abs_err"] <= SERVE_REL * c["max_abs_logit"]
+                 for c in checks.values())
+        step_ms = sorted(run["step_ms"])
+        median = step_ms[len(step_ms) // 2]
+        name = f"B{batch} prompt {plen} gen {gen}"
+        result[name] = {
+            "batch": batch, "prompt_len": plen, "gen": gen,
+            "prefill_ms": run["prefill_ms"], "decode_ms_median": median,
+            "decode_ms_min": step_ms[0], "decode_ms_max": step_ms[-1],
+            # the loop decodes gen - 1 tokens a sequence (prefill gave the
+            # first): all of them over all of its time
+            "tokens_per_s": batch * (gen - 1) / run["decode_s"],
+            "peak_gib": peak, "decode_vs_prefill": checks,
+            "tol_rel": SERVE_REL, "replayed_tokens_equal": replayed}
+        emit("serve", run=name, arch=cfg.name, n_layers=cfg.n_layers,
+             dtype=cfg.dtype, reduced=[], **result[name])
+        if not ok:
+            raise AssertionError(f"serve {name}: decoding from the cache "
+                                 f"differs from a full prefill: {checks}")
+    # one decode step under the profiler, at the defaults' shapes
+    with torch.no_grad():
+        prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=dev)
+        _, cache = model.prefill(params, {"tokens": prompt}, cache_len=96)
+        nxt = prompt[:, -1:]
+        for pos in (64, 65):                   # warm-up
+            model.decode_step(params, cache, nxt, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.decode_step(params, cache, nxt, 66)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = kernel_times(prof)
+        del cache
+    n_weights = sum(p.numel() * p.element_size()
+                    for p in tree_leaves(params))
+    busy = sum(ms for _, ms, _ in kernels)
+    result["decode_profile"] = {
+        "wall_ms_profiled": wall, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall,
+        "kernel_launches": sum(c for _, _, c in kernels),
+        "weight_bytes": n_weights,
+        "bound_ms": n_weights / HBM_BYTES_PER_S * 1e3,
+        "top": [{"kernel": k[:80], "ms": ms, "calls": c}
+                for k, ms, c in kernels[:6]]}
+    emit("serve_decode_profile", **result["decode_profile"])
+    # a prefill alone at the longest prompt the full-matrix attention is
+    # sized for here
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        prompt = torch.randint(0, cfg.vocab_size, (4, SERVE_LONG_PROMPT),
+                               device=dev)
+        model.prefill(params, {"tokens": prompt[:, :64]})   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt})
+        finite = bool(logits.isfinite().all())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del logits, cache
+    result["long_prefill"] = {
+        "batch": 4, "prompt_len": SERVE_LONG_PROMPT, "prefill_ms": ms,
+        "finite": finite,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    emit("serve_long_prefill", **result["long_prefill"])
+    if not finite:
+        raise AssertionError(f"serve: non-finite logits at prompt "
+                             f"{SERVE_LONG_PROMPT}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
@@ -1121,6 +1646,8 @@ def main() -> None:
             "keeps tensors alive")
     guard_runs(dev, runs, n_leaves, K, lgc, dgc, q8)
     resume_run(dev, runs, K, lgc)
+    convnet5_phase(dev, runs)
+    serve_phase(dev)
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
     emit("topk_bytes", packed=packed_b, raw=raw_b,

@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import synthetic_token_batches
+from repro_torch.data.pipeline import (synthetic_image_batches,
+                                      synthetic_token_batches)
 
-__all__ = ["synthetic_token_batches"]
+__all__ = ["synthetic_image_batches", "synthetic_token_batches"]

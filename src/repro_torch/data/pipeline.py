@@ -1,9 +1,11 @@
-"""Deterministic synthetic token stream (numpy, seeded per step).
+"""Deterministic synthetic data streams (numpy, seeded per step).
 
-Counterpart of ``repro.data.pipeline.synthetic_token_batches``: the same
-first-order Markov chain with a skewed stationary distribution, the same
-numpy generators, so the port and the reference see the same tokens bit
-for bit.  Batches are host numpy; the trainer moves them to its device.
+Counterparts of ``repro.data.pipeline.synthetic_token_batches`` (the same
+first-order Markov chain with a skewed stationary distribution) and
+``synthetic_image_batches`` (class templates plus noise), with the same
+numpy generators, so the port and the reference see the same tokens and
+images bit for bit.  Batches are host numpy; the caller moves them to
+its device.
 """
 from __future__ import annotations
 
@@ -36,4 +38,25 @@ def synthetic_token_batches(vocab_size: int, batch: int, seq_len: int,
             choice = (unif[:, t : t + 1] < cdf).argmax(-1)
             toks[:, t + 1] = succ[cur, choice]
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+        step += 1
+
+
+def synthetic_image_batches(num_classes: int, batch: int, image_size: int,
+                            channels: int = 3, seed: int = 0,
+                            ) -> Iterator[Dict[str, np.ndarray]]:
+    """Class-conditional Gaussian-blob images, NHWC f32, with int32
+    labels: each class has a fixed random template; samples are template
+    + noise, learnable by ConvNet5 within a few hundred steps."""
+    base = np.random.default_rng(seed)
+    templates = base.normal(size=(num_classes, image_size, image_size,
+                                  channels)).astype(np.float32)
+    step = 0
+    while True:
+        r = _rng(seed, step)
+        labels = r.integers(0, num_classes, size=batch).astype(np.int32)
+        noise = r.normal(scale=1.0,
+                         size=(batch, image_size, image_size,
+                               channels)).astype(np.float32)
+        images = templates[labels] + noise
+        yield {"images": images, "labels": labels}
         step += 1

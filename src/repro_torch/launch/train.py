@@ -49,7 +49,7 @@ from repro_torch.data import synthetic_token_batches
 from repro_torch.dist import chaos
 from repro_torch.launch.steps import make_lgc_train_step
 from repro_torch.models.model import build_model
-from repro_torch.utils import resolve_device
+from repro_torch.utils import disable_tf32, resolve_device
 
 log = logging.getLogger("repro_torch.train")
 
@@ -168,10 +168,7 @@ def run(cfg: ModelConfig, args,
     ``on_step(record)`` runs after each step has finished on the device
     and after its checkpoint."""
     device = resolve_device(args.device)
-    # the reference is f32 where it says f32; on the card f32 matmuls and
-    # cuDNN convolutions would otherwise be allowed TF32 (cuDNN's default)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     cc = CompressionConfig(method=args.compression, sparsity=args.sparsity,
                            warmup_steps=args.warmup_steps,
                            ae_train_steps=args.ae_train_steps,

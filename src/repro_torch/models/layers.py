@@ -7,7 +7,13 @@ Attention is plain PyTorch: explicit matmuls, an f32 softmax and a causal
 mask, differentiated by autograd.  The reference's ``models/flash.py`` is
 plain jnp with a recompute-in-backward VJP, not a Pallas kernel; at the
 sequence lengths the port trains with, the plain form needs no such
-memory trick.
+memory trick.  Its (B, H, S, S) f32 scores bound the prompt length of a
+prefill (8.6 GB a layer at B = 4, S = 4096).
+
+Decode (``attention_decode`` over the cache of ``init_attention_cache``)
+is plain PyTorch too, as the reference's ``decode_attention`` is plain
+jnp; unlike the reference's functional update, it writes the new token's
+k, v and position into the cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -105,7 +111,9 @@ def init_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
 
 
 def attention_fwd(p, cfg: ModelConfig, x, positions):
-    """Pre-norm self-attention with residual.  x: (B, S, D)."""
+    """Pre-norm self-attention with residual, for training and prefill.
+    x: (B, S, D).  Returns (x + attention, (k, v)): the roped keys and the
+    values, (B, S, KH, hd) each, which prefill keeps as the cache."""
     B, S, _ = x.shape
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
     q = linear(p["wq"], h).view(B, S, cfg.n_heads, cfg.head_dim)
@@ -114,7 +122,74 @@ def attention_fwd(p, cfg: ModelConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = causal_attention(q, k, v, cfg.sliding_window)
-    return x + linear(p["wo"], o.reshape(B, S, -1))
+    return x + linear(p["wo"], o.reshape(B, S, -1)), (k, v)
+
+
+def decode_attention(q, k_cache, v_cache, *, kv_positions, pos: int,
+                     window: int = 0):
+    """Single-token attention against a (possibly only partially valid)
+    cache.  q: (B, 1, H, D); caches: (B, S, KH, D); kv_positions: (S,)
+    absolute positions held by each cache slot; pos: the current
+    position.  Slots with kv_positions > pos (unwritten: the int32-max
+    sentinel) are masked, and under a window those pos - window or
+    older.  Scores and softmax in f32; returns (B, 1, H, D) in q's
+    dtype."""
+    B, _, H, D = q.shape
+    KH = k_cache.shape[2]
+    qr = q.reshape(B, KH, H // KH, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    valid = kv_positions <= pos
+    if window:
+        valid &= pos - kv_positions < window
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def attention_decode(p, cfg: ModelConfig, x, cache, pos: int):
+    """x: (B, 1, D); cache: {"k", "v": (B, S, KH, hd), "pos": (S,) int32
+    absolute positions}.  The token's k, v and position go into slot
+    ``pos`` (``pos % S`` under a sliding window: a ring buffer) IN PLACE.
+    Returns (x + attention, cache)."""
+    B = x.shape[0]
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
+    q = linear(p["wq"], h).view(B, 1, cfg.n_heads, cfg.head_dim)
+    k = linear(p["wk"], h).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(p["wv"], h).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    S = cache["k"].shape[1]
+    slot = pos % S if cfg.sliding_window else pos
+    if not 0 <= slot < S:
+        raise IndexError(f"decode position {pos} is past the cache's "
+                         f"{S} slots")
+    cache["k"][:, slot].copy_(k[:, 0])
+    cache["v"][:, slot].copy_(v[:, 0])
+    cache["pos"][slot:slot + 1].fill_(pos)     # no host-to-device copy
+    o = decode_attention(q, cache["k"], cache["v"],
+                         kv_positions=cache["pos"], pos=pos,
+                         window=cfg.sliding_window)
+    return x + linear(p["wo"], o.reshape(B, 1, -1)), cache
+
+
+INT32_MAX = 2 ** 31 - 1       # a cache slot's position before it is written
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
+                         device, lead=()):
+    """Zero k, v (lead + (B, S, KH, hd)) and int32-max positions
+    (lead + (S,)), so decode masks every slot not yet written; S is
+    ``seq_len``, or the window under a sliding window."""
+    S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = tuple(lead) + (batch, S, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full(tuple(lead) + (S,), INT32_MAX, dtype=torch.int32,
+                          device=device),
+    }
 
 
 def init_swiglu(gen, d_model, d_ff, dtype, device, lead=()):

@@ -13,6 +13,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def disable_tf32() -> None:
+    """f32 where the reference says f32: on the card, f32 matmuls and
+    cuDNN's f32 convolutions would otherwise be allowed TF32 (cuDNN's
+    default), which keeps about three decimal digits.  Process-wide, as
+    PyTorch's flags are; every entry point of the port calls it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 _FMA_CHUNK = 1 << 24        # elements per pass: bounds the f64 temporaries
 
 

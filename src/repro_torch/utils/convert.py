@@ -3,7 +3,10 @@
 The reference's params arrive as nested dicts (and lists) of numpy arrays,
 e.g. ``jax.tree_util.tree_map(np.asarray, Model(cfg).init(key))``.  The
 port keeps the reference's layouts (stacked blocks, (in, out) linears, WIO
-convs), so conversion is an identity on shapes and values.
+convs of the AE, ConvNet5's HWIO convs and its BN leaves, permuted only
+inside ``models.convnet.convnet5_forward``), so conversion is an identity
+on shapes and values: ``params_from_numpy`` carries the reference's
+``init_convnet5`` weights across as they are.
 """
 from __future__ import annotations
 

@@ -588,3 +588,160 @@ def test_guarded_exchange_does_not_wait_for_the_card(card, wire):
     assert _same_bits(got["cuda"][0], got["cpu"][0])
     assert torch.equal(got["cuda"][1], got["cpu"][1])
     assert got["cpu"][1].tolist()[1] > got["cpu"][1].tolist()[0] > 0
+
+
+# -- ConvNet5 (config(): n = 588,008) and serving -------------------------------
+
+
+def _convnet5_layout(sparsity):
+    from repro_torch.configs.convnet5 import config
+    from repro_torch.models.convnet import init_convnet5
+    return SP.build_layout(init_convnet5(torch.Generator(), config()),
+                           sparsity)
+
+
+@pytest.mark.parametrize("sparsity", [0.001, 0.05])
+@pytest.mark.parametrize("kind", ["normal", "special"])
+def test_fused_ef_topk_kernel_at_convnet5_shapes(card, sparsity, kind):
+    """K1 at ConvNet5's layout (14 slots; BN leaves of 64-256 entries with
+    k from 1): every output bitwise its plain version, u' NaN payloads
+    aside, as above."""
+    layout = _convnet5_layout(sparsity)
+    _, block, seg, kcap, n_cand, _ = SP._fused_meta(layout, ROLES, "auto")
+    n = layout.n_total
+    g, u, v = (_vec(kind, n, 10 * i + 7, card) for i in range(3))
+    seg_t, kcap_t = (torch.from_numpy(a).to(card) for a in (seg, kcap))
+    args = (g, u, v, seg_t, kcap_t, 0.9, True, n_cand, block)
+    out = EF.sparsify_ef_topk(*args)
+    torch.cuda.synchronize()
+    plain = EF.sparsify_ef_topk_plain(*args)
+    nan = out[0].isnan()
+    assert torch.equal(nan, plain[0].isnan())
+    assert _same_bits(out[0][~nan], plain[0][~nan]), "u"
+    for name, a, b in zip(("v", "vals", "idx", "seg"), out[1:], plain[1:]):
+        assert _same_bits(a, b), name
+
+
+@pytest.mark.parametrize("sparsity", [0.001, 0.01])
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_block_topk_kernel_at_convnet5_shapes(card, sparsity, kind):
+    """K6 at every (n_blocks, block, kb) the pallas backend gives
+    ConvNet5's compressed and top-k-only leaves (k = 1 on the 64-entry BN
+    leaves at alpha = 0.01), and the selections through it equal the
+    torch.topk backend."""
+    import torch.nn.functional as F
+    layout = _convnet5_layout(sparsity)
+    for leaf in layout.compressed + layout.topk_only:
+        block = SP.pallas_block(leaf.k)
+        nb, kb = -(-leaf.size // block), min(leaf.k, block)
+        x = _vec(kind, leaf.size, leaf.size, card)
+        xb = F.pad(x, (0, nb * block - leaf.size)).view(nb, block)
+        out = BT.block_topk(xb, kb)
+        torch.cuda.synchronize()
+        vals, idx = BT.block_topk_plain(xb, kb)
+        assert torch.equal(out[0].view(torch.int32), vals.view(torch.int32))
+        assert torch.equal(out[1], idx), leaf.path
+    v = _vec(kind, layout.n_total, 3, card)
+    for select in (SP.select_topk, SP.select_topk_last):
+        for a, b in zip(select(v, layout, backend="pallas"),
+                        select(v, layout, backend="jnp")):
+            assert torch.equal(a, b), select.__name__
+
+
+@pytest.mark.parametrize("sparsity", [0.001, 0.05])
+def test_kernel_encoder_at_convnet5_shapes(card, sparsity):
+    """K3's five layers at ConvNet5's mu_pad (544: below one tile; 26,784)
+    against their plain versions, and the kernel encoder against the conv
+    encoder, to 1e-5 x max(1, max|y|)."""
+    mu_pad = _convnet5_layout(sparsity).mu_pad
+    gen = torch.Generator(device=card).manual_seed(mu_pad)
+    ae = AE.init_lgc_autoencoder(gen, card)
+    x = torch.randn((mu_pad, 1), generator=gen, device=card) * 1e-3
+    g = x[:, 0].clone()
+    for p, (_c, k, s) in zip(ae["encoder"], AE.ENCODER_SPEC):
+        cols = ops._im2col_1d(x, k, s).contiguous()
+        w = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
+        b = torch.randn(p["b"].shape, generator=gen, device=card) * 0.1
+        y = MM.matmul_bias_lrelu(cols, w, b)
+        yp = MM.matmul_bias_lrelu_plain(cols, w, b)
+        assert float((y - yp).abs().max()) <= \
+            1e-5 * max(1.0, float(yp.abs().max()))
+        x = y
+    z, zp = ops.lgc_encode_fast(ae, g), AE.lgc_encode(ae, g)[0]
+    assert z.shape == zp.shape == (mu_pad // 16, 4)
+    assert float((z - zp).abs().max()) <= 1e-5 * max(1.0,
+                                                      float(zp.abs().max()))
+
+
+# ConvNet5's runs on the packed ring, as chip_smoke runs them at K = 4
+CONVNET5_PACKED = {
+    "lgc_ps": dict(method="lgc_ps", sparsity=0.05, innovation_sparsity=0.005,
+                   transport="ring_packed"),
+    "dgc": dict(method="dgc", sparsity=0.01, transport="ring_packed"),
+}
+
+
+@pytest.mark.parametrize("method", sorted(CONVNET5_PACKED))
+def test_bitpack_kernels_at_convnet5_pack_plans(card, method):
+    """K4, K5a and K5b bitwise their plain versions at every PackPlan that
+    build_plan gives ConvNet5's run of ``method`` at K = 4 in its
+    sparsified phases (k 514 to 26,784 at 8 to 15 low bits): K4 and K5a
+    on each of 4 payloads (one with special values), K5b on one payload
+    and on the 4-payload table."""
+    from repro_torch.configs.base import CompressionConfig
+    from repro_torch.core.phases import PHASE_TOPK_AE
+    from repro_torch.dist import plan as XP
+    cc = CompressionConfig(**CONVNET5_PACKED[method])
+    layout = _convnet5_layout(cc.sparsity)
+    plans = {op.pack for phase in {PHASE_TOPK_AE, XP.steady_phase(method)}
+             for op in XP.build_plan(cc, layout, 4, phase=phase).ops
+             if getattr(op, "pack", None) is not None}
+    assert len(plans) >= 2 and not any(p.raw_index for p in plans)
+    r = np.random.default_rng(len(method))
+    for plan in sorted(plans, key=lambda p: (p.n, p.k)):
+        k, lo, sb = plan.k, plan.lo_bits, plan.scale_block
+        los = []
+        for j in range(4):
+            idx = np.sort(r.choice(plan.n + 1, k, replace=False))
+            x = torch.from_numpy((idx & ((1 << lo) - 1)).astype(np.int32)
+                                 ).to(card)
+            v = _vec("special" if j == 1 else "normal", k, j, card)
+            out = BP.quantize_pack(v, x, lo, sb, Q._EPS)
+            words = BP.pack_bits(x, lo)
+            torch.cuda.synchronize()
+            plain = BP.quantize_pack_plain(v.cpu(), x.cpu(), lo, sb, Q._EPS)
+            for name, a, b in zip(("words", "q", "scales"), out, plain):
+                assert _same_bits(a.cpu(), b), (name, plan)
+            assert torch.equal(words.cpu(), BP.pack_bits_plain(x.cpu(), lo))
+            los.append(x)
+        table = torch.stack([BP.pack_bits(x, lo) for x in los])
+        assert torch.equal(BP.unpack_bits(table[0], k), los[0]), plan
+        assert torch.equal(BP.unpack_bits(table, k), torch.stack(los)), plan
+        assert torch.equal(BP.unpack_bits(table, k).cpu(),
+                           BP.unpack_bits_plain(table.cpu(), k)), plan
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_from_cache_equals_prefill_on_the_card(card, dtype):
+    """The dense decoder on the card (the llama3.2-1b smoke config, 2
+    blocks): prefill 28 tokens into a 32-slot cache, decode 4; each
+    step's logits equal a full prefill's last-token logits of the same
+    prefix, to 1e-5 of the largest in f32 (TF32 off) and to 0.05 of it in
+    bf16 (chip_smoke's SERVE_REL: single bf16 steps differ between the
+    two shapes' matmuls)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    model = build_model(get_arch("llama3.2-1b").reduced(dtype=dtype))
+    params = model.init(torch.Generator(device=card).manual_seed(0), card)
+    toks = torch.randint(0, 512, (2, 32), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    rel = 1e-5 if dtype == "float32" else 0.05
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks[:, :28]},
+                                 cache_len=32)
+        for pos in range(28, 32):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, pos:pos + 1], pos)
+            full, _ = model.prefill(params, {"tokens": toks[:, :pos + 1]})
+            assert float((logits - full).abs().max()) <= \
+                rel * float(full.abs().max()), pos
