@@ -49,7 +49,16 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               ties at scale blocks 1, 64, 256 and 1000 for K4), K5b also
               on a stack of two payloads; then the codec on the card
               against the CPU, and on a gathered table of two payloads
-  8. train    repro_torch.launch.train's run(): llama3.2-1b at published
+  8. flash    flash attention (models/flash.py: online softmax over
+              chunks, recompute backward; plain PyTorch, as the
+              reference's is plain jnp) at one layer of llama3.2-1b (B 1,
+              S 2048, 32/8 heads, head_dim 64, f32), causal with window 0
+              and 512: the output and dq, dk, dv on the card against the
+              CPU within FLASH_REL of their largest entry, device ms of a
+              forward and of a forward + backward; the peak of one
+              forward + backward at S 8192 beside the 8 GiB one (1, 32,
+              S, S) f32 score matrix would take
+  9. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
               eight runs: lgc_rar with the fused sweep and the kernel
@@ -73,12 +82,15 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               (--transport ring_hier --pod-shards 2), unbucketed with the
               garbage collector off (its peak held under a stated bound:
               a tensor kept alive by a reference cycle raises it) and in
-              4 buckets, whose losses must be equal.  Each
+              4 buckets, whose losses must be equal; then lgc_rar at
+              train_4k's sequence length (--seq 4096, batch 8: train_4k's
+              256 cut to 4 sequences a node), 6 steps.  Every block and
+              cross-entropy chunk is rematerialised.  Each
               run resets the launch counts before and reads them after;
               launch counts per phase, finite losses and per-op
               wire-byte rows (priced for the run's own transport, mesh
               and bucket count) are checked
-  9. guard    the chaos wire under the guard policies: (a) dgc on
+ 10. guard    the chaos wire under the guard policies: (a) dgc on
               chaos:ring_packed with the checksum word, --guard scrub and
               2 bit flips, 2 NaNs and 1 inf on its top-k exchange each
               step: the fault tally, fault/topk >= 3 and guard_ok = 0 on
@@ -91,13 +103,13 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               and leaves each node's u, v its accumulators before the
               clear; (c) lgc_rar on chaos:mesh with --guard fail_fast
               must raise WireFaultError naming the encoding at step 4
- 10. resume   lgc_rar with a checkpoint every 3 steps, stopped after step
+ 11. resume   lgc_rar with a checkpoint every 3 steps, stopped after step
               3, then resumed from the file (the full state: bf16
               params, AdamW moments, both nodes' u and v, the AE): its
               losses at steps 4 and 5 must equal the uninterrupted
               lgc_rar run's bit for bit; the file's bytes and the save
               and load seconds; the file is deleted
- 11. convnet5 the paper's ConvNet5 at its full widths (config(): channels
+ 12. convnet5 the paper's ConvNet5 at its full widths (config(): channels
               32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
               of 8 images, through launch.steps.sim_sgd_step (the
               reference's single-host loop: per-node gradients, sim_step,
@@ -117,7 +129,7 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               and accuracy of the first and last 15 steps; and the
               information plane's MI fraction per layer after 10 SGD steps
               (examples.information_plane.mi_fractions at config())
- 12. serve    repro_torch.launch.serve's run() on llama3.2-1b at published
+ 13. serve    repro_torch.launch.serve's run() on llama3.2-1b at published
               widths and all 16 layers, bf16: batch 4, prompt 64, gen 32
               (the entry point's defaults, after one run of them that
               pays the one-off set-up) and batch 8, prompt 512, gen 64;
@@ -125,8 +137,16 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               logits at three positions of each within SERVE_REL; prefill
               ms, median decode ms per step, tokens/s (decoded tokens over
               the decode loop's time), peak GiB; one
-              profiled decode step; a prefill alone at batch 4, prompt 4096
- 13. timings  each kernel's ms beside its plain version's, its bound and,
+              profiled decode step; a prefill alone at batch 4, prompt
+              4096, and one at batch 1, prompt 32768 (prefill_32k's length,
+              its batch of 32 cut to 1), then 8 decode steps from its
+              cache, the first against a full prefill of length 32769;
+              then qwen2-1.5b (28 layers) as llama3.2-1b (B4 P64 G32, B8
+              P512 G64, three positions each), and granite-8b (36 layers),
+              phi3-medium-14b (40) and musicgen-medium (48) at B4 P64 G16
+              with the check at one position, each at published widths
+              and full depth, bf16, freed before the next
+ 14. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function (K6 and K3 also per shape, with their ratio to it);
               K4, K5a and K5b (one payload and the two-payload table) also
@@ -179,9 +199,32 @@ CONVNET_TRAJ_REL = 2.5e-4
 # and 16 layers carry them on to the logits.  0.05 of the largest logit is
 # ~12 such steps of it
 SERVE_REL = 0.05
-# the prompt of the prefill alone: batch 4 of it puts (4, 32, S, S) f32
-# scores, 8.6 GB, in each layer's full-matrix attention
+# the prompt of the first prefill alone, at batch 4: (4, 32, S, S) f32
+# scores would be 8.6 GB a layer, and the full-matrix attention the port
+# had before flash took 27.46 GiB for it
 SERVE_LONG_PROMPT = 4096
+# the reference's prefill_32k length (its batch of 32 cut to 1), prefilled
+# alone; decoding from its cache is held against a full prefill at length
+# 32769, which the reference's chunk rule would cut into 1-row chunks
+PREFILL_32K = 32768
+PREFILL_32K_DECODE = 8               # decode steps from its cache
+# flash attention on the card against the same function on the CPU, at
+# one layer of llama3.2-1b (B, S, H, KH, D; f32): the output and dq, dk,
+# dv within FLASH_REL of each one's largest entry (f32 sums in another
+# order: the card's matmuls), and the peak of one forward + backward at
+# FLASH_PEAK_SEQ against the one (B, H, S, S) f32 score matrix it avoids
+FLASH_SHAPE = (1, 2048, 32, 8, 64)
+FLASH_WINDOWS = (0, 512)
+FLASH_REL = 1e-5
+FLASH_PEAK_SEQ = 8192
+# train_4k's sequence length; its batch of 256 cut to 8 (4 a node)
+TRAIN_SEQ = 4096
+# the archs served besides llama3.2-1b, at published widths and full
+# depth, bf16: (batch, prompt, gen, decode-vs-prefill positions) each
+SERVE_ARCHS = (("qwen2-1.5b", ((4, 64, 32, 3), (8, 512, 64, 3))),
+               ("granite-8b", ((4, 64, 16, 1),)),
+               ("phi3-medium-14b", ((4, 64, 16, 1),)),
+               ("musicgen-medium", ((4, 64, 16, 1),)))
 
 
 def emit(phase: str, **fields) -> None:
@@ -808,13 +851,85 @@ def bitpack_times(dev, batched: bool):
     return out
 
 
+def flash_phase(dev) -> dict:
+    """Flash attention (models/flash.py, plain PyTorch) on the card
+    against the same function on the CPU at FLASH_SHAPE, causal, for each
+    of FLASH_WINDOWS: the output and the three gradients of one forward +
+    backward within FLASH_REL of their largest entry; the device ms of a
+    forward and of a forward + backward; then the peak above the inputs
+    of one forward + backward at FLASH_PEAK_SEQ."""
+    from repro_torch.models import flash
+    from repro_torch.utils import disable_tf32
+    disable_tf32()
+    B, S, H, KH, D = FLASH_SHAPE
+    gen = torch.Generator().manual_seed(0)
+
+    def inputs(seq):
+        return [torch.randn(shape, generator=gen) for shape in (
+            (B, seq, H, D), (B, seq, KH, D), (B, seq, KH, D), (B, seq, H, D))]
+
+    def fwd_bwd(q, k, v, do, window):
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o = flash.flash_attention(q, k, v, True, window)
+        o.backward(do)
+        return [o.detach(), q.grad, k.grad, v.grad]
+
+    q, k, v, do = inputs(S)
+    on_card = [x.to(dev) for x in (q, k, v, do)]
+    out = {"shape": dict(zip(("B", "S", "H", "KH", "D"), FLASH_SHAPE)),
+           "dtype": "float32", "tol_rel": FLASH_REL}
+    for window in FLASH_WINDOWS:
+        want = fwd_bwd(q, k, v, do, window)
+        got = fwd_bwd(*on_card, window)
+        rel = {name: float((a.cpu() - b).abs().max() / b.abs().max())
+               for name, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: flash.flash_attention(
+                *on_card[:3], True, window), 5)
+        out[f"window {window}"] = {
+            "rel_err": rel, "fwd_ms": fwd_ms,
+            "fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(*on_card, window), 3)}
+        if max(rel.values()) > FLASH_REL:
+            raise AssertionError(f"flash window {window}: card against CPU "
+                                 f"{rel} > {FLASH_REL}")
+    del on_card
+    long = [x.to(dev) for x in inputs(FLASH_PEAK_SEQ)]
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    grads = fwd_bwd(*long, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    finite = all(bool(g.isfinite().all()) for g in grads)
+    del long, grads
+    out[f"S {FLASH_PEAK_SEQ}"] = {
+        "fwd_bwd_s": seconds, "peak_gib": peak / 2 ** 30,
+        "one_score_matrix_gib": B * H * FLASH_PEAK_SEQ ** 2 * 4 / 2 ** 30,
+        "finite": finite}
+    emit("flash", **out)
+    if not finite:
+        raise AssertionError(f"flash S {FLASH_PEAK_SEQ}: non-finite result")
+    gc_cuda()
+    return out
+
+
+def gc_cuda() -> None:
+    """Collect what reference cycles hold, then return the cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class _Interrupt(Exception):
     """Raised by a run's step hook to stop it after a given step, as a
     crash would (the resume check)."""
 
 
 def train_phase(dev, name: str, flags, steps: int, *expects,
-                gc_off: bool = False, stop_after=None, raises=None):
+                gc_off: bool = False, stop_after=None, raises=None,
+                reduced=("n_layers",)):
     """One training run through launch.train.run(): the launch counts are
     reset just before and read just after; each ``expect(launches,
     phases)`` raises unless the path went through its kernels (``phases``:
@@ -823,7 +938,8 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     count.  ``gc_off`` disables the garbage collector for the run, so
     whatever a reference cycle holds stays until the end and shows in the
     peak.  ``stop_after`` stops the run after that step; ``raises`` is
-    the exception class the run must raise (nothing else is caught)."""
+    the exception class the run must raise (nothing else is caught).
+    ``reduced``: the cuts of the run, printed with it."""
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core import sparsify as SP
@@ -871,8 +987,8 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
                                            "fault_ops") if k in h}
              for h in records if "guard_ok" in h or "fault_ops" in h}
     emit("train", run=name, transport=args.transport, arch=cfg.name,
-         n_layers=N_LAYERS,
-         reduced=["n_layers"], d_model=cfg.d_model, dtype=cfg.dtype,
+         n_layers=N_LAYERS, seq=args.seq, batch=args.batch,
+         reduced=list(reduced), d_model=cfg.d_model, dtype=cfg.dtype,
          n_params=comp.layout.n_total if comp else None,
          nodes=args.pod_shards * args.data_shards,
          mesh=comp.Ks if comp else None,
@@ -1400,85 +1516,107 @@ def convnet5_phase(dev, runs) -> None:
         raise AssertionError(f"MI fractions out of [0, 1]: {fracs}")
 
 
-def serve_phase(dev) -> dict:
-    """llama3.2-1b at published widths and all 16 layers (no cut), bf16,
-    random weights from seed 0, through repro_torch.launch.serve's run():
-    after one run at the defaults that pays the one-off set-up, the
-    defaults (batch 4, prompt 64, gen 32) and a longer prompt (batch 8,
-    prompt 512, gen 64).  For each, the run's tokens fed
-    back through prefill + decode_step: at three decode positions the
+def serve_checked(dev, cfg, model, params, batch: int, plen: int,
+                  gen: int, n_checks: int) -> dict:
+    """One run of repro_torch.launch.serve's run() with ``params``, then
+    its tokens fed back through prefill + decode_step: whether the
+    replayed greedy tokens are the run's, and at ``n_checks`` positions
+    (3: the first, the middle and the last decoded; 1: the last) the
     logits from the cache must equal a full prefill's last-token logits
-    of the same prefix within SERVE_REL of their largest entry.  Prints
-    the prefill ms, the median decode ms per step (the latency), tokens/s
-    (the batch's decoded tokens over the decode loop's time) and the peak
-    GiB; one profiled decode step (its kernels and device busy ms against
-    the weights' read); and a prefill alone at batch 4, prompt 4096 (the
-    full-matrix attention's f32 scores, 8.6 GB a layer): its ms and peak."""
-    import gc
-    from torch.profiler import ProfilerActivity, profile
+    of the same prefix within SERVE_REL of their largest entry.  Prints the prefill
+    ms, the median decode ms per step (the latency), tokens/s (the
+    batch's decoded tokens over the decode loop's time) and the peak GiB."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(["--arch", cfg.name, "--batch", str(batch),
+                             "--prompt-len", str(plen), "--gen", str(gen)])
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = serve.run(cfg, args, params=params)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    toks = torch.cat([torch.from_numpy(run["prompt"]),
+                      torch.from_numpy(run["tokens"])], 1).to(dev).long()
+    # decoded positions are plen .. plen + gen - 2
+    check_at = ((plen, plen + gen // 2, plen + gen - 2) if n_checks == 3
+                else (plen + gen - 2,))
+    checks, replayed = {}, True
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks[:, :plen]},
+                                 cache_len=plen + gen)
+        for pos in range(plen, plen + gen - 1):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, pos:pos + 1], pos)
+            replayed &= bool(torch.equal(logits[:, 0].argmax(-1),
+                                         toks[:, pos + 1]))
+            if pos in check_at:
+                full, _ = model.prefill(params, {"tokens": toks[:, :pos + 1]})
+                checks[pos] = decode_check(logits, full)
+        del cache
+    step_ms = sorted(run["step_ms"])
+    name = f"B{batch} prompt {plen} gen {gen}"
+    result = {
+        "batch": batch, "prompt_len": plen, "gen": gen,
+        "prefill_ms": run["prefill_ms"],
+        "decode_ms_median": step_ms[len(step_ms) // 2],
+        "decode_ms_min": step_ms[0], "decode_ms_max": step_ms[-1],
+        # the loop decodes gen - 1 tokens a sequence (prefill gave the
+        # first): all of them over all of its time
+        "tokens_per_s": batch * (gen - 1) / run["decode_s"],
+        "peak_gib": peak, "decode_vs_prefill": checks,
+        "tol_rel": SERVE_REL, "replayed_tokens_equal": replayed}
+    emit("serve", run=name, arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=cfg.dtype, reduced=[], **result)
+    if not all(c["max_abs_err"] <= SERVE_REL * c["max_abs_logit"]
+               for c in checks.values()):
+        raise AssertionError(f"serve {cfg.name} {name}: decoding from the "
+                             f"cache differs from a full prefill: {checks}")
+    return result
+
+
+def decode_check(logits, full) -> dict:
+    """Decode's logits against a full prefill's, (B, 1, V) each."""
+    return {"max_abs_err": float((logits - full).abs().max()),
+            "max_abs_logit": float(full.abs().max()),
+            "argmax_agree": float((logits.argmax(-1) == full.argmax(-1))
+                                  .float().mean())}
+
+
+def serve_arch(dev, arch: str, shapes):
+    """``arch`` at published widths and full depth, bf16, random weights
+    from seed 0, through serve.run(): one run at the first shape pays the
+    one-off set-up (cuBLAS's handles and heuristics), then each of
+    ``shapes`` through serve_checked.  Returns (results, model, params)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    from repro_torch.launch.profile import kernel_times
     from repro_torch.models.model import build_model
-    from repro_torch.utils.tree import tree_leaves
-    cfg = get_arch("llama3.2-1b")
+    cfg = get_arch(arch)
     model = build_model(cfg)
-    # a first run at the defaults pays the one-off set-up (cuBLAS's
-    # handles and heuristics): measured runs follow it
-    params = serve.run(cfg, serve.parse_args([]))["params"]
-    result = {}
-    for batch, plen, gen in ((4, 64, 32), (8, 512, 64)):
-        args = serve.parse_args(["--batch", str(batch), "--prompt-len",
-                                 str(plen), "--gen", str(gen)])
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        run = serve.run(cfg, args, params=params)
-        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        params = run["params"]
-        toks = torch.cat([torch.from_numpy(run["prompt"]),
-                          torch.from_numpy(run["tokens"])], 1).to(dev).long()
-        # decoded positions are plen .. plen + gen - 2
-        check_at = (plen, plen + gen // 2, plen + gen - 2)
-        checks, replayed = {}, True
-        with torch.no_grad():
-            _, cache = model.prefill(params, {"tokens": toks[:, :plen]},
-                                     cache_len=plen + gen)
-            for pos in range(plen, plen + gen - 1):
-                logits, cache = model.decode_step(params, cache,
-                                                  toks[:, pos:pos + 1], pos)
-                replayed &= bool(torch.equal(logits[:, 0].argmax(-1),
-                                             toks[:, pos + 1]))
-                if pos in check_at:
-                    full, _ = model.prefill(params,
-                                            {"tokens": toks[:, :pos + 1]})
-                    scale = float(full.abs().max())
-                    checks[pos] = {
-                        "max_abs_err": float((logits - full).abs().max()),
-                        "max_abs_logit": scale,
-                        "argmax_agree": float((logits.argmax(-1)
-                                               == full.argmax(-1)).float()
-                                              .mean())}
-            del cache
-        ok = all(c["max_abs_err"] <= SERVE_REL * c["max_abs_logit"]
-                 for c in checks.values())
-        step_ms = sorted(run["step_ms"])
-        median = step_ms[len(step_ms) // 2]
-        name = f"B{batch} prompt {plen} gen {gen}"
-        result[name] = {
-            "batch": batch, "prompt_len": plen, "gen": gen,
-            "prefill_ms": run["prefill_ms"], "decode_ms_median": median,
-            "decode_ms_min": step_ms[0], "decode_ms_max": step_ms[-1],
-            # the loop decodes gen - 1 tokens a sequence (prefill gave the
-            # first): all of them over all of its time
-            "tokens_per_s": batch * (gen - 1) / run["decode_s"],
-            "peak_gib": peak, "decode_vs_prefill": checks,
-            "tol_rel": SERVE_REL, "replayed_tokens_equal": replayed}
-        emit("serve", run=name, arch=cfg.name, n_layers=cfg.n_layers,
-             dtype=cfg.dtype, reduced=[], **result[name])
-        if not ok:
-            raise AssertionError(f"serve {name}: decoding from the cache "
-                                 f"differs from a full prefill: {checks}")
+    b, p, g, _ = shapes[0]
+    params = serve.run(cfg, serve.parse_args([
+        "--arch", arch, "--batch", str(b), "--prompt-len", str(p), "--gen",
+        str(g)]))["params"]
+    results = {f"B{b} prompt {p} gen {g}":
+               serve_checked(dev, cfg, model, params, b, p, g, n)
+               for b, p, g, n in shapes}
+    return results, model, params
+
+
+def serve_phase(dev) -> dict:
+    """llama3.2-1b at published widths and all 16 layers (no cut), bf16,
+    random weights from seed 0 (serve_arch): the defaults (batch 4,
+    prompt 64, gen 32) and a longer prompt (batch 8, prompt 512, gen 64),
+    each with the decode-vs-prefill check at three positions; one
+    profiled decode step (its kernels and device busy ms against the
+    weights' read); a prefill alone at batch 4, prompt SERVE_LONG_PROMPT:
+    its ms and peak; then PREFILL_32K at batch 1: its ms, peak and finite
+    logits, PREFILL_32K_DECODE decode steps from its cache, the first held
+    against a full prefill of length PREFILL_32K + 1.  Then each arch of
+    SERVE_ARCHS, freed before the next."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile import kernel_times
+    from repro_torch.utils.tree import tree_leaves
+    result, model, params = serve_arch(
+        dev, "llama3.2-1b", ((4, 64, 32, 3), (8, 512, 64, 3)))
+    cfg = model.cfg
     # one decode step under the profiler, at the defaults' shapes
     with torch.no_grad():
         prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=dev)
@@ -1507,14 +1645,13 @@ def serve_phase(dev) -> dict:
         "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                 for k, ms, c in kernels[:6]]}
     emit("serve_decode_profile", **result["decode_profile"])
-    # a prefill alone at the longest prompt the full-matrix attention is
-    # sized for here
-    gc.collect()
-    torch.cuda.empty_cache()
+    # a prefill alone at batch 4, prompt SERVE_LONG_PROMPT
+    gc_cuda()
     torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         prompt = torch.randint(0, cfg.vocab_size, (4, SERVE_LONG_PROMPT),
-                               device=dev)
+                               device=dev, generator=gen)
         model.prefill(params, {"tokens": prompt[:, :64]})   # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1531,10 +1668,66 @@ def serve_phase(dev) -> dict:
     if not finite:
         raise AssertionError(f"serve: non-finite logits at prompt "
                              f"{SERVE_LONG_PROMPT}")
+    result["prefill_32k"] = prefill_32k(dev, model, params, gen)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
+    for arch, shapes in SERVE_ARCHS:
+        result[arch], _, params = serve_arch(dev, arch, shapes)
+        del params
+        gc_cuda()
     return result
+
+
+def prefill_32k(dev, model, params, gen) -> dict:
+    """PREFILL_32K tokens at batch 1 into a cache of PREFILL_32K +
+    PREFILL_32K_DECODE slots, greedy decode steps from it, and the first
+    step's logits against a full prefill of the prompt and its token."""
+    P, n = PREFILL_32K, PREFILL_32K_DECODE
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        prompt = torch.randint(0, model.cfg.vocab_size, (1, P), device=dev,
+                               generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      cache_len=P + n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        finite = bool(logits.isfinite().all())
+        toks, step_ms = [logits[:, -1].argmax(-1)], []
+        for pos in range(P, P + n):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache,
+                                              toks[-1][:, None], pos)
+            toks.append(logits[:, 0].argmax(-1))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if pos == P:
+                first = logits
+        del cache
+        finite &= bool(first.isfinite().all())
+        t0 = time.perf_counter()
+        full, _ = model.prefill(params, {"tokens": torch.cat(
+            [prompt, toks[0][:, None]], 1)})
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        check = decode_check(first, full)
+    out = {"batch": 1, "prompt_len": P, "prefill_ms": ms, "peak_gib": peak,
+           "finite": finite, "decode_steps": n,
+           "decode_ms_median": sorted(step_ms)[n // 2],
+           "decode_ms_max": max(step_ms), "full_prefill_len": P + 1,
+           "full_prefill_ms": full_ms, "decode_vs_prefill": check,
+           "tol_rel": SERVE_REL, "reduced": ["batch"]}
+    emit("serve_prefill_32k", arch=model.cfg.name,
+         n_layers=model.cfg.n_layers, **out)
+    if not finite:
+        raise AssertionError(f"serve: non-finite logits at prompt {P}")
+    if check["max_abs_err"] > SERVE_REL * check["max_abs_logit"]:
+        raise AssertionError(f"serve prompt {P}: decoding from the cache "
+                             f"differs from a full prefill: {check}")
+    return out
 
 
 def main() -> None:
@@ -1555,7 +1748,7 @@ def main() -> None:
     k3 = k3_phase(dev)
     k7, k7_launches = k7_phase(dev)
     bp = bitpack_phase(dev)
-    torch.cuda.empty_cache()
+    flash_phase(dev)
     n_leaves = len(llama_layout(0.001).compressed)
     K = 2
     from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
@@ -1644,6 +1837,13 @@ def main() -> None:
             f"ring_hier: peak {hier_runs[0]['peak_gib']} GiB with the "
             f"collector off exceeds {HIER_PEAK_GIB} GiB: a reference cycle "
             "keeps tensors alive")
+    # train_4k's sequence length (its batch of 256 cut to 8: 4 sequences
+    # a node): flash attention and each block rematerialised
+    runs["lgc_rar seq 4096"] = train_phase(
+        dev, "lgc_rar seq 4096", lgc + ["--seq", str(TRAIN_SEQ)], 6,
+        per_step(fused_ef_topk=K,
+                 compressed={"matmul_bias_lrelu": len(ENCODER) * K}),
+        reduced=("n_layers", "batch"))
     guard_runs(dev, runs, n_leaves, K, lgc, dgc, q8)
     resume_run(dev, runs, K, lgc)
     convnet5_phase(dev, runs)

@@ -1,8 +1,17 @@
 """Architecture configs.  Importing this package registers the ported
 archs (the other arch families arrive with their model code)."""
-from repro_torch.configs.base import (ARCH_REGISTRY, CompressionConfig,
-                                      ModelConfig, TrainConfig, get_arch)
-from repro_torch.configs import llama3_2_1b  # noqa: F401
+from repro_torch.configs.base import (ARCH_REGISTRY, INPUT_SHAPES,
+                                      CompressionConfig, InputShape,
+                                      ModelConfig, TrainConfig, get_arch,
+                                      list_archs)
+from repro_torch.configs import (  # noqa: F401
+    granite_8b,
+    llama3_2_1b,
+    musicgen_medium,
+    phi3_medium_14b,
+    qwen2_1_5b,
+)
 
-__all__ = ["ARCH_REGISTRY", "CompressionConfig", "ModelConfig",
-           "TrainConfig", "get_arch"]
+__all__ = ["ARCH_REGISTRY", "INPUT_SHAPES", "CompressionConfig",
+           "InputShape", "ModelConfig", "TrainConfig", "get_arch",
+           "list_archs"]

@@ -1,14 +1,14 @@
 """Config system: :class:`ModelConfig` (architecture), :class:`TrainConfig`
 (optimizer/schedule) and :class:`CompressionConfig` (the paper's
-technique), plus the arch registry.  Counterpart of
-``repro.configs.base``, cut to what the ported slices run: dense decoder
-stacks, and the fields of the six compressors on the emulated
-transports.
+technique), plus the arch registry and the reference's input shapes.
+Counterpart of ``repro.configs.base``, cut to what the ported slices
+run: stacks of attention blocks, and the fields of the six compressors
+on the emulated transports.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 ATTN = "attn"
 
@@ -16,7 +16,8 @@ ATTN = "attn"
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the only ported family)
+    family: str                      # dense | audio (musicgen); the model
+                                     # dispatches on block_pattern
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,6 +61,22 @@ class ModelConfig:
             small["sliding_window"] = 64
         small.update(overrides)
         return replace(self, **small)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -126,6 +143,11 @@ def get_arch(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (triggers registration)
     if name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; ported: "
-                       f"{sorted(ARCH_REGISTRY)} (the other families are "
-                       "ROADMAP.md Queue 1, 'other arch families')")
+                       f"{sorted(ARCH_REGISTRY)} (the other block kinds are "
+                       "ROADMAP.md Queue 1, 'modules to port')")
     return ARCH_REGISTRY[name]()
+
+
+def list_archs() -> Sequence[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(ARCH_REGISTRY)

@@ -3,17 +3,19 @@ dense subset).  Params are nested dicts of tensors in the reference's
 layouts: linear weights (in, out), a leading ``lead`` axis on stacked
 block params.
 
-Attention is plain PyTorch: explicit matmuls, an f32 softmax and a causal
-mask, differentiated by autograd.  The reference's ``models/flash.py`` is
-plain jnp with a recompute-in-backward VJP, not a Pallas kernel; at the
-sequence lengths the port trains with, the plain form needs no such
-memory trick.  Its (B, H, S, S) f32 scores bound the prompt length of a
-prefill (8.6 GB a layer at B = 4, S = 4096).
+Training and prefill attend through ``flash.flash_attention``, as the
+reference's ``attention_fwd`` does: an online softmax over chunks whose
+backward recomputes the probabilities, so no (S, S) score matrix is
+ever held and the prompt and training lengths are bounded by the
+weights, the cache and one layer's activations, not by S².
+``blockwise_attention`` (defined in ``flash``) is the same forward
+with explicit positions.
 
 Decode (``attention_decode`` over the cache of ``init_attention_cache``)
-is plain PyTorch too, as the reference's ``decode_attention`` is plain
-jnp; unlike the reference's functional update, it writes the new token's
-k, v and position into the cache IN PLACE.
+is plain PyTorch, as the reference's ``decode_attention`` is plain jnp:
+one query row against the cache needs no chunking.  Unlike the
+reference's functional update, it writes the new token's k, v and
+position into the cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import flash
+from repro_torch.models.flash import blockwise_attention  # noqa: F401
 
 
 def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
@@ -35,7 +39,7 @@ def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
     meta = torch.device(device).type == "meta"     # shapes only
     w = torch.randn(tuple(lead) + tuple(shape), device=device,
                     generator=None if meta else gen, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def init_linear(gen, d_in, d_out, dtype, device, bias=False, lead=()):
@@ -81,24 +85,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def causal_attention(q, k, v, window: int = 0):
-    """q: (B, S, H, D); k, v: (B, S, KH, D) with H % KH == 0 (GQA: query
-    head h reads kv head h // (H/KH)).  Scores and softmax in f32.
-    Returns (B, S, H, D) in q's dtype."""
-    B, S, H, D = q.shape
-    G = H // k.shape[2]
-    qf = q.float().transpose(1, 2)                           # (B,H,S,D)
-    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
-    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
-    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-    pos = torch.arange(S, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if window:
-        mask &= pos[:, None] - pos[None, :] < window
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-    return (p @ vf).transpose(1, 2).to(q.dtype)
-
-
 def init_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
     D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return {
@@ -121,7 +107,7 @@ def attention_fwd(p, cfg: ModelConfig, x, positions):
     v = linear(p["wv"], h).view(B, S, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = causal_attention(q, k, v, cfg.sliding_window)
+    o = flash.flash_attention(q, k, v, True, cfg.sliding_window)
     return x + linear(p["wo"], o.reshape(B, S, -1)), (k, v)
 
 

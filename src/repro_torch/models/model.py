@@ -1,15 +1,19 @@
-"""The dense decoder (counterpart of ``repro.models.model``, dense family).
+"""The decoder of attention blocks (counterpart of ``repro.models.model``
+for ``block_pattern == ("attn",)``: the dense family and musicgen's).
 
 Params keep the reference's tree: ``{"embed": {"w"}, "final_norm":
 {"scale"}, "blocks": {"p0": {"mixer": ..., "ffn": ...}}, ["lm_head"]}``
 with every block leaf stacked along a leading ``n_blocks`` axis, so the
-flat gradient has the reference's layout.  Serving: ``init_cache``,
-``prefill`` (the prompt's last-token logits and the filled cache) and
-``decode_step`` (one token from the cache, which it updates in place),
-with the cache tree ``{"p0": {"k", "v": (n_blocks, B, S, KH, hd), "pos":
-(n_blocks, S)}}`` as the reference stacks it.  MoE, MLA, Mamba,
-cross-attention and multi-token prediction, and their caches, are not
-ported yet (ROADMAP.md Queue 1).
+flat gradient has the reference's layout.  ``loss`` remats each block
+and each cross-entropy chunk (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does, and its attention keeps no (S, S)
+matrix (``flash``), so training lengths reach the reference's
+``train_4k``.  Serving: ``init_cache``, ``prefill`` (the prompt's
+last-token logits and the filled cache) and ``decode_step`` (one token
+from the cache, which it updates in place), with the cache tree ``{"p0":
+{"k", "v": (n_blocks, B, S, KH, hd), "pos": (n_blocks, S)}}`` as the
+reference stacks it.  MoE, MLA, Mamba, cross-attention and multi-token
+prediction, and their caches, are not ported yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import layers as L
@@ -34,10 +39,11 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.family != "dense" or self.cfg.block_pattern != (ATTN,):
+        if self.cfg.block_pattern != (ATTN,):
             raise NotImplementedError(
-                f"{self.cfg.name}: only the dense decoder is ported "
-                "(ROADMAP.md Queue 1, 'other arch families')")
+                f"{self.cfg.name}: block pattern {self.cfg.block_pattern}; "
+                "only attention blocks are ported (ROADMAP.md Queue 1, "
+                "'modules to port')")
 
     def init(self, gen: torch.Generator, device="cpu") -> Dict[str, Any]:
         cfg, dtype = self.cfg, _dtype(self.cfg)
@@ -62,28 +68,47 @@ class Model:
             return params["embed"]["w"].T
         return params["lm_head"]["w"]
 
-    def _trunk(self, params, tokens, kv=None):
+    def _block_fn(self, params, i: int, h, positions, kv=None):
+        """Block i: attention then SwiGLU; its (k, v) is appended to
+        ``kv`` if given."""
+        p = _block(params, i)
+        h, k_v = L.attention_fwd(p["mixer"], self.cfg, h, positions)
+        if kv is not None:
+            kv.append(k_v)
+        return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps)
+
+    def _trunk(self, params, tokens, kv=None, remat: bool = False):
         """Embedding and blocks: the hidden states (B, S, D) before the
-        final norm; each block's (k, v) is appended to ``kv`` if given."""
-        cfg = self.cfg
+        final norm; each block's (k, v) is appended to ``kv`` if given.
+        ``remat``: each block under ``checkpoint``, which keeps only its
+        input and recomputes the rest in the backward."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h = params["embed"]["w"][tokens]
-        for i in range(cfg.n_blocks):
-            p = _block(params, i)
-            h, k_v = L.attention_fwd(p["mixer"], cfg, h, positions)
-            if kv is not None:
-                kv.append(k_v)
-            h = L.swiglu_fwd(p["ffn"], h, cfg.rms_norm_eps)
+        for i in range(self.cfg.n_blocks):
+            if remat:
+                # non-reentrant: the params reach the block through the
+                # closure, and node_grads differentiates with respect to
+                # them; the blocks draw no random numbers
+                h = checkpoint(self._block_fn, params, i, h, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = self._block_fn(params, i, h, positions, kv)
         return h
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, remat: Optional[bool] = None):
         """batch: {"tokens": (B, S), "labels": (B, S) (-1 = pad)} on the
-        params' device.  Returns (loss, metrics)."""
+        params' device.  ``remat`` None or True recomputes each block and
+        each cross-entropy chunk in the backward (the reference's
+        default): the same operations on the same inputs, so the same
+        values (bit for bit where the embedding's backward sums in a fixed
+        order).  Returns (loss, metrics)."""
         cfg = self.cfg
+        remat = True if remat is None else remat
         h = L.rmsnorm(params["final_norm"],
-                      self._trunk(params, batch["tokens"]), cfg.rms_norm_eps)
+                      self._trunk(params, batch["tokens"], remat=remat),
+                      cfg.rms_norm_eps)
         xent, n_tok = _chunked_xent(h, self._lm_head_w(params),
-                                    batch["labels"])
+                                    batch["labels"], remat=remat)
         loss = xent / torch.clamp(n_tok, min=1.0)
         metrics = {"xent": loss, "aux_loss": torch.zeros_like(loss),
                    "tokens": n_tok, "loss": loss}
@@ -101,12 +126,14 @@ class Model:
                                              _dtype(self.cfg), device,
                                              lead=(self.cfg.n_blocks,))}
 
+    @torch.no_grad()
     def prefill(self, params, batch, cache_len: Optional[int] = None):
-        """Process a whole prompt.  batch: {"tokens": (B, S)} on the
-        params' device; cache_len: the cache's capacity (>= S, default
-        S).  Returns (last-token logits (B, 1, V) f32, the filled cache:
-        under a sliding window, a prompt longer than the window keeps its
-        last ``window`` positions in ring order, slot = pos % window)."""
+        """Process a whole prompt (no gradient, no remat).  batch:
+        {"tokens": (B, S)} on the params' device; cache_len: the cache's
+        capacity (>= S, default S).  Returns (last-token logits (B, 1, V)
+        f32, the filled cache: under a sliding window, a prompt longer
+        than the window keeps its last ``window`` positions in ring order,
+        slot = pos % window)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -124,6 +151,7 @@ class Model:
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.rms_norm_eps)
         return (h @ self._lm_head_w(params)).float(), cache
 
+    @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos: int):
         """One decode step.  tokens: (B, 1); pos: the current absolute
         position.  Writes the token's k, v into the cache in place and
@@ -144,8 +172,22 @@ def _block(params, i: int):
     return tree_map(lambda t: t[i], params["blocks"]["p0"])
 
 
-def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28):
-    """Cross-entropy in sequence chunks, summed in the reference's order.
+def _xent_chunk(hc, w, lb):
+    """One chunk's (sum of xent, valid tokens)."""
+    V = w.shape[-1]
+    logits = (hc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lb.clamp(0, V - 1).long()[..., None])[..., 0]
+    valid = (lb >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28,
+                  remat: bool = False):
+    """Cross-entropy in sequence chunks, summed in the reference's order,
+    so the (B, chunk, V) logits, not (B, S, V), bound the memory; with
+    ``remat`` each chunk is recomputed in the backward, as the
+    reference's ``jax.checkpoint`` body is, so no chunk's softmax is kept.
     h: (B, S, D); w: (D, V); labels: (B, S), -1 = ignore.
     Returns (sum_xent, n_tokens), f32 scalars."""
     B, S, _ = h.shape
@@ -157,13 +199,14 @@ def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28):
     xent = torch.zeros((), dtype=torch.float32, device=h.device)
     n_tok = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, S, chunk):
-        logits = (h[:, c:c + chunk] @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        lb = labels[:, c:c + chunk]
-        gold = logits.gather(-1, lb.clamp(0, V - 1).long()[..., None])[..., 0]
-        valid = (lb >= 0).float()
-        xent = xent + ((lse - gold) * valid).sum()
-        n_tok = n_tok + valid.sum()
+        args = (h[:, c:c + chunk], w, labels[:, c:c + chunk])
+        if remat:
+            x, n = checkpoint(_xent_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, n = _xent_chunk(*args)
+        xent = xent + x
+        n_tok = n_tok + n
     return xent, n_tok
 
 

@@ -75,7 +75,70 @@ def test_init_is_seeded_and_shaped_like_reference():
 
 
 def test_non_dense_family_raises():
+    """The model dispatches on the block pattern, as the reference's
+    does: a pattern with a block kind the port lacks raises, whatever
+    the family; musicgen's "audio" family of attention blocks builds."""
     import dataclasses
-    cfg = dataclasses.replace(get_arch("llama3.2-1b"), family="moe")
-    with pytest.raises(NotImplementedError):
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                              block_pattern=("attn", "mamba"))
+    with pytest.raises(NotImplementedError, match="Queue 1"):
         build_model(cfg)
+    cfg = get_arch("musicgen-medium")
+    assert cfg.family == "audio"
+    assert build_model(cfg).param_count() == 1818379776
+
+
+@pytest.fixture
+def deterministic():
+    """The CPU's index_put accumulate (the embedding's backward) adds the
+    rows of repeated tokens in a thread-dependent order, so the embedding
+    gradient differs run to run, with or without remat; its
+    deterministic algorithm fixes the order."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _remat_setup():
+    cfg = get_arch("llama3.2-1b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(4))
+    batch = {k: torch.from_numpy(v).long() for k, v in next(
+        synthetic_token_batches(cfg.vocab_size, 4, 48, seed=6)).items()}
+    return model, params, batch
+
+
+def test_remat_changes_no_bit(deterministic):
+    """Model.loss with each block and each cross-entropy chunk under
+    checkpoint (remat None, the default, and True) gives the loss and
+    every gradient leaf bit for bit as without it."""
+    model, params, batch = _remat_setup()
+    got = {}
+    for remat in (None, True, False):
+        leaves = [p.clone().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = model.loss(tree_unflatten(params, leaves), batch,
+                             remat=remat)
+        got[remat] = [loss.detach()] + list(torch.autograd.grad(loss,
+                                                                leaves))
+    for remat in (None, True):
+        for a, b in zip(got[remat], got[False]):
+            assert torch.equal(a, b)
+
+
+def test_remat_changes_no_bit_through_node_grads(deterministic):
+    """The trainer's per-node gradients at K = 2 (params reaching the
+    checkpointed blocks through a closure): the same bits with remat as
+    without."""
+    from repro_torch.launch.steps import node_grads
+    model, params, batch = _remat_setup()
+    n = sum(p.numel() for p in tree_leaves(params))
+    g1, m1 = node_grads(functools.partial(model.loss, remat=True), params,
+                        batch, 2, n)
+    g0, m0 = node_grads(functools.partial(model.loss, remat=False), params,
+                        batch, 2, n)
+    assert g1.abs().sum() > 0
+    assert torch.equal(g1, g0)
+    assert torch.equal(m1["loss"], m0["loss"])
