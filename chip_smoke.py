@@ -58,6 +58,17 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               forward and of a forward + backward; the peak of one
               forward + backward at S 8192 beside the 8 GiB one (1, 32,
               S, S) f32 score matrix would take
+  8b. moe     layers.moe_fwd (plain PyTorch, as the reference's is plain
+              jnp) at arctic-480b's widths (d_model 7168, d_ff_expert
+              4864, the dense residual), experts cut to 8, f32, 1024
+              tokens, capacity (G = 32, C = 10) and dropless: the output,
+              the aux loss and every gradient on the card against the CPU
+              within MOE_REL; device ms of a forward and a forward +
+              backward
+  8c. ssd     models/mamba2.py at mamba2-130m's width: ssd_chunked and
+              mamba_fwd at S 2048 and 4097 (the padded chunk plan), the
+              output within SSD_REL and every gradient within
+              SSD_GRAD_REL of the CPU's; device ms
   9. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
@@ -84,7 +95,12 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               a tensor kept alive by a reference cycle raises it) and in
               4 buckets, whose losses must be equal; then lgc_rar at
               train_4k's sequence length (--seq 4096, batch 8: train_4k's
-              256 cut to 4 sequences a node), 6 steps.  Every block and
+              256 cut to 4 sequences a node), 6 steps; then lgc_rar (K1
+              and K3 counted per step) on mamba2-130m at full width and
+              depth (24 layers, bf16, the SSM's leaves) at seq 128 and
+              4096, and on arctic-480b at published widths with n_layers
+              cut from 35 to 1 and num_experts from 128 to 4 (the 3-D
+              expert stacks; G = 32, C = 10), 6 steps each.  Every block and
               cross-entropy chunk is rematerialised.  Each
               run resets the launch counts before and reads them after;
               launch counts per phase, finite losses and per-op
@@ -145,7 +161,17 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               P512 G64, three positions each), and granite-8b (36 layers),
               phi3-medium-14b (40) and musicgen-medium (48) at B4 P64 G16
               with the check at one position, each at published widths
-              and full depth, bf16, freed before the next
+              and full depth, bf16, freed before the next; then
+              mamba2-130m at full depth as llama3.2-1b (B4 P64 G32, B8
+              P512 G64, the check held), and a batch-1 prompt of 32768
+              with 8 decode steps from its O(1) state against a 32769
+              prefill; arctic-480b cut to 2 layers (B4 P64 G16, B8 P512
+              G16: G = 32, C = 2) and jamba-v0.1-52b cut to one
+              superblock (8 layers, B4 P64 G16), decode vs prefill
+              printed, not held (the prefill's capacity drops tokens);
+              then arctic at 1 layer and jamba at one superblock in f32
+              at capacity_factor = E / K, decode vs a full prefill held
+              to SERVE_F32_REL
  14. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function (K6 and K3 also per shape, with their ratio to it);
@@ -162,12 +188,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import subprocess
 import sys
 import time
 
-import torch
+# one allocator segment per block would strand gigabytes between phases
+# of other shapes: arctic's 1.10B-parameter run needs ~72 GiB of the
+# card's 79 and failed with 14 GiB reserved but unallocated.  Read when
+# CUDA starts, so set before anything touches the card
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -225,6 +258,38 @@ SERVE_ARCHS = (("qwen2-1.5b", ((4, 64, 32, 3), (8, 512, 64, 3))),
                ("granite-8b", ((4, 64, 16, 1),)),
                ("phi3-medium-14b", ((4, 64, 16, 1),)),
                ("musicgen-medium", ((4, 64, 16, 1),)))
+# moe_fwd on the card against the CPU: arctic-480b's published widths
+# with its 128 experts cut to 8, f32, (B, S) = 2 x 512 tokens: the
+# output, the aux loss and every gradient within MOE_REL of their
+# largest entry (f32 sums in another order).  The experts draw with the
+# reference's std 1/sqrt(E), so the gate's pre-activations reach ~30 and
+# w_gate's gradient is the least exact: one f32 evaluation lies 7.1e-6
+# of its largest entry from an f64 one at 128 tokens (every other output
+# <= 1.2e-6; tools/f32_floor.py moe, on the CPU), and the card against
+# the CPU gave 1.39e-5 at these 1024 (NVIDIA H100 80GB HBM3, 700.00 W)
+MOE_EXPERTS = 8
+MOE_TOKENS = (2, 512)
+MOE_REL = 5e-5
+# ssd_chunked and mamba_fwd on the card against the CPU at mamba2-130m's
+# width, f32.  One f32 evaluation of the chunked scan lies from an f64
+# one by up to 2.0e-5 of the largest output entry and 9.7e-5 of the
+# largest gradient entry at these lengths (the decay's exp of
+# differences of cumulative sums; tools/f32_floor.py ssd, on the
+# CPU), so two f32 evaluations are held to ~5x and ~10x that
+SSD_LENGTHS = (2048, 4097)
+SSD_REL = 1e-4
+SSD_GRAD_REL = 1e-3
+# arctic-480b trained at published widths with n_layers cut from 35 to 1
+# and num_experts from 128 to 4 (~1.10B parameters); served bf16 at 2
+# layers (~27.7B parameters, 55.4 GB)
+ARCTIC_TRAIN_EXPERTS = 4
+ARCTIC_SERVE_LAYERS = 2
+# decode vs a full prefill in f32 (TF32 off) at capacity_factor = E / K,
+# where the prefill drops no token: the dropless decode and the no-drop
+# capacity path, the recurrent and the chunked SSM, sum in another order;
+# the chunked scan's f32 floor is ~2e-5 of its output (above), and the
+# stack carries it to the logits
+SERVE_F32_REL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -915,6 +980,165 @@ def flash_phase(dev) -> dict:
     return out
 
 
+def _fwd_bwd(fn, params, inputs, r):
+    """fn(params, *inputs) -> (y, extra) with extra a scalar or None:
+    (y, extra, the gradients of sum(y * r) + extra with respect to every
+    leaf of ``params`` and then every input)."""
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    y, extra = fn(tree_unflatten(params, leaves), *ins)
+    obj = (y * r).sum() + (0 if extra is None else extra)
+    grads = torch.autograd.grad(obj, leaves + ins)
+    return y.detach(), None if extra is None else extra.detach(), grads
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want| (got on any device)."""
+    want = want.double()
+    return float((got.cpu().double() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def card_vs_cpu(fn, params, inputs, r, names, dev):
+    """fn once on the CPU and once on the card from the same tensors:
+    {name: rel error} for y, the extra scalar (if any) and every gradient
+    (``names``: the params' leaf paths, then the inputs')."""
+    from repro_torch.utils.tree import tree_map
+    want = _fwd_bwd(fn, params, inputs, r)
+    got = _fwd_bwd(fn, tree_map(lambda t: t.to(dev), params),
+                   [t.to(dev) for t in inputs], r.to(dev))
+    rel = {"y": _rel(got[0], want[0])}
+    if want[1] is not None:
+        rel["aux"] = _rel(got[1], want[1])
+    rel.update({"d" + n: _rel(a, b) for n, a, b in zip(names, got[2],
+                                                        want[2])})
+    return rel
+
+
+def moe_phase(dev) -> dict:
+    """layers.moe_fwd (plain PyTorch, as the reference's is plain jnp) on
+    the card against the CPU at arctic-480b's published widths (d_model
+    7168, d_ff_expert 4864, the dense residual), experts cut from 128 to
+    MOE_EXPERTS, f32 (TF32 off), MOE_TOKENS tokens, capacity dispatch
+    (G = 32 groups, C = 10) and dropless: y, the aux loss, the input's
+    and every weight's gradient within MOE_REL of their largest entry;
+    device ms of a forward and of a forward + backward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.utils import disable_tf32
+    from repro_torch.utils.tree import keystr_path, tree_leaves_with_path, \
+        tree_map
+    disable_tf32()
+    base = get_arch("arctic-480b")
+    cfg = dataclasses.replace(base, dtype="float32", moe=dataclasses.replace(
+        base.moe, num_experts=MOE_EXPERTS))
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_moe(gen, cfg, torch.float32, "cpu")
+    x = torch.randn(MOE_TOKENS + (cfg.d_model,), generator=gen)
+    r = torch.randn(x.shape, generator=gen)
+    names = [keystr_path(q) for q, _ in tree_leaves_with_path(p)] + ["x"]
+    out = {"tokens": x.shape[0] * x.shape[1], "experts": MOE_EXPERTS,
+           "d_model": cfg.d_model, "d_ff_expert": cfg.moe.d_ff_expert,
+           "dtype": "float32", "tol_rel": MOE_REL, "reduced":
+           ["num_experts"]}
+    p_dev = tree_map(lambda t: t.to(dev), p)
+    x_dev = x.to(dev)
+    T = out["tokens"]
+    for dropless in (False, True):
+        def fn(pp, xx):
+            return L.moe_fwd(pp, cfg, xx, dropless=dropless)
+        rel = card_vs_cpu(fn, p, [x], r, names, dev)
+        with torch.no_grad():
+            h = L.rmsnorm(p_dev["norm"], x_dev).reshape(T, -1)
+            probs = torch.softmax(L.linear(p_dev["router"], h), -1)
+            _, gsel, _ = L.moe_route(probs, cfg.moe, dropless)
+            fwd_ms = cuda_ms(lambda: fn(p_dev, x_dev), 3)
+        name = "dropless" if dropless else "capacity"
+        out[name] = {"G": gsel.shape[0], "C": gsel.shape[2],
+                     "kept": int((gsel > 0).sum()),
+                     "assigned": T * cfg.moe.top_k, "rel_err": rel,
+                     "fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(
+                         lambda: _fwd_bwd(fn, p_dev, [x_dev], r.to(dev)),
+                         2)}
+        if max(rel.values()) > MOE_REL:
+            raise AssertionError(f"moe {name}: card against CPU {rel} > "
+                                 f"{MOE_REL}")
+    emit("moe", **out)
+    del p_dev, x_dev
+    gc_cuda()
+    return out
+
+
+def ssd_phase(dev) -> dict:
+    """models/mamba2.py on the card against the CPU at mamba2-130m's
+    width (24 heads of 64, d_state 128, chunk 256, f32): ssd_chunked on
+    N(0, 1) inputs (dt = softplus(N(0, 1)), A = -exp(U[0, log 16])) and
+    mamba_fwd with the block's seeded weights, at each of SSD_LENGTHS
+    (4097 takes the padded chunk plan), batch 2: the output within
+    SSD_REL and every gradient within SSD_GRAD_REL of its largest entry;
+    device ms of a forward and of a forward + backward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import mamba2 as M
+    from repro_torch.utils import disable_tf32
+    from repro_torch.utils.tree import keystr_path, tree_leaves_with_path, \
+        tree_map
+    disable_tf32()
+    cfg = dataclasses.replace(get_arch("mamba2-130m"), dtype="float32")
+    s, d_inner, H = M._dims(cfg)
+    P, N, b = s.head_dim, s.d_state, 2
+    gen = torch.Generator().manual_seed(0)
+    p = M.init_mamba(gen, cfg, torch.float32, "cpu")
+    p_dev = tree_map(lambda t: t.to(dev), p)
+    names = [keystr_path(q) for q, _ in tree_leaves_with_path(p)] + ["x"]
+    out = {"heads": H, "head_dim": P, "d_state": N, "chunk": s.chunk_size,
+           "batch": b, "dtype": "float32", "tol_rel": SSD_REL,
+           "grad_tol_rel": SSD_GRAD_REL}
+
+    def ssd(_, *a):
+        return M.ssd_chunked(*a, chunk=s.chunk_size), None
+
+    def block(pp, xx):
+        return M.mamba_fwd(pp, cfg, xx), None
+
+    for S in SSD_LENGTHS:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen)
+        ins = [randn(b, S, H, P),
+               torch.nn.functional.softplus(randn(b, S, H)),
+               -torch.exp(torch.rand(H, generator=gen) * math.log(16.0)),
+               randn(b, S, N), randn(b, S, N), randn(H)]
+        rel_ssd = card_vs_cpu(ssd, {}, ins, randn(b, S, H, P),
+                              ["x", "dt", "A", "B", "C", "D"], dev)
+        x = randn(b, S, cfg.d_model)
+        rel_block = card_vs_cpu(block, p, [x], randn(*x.shape), names, dev)
+        ins_dev = [t.to(dev) for t in ins]
+        x_dev = x.to(dev)
+        r_ssd = torch.randn(ins[0].shape, device=dev)
+        r_x = torch.randn(x.shape, device=dev)
+        with torch.no_grad():
+            t = {"ssd_fwd_ms": cuda_ms(lambda: ssd(None, *ins_dev), 3),
+                 "block_fwd_ms": cuda_ms(lambda: block(p_dev, x_dev), 3)}
+        t["ssd_fwd_bwd_ms"] = cuda_ms(
+            lambda: _fwd_bwd(ssd, {}, ins_dev, r_ssd), 3)
+        t["block_fwd_bwd_ms"] = cuda_ms(
+            lambda: _fwd_bwd(block, p_dev, [x_dev], r_x), 3)
+        Q, Sp = M.chunk_plan(S, s.chunk_size)
+        out[f"S {S}"] = {"chunk_plan": [Q, Sp], "ssd_rel_err": rel_ssd,
+                         "block_rel_err": rel_block, **t}
+        for where, rel in (("ssd_chunked", rel_ssd), ("mamba_fwd",
+                                                      rel_block)):
+            grads = {k: v for k, v in rel.items() if k != "y"}
+            if rel["y"] > SSD_REL or max(grads.values()) > SSD_GRAD_REL:
+                raise AssertionError(
+                    f"ssd S {S} {where}: card against CPU {rel} > "
+                    f"{SSD_REL} (output) / {SSD_GRAD_REL} (gradients)")
+    emit("ssd", **out)
+    del p_dev
+    gc_cuda()
+    return out
+
+
 def gc_cuda() -> None:
     """Collect what reference cycles hold, then return the cached blocks."""
     import gc
@@ -929,7 +1153,7 @@ class _Interrupt(Exception):
 
 def train_phase(dev, name: str, flags, steps: int, *expects,
                 gc_off: bool = False, stop_after=None, raises=None,
-                reduced=("n_layers",)):
+                reduced=("n_layers",), cfg=None):
     """One training run through launch.train.run(): the launch counts are
     reset just before and read just after; each ``expect(launches,
     phases)`` raises unless the path went through its kernels (``phases``:
@@ -939,13 +1163,16 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     whatever a reference cycle holds stays until the end and shows in the
     peak.  ``stop_after`` stops the run after that step; ``raises`` is
     the exception class the run must raise (nothing else is caught).
+    ``cfg``: the model (default llama3.2-1b at N_LAYERS layers);
     ``reduced``: the cuts of the run, printed with it."""
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.core import sparsify as SP
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
-    cfg = dataclasses.replace(get_arch("llama3.2-1b"), n_layers=N_LAYERS)
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                                  n_layers=N_LAYERS)
     args = train.parse_args([
         "--data-shards", "2", "--batch", "8", "--seq", "128",
         "--warmup-steps", "2", "--steps", str(steps), "--log-every", "1",
@@ -987,7 +1214,7 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
                                            "fault_ops") if k in h}
              for h in records if "guard_ok" in h or "fault_ops" in h}
     emit("train", run=name, transport=args.transport, arch=cfg.name,
-         n_layers=N_LAYERS, seq=args.seq, batch=args.batch,
+         n_layers=cfg.n_layers, seq=args.seq, batch=args.batch,
          reduced=list(reduced), d_model=cfg.d_model, dtype=cfg.dtype,
          n_params=comp.layout.n_total if comp else None,
          nodes=args.pod_shards * args.data_shards,
@@ -998,7 +1225,8 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
          error=None if error is None else f"{error[0].__name__}: {error[1]}",
          rate_bytes_per_node=out["rate"].bytes_per_node if out else None)
     result = {"launches": launches, "losses": losses, "wire": wire,
-              "peak_gib": peak, "history": records,
+              "peak_gib": peak, "history": records, "step_ms": step_ms,
+              "n_params": comp.layout.n_total if comp else None,
               "error": None if error is None else error[1],
               "compressor": comp,
               "resumed": out["resumed"] if out is not None else None}
@@ -1060,6 +1288,30 @@ def per_step(compressed=None, **per_sparsified_step):
                     f"steps: {launches}")
     return expect
 
+
+
+def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
+    """lgc_rar (K1 and K3) on the mesh wire, K = 2, batch 8, 6 steps
+    through the three phases, on the new gradient layouts: mamba2-130m
+    at full width and depth (the SSM's leaves) at seq 128 and at
+    train_4k's 4096 (batch 256 cut to 8), and arctic-480b at published
+    widths cut to 1 layer and ARCTIC_TRAIN_EXPERTS experts (the 3-D expert
+    stacks; 4 sequences of 128 a node: G = 32 groups of 16, C = 10)."""
+    from repro_torch.configs import get_arch
+    expect = per_step(fused_ef_topk=K,
+                      compressed={"matmul_bias_lrelu": n_encoder * K})
+    mamba = get_arch("mamba2-130m")
+    runs["mamba2-130m lgc_rar"] = train_phase(
+        dev, "mamba2-130m lgc_rar", lgc, 6, expect, cfg=mamba, reduced=())
+    runs["mamba2-130m lgc_rar seq 4096"] = train_phase(
+        dev, "mamba2-130m lgc_rar seq 4096", lgc + ["--seq", str(TRAIN_SEQ)],
+        6, expect, cfg=mamba, reduced=("batch",))
+    arctic = get_arch("arctic-480b")
+    arctic = dataclasses.replace(arctic, n_layers=1, moe=dataclasses.replace(
+        arctic.moe, num_experts=ARCTIC_TRAIN_EXPERTS))
+    runs["arctic-480b lgc_rar"] = train_phase(
+        dev, "arctic-480b lgc_rar", lgc, 6, expect, cfg=arctic,
+        reduced=("n_layers", "num_experts"))
 
 
 def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
@@ -1517,15 +1769,19 @@ def convnet5_phase(dev, runs) -> None:
 
 
 def serve_checked(dev, cfg, model, params, batch: int, plen: int,
-                  gen: int, n_checks: int) -> dict:
+                  gen: int, n_checks: int, gate: bool = True,
+                  reduced=()) -> dict:
     """One run of repro_torch.launch.serve's run() with ``params``, then
     its tokens fed back through prefill + decode_step: whether the
     replayed greedy tokens are the run's, and at ``n_checks`` positions
     (3: the first, the middle and the last decoded; 1: the last) the
     logits from the cache must equal a full prefill's last-token logits
-    of the same prefix within SERVE_REL of their largest entry.  Prints the prefill
-    ms, the median decode ms per step (the latency), tokens/s (the
-    batch's decoded tokens over the decode loop's time) and the peak GiB."""
+    of the same prefix within SERVE_REL of their largest entry (with
+    ``gate`` False the error is printed, not held: an MoE prefill drops
+    tokens at its capacity that the dropless decode keeps).  Prints the
+    prefill ms, the median decode ms per step (the latency), tokens/s (the
+    batch's decoded tokens over the decode loop's time) and the peak GiB;
+    ``reduced``: the run's cuts."""
     from repro_torch.launch import serve
     args = serve.parse_args(["--arch", cfg.name, "--batch", str(batch),
                              "--prompt-len", str(plen), "--gen", str(gen)])
@@ -1562,11 +1818,12 @@ def serve_checked(dev, cfg, model, params, batch: int, plen: int,
         # first): all of them over all of its time
         "tokens_per_s": batch * (gen - 1) / run["decode_s"],
         "peak_gib": peak, "decode_vs_prefill": checks,
-        "tol_rel": SERVE_REL, "replayed_tokens_equal": replayed}
+        "tol_rel": SERVE_REL if gate else None,
+        "replayed_tokens_equal": replayed}
     emit("serve", run=name, arch=cfg.name, n_layers=cfg.n_layers,
-         dtype=cfg.dtype, reduced=[], **result)
-    if not all(c["max_abs_err"] <= SERVE_REL * c["max_abs_logit"]
-               for c in checks.values()):
+         dtype=cfg.dtype, reduced=list(reduced), **result)
+    if gate and not all(c["max_abs_err"] <= SERVE_REL * c["max_abs_logit"]
+                        for c in checks.values()):
         raise AssertionError(f"serve {cfg.name} {name}: decoding from the "
                              f"cache differs from a full prefill: {checks}")
     return result
@@ -1580,22 +1837,26 @@ def decode_check(logits, full) -> dict:
                                   .float().mean())}
 
 
-def serve_arch(dev, arch: str, shapes):
-    """``arch`` at published widths and full depth, bf16, random weights
-    from seed 0, through serve.run(): one run at the first shape pays the
-    one-off set-up (cuBLAS's handles and heuristics), then each of
-    ``shapes`` through serve_checked.  Returns (results, model, params)."""
+def serve_arch(dev, arch: str, shapes, cfg=None, gate: bool = True,
+               reduced=()):
+    """``arch`` at published widths and full depth (or ``cfg``, cut as
+    ``reduced`` says), bf16, random weights from seed 0, through
+    serve.run(): one run at the first shape pays the one-off set-up
+    (cuBLAS's handles and heuristics), then each of ``shapes`` through
+    serve_checked (``gate``: whether decode vs prefill is held).  Returns
+    (results, model, params)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     model = build_model(cfg)
     b, p, g, _ = shapes[0]
     params = serve.run(cfg, serve.parse_args([
         "--arch", arch, "--batch", str(b), "--prompt-len", str(p), "--gen",
         str(g)]))["params"]
     results = {f"B{b} prompt {p} gen {g}":
-               serve_checked(dev, cfg, model, params, b, p, g, n)
+               serve_checked(dev, cfg, model, params, b, p, g, n, gate,
+                             reduced)
                for b, p, g, n in shapes}
     return results, model, params
 
@@ -1730,6 +1991,84 @@ def prefill_32k(dev, model, params, gen) -> dict:
     return out
 
 
+def serve_moe_ssm_phase(dev) -> dict:
+    """The MoE and Mamba2 archs served at published widths, bf16, seeded
+    random weights (serve_arch): mamba2-130m at full depth (B4 P64 G32,
+    B8 P512 G64, decode vs prefill held to SERVE_REL), then PREFILL_32K
+    at batch 1 and decode from its O(1) state against a PREFILL_32K + 1
+    prefill (the padded chunk plan); arctic-480b cut to ARCTIC_SERVE_LAYERS
+    layers (B4 P64 G16, G = 1 and C = 5; B8 P512 G16, the grouped capacity
+    path, G = 32 and C = 2) and jamba-v0.1-52b cut to one superblock (8
+    layers: every block kind of the arch; B4 P64 G16), decode vs prefill
+    printed, not held (the prefill's capacity drops tokens the dropless
+    decode keeps); then decode_f32_check for arctic and jamba."""
+    from repro_torch.configs import get_arch
+    result, model, params = serve_arch(
+        dev, "mamba2-130m", ((4, 64, 32, 3), (8, 512, 64, 3)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    result["prefill_32k"] = prefill_32k(dev, model, params, gen)
+    del params
+    gc_cuda()
+    out = {"mamba2-130m": result}
+    arctic = dataclasses.replace(get_arch("arctic-480b"),
+                                 n_layers=ARCTIC_SERVE_LAYERS)
+    jamba = dataclasses.replace(get_arch("jamba-v0.1-52b"), n_layers=8)
+    for cfg, shapes in ((arctic, ((4, 64, 16, 1), (8, 512, 16, 1))),
+                        (jamba, ((4, 64, 16, 1),))):
+        out[cfg.name], _, params = serve_arch(
+            dev, cfg.name, shapes, cfg=cfg, gate=False,
+            reduced=("n_layers",))
+        del params
+        gc_cuda()
+    for cfg in (dataclasses.replace(arctic, n_layers=1), jamba):
+        out[cfg.name]["f32"] = decode_f32_check(dev, cfg)
+        gc_cuda()
+    return out
+
+
+def decode_f32_check(dev, cfg, batch: int = 4, plen: int = 64,
+                     gen: int = 3) -> dict:
+    """``cfg`` in f32 (TF32 off) with capacity_factor = E / K, so the
+    prefill's capacity (C = Tg) drops no token: a prefill of ``plen``
+    tokens, ``gen`` greedy decode steps from its cache (MoE dropless),
+    and the last step's logits against a full prefill of the same
+    prefix within SERVE_F32_REL of its largest logit."""
+    from repro_torch.models.model import build_model
+    from repro_torch.utils import disable_tf32
+    disable_tf32()
+    mo = cfg.moe
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        mo, capacity_factor=mo.num_experts / mo.top_k))
+    model = build_model(cfg)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(g, dev)
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (batch, plen), device=dev,
+                             generator=g)
+        logits, cache = model.prefill(params, {"tokens": toks},
+                                      cache_len=plen + gen)
+        for pos in range(plen, plen + gen):
+            toks = torch.cat([toks, logits[:, -1].argmax(-1)[:, None]], 1)
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, pos:pos + 1], pos)
+        full, _ = model.prefill(params, {"tokens": toks})
+        check = decode_check(logits, full)
+    del params, cache
+    out = {"batch": batch, "prompt_len": plen, "decode_steps": gen,
+           "n_layers": cfg.n_layers, "capacity_factor": cfg.moe
+           .capacity_factor, "decode_vs_prefill": check,
+           "tol_rel": SERVE_F32_REL,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    emit("serve_f32_decode_check", arch=cfg.name, dtype="float32",
+         reduced=["n_layers", "capacity_factor"], **out)
+    if check["max_abs_err"] > SERVE_F32_REL * check["max_abs_logit"]:
+        raise AssertionError(f"serve {cfg.name} f32: decoding from the "
+                             f"cache differs from a full prefill: {check}")
+    return out
+
+
 def main() -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
@@ -1749,6 +2088,8 @@ def main() -> None:
     k7, k7_launches = k7_phase(dev)
     bp = bitpack_phase(dev)
     flash_phase(dev)
+    moe_phase(dev)
+    ssd_phase(dev)
     n_leaves = len(llama_layout(0.001).compressed)
     K = 2
     from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
@@ -1844,10 +2185,12 @@ def main() -> None:
         per_step(fused_ef_topk=K,
                  compressed={"matmul_bias_lrelu": len(ENCODER) * K}),
         reduced=("n_layers", "batch"))
+    moe_ssm_train_runs(dev, runs, K, lgc, len(ENCODER))
     guard_runs(dev, runs, n_leaves, K, lgc, dgc, q8)
     resume_run(dev, runs, K, lgc)
     convnet5_phase(dev, runs)
     serve_phase(dev)
+    serve_moe_ssm_phase(dev)
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
     emit("topk_bytes", packed=packed_b, raw=raw_b,

@@ -2,22 +2,61 @@
 (optimizer/schedule) and :class:`CompressionConfig` (the paper's
 technique), plus the arch registry and the reference's input shapes.
 Counterpart of ``repro.configs.base``, cut to what the ported slices
-run: stacks of attention blocks, and the fields of the six compressors
-on the emulated transports.
+run: superblocks of attention and Mamba2 blocks with dense or MoE FFNs,
+and the fields of the six compressors on the emulated transports.
+``MLA``, ``CROSS``, ``mla`` and ``mtp_depth`` exist so a config that
+asks for them is refused by the model (ROADMAP.md Queue 1 items 5, 6).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
-ATTN = "attn"
+# layer kinds of a superblock pattern
+ATTN = "attn"          # self-attention (GQA; sliding-window if window set)
+MLA = "mla"            # latent attention: not ported yet
+MAMBA = "mamba"        # Mamba2 SSD block
+CROSS = "cross"        # cross-attention: not ported yet
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int                 # hidden size of each expert MLP
+    num_shared_experts: int = 0      # always-on shared experts
+    dense_residual_d_ff: int = 0     # Arctic's parallel dense MLP (0 = off)
+    aux_loss_coef: float = 0.001     # router load-balance loss
+    every_n_layers: int = 1          # MoE on every n-th block position
+    capacity_factor: float = 1.25    # per-expert capacity (train/prefill)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Latent attention geometry (the field of configs that ask for it)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 SSD geometry [arXiv:2405.21060]."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | audio (musicgen); the model
-                                     # dispatches on block_pattern
+    family: str                      # dense | moe | ssm | hybrid | audio;
+                                     # the model dispatches on
+                                     # block_pattern
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +70,10 @@ class ModelConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     sliding_window: int = 0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    mtp_depth: int = 0               # multi-token prediction depth
     dtype: str = "bfloat16"
     source: str = ""
 
@@ -45,18 +88,32 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """The smoke-test variant (the reference's ``reduced``): 2 blocks,
-        d_model 256, f32."""
+        d_model 256, <= 4 experts, f32."""
         small: Dict = dict(
             n_layers=2 * len(self.block_pattern),
             d_model=256,
-            n_heads=min(self.n_heads, 8),
-            n_kv_heads=min(self.n_kv_heads, 4),
-            d_ff=512,
+            n_heads=min(self.n_heads, 8) if self.n_heads else 0,
+            n_kv_heads=min(self.n_kv_heads, 4) if self.n_kv_heads else 0,
+            d_ff=512 if self.d_ff else 0,
             vocab_size=512,
-            head_dim=32,
+            head_dim=32 if self.n_heads else 0,
             name=self.name + "-smoke",
             dtype="float32",
         )
+        if self.moe is not None:
+            small["moe"] = replace(
+                self.moe, num_experts=4, top_k=min(self.moe.top_k, 2),
+                d_ff_expert=256,
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                dense_residual_d_ff=256 if self.moe.dense_residual_d_ff else 0,
+                capacity_factor=8.0)   # dropless at smoke scale
+        if self.mla is not None:
+            small["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                     qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                     v_head_dim=32)
+        if self.ssm is not None:
+            small["ssm"] = replace(self.ssm, d_state=16, head_dim=32,
+                                   chunk_size=32)
         if self.sliding_window:
             small["sliding_window"] = 64
         small.update(overrides)

@@ -1,7 +1,7 @@
-"""Dense decoder building blocks (counterpart of ``repro.models.layers``,
-dense subset).  Params are nested dicts of tensors in the reference's
-layouts: linear weights (in, out), a leading ``lead`` axis on stacked
-block params.
+"""Decoder building blocks (counterpart of ``repro.models.layers``:
+attention, SwiGLU and MoE).  Params are nested dicts of tensors in the
+reference's layouts: linear weights (in, out), a leading ``lead`` axis
+on stacked block params.
 
 Training and prefill attend through ``flash.flash_attention``, as the
 reference's ``attention_fwd`` does: an online softmax over chunks whose
@@ -32,14 +32,26 @@ from repro_torch.models.flash import blockwise_attention  # noqa: F401
 
 def _dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
                 scale: Optional[float] = None, lead: Sequence[int] = ()):
-    """Normal(0, scale) with scale = 1/sqrt(fan_in) unless given; ``lead``
-    prepends stacked-block axes (each slice is one block's weight)."""
+    """Normal(0, scale) with scale = 1/sqrt(fan_in) unless given, fan_in
+    = shape[0] as the reference takes it (for an expert stack (E, D, F)
+    that is E); ``lead`` prepends stacked-block axes (each slice is one
+    block's weight).  A ``shape`` of more than two axes is drawn one
+    trailing 2-D slice at a time straight into ``dtype``, so the f32
+    transient is one slice, not the stack (one arctic expert leaf is
+    128 x 7168 x 4864 a block)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     meta = torch.device(device).type == "meta"     # shapes only
-    w = torch.randn(tuple(lead) + tuple(shape), device=device,
-                    generator=None if meta else gen, dtype=torch.float32)
-    return w.mul_(scale).to(dtype)
+    full = tuple(lead) + tuple(shape)
+    if meta or len(shape) <= 2:
+        w = torch.randn(full, device=device, generator=None if meta else gen,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+    w = torch.empty(full, device=device, dtype=dtype)
+    for part in w.view(-1, *shape[-2:]):
+        part.copy_(torch.randn(shape[-2:], device=device, generator=gen,
+                               dtype=torch.float32).mul_(scale))
+    return w
 
 
 def init_linear(gen, d_in, d_out, dtype, device, bias=False, lead=()):
@@ -187,7 +199,115 @@ def init_swiglu(gen, d_model, d_ff, dtype, device, lead=()):
     }
 
 
-def swiglu_fwd(p, x, eps=1e-5):
+def swiglu_fwd(p, x, eps=1e-5, residual=True):
     h = rmsnorm(p["norm"], x, eps)
-    return x + linear(p["w_down"],
-                      F.silu(linear(p["w_gate"], h)) * linear(p["w_up"], h))
+    y = linear(p["w_down"],
+               F.silu(linear(p["w_gate"], h)) * linear(p["w_up"], h))
+    return x + y if residual else y
+
+
+# ---------------------------------------------------------------------------
+# MoE: token-choice top-k routing, per-expert capacity by top-C selection
+
+MOE_DISPATCH_GROUPS = 32   # the reference's, aligned with its dp width
+
+
+def init_moe(gen, cfg: ModelConfig, dtype, device, lead=()):
+    """Router (f32), the experts' stacked SwiGLU weights (E, D, F) and (E,
+    F, D), and the shared experts' and Arctic's dense residual SwiGLUs.
+    The expert stacks draw with the reference's scale 1/sqrt(E) (its
+    ``_dense_init`` takes fan_in = shape[0] = E), not 1/sqrt(D)."""
+    mo = cfg.moe
+    D, E, F_ = cfg.d_model, mo.num_experts, mo.d_ff_expert
+    p = {
+        "norm": init_rmsnorm(D, dtype, device, lead),
+        "router": init_linear(gen, D, E, torch.float32, device, lead=lead),
+        "w_gate": _dense_init(gen, (E, D, F_), dtype, device, lead=lead),
+        "w_up": _dense_init(gen, (E, D, F_), dtype, device, lead=lead),
+        "w_down": _dense_init(gen, (E, F_, D), dtype, device, lead=lead),
+    }
+    if mo.num_shared_experts:
+        p["shared"] = init_swiglu(gen, D, F_ * mo.num_shared_experts, dtype,
+                                  device, lead)
+    if mo.dense_residual_d_ff:
+        p["dense_residual"] = init_swiglu(gen, D, mo.dense_residual_d_ff,
+                                          dtype, device, lead)
+    return p
+
+
+def topk_lowest_first(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis of x >= 0: the k largest values,
+    the lower index first among equal ones (``torch.topk`` keeps no tie
+    order on either device).  Selects on unique int64 keys: the value's
+    bits (monotone in x for x >= 0), then the index ascending.  Returns
+    (values, int64 indices)."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device, dtype=torch.int64)
+    key = (x.detach().contiguous().view(torch.int32) & 0x7FFFFFFF).to(
+        torch.int64) * n + (n - 1 - idx)
+    sel = key.topk(k, dim=-1).indices
+    return x.gather(-1, sel), sel
+
+
+def moe_route(probs, mo, dropless: bool = False):
+    """The router's choice and the experts' capacity selection.  probs:
+    (T, E) f32.  Each token's top-K experts by prob, their probs
+    normalised into gates (T, E), zero elsewhere; then per dispatch group
+    each expert's top-C tokens by gate.  Returns (gates, gsel (G, E, C),
+    tok_idx (G, E, C) group-local); a slot with gsel = 0 holds no token."""
+    T, E = probs.shape
+    K = mo.top_k
+    topk_p, topk_i = topk_lowest_first(probs, K)              # (T, K)
+    topk_p = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
+    gates = torch.zeros((T, E), dtype=torch.float32,
+                        device=probs.device).scatter(1, topk_i, topk_p)
+    G = MOE_DISPATCH_GROUPS
+    if dropless or T % G or T // G < E:
+        G = 1
+    Tg = T // G
+    C = Tg if dropless else min(max(1, int(Tg * K / E * mo.capacity_factor)),
+                                Tg)
+    gsel, tok_idx = topk_lowest_first(
+        gates.view(G, Tg, E).transpose(1, 2), C)              # (G, E, C)
+    return gates, gsel, tok_idx
+
+
+def moe_fwd(p, cfg: ModelConfig, x, dropless: bool = False):
+    """Token-choice top-k routing with grouped per-expert capacity (the
+    reference's ``moe_fwd``): tokens split into G dispatch groups, each
+    expert takes its top-C tokens per group by gate, C = Tg·K/E·cf
+    (Python floats).  G = 1 when ``dropless`` (then C = Tg: no token is
+    dropped), when T % G or when T // G < E.  Returns (x + out, the
+    router's load-balance aux loss)."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = mo.num_experts, mo.top_k
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps).reshape(T, D)
+
+    probs = torch.softmax(linear(p["router"], h.float()), dim=-1)  # (T, E)
+    gates, gsel, tok_idx = moe_route(probs, mo, dropless)
+    G, _, C = gsel.shape
+    Tg = T // G
+    valid = gsel > 0.0
+    rows = (tok_idx + torch.arange(G, device=x.device)[:, None, None] * Tg
+            ).transpose(0, 1).reshape(E, G * C)               # (E, G·C)
+    xe = h[rows]                                              # (E, G·C, D)
+    act = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    yo = torch.bmm(act, p["w_down"])                          # (E, G·C, D)
+    w = (gsel * valid).to(yo.dtype).transpose(0, 1).reshape(E, G * C, 1)
+    out = torch.zeros((T, D), dtype=yo.dtype, device=x.device).index_add(
+        0, rows.reshape(-1), (yo * w).reshape(E * G * C, D))
+
+    # load-balance aux loss (Switch-style), in the reference's order
+    me = probs.mean(0)                                        # (E,)
+    ce = (gates > 0).float().mean(0) * E / K
+    aux = mo.aux_loss_coef * E * torch.sum(me * ce) / E
+
+    if "shared" in p:
+        out = out + swiglu_fwd(p["shared"], h, cfg.rms_norm_eps,
+                               residual=False)
+    if "dense_residual" in p:
+        out = out + swiglu_fwd(p["dense_residual"], h, cfg.rms_norm_eps,
+                               residual=False)
+    return x + out.reshape(B, S, D).to(x.dtype), aux

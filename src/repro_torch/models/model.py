@@ -1,19 +1,27 @@
-"""The decoder of attention blocks (counterpart of ``repro.models.model``
-for ``block_pattern == ("attn",)``: the dense family and musicgen's).
+"""The decoder of superblocks (counterpart of ``repro.models.model``):
+a ``block_pattern`` of attention and Mamba2 blocks, each followed by a
+SwiGLU or, at the MoE positions (``_moe_at``), a routed MoE FFN; the
+dense family, musicgen's, arctic (MoE), mamba2 (Mamba2 alone) and jamba
+(both in one 8-position superblock).
 
 Params keep the reference's tree: ``{"embed": {"w"}, "final_norm":
-{"scale"}, "blocks": {"p0": {"mixer": ..., "ffn": ...}}, ["lm_head"]}``
-with every block leaf stacked along a leading ``n_blocks`` axis, so the
-flat gradient has the reference's layout.  ``loss`` remats each block
-and each cross-entropy chunk (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint`` does, and its attention keeps no (S, S)
-matrix (``flash``), so training lengths reach the reference's
-``train_4k``.  Serving: ``init_cache``, ``prefill`` (the prompt's
-last-token logits and the filled cache) and ``decode_step`` (one token
-from the cache, which it updates in place), with the cache tree ``{"p0":
-{"k", "v": (n_blocks, B, S, KH, hd), "pos": (n_blocks, S)}}`` as the
-reference stacks it.  MoE, MLA, Mamba, cross-attention and multi-token
-prediction, and their caches, are not ported yet (ROADMAP.md Queue 1).
+{"scale"}, "blocks": {"p0": {"mixer": ..., ["ffn": ...]}, "p1": ...},
+["lm_head"]}`` with every block leaf stacked along a leading
+``n_blocks`` axis per pattern position, so the flat gradient has the
+reference's layout.  ``loss`` remats each superblock and each
+cross-entropy chunk (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does; the MoE layers' aux losses are summed into the
+loss and into ``metrics["aux_loss"]`` in the reference's order.
+Attention keeps no (S, S) matrix (``flash``), so training lengths reach
+the reference's ``train_4k``.  Serving: ``init_cache``, ``prefill`` (the
+prompt's last-token logits and the filled cache) and ``decode_step``
+(one token from the cache, which it updates in place; MoE dropless, as
+the reference's decode), with the cache tree ``{"p{i}": ...}`` stacked
+over the blocks as the reference stacks it: attention ``{"k", "v":
+(n_blocks, B, S, KH, hd), "pos": (n_blocks, S)}``, Mamba2 ``{"conv":
+(n_blocks, B, d_conv - 1, conv_dim), "ssm": (n_blocks, B, H, N, P)}``.
+Latent attention, cross-attention and multi-token prediction are not
+ported yet (ROADMAP.md Queue 1 items 5 and 6): their configs raise.
 """
 from __future__ import annotations
 
@@ -23,8 +31,9 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, CROSS, MAMBA, MLA, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.utils.tree import tree_count_params, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -34,16 +43,54 @@ def _dtype(cfg: ModelConfig):
     return _DTYPES[cfg.dtype]
 
 
+def _moe_at(cfg: ModelConfig, pos: int) -> bool:
+    if cfg.moe is None:
+        return False
+    n = cfg.moe.every_n_layers
+    return pos % n == n - 1
+
+
+def _has_ffn(cfg: ModelConfig) -> bool:
+    return cfg.d_ff > 0 or cfg.moe is not None
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.block_pattern != (ATTN,):
+        cfg = self.cfg
+        todo = {MLA: "latent attention (ROADMAP.md Queue 1 item 5)",
+                CROSS: "cross-attention (ROADMAP.md Queue 1 item 6)"}
+        for kind in cfg.block_pattern:
+            if kind in todo:
+                raise NotImplementedError(f"{cfg.name}: {todo[kind]} is not "
+                                          "ported yet")
+            if kind not in (ATTN, MAMBA):
+                raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+        if cfg.mla is not None:
+            raise NotImplementedError(f"{cfg.name}: {todo[MLA]} is not "
+                                      "ported yet")
+        if cfg.mtp_depth > 0:
             raise NotImplementedError(
-                f"{self.cfg.name}: block pattern {self.cfg.block_pattern}; "
-                "only attention blocks are ported (ROADMAP.md Queue 1, "
-                "'modules to port')")
+                f"{cfg.name}: multi-token prediction (ROADMAP.md Queue 1 "
+                "item 5) is not ported yet")
+        if MAMBA in cfg.block_pattern and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a mamba block needs cfg.ssm")
+
+    def _init_position(self, gen, pos: int, device, lead):
+        """Params of pattern position ``pos``, stacked over ``lead``."""
+        cfg, dtype = self.cfg, _dtype(self.cfg)
+        p: Dict[str, Any] = {"mixer": (
+            L.init_attention(gen, cfg, dtype, device, lead)
+            if cfg.block_pattern[pos] == ATTN
+            else M.init_mamba(gen, cfg, dtype, device, lead))}
+        if _has_ffn(cfg):
+            p["ffn"] = (L.init_moe(gen, cfg, dtype, device, lead)
+                        if _moe_at(cfg, pos) else
+                        L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype,
+                                      device, lead))
+        return p
 
     def init(self, gen: torch.Generator, device="cpu") -> Dict[str, Any]:
         cfg, dtype = self.cfg, _dtype(self.cfg)
@@ -52,11 +99,8 @@ class Model:
             "embed": {"w": L._dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                          dtype, device, scale=0.02)},
             "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
-            "blocks": {"p0": {
-                "mixer": L.init_attention(gen, cfg, dtype, device, lead),
-                "ffn": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype,
-                                     device, lead),
-            }},
+            "blocks": {f"p{i}": self._init_position(gen, i, device, lead)
+                       for i in range(len(cfg.block_pattern))},
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_linear(gen, cfg.d_model,
@@ -68,32 +112,47 @@ class Model:
             return params["embed"]["w"].T
         return params["lm_head"]["w"]
 
-    def _block_fn(self, params, i: int, h, positions, kv=None):
-        """Block i: attention then SwiGLU; its (k, v) is appended to
-        ``kv`` if given."""
-        p = _block(params, i)
-        h, k_v = L.attention_fwd(p["mixer"], self.cfg, h, positions)
-        if kv is not None:
-            kv.append(k_v)
-        return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps)
+    def _ffn(self, p, pos: int, h, aux=None, dropless: bool = False):
+        """Position ``pos``'s FFN, if it has one; a MoE layer's aux loss
+        is added to ``aux`` (when given)."""
+        if "ffn" not in p:
+            return h, aux
+        if _moe_at(self.cfg, pos):
+            h, a = L.moe_fwd(p["ffn"], self.cfg, h, dropless=dropless)
+            return h, (None if aux is None else aux + a)
+        return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps), aux
 
-    def _trunk(self, params, tokens, kv=None, remat: bool = False):
-        """Embedding and blocks: the hidden states (B, S, D) before the
-        final norm; each block's (k, v) is appended to ``kv`` if given.
-        ``remat``: each block under ``checkpoint``, which keeps only its
-        input and recomputes the rest in the backward."""
+    def _block_fn(self, params, i: int, h, aux, positions):
+        """Superblock i, every pattern position in order: (h, aux)."""
+        blk = _block(params, i)
+        for pos, kind in enumerate(self.cfg.block_pattern):
+            p = blk[f"p{pos}"]
+            if kind == ATTN:
+                h, _ = L.attention_fwd(p["mixer"], self.cfg, h, positions)
+            else:
+                h = M.mamba_fwd(p["mixer"], self.cfg, h)
+            h, aux = self._ffn(p, pos, h, aux)
+        return h, aux
+
+    def _trunk(self, params, tokens, remat: bool = False):
+        """Embedding and superblocks: the hidden states (B, S, D) before
+        the final norm, and the summed aux loss (f32 scalar).  ``remat``:
+        each superblock under ``checkpoint``, which keeps only its inputs
+        and recomputes the rest in the backward."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h = params["embed"]["w"][tokens]
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(self.cfg.n_blocks):
             if remat:
                 # non-reentrant: the params reach the block through the
                 # closure, and node_grads differentiates with respect to
                 # them; the blocks draw no random numbers
-                h = checkpoint(self._block_fn, params, i, h, positions,
-                               use_reentrant=False, preserve_rng_state=False)
+                h, aux = checkpoint(self._block_fn, params, i, h, aux,
+                                    positions, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                h = self._block_fn(params, i, h, positions, kv)
-        return h
+                h, aux = self._block_fn(params, i, h, aux, positions)
+        return h, aux
 
     def loss(self, params, batch, remat: Optional[bool] = None):
         """batch: {"tokens": (B, S), "labels": (B, S) (-1 = pad)} on the
@@ -101,17 +160,18 @@ class Model:
         each cross-entropy chunk in the backward (the reference's
         default): the same operations on the same inputs, so the same
         values (bit for bit where the embedding's backward sums in a fixed
-        order).  Returns (loss, metrics)."""
+        order).  The loss is the mean cross-entropy plus the MoE layers'
+        aux.  Returns (loss, metrics)."""
         cfg = self.cfg
         remat = True if remat is None else remat
-        h = L.rmsnorm(params["final_norm"],
-                      self._trunk(params, batch["tokens"], remat=remat),
-                      cfg.rms_norm_eps)
+        h, aux = self._trunk(params, batch["tokens"], remat=remat)
+        h = L.rmsnorm(params["final_norm"], h, cfg.rms_norm_eps)
         xent, n_tok = _chunked_xent(h, self._lm_head_w(params),
                                     batch["labels"], remat=remat)
         loss = xent / torch.clamp(n_tok, min=1.0)
-        metrics = {"xent": loss, "aux_loss": torch.zeros_like(loss),
-                   "tokens": n_tok, "loss": loss}
+        metrics = {"xent": loss, "aux_loss": aux, "tokens": n_tok}
+        loss = loss + aux
+        metrics["loss"] = loss
         return loss, metrics
 
     def param_count(self) -> int:
@@ -121,55 +181,79 @@ class Model:
 
     def init_cache(self, batch: int, seq_len: int, device="cpu"):
         """An empty cache for ``seq_len`` positions (the window under a
-        sliding window), stacked over the blocks."""
-        return {"p0": L.init_attention_cache(self.cfg, batch, seq_len,
-                                             _dtype(self.cfg), device,
-                                             lead=(self.cfg.n_blocks,))}
+        sliding window), per pattern position, stacked over the blocks."""
+        cfg, dtype = self.cfg, _dtype(self.cfg)
+        lead = (cfg.n_blocks,)
+        return {f"p{i}": (
+            L.init_attention_cache(cfg, batch, seq_len, dtype, device, lead)
+            if kind == ATTN else
+            M.init_mamba_cache(cfg, batch, dtype, device, lead))
+            for i, kind in enumerate(cfg.block_pattern)}
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: Optional[int] = None):
-        """Process a whole prompt (no gradient, no remat).  batch:
-        {"tokens": (B, S)} on the params' device; cache_len: the cache's
-        capacity (>= S, default S).  Returns (last-token logits (B, 1, V)
-        f32, the filled cache: under a sliding window, a prompt longer
-        than the window keeps its last ``window`` positions in ring order,
-        slot = pos % window)."""
+        """Process a whole prompt (no gradient, no remat; MoE with its
+        capacity, as the reference's prefill).  batch: {"tokens": (B, S)}
+        on the params' device; cache_len: the attention caches' capacity
+        (>= S, default S).  Returns (last-token logits (B, 1, V) f32, the
+        filled cache: under a sliding window, a prompt longer than the
+        window keeps its last ``window`` positions in ring order, slot =
+        pos % window; a Mamba2 position keeps its conv and SSM state)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        kv = []
-        h = self._trunk(params, tokens, kv)
+        positions = torch.arange(S, device=tokens.device)
         cache = self.init_cache(B, cache_len or S, tokens.device)
-        c = cache["p0"]
-        keep = torch.arange(max(0, S - c["pos"].shape[1]), S,
-                            device=tokens.device)
-        slots = keep % c["pos"].shape[1]
-        for i, (k, v) in enumerate(kv):
-            c["k"][i][:, slots] = k[:, keep]
-            c["v"][i][:, slots] = v[:, keep]
-        c["pos"][:, slots] = keep.to(torch.int32)
+        h = params["embed"]["w"][tokens]
+        for i in range(cfg.n_blocks):
+            blk = _block(params, i)
+            for pos, kind in enumerate(cfg.block_pattern):
+                p, c = blk[f"p{pos}"], cache[f"p{pos}"]
+                if kind == ATTN:
+                    h, (k, v) = L.attention_fwd(p["mixer"], cfg, h,
+                                                positions)
+                    n_slots = c["pos"].shape[1]
+                    keep = torch.arange(max(0, S - n_slots), S,
+                                        device=tokens.device)
+                    slots = keep % n_slots
+                    c["k"][i][:, slots] = k[:, keep]
+                    c["v"][i][:, slots] = v[:, keep]
+                    c["pos"][i, slots] = keep.to(torch.int32)
+                else:
+                    h, st = M.mamba_fwd(p["mixer"], cfg, h, with_state=True)
+                    c["conv"][i].copy_(st["conv"])
+                    c["ssm"][i].copy_(st["ssm"])
+                h, _ = self._ffn(p, pos, h)
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.rms_norm_eps)
         return (h @ self._lm_head_w(params)).float(), cache
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos: int):
         """One decode step.  tokens: (B, 1); pos: the current absolute
-        position.  Writes the token's k, v into the cache in place and
-        returns (logits (B, 1, V) f32, the cache)."""
+        position.  Writes the token's k, v (attention) and the new conv
+        and SSM states (Mamba2) into the cache in place and returns
+        (logits (B, 1, V) f32, the cache).  MoE runs dropless: few tokens
+        a step, so capacity would drop them."""
         cfg = self.cfg
         h = params["embed"]["w"][tokens]
         for i in range(cfg.n_blocks):
-            p = _block(params, i)
-            c = {key: x[i] for key, x in cache["p0"].items()}   # views
-            h, _ = L.attention_decode(p["mixer"], cfg, h, c, pos)
-            h = L.swiglu_fwd(p["ffn"], h, cfg.rms_norm_eps)
+            blk = _block(params, i)
+            for j, kind in enumerate(cfg.block_pattern):
+                p = blk[f"p{j}"]
+                c = {key: x[i] for key, x in cache[f"p{j}"].items()}  # views
+                if kind == ATTN:
+                    h, _ = L.attention_decode(p["mixer"], cfg, h, c, pos)
+                else:
+                    h, _ = M.mamba_decode(p["mixer"], cfg, h, c)
+                h, _ = self._ffn(p, j, h, dropless=True)
         h = L.rmsnorm(params["final_norm"], h, cfg.rms_norm_eps)
         return (h @ self._lm_head_w(params)).float(), cache
 
 
 def _block(params, i: int):
-    """Block i's params: a view of each stacked leaf."""
-    return tree_map(lambda t: t[i], params["blocks"]["p0"])
+    """Superblock i's params, {"p{pos}": ...}: a view of each stacked
+    leaf."""
+    return tree_map(lambda t: t[i], params["blocks"])
 
 
 def _xent_chunk(hc, w, lb):
@@ -182,23 +266,45 @@ def _xent_chunk(hc, w, lb):
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
-def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28,
-                  remat: bool = False):
-    """Cross-entropy in sequence chunks, summed in the reference's order,
-    so the (B, chunk, V) logits, not (B, S, V), bound the memory; with
-    ``remat`` each chunk is recomputed in the backward, as the
-    reference's ``jax.checkpoint`` body is, so no chunk's softmax is kept.
-    h: (B, S, D); w: (D, V); labels: (B, S), -1 = ignore.
-    Returns (sum_xent, n_tokens), f32 scalars."""
-    B, S, _ = h.shape
-    V = w.shape[-1]
-    chunk = max(8, min(512, target_chunk_bytes // max(1, 4 * B * V)))
+def xent_chunk_plan(S: int, target: int):
+    """(chunk, padded length) of the cross-entropy: the reference's chunk
+    (halved from ``target`` until it divides S) where that is at least
+    min(target, 32) rows or the whole length.  Else the reference's rule
+    has collapsed (vocab 50280 at batch 4: 333 -> 166 -> 83 -> ... -> 2
+    rows at S = 128 or 4096, a chunk's matmul per 2 tokens): the whole
+    length when S <= target, otherwise the largest power of two <=
+    target, S padded up to a multiple of it."""
+    chunk = target
     while S % chunk:
         chunk //= 2
-    chunk = max(chunk, 1)
+    if chunk >= min(target, 32) or chunk == S:
+        return chunk, S
+    if S <= target:
+        return S, S
+    chunk = 1 << (target.bit_length() - 1)
+    return chunk, -(-S // chunk) * chunk
+
+
+def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28,
+                  remat: bool = False):
+    """Cross-entropy in sequence chunks, summed in order, so the (B,
+    chunk, V) logits, not (B, S, V), bound the memory; with ``remat`` each
+    chunk is recomputed in the backward, as the reference's
+    ``jax.checkpoint`` body is, so no chunk's softmax is kept.  The chunks
+    are the reference's unless its rule collapses (``xent_chunk_plan``);
+    padded rows have label -1 and add exactly 0.  h: (B, S, D); w: (D,
+    V); labels: (B, S), -1 = ignore.  Returns (sum_xent, n_tokens), f32
+    scalars."""
+    B, S, _ = h.shape
+    V = w.shape[-1]
+    chunk, Sp = xent_chunk_plan(
+        S, max(8, min(512, target_chunk_bytes // max(1, 4 * B * V))))
+    if Sp != S:
+        h = torch.nn.functional.pad(h, (0, 0, 0, Sp - S))
+        labels = torch.nn.functional.pad(labels, (0, Sp - S), value=-1)
     xent = torch.zeros((), dtype=torch.float32, device=h.device)
     n_tok = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(0, S, chunk):
+    for c in range(0, Sp, chunk):
         args = (h[:, c:c + chunk], w, labels[:, c:c + chunk])
         if remat:
             x, n = checkpoint(_xent_chunk, *args, use_reentrant=False,

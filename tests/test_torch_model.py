@@ -76,16 +76,29 @@ def test_init_is_seeded_and_shaped_like_reference():
 
 def test_non_dense_family_raises():
     """The model dispatches on the block pattern, as the reference's
-    does: a pattern with a block kind the port lacks raises, whatever
-    the family; musicgen's "audio" family of attention blocks builds."""
+    does: a pattern with a block kind the port lacks (cross-attention,
+    latent attention), a latent-attention config or multi-token
+    prediction raises, whatever the family; musicgen's "audio" family of
+    attention blocks builds, and the MoE and Mamba2 archs count the
+    reference's parameters."""
     import dataclasses
-    cfg = dataclasses.replace(get_arch("llama3.2-1b"),
-                              block_pattern=("attn", "mamba"))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        build_model(cfg)
+    from repro.configs import get_arch as ref_get_arch
+    from repro.models.model import Model as RefModel
+    from repro_torch.configs.base import MLAConfig
+    llama = get_arch("llama3.2-1b")
+    for kind, item in (("cross", "item 6"), ("mla", "item 5")):
+        cfg = dataclasses.replace(llama, block_pattern=("attn", kind))
+        with pytest.raises(NotImplementedError, match="Queue 1 " + item):
+            build_model(cfg)
+    for change in ({"mla": MLAConfig()}, {"mtp_depth": 1}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            build_model(dataclasses.replace(llama, **change))
     cfg = get_arch("musicgen-medium")
     assert cfg.family == "audio"
     assert build_model(cfg).param_count() == 1818379776
+    for arch in ("arctic-480b", "mamba2-130m", "jamba-v0.1-52b"):
+        assert build_model(get_arch(arch)).param_count() == \
+            RefModel(ref_get_arch(arch)).param_count(), arch
 
 
 @pytest.fixture
@@ -142,3 +155,37 @@ def test_remat_changes_no_bit_through_node_grads(deterministic):
     assert g1.abs().sum() > 0
     assert torch.equal(g1, g0)
     assert torch.equal(m1["loss"], m0["loss"])
+
+
+def test_xent_chunk_plan_pads_where_the_reference_collapses():
+    """The reference halves its cross-entropy chunk until it divides S;
+    from a target of 48 rows that reaches 1 row at S = 100.  The port
+    keeps the reference's chunk where it is >= min(target, 32) rows (or
+    S), else pads to a power-of-two chunk: the loss and the gradient of
+    h equal the reference's within f32 rounding (padded rows add 0)."""
+    import jax.numpy as jnp
+    from repro.models.model import _chunked_xent as ref_xent
+    from repro_torch.models.model import _chunked_xent, xent_chunk_plan
+    assert xent_chunk_plan(128, 130) == (32, 128)    # llama's, kept
+    assert xent_chunk_plan(4096, 333) == (256, 4096)  # 2 rows in the ref
+    assert xent_chunk_plan(128, 333) == (128, 128)
+    assert xent_chunk_plan(100, 48) == (32, 128)
+    rng = np.random.default_rng(0)
+    B, S, D, V = 2, 100, 16, 64
+    h = rng.standard_normal((B, S, D)).astype(np.float32)
+    w = rng.standard_normal((D, V)).astype(np.float32)
+    labels = rng.integers(-1, V, (B, S)).astype(np.int32)
+    target = 48 * 4 * B * V                # target_chunk_bytes: 48 rows
+    th = torch.from_numpy(h).requires_grad_(True)
+    xent, n = _chunked_xent(th, torch.from_numpy(w),
+                            torch.from_numpy(labels).long(), target,
+                            remat=True)
+    (gh,) = torch.autograd.grad(xent, th)
+    rx, rn = ref_xent(jnp.asarray(h), jnp.asarray(w), jnp.asarray(labels),
+                      target)
+    rgh = jax.grad(lambda x: ref_xent(x, jnp.asarray(w),
+                                      jnp.asarray(labels), target)[0])(h)
+    assert float(n) == float(rn) == float((labels >= 0).sum())
+    np.testing.assert_allclose(float(xent), float(rx), rtol=1e-6)
+    np.testing.assert_allclose(gh.numpy(), np.asarray(rgh), rtol=0,
+                               atol=1e-6 * float(np.abs(rgh).max()))

@@ -191,3 +191,13 @@ def test_serve_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--gen", "2"])
+
+
+def test_serve_batched_example_runs_on_cpu():
+    """repro_torch.examples.serve_batched with the reference example's
+    defaults (mamba2-130m at its smoke config, batch 4, prompt 48, gen
+    24, temperature 0.8): a (4, 24) block of tokens."""
+    from repro_torch.examples import serve_batched
+    gen = serve_batched.main(["--device", "cpu"])
+    assert gen.shape == (4, 24) and gen.dtype == np.int32
+    assert ((0 <= gen) & (gen < 512)).all()
