@@ -69,6 +69,20 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               mamba_fwd at S 2048 and 4097 (the padded chunk plan), the
               output within SSD_REL and every gradient within
               SSD_GRAD_REL of the CPU's; device ms
+  8d. mla     layers.mla_fwd (the expanded form: flash over q, k of width
+              192 and v of 128) at deepseek-v3-671b's geometry, f32,
+              batch 2, S 512 and 1025 (padded chunks): the output, the
+              cache (c_kv, k_rope) and every gradient on the card against
+              the CPU within MLA_REL / MLA_GRAD_REL; device ms; then 3
+              absorbed decode steps (mla_decode) after a 512-token prefill
+              against the expanded form over 515 tokens (MLA_DECODE_REL)
+  8e. cross   cross_attention_kv and cross_attention_fwd at
+              llama-3.2-vision-90b's widths (1601 encoder tokens of 1280,
+              padded to 2048 keys), f32, batch 2, S 512, the gate at 0.5:
+              the output and every gradient (the gate's, the embeddings')
+              on the card against the CPU within CROSS_REL /
+              CROSS_GRAD_REL; device ms; a bf16 call with f32 embeddings
+              must give k, v in f32 and the output in bf16
   9. train    repro_torch.launch.train's run(): llama3.2-1b at published
               widths (d_model 2048, 32/8 heads, d_ff 8192, vocab 128256,
               bf16) with n_layers cut from 16 to 4, K=2 nodes on this card,
@@ -100,7 +114,13 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               depth (24 layers, bf16, the SSM's leaves) at seq 128 and
               4096, and on arctic-480b at published widths with n_layers
               cut from 35 to 1 and num_experts from 128 to 4 (the 3-D
-              expert stacks; G = 32, C = 10), 6 steps each.  Every block and
+              expert stacks; G = 32, C = 10), 6 steps each; then lgc_rar
+              on deepseek-v3-671b at published widths (the MLA leaves,
+              the shared expert, the MTP subtree) cut to 1 layer, 4
+              experts of top-2 and vocab 8192 (its MTP loss finite every
+              step), and on llama-3.2-vision-90b at reduced() (the
+              cross layers' gates, the encoder stream on the card).
+              Every block and
               cross-entropy chunk is rematerialised.  Each
               run resets the launch counts before and reads them after;
               launch counts per phase, finite losses and per-op
@@ -171,7 +191,14 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               printed, not held (the prefill's capacity drops tokens);
               then arctic at 1 layer and jamba at one superblock in f32
               at capacity_factor = E / K, decode vs a full prefill held
-              to SERVE_F32_REL
+              to SERVE_F32_REL; then deepseek-v3-671b at 1 layer with
+              its MTP block (all 256 experts; B4 P64 G16, B8 P512 G16,
+              and B1 P32768 decoding from the latent cache against a
+              32769 prefill, printed, not held: capacity drops) and
+              llama-3.2-vision-90b at 2 superblocks with its gates at 0.5
+              (B4 P64 G16, B8 P512 G16, held to SERVE_REL); f32 at
+              capacity_factor = E / K: deepseek at 1 layer and 32
+              experts, vision at one superblock
  14. timings  each kernel's ms beside its plain version's, its bound and,
               where there is one, one PyTorch call computing the same
               function (K6 and K3 also per shape, with their ratio to it);
@@ -290,6 +317,52 @@ ARCTIC_SERVE_LAYERS = 2
 # the chunked scan's f32 floor is ~2e-5 of its output (above), and the
 # stack carries it to the logits
 SERVE_F32_REL = 1e-3
+# latent attention (layers.mla_fwd, mla_decode) on the card against the
+# CPU at deepseek-v3-671b's geometry (d_model 7168, 128 heads, q_lora
+# 1536, kv_lora 512, nope 128, rope 64, v 128), f32, batch MLA_BATCH, at
+# each of MLA_LENGTHS (1025: the reference's chunks would be 1 row, the
+# port pads): the output and the cache within MLA_REL, every gradient
+# within MLA_GRAD_REL of its largest entry; then 3 absorbed decode steps
+# after a prefill of MLA_LENGTHS[0] tokens on the card, against the
+# expanded form over the longer prompt within MLA_DECODE_REL.  The gates
+# are about 10x the f32 floor (tools/f32_floor.py mla --device cuda: one
+# f32 evaluation against an f64 one; NVIDIA H100 80GB HBM3, 700.00 W):
+# <= 1.72e-6 on the output and cache, <= 3.71e-6 on the gradients, and
+# 1.6e-6 + 1.3e-7 for the expanded and the absorbed forms' outputs
+MLA_BATCH = 2
+MLA_LENGTHS = (512, 1025)
+MLA_REL = 2e-5
+MLA_GRAD_REL = 4e-5
+MLA_DECODE_REL = 2e-5
+# cross-attention on the card against the CPU at llama-3.2-vision-90b's
+# widths (d_model 8192, 64 / 8 heads of 128, 1601 encoder tokens of
+# 1280), f32, (batch, queries) = CROSS_SHAPE, the tanh gate at
+# CROSS_GATE (at its initial 0 the layer adds nothing and its weights'
+# gradients are 0): the output within CROSS_REL, every gradient (the
+# gate's and the embeddings' included) within CROSS_GRAD_REL: about 10x
+# the f32 floor as MLA's (tools/f32_floor.py cross --device cuda, same
+# card: 1.15e-7 on the output, which the residual x dominates, and <=
+# 3.15e-6 on the gradients)
+CROSS_SHAPE = (2, 512)
+CROSS_GATE = 0.5
+CROSS_REL = 2e-6
+CROSS_GRAD_REL = 3e-5
+# deepseek-v3-671b served bf16 at 1 layer with its MTP block (every
+# width, all 256 experts, top-8, the shared expert: 24,970,726,400
+# parameters), and in f32 at 1 layer with num_experts cut to
+# DEEPSEEK_F32_EXPERTS (5,237,509,120); trained at 1 layer with
+# num_experts and top_k cut to 4 and 2 (arctic's cut) and the vocab to
+# DEEPSEEK_TRAIN_VOCAB (1,034,939,392 parameters: the embedding and
+# lm_head alone are 1.85B at the published vocab, which no card's K = 2
+# emulation holds at ~69 B a parameter)
+DEEPSEEK_SERVE_LAYERS = 1
+DEEPSEEK_F32_EXPERTS = 32
+DEEPSEEK_TRAIN_EXPERTS = (4, 2)
+DEEPSEEK_TRAIN_VOCAB = 8192
+# llama-3.2-vision-90b served bf16 at 2 superblocks (10 layers,
+# 10,629,586,946 parameters: a wrong block index into the stacked cross
+# cache would show), in f32 at one superblock; trained at reduced()
+VISION_SERVE_LAYERS = 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -1139,6 +1212,185 @@ def ssd_phase(dev) -> dict:
     return out
 
 
+def set_gates(params, cfg, value: float = CROSS_GATE):
+    """Every cross-attention gate of ``params`` set to ``value`` in place
+    (they start at 0, where the layers add nothing).  Returns params."""
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "cross":
+            params["blocks"][f"p{i}"]["mixer"]["gate"].fill_(value)
+    return params
+
+
+def _mla_fwd_bwd(p, cfg, x, cots):
+    """mla_fwd's output, c_kv and k_rope, and the gradients of sum(y *
+    r) + sum(c_kv * rc) + sum(k_rope * rk) with respect to every weight
+    leaf and x."""
+    from repro_torch.models import layers as L
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+    xx = x.detach().requires_grad_(True)
+    y, (c, k) = L.mla_fwd(tree_unflatten(p, leaves), cfg, xx,
+                          torch.arange(x.shape[1], device=x.device))
+    obj = sum((t * r).sum() for t, r in zip((y, c, k), cots))
+    grads = torch.autograd.grad(obj, leaves + [xx])
+    return [y.detach(), c.detach(), k.detach()] + list(grads)
+
+
+def mla_phase(dev) -> dict:
+    """Latent attention (layers.mla_fwd in the expanded form, mla_decode
+    in the absorbed form; plain PyTorch, as the reference's is plain
+    jnp) at deepseek-v3-671b's geometry, f32 (TF32 off), seeded weights:
+    at each of MLA_LENGTHS the output, the cache and every gradient on
+    the card against the CPU (MLA_REL, MLA_GRAD_REL), device ms of a
+    forward and of a forward + backward; then a prefill of
+    MLA_LENGTHS[0] tokens and 3 decode steps on the card against the
+    expanded form over the longer prompt (MLA_DECODE_REL), with the
+    decode's device ms a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import flash
+    from repro_torch.models import layers as L
+    from repro_torch.utils import disable_tf32
+    from repro_torch.utils.tree import keystr_path, tree_leaves_with_path, \
+        tree_map
+    disable_tf32()
+    cfg = dataclasses.replace(get_arch("deepseek-v3-671b"), dtype="float32")
+    m, B = cfg.mla, MLA_BATCH
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_mla(gen, cfg, torch.float32, "cpu")
+    p_dev = tree_map(lambda t: t.to(dev), p)
+    names = ["y", "c_kv", "k_rope"] + ["d" + keystr_path(q) for q, _ in
+                                        tree_leaves_with_path(p)] + ["dx"]
+    out = {"d_model": cfg.d_model, "heads": cfg.n_heads,
+           "q_lora": m.q_lora_rank, "kv_lora": m.kv_lora_rank,
+           "nope": m.qk_nope_head_dim, "rope": m.qk_rope_head_dim,
+           "v": m.v_head_dim, "batch": B, "dtype": "float32",
+           "tol_rel": MLA_REL, "grad_tol_rel": MLA_GRAD_REL,
+           "decode_tol_rel": MLA_DECODE_REL}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+    for S in MLA_LENGTHS:
+        x = randn(B, S, cfg.d_model)
+        cots = [randn(B, S, cfg.d_model), randn(B, S, m.kv_lora_rank),
+                randn(B, S, m.qk_rope_head_dim)]
+        want = _mla_fwd_bwd(p, cfg, x, cots)
+        x_dev, c_dev = x.to(dev), [c.to(dev) for c in cots]
+        got = _mla_fwd_bwd(p_dev, cfg, x_dev, c_dev)
+        rel = {n: _rel(a, b) for n, a, b in zip(names, got, want)}
+        del want, got
+        pos = torch.arange(S, device=dev)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: L.mla_fwd(p_dev, cfg, x_dev, pos), 3)
+        out[f"S {S}"] = {
+            "chunk_plan": list(flash.chunk_plan(S, S)), "rel_err": rel,
+            "fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(
+                lambda: _mla_fwd_bwd(p_dev, cfg, x_dev, c_dev), 2)}
+        fwd = max(rel[n] for n in names[:3])
+        grads = max(rel[n] for n in names[3:])
+        if fwd > MLA_REL or grads > MLA_GRAD_REL:
+            raise AssertionError(f"mla S {S}: card against CPU {rel} > "
+                                 f"{MLA_REL} (output, cache) / "
+                                 f"{MLA_GRAD_REL} (gradients)")
+    # the absorbed decode against the expanded form, on the card
+    P, G = MLA_LENGTHS[0], 3
+    x = randn(B, P + G, cfg.d_model).to(dev)
+    with torch.no_grad():
+        cache = L.init_mla_cache(cfg, B, P + G, torch.float32, dev)
+        _, (c, k) = L.mla_fwd(p_dev, cfg, x[:, :P], torch.arange(P,
+                                                                 device=dev))
+        cache["c_kv"][:, :P], cache["k_rope"][:, :P] = c, k
+        cache["pos"][:P] = torch.arange(P, dtype=torch.int32, device=dev)
+        dec = torch.cat([L.mla_decode(p_dev, cfg, x[:, i:i + 1], cache,
+                                      i)[0] for i in range(P, P + G)], 1)
+        full, _ = L.mla_fwd(p_dev, cfg, x, torch.arange(P + G, device=dev))
+        rel = _rel(dec, full[:, P:].cpu())
+        # the last step again: it rewrites its own slot
+        step_ms = cuda_ms(lambda: L.mla_decode(
+            p_dev, cfg, x[:, -1:], cache, P + G - 1), 5)
+    out["decode"] = {"prefill": P, "steps": G, "rel_err": rel,
+                     "cache_len": P + G, "step_ms": step_ms}
+    emit("mla", **out)
+    if rel > MLA_DECODE_REL:
+        raise AssertionError(f"mla decode: absorbed against expanded {rel} "
+                             f"> {MLA_DECODE_REL}")
+    del p_dev, cache
+    gc_cuda()
+    return out
+
+
+def cross_phase(dev) -> dict:
+    """Cross-attention (layers.cross_attention_kv and cross_attention_fwd:
+    non-causal flash over the encoder tokens, 1601 padded to 2048 keys;
+    plain PyTorch, as the reference's is plain jnp) at
+    llama-3.2-vision-90b's widths, f32 (TF32 off), seeded weights, the
+    gate at CROSS_GATE: the output and every gradient (the gate's and
+    the embeddings' too) on the card against the CPU (CROSS_REL,
+    CROSS_GRAD_REL); device ms of kv, of a forward and of a forward +
+    backward; then a bf16 call with f32 embeddings, which must give k
+    and v in f32 (as jnp's promotion does) and the output in bf16."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import flash
+    from repro_torch.models import layers as L
+    from repro_torch.utils import disable_tf32
+    from repro_torch.utils.tree import keystr_path, tree_leaves_with_path, \
+        tree_map
+    disable_tf32()
+    cfg = dataclasses.replace(get_arch("llama-3.2-vision-90b"),
+                              dtype="float32")
+    B, S = CROSS_SHAPE
+    T = cfg.num_encoder_tokens
+    gen = torch.Generator().manual_seed(0)
+    p = L.init_cross_attention(gen, cfg, torch.float32, "cpu")
+    p["gate"].fill_(CROSS_GATE)
+    x = torch.randn((B, S, cfg.d_model), generator=gen)
+    enc = torch.randn((B, T, cfg.encoder_dim), generator=gen)
+    r = torch.randn(x.shape, generator=gen)
+    names = [keystr_path(q) for q, _ in tree_leaves_with_path(p)] + [
+        "x", "enc"]
+
+    def fn(pp, xx, ee):
+        return L.cross_attention_fwd(pp, cfg, xx,
+                                     L.cross_attention_kv(pp, cfg, ee)), None
+    rel = card_vs_cpu(fn, p, [x, enc], r, names, dev)
+    p_dev = tree_map(lambda t: t.to(dev), p)
+    x_dev, enc_dev = x.to(dev), enc.to(dev)
+    with torch.no_grad():
+        kv = L.cross_attention_kv(p_dev, cfg, enc_dev)
+        t = {"kv_ms": cuda_ms(lambda: L.cross_attention_kv(p_dev, cfg,
+                                                           enc_dev), 5),
+             "fwd_ms": cuda_ms(lambda: L.cross_attention_fwd(
+                 p_dev, cfg, x_dev, kv), 5)}
+        ref32 = L.cross_attention_fwd(p_dev, cfg, x_dev, kv)
+    t["fwd_bwd_ms"] = cuda_ms(lambda: _fwd_bwd(fn, p_dev, [x_dev, enc_dev],
+                                               r.to(dev)), 3)
+    # bf16 weights and activations, f32 embeddings
+    c16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p_dev)
+    with torch.no_grad():
+        k16, v16 = L.cross_attention_kv(p16, c16, enc_dev)
+        y16 = L.cross_attention_fwd(p16, c16, x_dev.bfloat16(), (k16, v16))
+    dtypes = [str(u.dtype).split(".")[-1] for u in (k16, v16, y16)]
+    out = {"batch": B, "queries": S, "encoder_tokens": T,
+           "encoder_dim": cfg.encoder_dim, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "gate": CROSS_GATE, "chunk_plan": list(flash.chunk_plan(S, T)),
+           "dtype": "float32", "tol_rel": CROSS_REL,
+           "grad_tol_rel": CROSS_GRAD_REL, "rel_err": rel, **t,
+           "bf16": {"k, v, y dtypes": dtypes,
+                    "y_rel_to_f32": _rel(y16, ref32.cpu())}}
+    emit("cross", **out)
+    grads = max(v for k_, v in rel.items() if k_ != "y")
+    if rel["y"] > CROSS_REL or grads > CROSS_GRAD_REL:
+        raise AssertionError(f"cross: card against CPU {rel} > {CROSS_REL} "
+                             f"(output) / {CROSS_GRAD_REL} (gradients)")
+    if dtypes != ["float32", "float32", "bfloat16"]:
+        raise AssertionError(f"cross bf16: k, v, y dtypes {dtypes}, not "
+                             "float32, float32, bfloat16")
+    del p_dev, p16
+    gc_cuda()
+    return out
+
+
 def gc_cuda() -> None:
     """Collect what reference cycles hold, then return the cached blocks."""
     import gc
@@ -1216,6 +1468,8 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
     emit("train", run=name, transport=args.transport, arch=cfg.name,
          n_layers=cfg.n_layers, seq=args.seq, batch=args.batch,
          reduced=list(reduced), d_model=cfg.d_model, dtype=cfg.dtype,
+         mtp_losses=[r["mtp_loss"] for r in records]
+         if cfg.mtp_depth else None,
          n_params=comp.layout.n_total if comp else None,
          nodes=args.pod_shards * args.data_shards,
          mesh=comp.Ks if comp else None,
@@ -1312,6 +1566,38 @@ def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
     runs["arctic-480b lgc_rar"] = train_phase(
         dev, "arctic-480b lgc_rar", lgc, 6, expect, cfg=arctic,
         reduced=("n_layers", "num_experts"))
+
+
+def mla_cross_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
+    """lgc_rar (K1 and K3) on the mesh wire, K = 2, batch 8, seq 128, 6
+    steps through the three phases, on the new gradient layouts:
+    deepseek-v3-671b at published widths (the MLA leaves, expert width
+    2048 and the shared expert, the MTP subtree) cut to 1 layer, 4
+    experts of top-2 and a vocab of DEEPSEEK_TRAIN_VOCAB, its MTP loss
+    finite every step; llama-3.2-vision-90b at its reduced() config (the
+    cross layers' gates; the encoder stream on the card).  One
+    self-attention layer of vision at published width is 856M
+    parameters and its embedding and lm_head 2.1B, so no published-
+    width run of it fits one card's K = 2 emulation."""
+    from repro_torch.configs import get_arch
+    expect = per_step(fused_ef_topk=K,
+                      compressed={"matmul_bias_lrelu": n_encoder * K})
+    ds = get_arch("deepseek-v3-671b")
+    E, top_k = DEEPSEEK_TRAIN_EXPERTS
+    ds = dataclasses.replace(ds, n_layers=1, vocab_size=DEEPSEEK_TRAIN_VOCAB,
+                             moe=dataclasses.replace(ds.moe, num_experts=E,
+                                                     top_k=top_k))
+    name = "deepseek-v3-671b lgc_rar"
+    runs[name] = train_phase(
+        dev, name, lgc, 6, expect, cfg=ds,
+        reduced=("n_layers", "num_experts", "top_k", "vocab_size"))
+    mtp = [h["mtp_loss"] for h in runs[name]["history"]]
+    if len(mtp) != 6 or not all(math.isfinite(v) for v in mtp):
+        raise AssertionError(f"{name}: MTP losses {mtp}")
+    vision = get_arch("llama-3.2-vision-90b").reduced()
+    name = "llama-3.2-vision-90b smoke lgc_rar"
+    runs[name] = train_phase(dev, name, lgc, 6, expect, cfg=vision,
+                             reduced=("reduced()",))
 
 
 def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
@@ -1791,12 +2077,14 @@ def serve_checked(dev, cfg, model, params, batch: int, plen: int,
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     toks = torch.cat([torch.from_numpy(run["prompt"]),
                       torch.from_numpy(run["tokens"])], 1).to(dev).long()
+    enc = {} if run["encoder_embeds"] is None else {
+        "encoder_embeds": torch.from_numpy(run["encoder_embeds"]).to(dev)}
     # decoded positions are plen .. plen + gen - 2
     check_at = ((plen, plen + gen // 2, plen + gen - 2) if n_checks == 3
                 else (plen + gen - 2,))
     checks, replayed = {}, True
     with torch.no_grad():
-        _, cache = model.prefill(params, {"tokens": toks[:, :plen]},
+        _, cache = model.prefill(params, {"tokens": toks[:, :plen], **enc},
                                  cache_len=plen + gen)
         for pos in range(plen, plen + gen - 1):
             logits, cache = model.decode_step(params, cache,
@@ -1804,7 +2092,8 @@ def serve_checked(dev, cfg, model, params, batch: int, plen: int,
             replayed &= bool(torch.equal(logits[:, 0].argmax(-1),
                                          toks[:, pos + 1]))
             if pos in check_at:
-                full, _ = model.prefill(params, {"tokens": toks[:, :pos + 1]})
+                full, _ = model.prefill(params, {"tokens": toks[:, :pos + 1],
+                                                 **enc})
                 checks[pos] = decode_check(logits, full)
         del cache
     step_ms = sorted(run["step_ms"])
@@ -1838,13 +2127,14 @@ def decode_check(logits, full) -> dict:
 
 
 def serve_arch(dev, arch: str, shapes, cfg=None, gate: bool = True,
-               reduced=()):
+               reduced=(), prepare=None):
     """``arch`` at published widths and full depth (or ``cfg``, cut as
     ``reduced`` says), bf16, random weights from seed 0, through
     serve.run(): one run at the first shape pays the one-off set-up
     (cuBLAS's handles and heuristics), then each of ``shapes`` through
-    serve_checked (``gate``: whether decode vs prefill is held).  Returns
-    (results, model, params)."""
+    serve_checked (``gate``: whether decode vs prefill is held;
+    ``prepare(params, cfg)``, if given, edits the params in place after
+    the set-up run: set_gates).  Returns (results, model, params)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
@@ -1854,6 +2144,8 @@ def serve_arch(dev, arch: str, shapes, cfg=None, gate: bool = True,
     params = serve.run(cfg, serve.parse_args([
         "--arch", arch, "--batch", str(b), "--prompt-len", str(p), "--gen",
         str(g)]))["params"]
+    if prepare is not None:
+        prepare(params, cfg)
     results = {f"B{b} prompt {p} gen {g}":
                serve_checked(dev, cfg, model, params, b, p, g, n, gate,
                              reduced)
@@ -1939,10 +2231,13 @@ def serve_phase(dev) -> dict:
     return result
 
 
-def prefill_32k(dev, model, params, gen) -> dict:
+def prefill_32k(dev, model, params, gen, gate: bool = True,
+                reduced=("batch",)) -> dict:
     """PREFILL_32K tokens at batch 1 into a cache of PREFILL_32K +
     PREFILL_32K_DECODE slots, greedy decode steps from it, and the first
-    step's logits against a full prefill of the prompt and its token."""
+    step's logits against a full prefill of the prompt and its token
+    (held to SERVE_REL unless ``gate`` is False: an MoE prefill's
+    capacity drops tokens)."""
     P, n = PREFILL_32K, PREFILL_32K_DECODE
     gc_cuda()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1980,12 +2275,12 @@ def prefill_32k(dev, model, params, gen) -> dict:
            "decode_ms_median": sorted(step_ms)[n // 2],
            "decode_ms_max": max(step_ms), "full_prefill_len": P + 1,
            "full_prefill_ms": full_ms, "decode_vs_prefill": check,
-           "tol_rel": SERVE_REL, "reduced": ["batch"]}
+           "tol_rel": SERVE_REL if gate else None, "reduced": list(reduced)}
     emit("serve_prefill_32k", arch=model.cfg.name,
          n_layers=model.cfg.n_layers, **out)
     if not finite:
         raise AssertionError(f"serve: non-finite logits at prompt {P}")
-    if check["max_abs_err"] > SERVE_REL * check["max_abs_logit"]:
+    if gate and check["max_abs_err"] > SERVE_REL * check["max_abs_logit"]:
         raise AssertionError(f"serve prompt {P}: decoding from the cache "
                              f"differs from a full prefill: {check}")
     return out
@@ -2026,43 +2321,96 @@ def serve_moe_ssm_phase(dev) -> dict:
     return out
 
 
+def serve_mla_cross_phase(dev) -> dict:
+    """The latent-attention and cross-attention archs served bf16 with
+    seeded random weights (serve_arch): deepseek-v3-671b cut to
+    DEEPSEEK_SERVE_LAYERS layer with its MTP block's params (B4 P64
+    G16, B8 P512 G16), then PREFILL_32K at batch 1 (decode_32k's
+    context, its batch of 128 cut to 1) and decode from the 512 + 64
+    latent cache against a PREFILL_32K + 1 prefill, decode vs prefill
+    printed, not held (the prefill's capacity drops tokens the dropless
+    decode keeps); llama-3.2-vision-90b cut to VISION_SERVE_LAYERS layers
+    (2 superblocks) with its gates at CROSS_GATE (B4 P64 G16, B8 P512
+    G16), held to SERVE_REL; then decode_f32_check for deepseek at 1
+    layer and DEEPSEEK_F32_EXPERTS experts and for vision at one
+    superblock."""
+    from repro_torch.configs import get_arch
+    ds = get_arch("deepseek-v3-671b")
+    ds = dataclasses.replace(ds, n_layers=DEEPSEEK_SERVE_LAYERS)
+    out = {}
+    out[ds.name], model, params = serve_arch(
+        dev, ds.name, ((4, 64, 16, 1), (8, 512, 16, 1)), cfg=ds, gate=False,
+        reduced=("n_layers",))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out[ds.name]["prefill_32k"] = prefill_32k(
+        dev, model, params, gen, gate=False, reduced=("n_layers", "batch"))
+    del params, model
+    gc_cuda()
+    vision = dataclasses.replace(get_arch("llama-3.2-vision-90b"),
+                                 n_layers=VISION_SERVE_LAYERS)
+    out[vision.name], _, params = serve_arch(
+        dev, vision.name, ((4, 64, 16, 1), (8, 512, 16, 1)), cfg=vision,
+        reduced=("n_layers",), prepare=set_gates)
+    del params
+    gc_cuda()
+    out[ds.name]["f32"] = decode_f32_check(
+        dev, dataclasses.replace(ds, moe=dataclasses.replace(
+            ds.moe, num_experts=DEEPSEEK_F32_EXPERTS)),
+        reduced=("n_layers", "num_experts", "capacity_factor"))
+    gc_cuda()
+    out[vision.name]["f32"] = decode_f32_check(
+        dev, dataclasses.replace(vision, n_layers=len(vision.block_pattern)),
+        reduced=("n_layers",))
+    gc_cuda()
+    return out
+
+
 def decode_f32_check(dev, cfg, batch: int = 4, plen: int = 64,
-                     gen: int = 3) -> dict:
+                     gen: int = 3, reduced=("n_layers", "capacity_factor")
+                     ) -> dict:
     """``cfg`` in f32 (TF32 off) with capacity_factor = E / K, so the
-    prefill's capacity (C = Tg) drops no token: a prefill of ``plen``
-    tokens, ``gen`` greedy decode steps from its cache (MoE dropless),
-    and the last step's logits against a full prefill of the same
-    prefix within SERVE_F32_REL of its largest logit."""
+    prefill's capacity (C = Tg) drops no token (an MoE arch), its
+    cross-attention gates at CROSS_GATE and N(0, 1) encoder embeddings
+    (a cross arch): a prefill of ``plen`` tokens, ``gen`` greedy decode
+    steps from its cache (MoE dropless), and the last step's logits
+    against a full prefill of the same prefix within SERVE_F32_REL of
+    its largest logit.  ``reduced``: the cuts, printed."""
     from repro_torch.models.model import build_model
     from repro_torch.utils import disable_tf32
     disable_tf32()
     mo = cfg.moe
-    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
-        mo, capacity_factor=mo.num_experts / mo.top_k))
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=None if mo is None
+                              else dataclasses.replace(
+                                  mo, capacity_factor=mo.num_experts
+                                  / mo.top_k))
     model = build_model(cfg)
     gc_cuda()
     torch.cuda.reset_peak_memory_stats(dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(g, dev)
+    params = set_gates(model.init(g, dev), cfg)
     with torch.no_grad():
         toks = torch.randint(0, cfg.vocab_size, (batch, plen), device=dev,
                              generator=g)
-        logits, cache = model.prefill(params, {"tokens": toks},
+        enc = {} if not cfg.num_encoder_tokens else {
+            "encoder_embeds": torch.randn(
+                (batch, cfg.num_encoder_tokens, cfg.encoder_dim),
+                device=dev, generator=g)}
+        logits, cache = model.prefill(params, {"tokens": toks, **enc},
                                       cache_len=plen + gen)
         for pos in range(plen, plen + gen):
             toks = torch.cat([toks, logits[:, -1].argmax(-1)[:, None]], 1)
             logits, cache = model.decode_step(params, cache,
                                               toks[:, pos:pos + 1], pos)
-        full, _ = model.prefill(params, {"tokens": toks})
+        full, _ = model.prefill(params, {"tokens": toks, **enc})
         check = decode_check(logits, full)
     del params, cache
     out = {"batch": batch, "prompt_len": plen, "decode_steps": gen,
-           "n_layers": cfg.n_layers, "capacity_factor": cfg.moe
-           .capacity_factor, "decode_vs_prefill": check,
+           "n_layers": cfg.n_layers, "capacity_factor": None if mo is None
+           else cfg.moe.capacity_factor, "decode_vs_prefill": check,
            "tol_rel": SERVE_F32_REL,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     emit("serve_f32_decode_check", arch=cfg.name, dtype="float32",
-         reduced=["n_layers", "capacity_factor"], **out)
+         reduced=list(reduced), **out)
     if check["max_abs_err"] > SERVE_F32_REL * check["max_abs_logit"]:
         raise AssertionError(f"serve {cfg.name} f32: decoding from the "
                              f"cache differs from a full prefill: {check}")
@@ -2090,6 +2438,8 @@ def main() -> None:
     flash_phase(dev)
     moe_phase(dev)
     ssd_phase(dev)
+    mla_phase(dev)
+    cross_phase(dev)
     n_leaves = len(llama_layout(0.001).compressed)
     K = 2
     from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
@@ -2186,11 +2536,13 @@ def main() -> None:
                  compressed={"matmul_bias_lrelu": len(ENCODER) * K}),
         reduced=("n_layers", "batch"))
     moe_ssm_train_runs(dev, runs, K, lgc, len(ENCODER))
+    mla_cross_train_runs(dev, runs, K, lgc, len(ENCODER))
     guard_runs(dev, runs, n_leaves, K, lgc, dgc, q8)
     resume_run(dev, runs, K, lgc)
     convnet5_phase(dev, runs)
     serve_phase(dev)
     serve_moe_ssm_phase(dev)
+    serve_mla_cross_phase(dev)
     packed_b = runs["dgc ring_packed"]["wire"]["topk_ae"]["topk"]
     raw_b = runs["dgc"]["wire"]["topk_ae"]["topk"]
     emit("topk_bytes", packed=packed_b, raw=raw_b,

@@ -2,10 +2,10 @@
 (optimizer/schedule) and :class:`CompressionConfig` (the paper's
 technique), plus the arch registry and the reference's input shapes.
 Counterpart of ``repro.configs.base``, cut to what the ported slices
-run: superblocks of attention and Mamba2 blocks with dense or MoE FFNs,
-and the fields of the six compressors on the emulated transports.
-``MLA``, ``CROSS``, ``mla`` and ``mtp_depth`` exist so a config that
-asks for them is refused by the model (ROADMAP.md Queue 1 items 5, 6).
+run: superblocks of attention (or latent attention), Mamba2 and
+cross-attention blocks with dense or MoE FFNs, the multi-token
+prediction head, and the fields of the six compressors on the emulated
+transports.
 """
 from __future__ import annotations
 
@@ -14,9 +14,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 # layer kinds of a superblock pattern
 ATTN = "attn"          # self-attention (GQA; sliding-window if window set)
-MLA = "mla"            # latent attention: not ported yet
+MLA = "mla"            # a reference kind the model refuses (see Model)
 MAMBA = "mamba"        # Mamba2 SSD block
-CROSS = "cross"        # cross-attention: not ported yet
+CROSS = "cross"        # cross-attention over encoder embeddings
 
 
 @dataclass(frozen=True)
@@ -33,7 +33,8 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class MLAConfig:
-    """Latent attention geometry (the field of configs that ask for it)."""
+    """Latent attention geometry [arXiv:2412.19437]: with ``mla`` set,
+    every ``ATTN`` position is latent attention."""
     q_lora_rank: int = 1536
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
@@ -54,8 +55,8 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid | audio;
-                                     # the model dispatches on
+    family: str                      # dense | moe | ssm | hybrid | vlm |
+                                     # audio; the model dispatches on
                                      # block_pattern
     n_layers: int
     d_model: int
@@ -73,6 +74,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    # cross-attention's encoder embeddings (B, num_encoder_tokens,
+    # encoder_dim), drawn by the data stream (the frontend is a stub)
+    num_encoder_tokens: int = 0
+    encoder_dim: int = 0
     mtp_depth: int = 0               # multi-token prediction depth
     dtype: str = "bfloat16"
     source: str = ""
@@ -97,6 +102,8 @@ class ModelConfig:
             d_ff=512 if self.d_ff else 0,
             vocab_size=512,
             head_dim=32 if self.n_heads else 0,
+            num_encoder_tokens=16 if self.num_encoder_tokens else 0,
+            encoder_dim=128 if self.encoder_dim else 0,
             name=self.name + "-smoke",
             dtype="float32",
         )
@@ -199,9 +206,8 @@ def register_arch(name: str):
 def get_arch(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (triggers registration)
     if name not in ARCH_REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; ported: "
-                       f"{sorted(ARCH_REGISTRY)} (the other block kinds are "
-                       "ROADMAP.md Queue 1, 'modules to port')")
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(ARCH_REGISTRY)}")
     return ARCH_REGISTRY[name]()
 
 

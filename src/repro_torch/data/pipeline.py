@@ -19,8 +19,13 @@ def _rng(seed: int, step: int) -> np.random.Generator:
 
 
 def synthetic_token_batches(vocab_size: int, batch: int, seq_len: int,
-                            seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Markov-chain token stream yielding {"tokens", "labels"}."""
+                            seed: int = 0, encoder_tokens: int = 0,
+                            encoder_dim: int = 0,
+                            ) -> Iterator[Dict[str, np.ndarray]]:
+    """Markov-chain token stream yielding {"tokens", "labels"} and, when
+    ``encoder_tokens`` > 0, "encoder_embeds" (batch, encoder_tokens,
+    encoder_dim) f32 ~ N(0, 1): the stub of a vision frontend, drawn from
+    the step's generator after the tokens, as the reference draws it."""
     base = np.random.default_rng(seed)
     # sparse transition structure: each token can go to 8 successors
     succ = base.integers(0, vocab_size, size=(vocab_size, 8))
@@ -37,7 +42,11 @@ def synthetic_token_batches(vocab_size: int, batch: int, seq_len: int,
             cdf = probs[cur].cumsum(-1)
             choice = (unif[:, t : t + 1] < cdf).argmax(-1)
             toks[:, t + 1] = succ[cur, choice]
-        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+        if encoder_tokens:
+            out["encoder_embeds"] = r.normal(
+                size=(batch, encoder_tokens, encoder_dim)).astype(np.float32)
+        yield out
         step += 1
 
 

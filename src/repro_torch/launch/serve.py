@@ -14,9 +14,14 @@ decode extends it in place.  Greedy decoding is the default; with
 with a ``torch.Generator`` seeded by ``--seed``, so the sampled tokens
 cannot equal the reference's ``jax.random.categorical`` draws (the
 greedy ones can).  The first generated token is prefill's argmax in
-both modes, as in the reference.  One device: ``--data-shards`` and
-``--model-shards`` above 1 raise (ROADMAP.md Queue 1 item 7).  Runs on
-the card unless ``--device cpu``; with no card it raises.
+both modes, as in the reference.  An arch with cross-attention blocks
+(llama-3.2-vision-90b) reads encoder embeddings (batch,
+num_encoder_tokens, encoder_dim) f32 ~ N(0, 1), drawn by the same numpy
+generator after the prompt, as the reference draws them; the prefill
+keeps their k, v in the cache and decode reads them there.  One device:
+``--data-shards`` and ``--model-shards`` above 1 raise (ROADMAP.md
+Queue 1 item 8).  Runs on the card unless ``--device cpu``; with no
+card it raises.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ def _sync(device: torch.device) -> None:
 def run(cfg: ModelConfig, args, params=None) -> Dict[str, Any]:
     """Serve ``cfg`` as ``args`` says.  Returns {"tokens": (B, gen) int32
     numpy, the generated tokens; "prompt": (B, prompt_len) int32 numpy;
+    "encoder_embeds": (B, T, encoder_dim) f32 numpy or None;
     "prefill_ms"; "step_ms": host ms of each decode step, each ending in
     a synchronise on the card; "decode_s": the decode loop's seconds;
     "params"}.  ``params`` (on the run's device) replaces the seeded
@@ -67,7 +73,7 @@ def run(cfg: ModelConfig, args, params=None) -> Dict[str, Any]:
     if args.data_shards * args.model_shards > 1:
         raise NotImplementedError(
             "serving on several devices (--data-shards / --model-shards > "
-            "1) is not ported yet (ROADMAP.md Queue 1 item 7)")
+            "1) is not ported yet (ROADMAP.md Queue 1 item 8)")
     device = resolve_device(args.device)
     disable_tf32()
     model = build_model(cfg)
@@ -77,13 +83,18 @@ def run(cfg: ModelConfig, args, params=None) -> Dict[str, Any]:
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab_size,
                           (args.batch, args.prompt_len)).astype(np.int32)
+    enc = None
+    if cfg.num_encoder_tokens:
+        enc = rng.normal(size=(args.batch, cfg.num_encoder_tokens,
+                               cfg.encoder_dim)).astype(np.float32)
     total = args.prompt_len + args.gen
     with torch.no_grad():
-        tokens = torch.from_numpy(prompt).to(device).long()
+        batch = {"tokens": torch.from_numpy(prompt).to(device).long()}
+        if enc is not None:
+            batch["encoder_embeds"] = torch.from_numpy(enc).to(device)
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens},
-                                      cache_len=total)
+        logits, cache = model.prefill(params, batch, cache_len=total)
         out = [logits[:, -1].argmax(-1)]
         _sync(device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -110,7 +121,8 @@ def run(cfg: ModelConfig, args, params=None) -> Dict[str, Any]:
     log.info("decoded %d x %d tokens in %.2fs (%.1f tok/s)", args.batch,
              args.gen - 1, decode_s,
              args.batch * (args.gen - 1) / max(decode_s, 1e-9))
-    return {"tokens": gen, "prompt": prompt, "prefill_ms": prefill_ms,
+    return {"tokens": gen, "prompt": prompt, "encoder_embeds": enc,
+            "prefill_ms": prefill_ms,
             "step_ms": step_ms, "decode_s": decode_s, "params": params}
 
 

@@ -146,6 +146,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A host batch on ``device``: token ids as int64, the encoder
+    embeddings as they are (f32)."""
+    out = {}
+    for k, x in batch.items():
+        t = torch.from_numpy(x).to(device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
+
+
 def _state_tree(cc: CompressionConfig, params, opt_state, comp_state):
     """What a checkpoint holds: the full train state, without the
     compressor's for ``none`` (the reference's dense trainer has none)."""
@@ -159,7 +169,8 @@ def run(cfg: ModelConfig, args,
         on_step: Optional[Callable[[Dict[str, Any]], None]] = None
         ) -> Dict[str, Any]:
     """Train ``cfg`` as ``args`` says; returns {"history": per-step
-    records (step, phase, loss, ms; under a guard guard_ok, the step's
+    records (step, phase, loss, ms; with an MTP head mtp_loss; under a
+    guard guard_ok, the step's
     fault counts per op label and the running total ``faults``; with
     injected faults the step's ``fault_ops``; ``checkpoint_s`` where the
     step saved), "wire": {phase: {op: {kind: bytes}}}, "rate": the
@@ -215,8 +226,9 @@ def run(cfg: ModelConfig, args,
     log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
              report.compression_ratio, report.bytes_per_node)
 
-    data = synthetic_token_batches(cfg.vocab_size, args.batch, args.seq,
-                                   seed=args.seed)
+    data = synthetic_token_batches(
+        cfg.vocab_size, args.batch, args.seq, seed=args.seed,
+        encoder_tokens=cfg.num_encoder_tokens, encoder_dim=cfg.encoder_dim)
     for _ in range(start):
         # step s trains on the stream's s-th batch, resumed or not
         next(data)
@@ -225,8 +237,7 @@ def run(cfg: ModelConfig, args,
     history, wire = [], {}
     for step in range(start, args.steps):
         phase = phase_for_step(step, cc)
-        batch = {k: torch.from_numpy(x).to(device).long()
-                 for k, x in next(data).items()}
+        batch = to_device(next(data), device)
         chaos.reset_fault_tally()
         t0 = time.perf_counter()
         params, opt_state, comp_state, metrics = lts.step(
@@ -236,6 +247,8 @@ def run(cfg: ModelConfig, args,
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t0) * 1e3
         rec = {"step": step, "phase": phase, "loss": loss, "ms": ms}
+        if "mtp_loss" in metrics:
+            rec["mtp_loss"] = float(metrics["mtp_loss"])
         if guard_on:
             # the guard's counts stay on the device through the step
             counts = {k[len("fault/"):]: int(v) for k, v in metrics.items()
@@ -252,8 +265,9 @@ def run(cfg: ModelConfig, args,
                      {op: {k: int(b) for k, b in row.items()}
                       for op, row in metrics["wire"].items()})
         if step % args.log_every == 0 or step == args.steps - 1:
-            log.info("step %4d  phase=%-10s loss=%.4f  %.1f ms", step,
-                     phase, loss, ms)
+            log.info("step %4d  phase=%-10s loss=%.4f%s  %.1f ms", step,
+                     phase, loss, f"  mtp_loss={rec['mtp_loss']:.4f}"
+                     if "mtp_loss" in rec else "", ms)
         if cc.guard == "fail_fast":
             chaos.raise_on_faults(metrics, step=step)
         if args.checkpoint_every and args.checkpoint_dir \

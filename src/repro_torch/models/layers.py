@@ -1,7 +1,7 @@
 """Decoder building blocks (counterpart of ``repro.models.layers``:
-attention, SwiGLU and MoE).  Params are nested dicts of tensors in the
-reference's layouts: linear weights (in, out), a leading ``lead`` axis
-on stacked block params.
+attention, cross-attention, latent attention, SwiGLU and MoE).  Params
+are nested dicts of tensors in the reference's layouts: linear weights
+(in, out), a leading ``lead`` axis on stacked block params.
 
 Training and prefill attend through ``flash.flash_attention``, as the
 reference's ``attention_fwd`` does: an online softmax over chunks whose
@@ -15,7 +15,11 @@ Decode (``attention_decode`` over the cache of ``init_attention_cache``)
 is plain PyTorch, as the reference's ``decode_attention`` is plain jnp:
 one query row against the cache needs no chunking.  Unlike the
 reference's functional update, it writes the new token's k, v and
-position into the cache IN PLACE.
+position into the cache IN PLACE.  Latent attention (``mla_fwd``,
+``mla_decode``) trains and prefills in the expanded form (per-head k, v
+through flash) and decodes in the absorbed form (attention in the
+latent space against the latent cache); cross-attention attends over
+encoder embeddings whose k, v are computed once per prompt.
 """
 from __future__ import annotations
 
@@ -187,6 +191,187 @@ def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.full(tuple(lead) + (S,), INT32_MAX, dtype=torch.int32,
                           device=device),
+    }
+
+
+def _promoted_linear(p, x):
+    """x @ w in the promoted dtype of the two, as jnp's ``@`` computes
+    it (f32 embeddings against bf16 weights give f32; PyTorch's ``@``
+    refuses mixed dtypes)."""
+    dt = torch.promote_types(x.dtype, p["w"].dtype)
+    return x.to(dt) @ p["w"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention: queries from the text, keys and values from the
+# encoder's embeddings
+
+
+def init_cross_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
+    """The reference's tree, with its tanh gate at 0: at init the layer
+    adds exactly nothing, and its projections' gradients are 0."""
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "norm": init_rmsnorm(D, dtype, device, lead),
+        "wq": init_linear(gen, D, H * hd, dtype, device, False, lead),
+        "wk": init_linear(gen, cfg.encoder_dim, KH * hd, dtype, device,
+                          False, lead),
+        "wv": init_linear(gen, cfg.encoder_dim, KH * hd, dtype, device,
+                          False, lead),
+        "wo": init_linear(gen, H * hd, D, dtype, device, False, lead),
+        "gate": torch.zeros(tuple(lead) + (1,), dtype=dtype, device=device),
+    }
+
+
+def cross_attention_kv(p, cfg: ModelConfig, enc):
+    """enc: (B, T, encoder_dim) -> k, v (B, T, KH, hd), once a prompt, in
+    the promoted dtype of enc and the weights: f32 for the f32
+    embeddings of the data stream and of serving, as in the reference."""
+    B, T, _ = enc.shape
+    k = _promoted_linear(p["wk"], enc).view(B, T, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    v = _promoted_linear(p["wv"], enc).view(B, T, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    return k, v
+
+
+def cross_attention_fwd(p, cfg: ModelConfig, x, enc_kv):
+    """Pre-norm cross-attention with a tanh gate and residual: every
+    query sees every encoder token (non-causal flash; a T past 1024 that
+    the reference's rule would cut into 1-key chunks pads instead, the
+    padded keys masked by index).  The output is in x's dtype."""
+    B, S, _ = x.shape
+    k, v = enc_kv
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
+    q = linear(p["wq"], h).view(B, S, cfg.n_heads, cfg.head_dim)
+    o = flash.flash_attention(q, k, v, False, 0)
+    gate = torch.tanh(p["gate"].float()).to(x.dtype)
+    return x + gate * linear(p["wo"], o.reshape(B, S, -1))
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V3's multi-head latent attention
+
+
+def init_mla(gen, cfg: ModelConfig, dtype, device, lead=()):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "norm": init_rmsnorm(D, dtype, device, lead),
+        "wq_a": init_linear(gen, D, m.q_lora_rank, dtype, device, False,
+                            lead),
+        "q_norm": init_rmsnorm(m.q_lora_rank, dtype, device, lead),
+        "wq_b": init_linear(gen, m.q_lora_rank, H * qk, dtype, device, False,
+                            lead),
+        "wkv_a": init_linear(gen, D, m.kv_lora_rank + m.qk_rope_head_dim,
+                             dtype, device, False, lead),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, dtype, device, lead),
+        "wkv_b": init_linear(gen, m.kv_lora_rank,
+                             H * (m.qk_nope_head_dim + m.v_head_dim), dtype,
+                             device, False, lead),
+        "wo": init_linear(gen, H * m.v_head_dim, D, dtype, device, False,
+                          lead),
+    }
+
+
+def _mla_qkv(p, cfg: ModelConfig, h, positions):
+    """h: (B, S, D), normed.  Returns q_nope (B, S, H, nope), q_rope (B,
+    S, H, rope) roped, the latent c_kv (B, S, r) after kv_norm and
+    k_rope (B, S, 1, rope) roped."""
+    m = cfg.mla
+    B, S, _ = h.shape
+    q = linear(p["wq_b"], rmsnorm(p["q_norm"], linear(p["wq_a"], h),
+                                  cfg.rms_norm_eps))
+    q = q.view(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = linear(p["wkv_a"], h).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_kv = rmsnorm(p["kv_norm"], c_kv, cfg.rms_norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(p, cfg: ModelConfig, c_kv, k_rope):
+    """The latent expanded to per-head k (B, S, H, nope + rope; the rope
+    key shared by every head) and v (B, S, H, v_head_dim)."""
+    m = cfg.mla
+    B, S, _ = c_kv.shape
+    H = cfg.n_heads
+    kv = linear(p["wkv_b"], c_kv).view(B, S, H,
+                                       m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)], -1)
+    return k, v.contiguous()
+
+
+def mla_fwd(p, cfg: ModelConfig, x, positions):
+    """Latent attention with residual, for training and prefill, in the
+    expanded form: causal flash over q, k of width nope + rope and v of
+    width v_head_dim.  Returns (x + attention, (c_kv (B, S, r), k_rope
+    (B, S, rope))): what prefill keeps as the cache."""
+    B, S, _ = x.shape
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, positions)
+    k, v = _mla_expand_kv(p, cfg, c_kv, k_rope)
+    q = torch.cat([q_nope, q_rope], -1)
+    o = flash.flash_attention(q, k, v, True, 0)
+    return x + linear(p["wo"], o.reshape(B, S, -1)), (c_kv, k_rope[:, :, 0])
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, pos: int):
+    """One token against the latent cache, in the absorbed form (the
+    reference's): q_nope is lifted into the latent space by wkv_b's key
+    half (in the model dtype), the scores are two products with f32
+    results (the reference's ``preferred_element_type``) times
+    1/sqrt(nope + rope), the softmax runs over the slots with kv_pos <=
+    pos, the latent output is f32 against the f32 latent and is cast to
+    the model dtype before wkv_b's value half.  Equal to the expanded
+    form up to rounding.  x: (B, 1, D); cache: {"c_kv": (B, S, r),
+    "k_rope": (B, S, rope), "pos": (S,) int32}, written at slot ``pos``
+    IN PLACE.  Returns (x + attention, cache)."""
+    m = cfg.mla
+    B, H = x.shape[0], cfg.n_heads
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_new, k_rope_new = _mla_qkv(p, cfg, h, posv)
+    S = cache["c_kv"].shape[1]
+    if not 0 <= pos < S:
+        raise IndexError(f"decode position {pos} is past the cache's "
+                         f"{S} slots")
+    cache["c_kv"][:, pos].copy_(c_new[:, 0])
+    cache["k_rope"][:, pos].copy_(k_rope_new[:, 0, 0])
+    cache["pos"][pos:pos + 1].fill_(pos)
+    wkv_b = p["wkv_b"]["w"].view(m.kv_lora_rank, H,
+                                 m.qk_nope_head_dim + m.v_head_dim)
+    wk_b, wv_b = wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk_b)       # (B, 1, H, r)
+    c_kv = cache["c_kv"].float()
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = (torch.einsum("bqhr,bkr->bhk", q_lat.float(), c_kv)
+         + torch.einsum("bqhe,bke->bhk", q_rope.float(),
+                        cache["k_rope"].float())) * scale
+    valid = cache["pos"] <= pos
+    pattn = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    o_lat = torch.einsum("bhk,bkr->bhr", pattn, c_kv)
+    o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), wv_b)
+    return x + linear(p["wo"], o.reshape(B, 1, -1)), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
+                   device, lead=()):
+    """Zero latents c_kv (lead + (B, S, r)) and rope keys (lead + (B, S,
+    rope)), int32-max positions (lead + (S,))."""
+    m = cfg.mla
+    shape = tuple(lead) + (batch, seq_len)
+    return {
+        "c_kv": torch.zeros(shape + (m.kv_lora_rank,), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros(shape + (m.qk_rope_head_dim,), dtype=dtype,
+                              device=device),
+        "pos": torch.full(tuple(lead) + (seq_len,), INT32_MAX,
+                          dtype=torch.int32, device=device),
     }
 
 

@@ -1,27 +1,38 @@
 """The decoder of superblocks (counterpart of ``repro.models.model``):
-a ``block_pattern`` of attention and Mamba2 blocks, each followed by a
-SwiGLU or, at the MoE positions (``_moe_at``), a routed MoE FFN; the
-dense family, musicgen's, arctic (MoE), mamba2 (Mamba2 alone) and jamba
-(both in one 8-position superblock).
+a ``block_pattern`` of attention, Mamba2 and cross-attention blocks,
+each followed by a SwiGLU or, at the MoE positions (``_moe_at``), a
+routed MoE FFN; with ``cfg.mla`` every attention position is latent
+attention, and ``cfg.mtp_depth`` > 0 adds the multi-token prediction
+head.  The dense family, musicgen's, arctic (MoE), mamba2 (Mamba2
+alone), jamba (both in one 8-position superblock), deepseek-v3 (latent
+attention, MoE with a shared expert, MTP) and llama-3.2-vision (four
+attention blocks and one cross-attention block a superblock).
 
 Params keep the reference's tree: ``{"embed": {"w"}, "final_norm":
 {"scale"}, "blocks": {"p0": {"mixer": ..., ["ffn": ...]}, "p1": ...},
-["lm_head"]}`` with every block leaf stacked along a leading
-``n_blocks`` axis per pattern position, so the flat gradient has the
-reference's layout.  ``loss`` remats each superblock and each
-cross-entropy chunk (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` does; the MoE layers' aux losses are summed into the
-loss and into ``metrics["aux_loss"]`` in the reference's order.
-Attention keeps no (S, S) matrix (``flash``), so training lengths reach
-the reference's ``train_4k``.  Serving: ``init_cache``, ``prefill`` (the
-prompt's last-token logits and the filled cache) and ``decode_step``
-(one token from the cache, which it updates in place; MoE dropless, as
-the reference's decode), with the cache tree ``{"p{i}": ...}`` stacked
-over the blocks as the reference stacks it: attention ``{"k", "v":
-(n_blocks, B, S, KH, hd), "pos": (n_blocks, S)}``, Mamba2 ``{"conv":
-(n_blocks, B, d_conv - 1, conv_dim), "ssm": (n_blocks, B, H, N, P)}``.
-Latent attention, cross-attention and multi-token prediction are not
-ported yet (ROADMAP.md Queue 1 items 5 and 6): their configs raise.
+["lm_head"], ["mtp": {"proj", "norm_h", "norm_e", "block"}]}`` with
+every block leaf stacked along a leading ``n_blocks`` axis per pattern
+position (the MTP block is one position, unstacked), so the flat
+gradient has the reference's layout.  ``loss`` remats each superblock
+and each cross-entropy chunk (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does; the MoE layers' aux losses are
+summed into the loss and into ``metrics["aux_loss"]`` in the
+reference's order (the MTP block's is discarded, as there).  Attention
+keeps no (S, S) matrix (``flash``), so training lengths reach the
+reference's ``train_4k``.  A batch may carry ``"encoder_embeds"`` (B,
+num_encoder_tokens, encoder_dim), which the cross-attention blocks read.
+Serving: ``init_cache``, ``prefill`` (the prompt's last-token logits and
+the filled cache) and ``decode_step`` (one token from the cache, which
+it updates in place; MoE dropless, as the reference's decode), with the
+cache tree ``{"p{i}": ...}`` stacked over the blocks as the reference
+stacks it: attention ``{"k", "v": (n_blocks, B, S, KH, hd), "pos":
+(n_blocks, S)}``, latent attention ``{"c_kv": (n_blocks, B, S, r),
+"k_rope": (n_blocks, B, S, rope), "pos"}``, Mamba2 ``{"conv":
+(n_blocks, B, d_conv - 1, conv_dim), "ssm": (n_blocks, B, H, N, P)}``,
+cross-attention ``{"k", "v": (n_blocks, B, T, KH, hd)}`` in f32, the
+dtype the prefill computes them in from the f32 embeddings (the
+reference's ``init_cache`` declares the model dtype there, but its
+prefill returns f32).
 """
 from __future__ import annotations
 
@@ -60,31 +71,35 @@ class Model:
 
     def __post_init__(self):
         cfg = self.cfg
-        todo = {MLA: "latent attention (ROADMAP.md Queue 1 item 5)",
-                CROSS: "cross-attention (ROADMAP.md Queue 1 item 6)"}
         for kind in cfg.block_pattern:
-            if kind in todo:
-                raise NotImplementedError(f"{cfg.name}: {todo[kind]} is not "
-                                          "ported yet")
-            if kind not in (ATTN, MAMBA):
+            if kind == MLA:
+                # the reference builds this kind's params, but its loss,
+                # prefill and decode skip the mixer and its init_cache
+                # raises; latent attention is cfg.mla on ATTN positions
+                raise ValueError(
+                    f"{cfg.name}: block kind {MLA!r} is not run by the "
+                    "reference's forward (a reference fault, ROADMAP.md "
+                    "Queue 3): set cfg.mla and use 'attn' positions")
+            if kind not in (ATTN, MAMBA, CROSS):
                 raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
-        if cfg.mla is not None:
-            raise NotImplementedError(f"{cfg.name}: {todo[MLA]} is not "
-                                      "ported yet")
-        if cfg.mtp_depth > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: multi-token prediction (ROADMAP.md Queue 1 "
-                "item 5) is not ported yet")
         if MAMBA in cfg.block_pattern and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a mamba block needs cfg.ssm")
+        if CROSS in cfg.block_pattern and not (cfg.num_encoder_tokens
+                                               and cfg.encoder_dim):
+            raise ValueError(f"{cfg.name}: a cross block needs "
+                             "num_encoder_tokens and encoder_dim")
 
     def _init_position(self, gen, pos: int, device, lead):
         """Params of pattern position ``pos``, stacked over ``lead``."""
         cfg, dtype = self.cfg, _dtype(self.cfg)
-        p: Dict[str, Any] = {"mixer": (
-            L.init_attention(gen, cfg, dtype, device, lead)
-            if cfg.block_pattern[pos] == ATTN
-            else M.init_mamba(gen, cfg, dtype, device, lead))}
+        kind = cfg.block_pattern[pos]
+        if kind == ATTN:
+            init = L.init_mla if cfg.mla is not None else L.init_attention
+        elif kind == MAMBA:
+            init = M.init_mamba
+        else:
+            init = L.init_cross_attention
+        p: Dict[str, Any] = {"mixer": init(gen, cfg, dtype, device, lead)}
         if _has_ffn(cfg):
             p["ffn"] = (L.init_moe(gen, cfg, dtype, device, lead)
                         if _moe_at(cfg, pos) else
@@ -105,12 +120,34 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.init_linear(gen, cfg.d_model,
                                               cfg.vocab_size, dtype, device)
+        if cfg.mtp_depth > 0:
+            # one block, whatever the depth, as the reference builds it:
+            # [norm_h(h_t); norm_e(embed(token_t+1))] projected to
+            # d_model, then pattern position 0's mixer and FFN
+            params["mtp"] = {
+                "proj": L.init_linear(gen, 2 * cfg.d_model, cfg.d_model,
+                                      dtype, device),
+                "norm_h": L.init_rmsnorm(cfg.d_model, dtype, device),
+                "norm_e": L.init_rmsnorm(cfg.d_model, dtype, device),
+                "block": self._init_position(gen, 0, device, ()),
+            }
         return params
 
     def _lm_head_w(self, params):
         if self.cfg.tie_embeddings:
             return params["embed"]["w"].T
         return params["lm_head"]["w"]
+
+    def _mixer(self, p, kind: str, h, positions, enc):
+        """One position's mixer, for training (and the MTP block)."""
+        cfg = self.cfg
+        if kind == ATTN:
+            fwd = L.mla_fwd if cfg.mla is not None else L.attention_fwd
+            return fwd(p, cfg, h, positions)[0]
+        if kind == MAMBA:
+            return M.mamba_fwd(p, cfg, h)
+        return L.cross_attention_fwd(p, cfg, h,
+                                     L.cross_attention_kv(p, cfg, enc))
 
     def _ffn(self, p, pos: int, h, aux=None, dropless: bool = False):
         """Position ``pos``'s FFN, if it has one; a MoE layer's aux loss
@@ -122,23 +159,21 @@ class Model:
             return h, (None if aux is None else aux + a)
         return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps), aux
 
-    def _block_fn(self, params, i: int, h, aux, positions):
+    def _block_fn(self, params, i: int, h, aux, positions, enc):
         """Superblock i, every pattern position in order: (h, aux)."""
         blk = _block(params, i)
         for pos, kind in enumerate(self.cfg.block_pattern):
             p = blk[f"p{pos}"]
-            if kind == ATTN:
-                h, _ = L.attention_fwd(p["mixer"], self.cfg, h, positions)
-            else:
-                h = M.mamba_fwd(p["mixer"], self.cfg, h)
+            h = self._mixer(p["mixer"], kind, h, positions, enc)
             h, aux = self._ffn(p, pos, h, aux)
         return h, aux
 
-    def _trunk(self, params, tokens, remat: bool = False):
+    def _trunk(self, params, tokens, enc=None, remat: bool = False):
         """Embedding and superblocks: the hidden states (B, S, D) before
-        the final norm, and the summed aux loss (f32 scalar).  ``remat``:
-        each superblock under ``checkpoint``, which keeps only its inputs
-        and recomputes the rest in the backward."""
+        the final norm, and the summed aux loss (f32 scalar).  ``enc``:
+        the encoder embeddings of the cross blocks.  ``remat``: each
+        superblock under ``checkpoint``, which keeps only its inputs and
+        recomputes the rest in the backward."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h = params["embed"]["w"][tokens]
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -148,31 +183,66 @@ class Model:
                 # closure, and node_grads differentiates with respect to
                 # them; the blocks draw no random numbers
                 h, aux = checkpoint(self._block_fn, params, i, h, aux,
-                                    positions, use_reentrant=False,
+                                    positions, enc, use_reentrant=False,
                                     preserve_rng_state=False)
             else:
-                h, aux = self._block_fn(params, i, h, aux, positions)
+                h, aux = self._block_fn(params, i, h, aux, positions, enc)
         return h, aux
 
     def loss(self, params, batch, remat: Optional[bool] = None):
-        """batch: {"tokens": (B, S), "labels": (B, S) (-1 = pad)} on the
-        params' device.  ``remat`` None or True recomputes each block and
-        each cross-entropy chunk in the backward (the reference's
-        default): the same operations on the same inputs, so the same
-        values (bit for bit where the embedding's backward sums in a fixed
-        order).  The loss is the mean cross-entropy plus the MoE layers'
-        aux.  Returns (loss, metrics)."""
+        """batch: {"tokens": (B, S), "labels": (B, S) (-1 = pad),
+        ["encoder_embeds": (B, T, encoder_dim)]} on the params' device.
+        ``remat`` None or True recomputes each block and each
+        cross-entropy chunk in the backward (the reference's default):
+        the same operations on the same inputs, so the same values (bit
+        for bit where the embedding's backward sums in a fixed order).
+        The loss is (the mean cross-entropy + 0.3 x the MTP loss) + the
+        MoE layers' aux, in the reference's order.  Returns (loss,
+        metrics)."""
         cfg = self.cfg
         remat = True if remat is None else remat
-        h, aux = self._trunk(params, batch["tokens"], remat=remat)
+        tokens, labels = batch["tokens"], batch["labels"]
+        h, aux = self._trunk(params, tokens, batch.get("encoder_embeds"),
+                             remat=remat)
         h = L.rmsnorm(params["final_norm"], h, cfg.rms_norm_eps)
-        xent, n_tok = _chunked_xent(h, self._lm_head_w(params),
-                                    batch["labels"], remat=remat)
+        xent, n_tok = _chunked_xent(h, self._lm_head_w(params), labels,
+                                    remat=remat)
         loss = xent / torch.clamp(n_tok, min=1.0)
         metrics = {"xent": loss, "aux_loss": aux, "tokens": n_tok}
+        if cfg.mtp_depth > 0:
+            mtp = self._mtp_loss(params, h, tokens, labels, remat)
+            metrics["mtp_loss"] = mtp
+            loss = loss + 0.3 * mtp
         loss = loss + aux
         metrics["loss"] = loss
         return loss, metrics
+
+    def _mtp_loss(self, params, h, tokens, labels, remat: bool):
+        """The multi-token prediction head (depth 1): from h after the
+        final norm, [norm_h(h_t); norm_e(embed(token_t+1))] projected,
+        position 0's block at length S - 1 (its MoE aux discarded, as
+        in the reference), the final norm again, and the cross-entropy
+        against labels[:, 1:] (token t + 2).  S - 1 is odd at the usual
+        lengths (127, 4095), where the reference's chunk rules collapse
+        (flash's ``_chunks`` to 1-row query chunks past 512 rows, the
+        cross-entropy's halving to 1-row chunks); ``flash.chunk_plan``
+        and ``xent_chunk_plan`` pad instead, with the same values up to
+        the order of f32 sums."""
+        cfg = self.cfg
+        p = params["mtp"]
+        e_next = params["embed"]["w"][tokens[:, 1:]]
+        hh = torch.cat([L.rmsnorm(p["norm_h"], h[:, :-1], cfg.rms_norm_eps),
+                        L.rmsnorm(p["norm_e"], e_next, cfg.rms_norm_eps)],
+                       dim=-1)
+        hm = L.linear(p["proj"], hh)
+        positions = torch.arange(tokens.shape[1] - 1, device=tokens.device)
+        hm = self._mixer(p["block"]["mixer"], cfg.block_pattern[0], hm,
+                         positions, None)
+        hm, _ = self._ffn(p["block"], 0, hm)
+        hm = L.rmsnorm(params["final_norm"], hm, cfg.rms_norm_eps)
+        xent, n_tok = _chunked_xent(hm, self._lm_head_w(params),
+                                    labels[:, 1:], remat=remat)
+        return xent / torch.clamp(n_tok, min=1.0)
 
     def param_count(self) -> int:
         return tree_count_params(self.init(torch.Generator(), "meta"))
@@ -181,26 +251,42 @@ class Model:
 
     def init_cache(self, batch: int, seq_len: int, device="cpu"):
         """An empty cache for ``seq_len`` positions (the window under a
-        sliding window), per pattern position, stacked over the blocks."""
+        sliding window), per pattern position, stacked over the blocks.
+        A cross position's k, v are f32 (see the module docstring)."""
         cfg, dtype = self.cfg, _dtype(self.cfg)
         lead = (cfg.n_blocks,)
-        return {f"p{i}": (
-            L.init_attention_cache(cfg, batch, seq_len, dtype, device, lead)
-            if kind == ATTN else
-            M.init_mamba_cache(cfg, batch, dtype, device, lead))
-            for i, kind in enumerate(cfg.block_pattern)}
+
+        def one_position(kind):
+            if kind == ATTN:
+                if cfg.mla is not None:
+                    return L.init_mla_cache(cfg, batch, seq_len, dtype,
+                                            device, lead)
+                return L.init_attention_cache(cfg, batch, seq_len, dtype,
+                                              device, lead)
+            if kind == MAMBA:
+                return M.init_mamba_cache(cfg, batch, dtype, device, lead)
+            shape = lead + (batch, cfg.num_encoder_tokens, cfg.n_kv_heads,
+                            cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=torch.float32,
+                                     device=device),
+                    "v": torch.zeros(shape, dtype=torch.float32,
+                                     device=device)}
+        return {f"p{i}": one_position(kind)
+                for i, kind in enumerate(cfg.block_pattern)}
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: Optional[int] = None):
         """Process a whole prompt (no gradient, no remat; MoE with its
-        capacity, as the reference's prefill).  batch: {"tokens": (B, S)}
-        on the params' device; cache_len: the attention caches' capacity
-        (>= S, default S).  Returns (last-token logits (B, 1, V) f32, the
-        filled cache: under a sliding window, a prompt longer than the
-        window keeps its last ``window`` positions in ring order, slot =
-        pos % window; a Mamba2 position keeps its conv and SSM state)."""
+        capacity, as the reference's prefill).  batch: {"tokens": (B,
+        S), ["encoder_embeds"]} on the params' device; cache_len: the
+        attention caches' capacity (>= S, default S).  Returns (last-token
+        logits (B, 1, V) f32, the filled cache: under a sliding window, a
+        prompt longer than the window keeps its last ``window`` positions
+        in ring order, slot = pos % window; a Mamba2 position keeps its
+        conv and SSM state, a cross position the encoder tokens' k, v)."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        enc = batch.get("encoder_embeds")
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
         cache = self.init_cache(B, cache_len or S, tokens.device)
@@ -209,7 +295,13 @@ class Model:
             blk = _block(params, i)
             for pos, kind in enumerate(cfg.block_pattern):
                 p, c = blk[f"p{pos}"], cache[f"p{pos}"]
-                if kind == ATTN:
+                if kind == ATTN and cfg.mla is not None:
+                    h, (c_kv, k_rope) = L.mla_fwd(p["mixer"], cfg, h,
+                                                  positions)
+                    c["c_kv"][i][:, :S] = c_kv
+                    c["k_rope"][i][:, :S] = k_rope
+                    c["pos"][i, :S] = positions.to(torch.int32)
+                elif kind == ATTN:
                     h, (k, v) = L.attention_fwd(p["mixer"], cfg, h,
                                                 positions)
                     n_slots = c["pos"].shape[1]
@@ -219,10 +311,15 @@ class Model:
                     c["k"][i][:, slots] = k[:, keep]
                     c["v"][i][:, slots] = v[:, keep]
                     c["pos"][i, slots] = keep.to(torch.int32)
-                else:
+                elif kind == MAMBA:
                     h, st = M.mamba_fwd(p["mixer"], cfg, h, with_state=True)
                     c["conv"][i].copy_(st["conv"])
                     c["ssm"][i].copy_(st["ssm"])
+                else:
+                    k, v = L.cross_attention_kv(p["mixer"], cfg, enc)
+                    h = L.cross_attention_fwd(p["mixer"], cfg, h, (k, v))
+                    c["k"][i].copy_(k)
+                    c["v"][i].copy_(v)
                 h, _ = self._ffn(p, pos, h)
         h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.rms_norm_eps)
         return (h @ self._lm_head_w(params)).float(), cache
@@ -230,10 +327,11 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos: int):
         """One decode step.  tokens: (B, 1); pos: the current absolute
-        position.  Writes the token's k, v (attention) and the new conv
-        and SSM states (Mamba2) into the cache in place and returns
-        (logits (B, 1, V) f32, the cache).  MoE runs dropless: few tokens
-        a step, so capacity would drop them."""
+        position.  Writes the token's k, v (attention), its latent and
+        rope key (latent attention) and the new conv and SSM states
+        (Mamba2) into the cache in place; a cross position reads its
+        cached k, v.  Returns (logits (B, 1, V) f32, the cache).  MoE
+        runs dropless: few tokens a step, so capacity would drop them."""
         cfg = self.cfg
         h = params["embed"]["w"][tokens]
         for i in range(cfg.n_blocks):
@@ -242,9 +340,14 @@ class Model:
                 p = blk[f"p{j}"]
                 c = {key: x[i] for key, x in cache[f"p{j}"].items()}  # views
                 if kind == ATTN:
-                    h, _ = L.attention_decode(p["mixer"], cfg, h, c, pos)
-                else:
+                    dec = (L.mla_decode if cfg.mla is not None
+                           else L.attention_decode)
+                    h, _ = dec(p["mixer"], cfg, h, c, pos)
+                elif kind == MAMBA:
                     h, _ = M.mamba_decode(p["mixer"], cfg, h, c)
+                else:
+                    h = L.cross_attention_fwd(p["mixer"], cfg, h,
+                                              (c["k"], c["v"]))
                 h, _ = self._ffn(p, j, h, dropless=True)
         h = L.rmsnorm(params["final_norm"], h, cfg.rms_norm_eps)
         return (h @ self._lm_head_w(params)).float(), cache

@@ -1,15 +1,18 @@
 """The archs the port's decoder runs besides llama3.2-1b against the JAX
 reference: qwen2-1.5b, granite-8b, phi3-medium-14b and musicgen-medium
 (attention blocks), arctic-480b (attention + MoE with the dense
-residual), mamba2-130m (Mamba2 blocks alone) and jamba-v0.1-52b (the
+residual), mamba2-130m (Mamba2 blocks alone), jamba-v0.1-52b (the
 8-position superblock of Mamba2 and attention, MoE on every other
-position): their published geometry and every config field, the
-registry and the input shapes; and for the four attention archs, at
-each one's ``reduced()`` config (f32) with the reference's weights
-carried across (qwen2's QKV biases drawn non-zero), the loss and every
-gradient leaf, prefill's logits and cache, and 3 decode steps
-(_torch_arch_checks; the MoE and Mamba2 archs' are in
-test_torch_archs_moe_ssm.py).
+position), deepseek-v3-671b (latent attention, MoE with a shared
+expert, MTP) and llama-3.2-vision-90b (cross-attention over encoder
+embeddings): their published geometry and every config field, the
+registry (the reference's ten assigned archs) and the input shapes;
+and for the four attention archs, at each one's ``reduced()`` config
+(f32) with the reference's weights carried across (qwen2's QKV biases
+drawn non-zero), the loss and every gradient leaf, prefill's logits and
+cache, and 3 decode steps (_torch_arch_checks; the MoE and Mamba2
+archs' are in test_torch_archs_moe_ssm.py, deepseek's and vision's in
+test_torch_archs_mla_cross.py).
 """
 import dataclasses
 
@@ -21,7 +24,8 @@ from repro.configs import get_arch as ref_get_arch
 from repro_torch.configs import INPUT_SHAPES, get_arch, list_archs
 
 ARCHS = ["qwen2-1.5b", "granite-8b", "phi3-medium-14b", "musicgen-medium",
-         "arctic-480b", "mamba2-130m", "jamba-v0.1-52b"]
+         "arctic-480b", "mamba2-130m", "jamba-v0.1-52b", "deepseek-v3-671b",
+         "llama-3.2-vision-90b"]
 GEOMETRY = {
     "phi3-medium-14b": (40, 5120, 40, 10, 17920, 100352),
     "musicgen-medium": (48, 1536, 24, 24, 6144, 2048),
@@ -30,6 +34,8 @@ GEOMETRY = {
     "arctic-480b": (35, 7168, 56, 8, 4864, 32000),
     "mamba2-130m": (24, 768, 0, 0, 0, 50280),
     "jamba-v0.1-52b": (32, 4096, 32, 8, 14336, 65536),
+    "deepseek-v3-671b": (61, 7168, 128, 128, 18432, 129280),
+    "llama-3.2-vision-90b": (100, 8192, 64, 8, 28672, 128256),
 }
 
 
@@ -46,7 +52,8 @@ def test_exact_published_geometry(arch):
     """The numbers of tests/test_archs_smoke.py::
     test_exact_assigned_geometry, and every field the port's config has
     equal to the reference's (name, family, source, rope, bias, tying,
-    the MoE and SSM geometry), at full size and at ``reduced()``."""
+    the MoE, SSM and MLA geometry, the encoder's, MTP), at full size and
+    at ``reduced()``."""
     cfg = get_arch(arch)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.d_ff, cfg.vocab_size) == GEOMETRY[arch]
@@ -57,7 +64,8 @@ def test_exact_published_geometry(arch):
         assert _same(getattr(cfg.reduced(), f.name),
                      getattr(ref.reduced(), f.name)), f.name
     pattern = {"mamba2-130m": ("mamba",),
-               "jamba-v0.1-52b": ("mamba",) * 4 + ("attn",) + ("mamba",) * 3}
+               "jamba-v0.1-52b": ("mamba",) * 4 + ("attn",) + ("mamba",) * 3,
+               "llama-3.2-vision-90b": ("attn",) * 4 + ("cross",)}
     assert cfg.block_pattern == pattern.get(arch, ("attn",))
     if arch == "arctic-480b":
         assert cfg.moe.num_experts == 128 and cfg.moe.top_k == 2
@@ -72,19 +80,32 @@ def test_exact_published_geometry(arch):
         assert cfg.qkv_bias and cfg.tie_embeddings
     if arch == "musicgen-medium":
         assert cfg.family == "audio" and cfg.n_heads == cfg.n_kv_heads
+    if arch == "deepseek-v3-671b":
+        m, mo = cfg.mla, cfg.moe
+        assert (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+                m.qk_rope_head_dim, m.v_head_dim) == (1536, 512, 128, 64, 128)
+        assert (mo.num_experts, mo.top_k, mo.d_ff_expert,
+                mo.num_shared_experts) == (256, 8, 2048, 1)
+        assert cfg.mtp_depth == 1 and cfg.head_dim == 128
+        m = cfg.reduced().mla
+        assert (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim,
+                m.qk_rope_head_dim, m.v_head_dim) == (64, 32, 32, 16, 32)
+    if arch == "llama-3.2-vision-90b":
+        assert cfg.family == "vlm" and cfg.rope_theta == 500000.0
+        assert (cfg.num_encoder_tokens, cfg.encoder_dim) == (1601, 1280)
+        assert (cfg.reduced().num_encoder_tokens,
+                cfg.reduced().encoder_dim) == (16, 128)
+        assert cfg.n_blocks == 20 and cfg.reduced().n_layers == 10
+    else:
+        assert cfg.num_encoder_tokens == cfg.reduced().encoder_dim == 0
 
 
 def test_registry_and_input_shapes():
-    """The port's archs, each one of the reference's assigned ten; the
-    other three ask for latent attention, cross-attention or multi-token
-    prediction (ROADMAP.md Queue 1 items 5, 6)."""
+    """The port's archs are the reference's assigned ten."""
     from repro.configs import ASSIGNED_ARCHS
     assert set(list_archs()) == set(ARCHS) | {"llama3.2-1b"}
-    assert set(list_archs()) <= set(ASSIGNED_ARCHS)
-    for arch in set(ASSIGNED_ARCHS) - set(list_archs()):
-        ref = ref_get_arch(arch)
-        assert ref.mla is not None or ref.mtp_depth or \
-            "cross" in ref.block_pattern, arch
+    assert set(list_archs()) == set(ASSIGNED_ARCHS)
+    assert len(list_archs()) == 10
     assert list_archs() == sorted(list_archs())
     assert INPUT_SHAPES.keys() == REF_SHAPES.keys()
     for name, shape in INPUT_SHAPES.items():

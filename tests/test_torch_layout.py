@@ -120,3 +120,33 @@ def test_param_count_and_dtypes_match_reference():
         [tuple(l.shape) for l in ref_leaves]
     assert all(l.dtype == torch.bfloat16 for l in ours)
     assert all(l.dtype == jnp.bfloat16 for l in ref_leaves)
+
+
+@pytest.mark.parametrize("arch,size", [
+    ("deepseek-v3-671b", "reduced"), ("deepseek-v3-671b", "published"),
+    ("llama-3.2-vision-90b", "reduced"), ("llama-3.2-vision-90b",
+                                          "published")])
+def test_mla_cross_layout_matches_reference(arch, size):
+    """The flat gradient layout (leaf order, offsets, roles, k per leaf)
+    of deepseek-v3-671b (the MLA leaves, the "mtp" subtree) and of
+    llama-3.2-vision-90b (the cross layers' (1,)-shaped gates, stacked
+    to (n_blocks, 1)) equal to the reference's build_layout, from shapes
+    only (meta tensors / eval_shape), at the smoke config and at
+    published widths.  The "mtp/..." leaves are compressed (the role
+    goes by path name)."""
+    cfg, rcfg = get_arch(arch), ref_get_arch(arch)
+    if size == "reduced":
+        cfg, rcfg = cfg.reduced(), rcfg.reduced()
+    lt = SP.build_layout(build_model(cfg).init(torch.Generator(), "meta"),
+                         0.001)
+    lr = RSP.build_layout(jax.eval_shape(RefModel(rcfg).init,
+                                         jax.random.PRNGKey(0)), 0.001)
+    _assert_layout_equal(lt, lr)
+    mtp = [l for l in lt.leaves if l.path.startswith("mtp/")]
+    gates = [l for l in lt.leaves if l.path.endswith("/gate")]
+    if arch == "deepseek-v3-671b":
+        assert len(mtp) > 10 and not gates
+        assert all(l.role == SP.ROLE_COMPRESSED for l in mtp)
+        assert any(l.path.endswith("mixer/wkv_b/w") for l in lt.leaves)
+    else:
+        assert not mtp and len(gates) == 1

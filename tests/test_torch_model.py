@@ -76,29 +76,30 @@ def test_init_is_seeded_and_shaped_like_reference():
 
 def test_non_dense_family_raises():
     """The model dispatches on the block pattern, as the reference's
-    does: a pattern with a block kind the port lacks (cross-attention,
-    latent attention), a latent-attention config or multi-token
-    prediction raises, whatever the family; musicgen's "audio" family of
-    attention blocks builds, and the MoE and Mamba2 archs count the
-    reference's parameters."""
+    does: an unknown block kind raises ValueError, and so does the
+    reference's "mla" kind, whose mixer the reference's forward skips
+    (latent attention is cfg.mla on "attn" positions; ROADMAP.md Queue
+    3); every one of the reference's ten assigned archs builds on the
+    meta device with the reference's parameter count."""
     import dataclasses
+    from repro.configs import ASSIGNED_ARCHS
     from repro.configs import get_arch as ref_get_arch
     from repro.models.model import Model as RefModel
-    from repro_torch.configs.base import MLAConfig
     llama = get_arch("llama3.2-1b")
-    for kind, item in (("cross", "item 6"), ("mla", "item 5")):
+    for kind in ("conv", "mla"):
         cfg = dataclasses.replace(llama, block_pattern=("attn", kind))
-        with pytest.raises(NotImplementedError, match="Queue 1 " + item):
+        with pytest.raises(ValueError, match=repr(kind)):
             build_model(cfg)
-    for change in ({"mla": MLAConfig()}, {"mtp_depth": 1}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build_model(dataclasses.replace(llama, **change))
     cfg = get_arch("musicgen-medium")
     assert cfg.family == "audio"
     assert build_model(cfg).param_count() == 1818379776
-    for arch in ("arctic-480b", "mamba2-130m", "jamba-v0.1-52b"):
+    for arch in ASSIGNED_ARCHS:
         assert build_model(get_arch(arch)).param_count() == \
             RefModel(ref_get_arch(arch)).param_count(), arch
+    assert build_model(get_arch("deepseek-v3-671b")).param_count() == \
+        715_408_317_440
+    assert build_model(get_arch("llama-3.2-vision-90b")).param_count() == \
+        87_383_678_996
 
 
 @pytest.fixture

@@ -183,7 +183,7 @@ def test_serve_sampling_is_seeded():
 
 @pytest.mark.parametrize("flag", ["--data-shards", "--model-shards"])
 def test_serve_on_several_devices_raises(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         serve.main(["--smoke", flag, "2", "--device", "cpu"])
 
 

@@ -1,15 +1,21 @@
-"""chip_smoke.py's phases for the MoE and Mamba2 archs, run alone on the
-card: the kernels' build, then ``moe`` (moe_fwd against the CPU),
-``ssd`` (ssd_chunked and mamba_fwd against the CPU), ``train``
-(mamba2-130m at seq 128 and 4096, arctic-480b at 1 layer and 4 experts,
-K1 and K3 counted) and ``serve`` (mamba2-130m with the 32768 prompt,
-arctic-480b at 2 layers, jamba-v0.1-52b at one superblock, the f32
-decode-vs-prefill gate), with each phase's seconds.  A quicker call than
-the whole smoke run while iterating on these paths.
+"""chip_smoke.py's phases for the MoE, Mamba2, latent-attention and
+cross-attention archs, run alone on the card: the kernels' build, then
+``moe`` (moe_fwd against the CPU), ``ssd`` (ssd_chunked and mamba_fwd
+against the CPU), ``train`` (mamba2-130m at seq 128 and 4096,
+arctic-480b at 1 layer and 4 experts, K1 and K3 counted), ``serve``
+(mamba2-130m with the 32768 prompt, arctic-480b at 2 layers,
+jamba-v0.1-52b at one superblock, the f32 decode-vs-prefill gate),
+``mla`` (mla_fwd and mla_decode against the CPU), ``cross``
+(cross-attention against the CPU, the bf16 dtypes), ``train_mla_cross``
+(deepseek-v3-671b at 1 layer, llama-3.2-vision-90b at reduced()) and
+``serve_mla_cross`` (deepseek-v3-671b at 1 layer with the 32768 prompt,
+vision at 2 superblocks, the f32 gates), with each phase's seconds.  A
+quicker call than the whole smoke run while iterating on these paths.
 
-    python3 tools/chip_phases.py [moe] [ssd] [train] [serve]   # card
+    python3 tools/chip_phases.py [moe] [ssd] [train] [serve] [mla] \
+        [cross] [train_mla_cross] [serve_mla_cross]            # card
 
-No names runs all four.  Each phase prints its JSON lines as
+No names runs all eight.  Each phase prints its JSON lines as
 chip_smoke does and raises as chip_smoke would.
 """
 import json
@@ -24,7 +30,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke as CS  # noqa: E402  (sets the allocator before torch)
 import torch  # noqa: E402
 
-PHASES = ("moe", "ssd", "train", "serve")
+PHASES = ("moe", "ssd", "train", "serve", "mla", "cross",
+          "train_mla_cross", "serve_mla_cross")
 
 
 def main(argv=None):
@@ -42,7 +49,12 @@ def main(argv=None):
            "ssd": lambda: CS.ssd_phase(dev),
            "train": lambda: CS.moe_ssm_train_runs(dev, {}, 2, lgc,
                                                   len(ENCODER_SPEC)),
-           "serve": lambda: CS.serve_moe_ssm_phase(dev)}
+           "serve": lambda: CS.serve_moe_ssm_phase(dev),
+           "mla": lambda: CS.mla_phase(dev),
+           "cross": lambda: CS.cross_phase(dev),
+           "train_mla_cross": lambda: CS.mla_cross_train_runs(
+               dev, {}, 2, lgc, len(ENCODER_SPEC)),
+           "serve_mla_cross": lambda: CS.serve_mla_cross_phase(dev)}
     t0 = time.perf_counter()
     CS.build_phase(smi)
     seconds = {"build": time.perf_counter() - t0}
