@@ -126,6 +126,22 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               launch counts per phase, finite losses and per-op
               wire-byte rows (priced for the run's own transport, mesh
               and bucket count) are checked
+  9b. pg_train one node per process: repro_torch.launch.train under
+              torchrun (this script as each rank, --pg-rank), the K
+              processes sharing this card over a gloo process group
+              (every message staged through pinned host memory), each
+              against its emulated twin of the same flags among the train
+              runs: lgc_rar on mesh (K = 2), dgc on ring_packed in 4
+              buckets (K = 2), lgc_rar_q8 on ring_q8 (K = 2), lgc_rar on
+              ring_hier over 2 pods x 2 (K = 4, at PG_HIER_LAYERS with
+              its twin cut the same); every rank's per-step losses
+              bitwise the twin's, its per-op wire rows (the nodes' mean
+              of the bytes each rank handed to its sends) equal to the
+              twin's and the pricer's, the digest of its final params
+              and AE equal to every other rank's and the twin's; each
+              rank's kernel launches per step, step ms per phase beside
+              the twin's, and peak GiB.  A rank that fails fails the
+              launch, and the phase raises
  10. guard    the chaos wire under the guard policies: (a) dgc on
               chaos:ring_packed with the checksum word, --guard scrub and
               2 bit flips, 2 NaNs and 1 inf on its top-k exchange each
@@ -236,6 +252,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
 N_LAYERS = 4                       # the only cut: 16 -> 4 layers
+# the K = 4 process run (lgc_rar ring_hier, 2 pods x 2) and its twin:
+# four processes on the one card each hold their own params, AdamW
+# moments, u, v and gradients, and ~2.6 GiB outside the allocator (its
+# context and libraries).  One K = 2 rank at 4 layers peaks at 23.67 GiB;
+# at 2 layers the four ranks ran out of the card (16.35 GiB allocated
+# each, 76.9 of 79.18 GiB in use)
+PG_HIER_LAYERS = 1
+PG_BACKEND = "gloo"                # the only backend for K ranks on a card
+PG_TIMEOUT_S = 600                 # one torchrun launch
 # lgc_rar ring_hier's peak at K = 4 with the garbage collector off,
 # 45.49 GiB on the H100, plus 1 GiB: less than one n-sized f32 tensor
 # (1.88 GiB) kept alive by a reference cycle
@@ -1483,7 +1508,8 @@ def train_phase(dev, name: str, flags, steps: int, *expects,
               "n_params": comp.layout.n_total if comp else None,
               "error": None if error is None else error[1],
               "compressor": comp,
-              "resumed": out["resumed"] if out is not None else None}
+              "resumed": out["resumed"] if out is not None else None,
+              "report": out["report"] if out is not None else None}
     del out, comp
     SP._device_meta.cache_clear()
     gc.collect()
@@ -1542,6 +1568,176 @@ def per_step(compressed=None, **per_sparsified_step):
                     f"steps: {launches}")
     return expect
 
+
+
+def pg_report_flags(name: str):
+    """``--report`` into build/pg/<name>/: the run's record, with the
+    digest of its final params and AE."""
+    slug = "".join(c if c.isalnum() else "_" for c in name)
+    return ["--report", os.path.join(ROOT, "build", "pg", slug)]
+
+
+def pg_rank(spec_path: str) -> None:
+    """One rank of a pg_train launch (torchrun runs this script with
+    ``--pg-rank SPEC``): launch.train's run() on llama3.2-1b cut to the
+    spec's depth, with the spec's flags, as one node of the process
+    group torchrun's environment describes."""
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(name)s %(message)s")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                              n_layers=spec["n_layers"])
+    train.run(cfg, train.parse_args(spec["flags"]))
+
+
+def pg_launch(name: str, flags, steps: int, K: int, n_layers: int):
+    """torchrun of K ranks of this script on the card; returns each rank's
+    record.  Raises when the launch fails (torchrun stops every rank when
+    one fails) or outlives PG_TIMEOUT_S."""
+    report = pg_report_flags("pg " + name)
+    out_dir = report[1]
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    spec = os.path.join(ROOT, "build", "pg", "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"n_layers": n_layers, "flags": [
+            "--data-shards", "2", "--batch", "8", "--seq", "128",
+            "--warmup-steps", "2", "--steps", str(steps), "--log-every",
+            "1", "--device", "cuda", "--dist-backend", PG_BACKEND] + flags
+            + report}, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True).stdout.split()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(K), os.path.join(ROOT, "chip_smoke.py"),
+         "--pg-rank", spec], env=env, capture_output=True, text=True,
+        timeout=PG_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        # each rank's last lines: the first to fail names the cause, the
+        # others lost their peer
+        tails = []
+        for r in range(K):
+            lines = [ln for ln in proc.stderr.splitlines()
+                     if ln.startswith(f"[rank{r}]:")]
+            tails.append("\n".join(lines[-12:]))
+        raise AssertionError(f"pg {name}: torchrun exited "
+                             f"{proc.returncode}:\n" + "\n".join(tails))
+    recs = []
+    for r in range(K):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, {"launch_s": seconds, "card_mib_used_before":
+                  float(used[0]) if used else None}
+
+
+def train_flags():
+    """The training runs' flags: the lgc_rar main path (K1, K3), dgc with
+    the block top-k (K6), the packed ring, 4 buckets, lgc_rar_q8 on the
+    int8 ring, lgc_rar on ring_hier over 2 pods."""
+    lgc = ["--compression", "lgc_rar", "--topk-backend", "fused",
+           "--ae-backend", "pallas", "--ae-train-steps", "2"]
+    return {"lgc": lgc,
+            "dgc": ["--compression", "dgc", "--topk-backend", "pallas"],
+            "packed": ["--transport", "ring_packed"],
+            "buckets": ["--wire-buckets", "4"],
+            "q8": ["--compression", "lgc_rar_q8"] + lgc[2:] + [
+                "--transport", "ring_q8"],
+            "hier": lgc + ["--transport", "ring_hier", "--pod-shards", "2"]}
+
+
+def pg_train_phase(dev, runs, smi: str, n_leaves: int,
+                   n_encoder: int) -> None:
+    """Each process run against its emulated twin (``runs[twin]``, run here
+    when missing or at another depth): losses bitwise, rows equal, the
+    final digest equal on every rank and to the twin's; each rank's
+    launches per step."""
+    from repro_torch.dist import plan as XP
+    fl = train_flags()
+    lgc, dgc, packed, buckets, q8, hier = (
+        fl[k] for k in ("lgc", "dgc", "packed", "buckets", "q8", "hier"))
+    per_node = dict(fused_ef_topk=1,
+                    compressed={"matmul_bias_lrelu": n_encoder})
+    specs = [
+        ("lgc_rar mesh", "lgc_rar", lgc, 6, 2, N_LAYERS,
+         per_step(**per_node)),
+        # each rank: its 4 buckets through 4 K4 launches, the gathered
+        # table of the 8 payloads through one K5b
+        ("dgc ring_packed B4", "dgc ring_packed B4", dgc + packed + buckets,
+         5, 2, N_LAYERS,
+         per_step(block_topk=n_leaves, quantize_pack=4, unpack_bits=1)),
+        ("lgc_rar_q8 ring_q8", "lgc_rar_q8 ring_q8", q8, 6, 2, N_LAYERS,
+         per_step(**per_node)),
+        ("lgc_rar ring_hier", "lgc_rar ring_hier", hier, 6, 4,
+         PG_HIER_LAYERS, per_step(**per_node)),
+    ]
+    for name, twin_name, flags, steps, K, layers, expect in specs:
+        twin = runs.get(twin_name)
+        if twin is None or twin.get("report") is None or layers != N_LAYERS:
+            twin_name = twin_name + ("" if layers == N_LAYERS
+                                     else f" {layers} layers")
+            cfg = None
+            if layers != N_LAYERS:
+                from repro_torch.configs import get_arch
+                cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                                          n_layers=layers)
+            twin = train_phase(
+                dev, twin_name, flags + pg_report_flags(twin_name), steps,
+                cfg=cfg)
+            runs[twin_name] = twin
+        gc_cuda()
+        recs, launch = pg_launch(name, flags, steps, K, layers)
+        comp = twin["compressor"]
+        for r, rec in enumerate(recs):
+            where = f"pg {name} rank {r}"
+            losses = [h["loss"] for h in rec["history"]]
+            if losses != twin["losses"]:
+                raise AssertionError(f"{where}: losses {losses} != the "
+                                     f"twin's {twin['losses']}")
+            if rec["wire"] != twin["wire"]:
+                raise AssertionError(f"{where}: rows {rec['wire']} != the "
+                                     f"twin's {twin['wire']}")
+            for phase, rows in rec["wire"].items():
+                plan = XP.build_plan(comp.cc, comp.layout, comp.K,
+                                     phase=phase)
+                if rows != XP.wire_terms_by_op(plan, axis_sizes=comp.Ks):
+                    raise AssertionError(f"{where} {phase}: rows != priced")
+            if rec["digest"] != twin["report"]["digest"]:
+                mine, theirs = rec["leaf_digests"], \
+                    twin["report"]["leaf_digests"]
+                differ = sorted(k for k in theirs if mine.get(k) != theirs[k])
+                raise AssertionError(f"{where}: the params and AE differ "
+                                     f"from the twin's in {differ}")
+            expect(rec["launches"], [h["phase"] for h in rec["history"]])
+        step_ms = [{} for _ in recs]
+        for r, rec in enumerate(recs):
+            for h in rec["history"]:
+                step_ms[r].setdefault(h["phase"], []).append(h["ms"])
+        emit("pg_train", run=name, twin=twin_name, card=smi,
+             backend=PG_BACKEND, nodes=K, mesh=comp.Ks, n_layers=layers,
+             seq=128, batch=8, reduced=["n_layers"], **launch,
+             losses=twin["losses"], digest=twin["report"]["digest"],
+             equal={"losses": True, "rows": True, "digest": True},
+             step_ms=step_ms, twin_step_ms=twin["step_ms"],
+             peak_gib=[rec["peak_gib"] for rec in recs],
+             twin_peak_gib=twin["peak_gib"],
+             launches=[rec["launches"] for rec in recs],
+             twin_launches=twin["launches"],
+             sent={phase: [rec["sent"][phase] for rec in recs]
+                   for phase in recs[0]["sent"]},
+             wire=twin["wire"])
+        runs["pg " + name] = {"launches": {
+            k: sum(rec["launches"].get(k, 0) for rec in recs)
+            for k in set().union(*(rec["launches"] for rec in recs))}}
 
 
 def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
@@ -2443,17 +2639,13 @@ def main() -> None:
     n_leaves = len(llama_layout(0.001).compressed)
     K = 2
     from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
-    lgc = ["--compression", "lgc_rar", "--topk-backend", "fused",
-           "--ae-backend", "pallas", "--ae-train-steps", "2"]
-    dgc = ["--compression", "dgc", "--topk-backend", "pallas"]
-    packed = ["--transport", "ring_packed"]
-    buckets = ["--wire-buckets", "4"]
+    fl = train_flags()
+    lgc, dgc, packed, buckets, q8, hier = (
+        fl[k] for k in ("lgc", "dgc", "packed", "buckets", "q8", "hier"))
     ps = ["--compression", "lgc_ps"] + lgc[2:]
-    q8 = ["--compression", "lgc_rar_q8"] + lgc[2:] + ["--transport",
-                                                      "ring_q8"]
     runs = {
         "lgc_rar": train_phase(
-            dev, "lgc_rar", lgc, 6,
+            dev, "lgc_rar", lgc + pg_report_flags("lgc_rar"), 6,
             launched("fused_ef_topk", "matmul_bias_lrelu")),
         # the support set: one encode (K5a) and one decode (K5b) per step
         "lgc_rar ring_packed": train_phase(
@@ -2488,7 +2680,8 @@ def main() -> None:
                                  "quantize_pack": K, "unpack_bits": 1})),
         # every node encodes (K3) for the int8 ring's mean
         "lgc_rar_q8 ring_q8": train_phase(
-            dev, "lgc_rar_q8 ring_q8", q8, 6,
+            dev, "lgc_rar_q8 ring_q8", q8 + pg_report_flags(
+                "lgc_rar_q8 ring_q8"), 6,
             per_step(fused_ef_topk=K,
                      compressed={"matmul_bias_lrelu": len(ENCODER) * K})),
         # the bucketed int8 ring: the scale blocks regroup per bucket
@@ -2499,17 +2692,19 @@ def main() -> None:
         # topk in 4 buckets: one K4 encode per node and bucket, the
         # gathered table of the 4 x K payloads through one K5b launch
         "dgc ring_packed B4": train_phase(
-            dev, "dgc ring_packed B4", dgc + packed + buckets, 5,
+            dev, "dgc ring_packed B4", dgc + packed + buckets
+            + pg_report_flags("dgc ring_packed B4"), 5,
             per_step(block_topk=n_leaves * K, quantize_pack=4 * K,
                      unpack_bits=1)),
     }
     # K = 4 nodes on a (2 pod x 2 data) mesh over the hierarchical ring:
     # unbucketed with the garbage collector off, then in 4 buckets
-    hier = lgc + ["--transport", "ring_hier", "--pod-shards", "2"]
     hier_expect = per_step(fused_ef_topk=2 * K, compressed={
         "matmul_bias_lrelu": len(ENCODER) * 2 * K})
     runs["lgc_rar ring_hier"] = train_phase(
-        dev, "lgc_rar ring_hier", hier, 6, hier_expect, gc_off=True)
+        dev, "lgc_rar ring_hier",
+        hier + pg_report_flags("lgc_rar ring_hier"), 6, hier_expect,
+        gc_off=True)
     runs["lgc_rar ring_hier B4"] = train_phase(
         dev, "lgc_rar ring_hier B4", hier + buckets, 6, hier_expect)
     hier_runs = [runs["lgc_rar ring_hier"], runs["lgc_rar ring_hier B4"]]
@@ -2528,6 +2723,7 @@ def main() -> None:
             f"ring_hier: peak {hier_runs[0]['peak_gib']} GiB with the "
             f"collector off exceeds {HIER_PEAK_GIB} GiB: a reference cycle "
             "keeps tensors alive")
+    pg_train_phase(dev, runs, smi, n_leaves, len(ENCODER))
     # train_4k's sequence length (its batch of 256 cut to 8: 4 sequences
     # a node): flash attention and each block rematerialised
     runs["lgc_rar seq 4096"] = train_phase(
@@ -2591,4 +2787,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pg-rank"]:
+        pg_rank(sys.argv[2])
+    else:
+        main()

@@ -24,6 +24,13 @@ accumulators ``u``/``v`` are (K, n) tensors updated IN PLACE, node after
 node: at llama3.2-1b width each is gigabytes, and sweeping the nodes one
 after another keeps only one node's temporaries alive.
 
+One ``step`` serves both layouts.  The global K sets the plan, the
+rotating leader (``step % K``), lgc_ps's K decoders and every mean; the
+nodes held here (``t.nodes``) set the per-node loops and stacks: all K on
+the stacked axis (:meth:`GradientCompressor.sim_step`), this process's
+one under a process group (:meth:`GradientCompressor.dist_step`, the
+reference's ``dist_step``).
+
 The fused path (``topk_backend="fused"``) runs the CUDA sweep kernel
 (``kernels/csrc/sparsify_ef.cu``) on the card, ``topk_backend="pallas"``
 the block top-k kernel once per compressed leaf
@@ -98,13 +105,16 @@ class GradientCompressor:
             out["ae_mom"] = tree_map(torch.zeros_like, out["ae"])
         return out
 
-    def _transport(self):
+    def _transport(self, group=None):
         """``cc.transport``, wrapped in chaos:<base> when the config sets
-        a fault, with ``cc.guard``."""
+        a fault, with ``cc.guard``; given a process mesh ``group``, the
+        same wire across processes."""
         cc = self.cc
         return make_transport(cc.transport, self.K, cc.q8_scale_block,
                               Ks=self.Ks, wire_buckets=cc.wire_buckets,
-                              guard=cc.guard, fault=CH.spec_from_config(cc))
+                              guard=cc.guard, fault=CH.spec_from_config(cc),
+                              group=group, intra_chunk=cc.ring_intra_chunk,
+                              inter_chunk=cc.ring_inter_chunk)
 
     # -- per-node pieces -------------------------------------------------------
 
@@ -203,10 +213,11 @@ class GradientCompressor:
 
     @torch.no_grad()
     def step(self, t, state, g, step: int, phase: str):
-        """Compress the per-node gradients ``g`` (K, n) and return (global
-        gradient (n,), new state, stats).  ``state["u"]``/``["v"]`` are
-        updated in place."""
+        """Compress the per-node gradients ``g`` (H, n) of the H nodes
+        ``t.nodes`` held here and return (global gradient (n,), new state,
+        stats).  ``state["u"]``/``["v"]`` (H, n) are updated in place."""
         cc, layout, n = self.cc, self.layout, self.layout.n_total
+        held = len(t.nodes)
         stats: Dict[str, Any] = {}
         plan = XP.build_plan(cc, layout, self.K, transport=t.kind,
                              phase=phase)
@@ -217,12 +228,12 @@ class GradientCompressor:
 
         u, v = state["u"], state["v"]
         sel = [self._accumulate_select(u[k], v[k], g[k])
-               for k in range(self.K)]
+               for k in range(held)]
         vals, own_idx, last_vals, last_idx = (
             torch.stack([s[i] for s in sel]) for i in range(4))
         del sel
         dense_seg = torch.stack([SP.dense_segments(g[k], layout)
-                                 for k in range(self.K)])
+                                 for k in range(held)])
         feeds = {
             "exempt_dense": lambda env: dense_seg,
             "exempt_last": lambda env: (last_vals, last_idx),
@@ -237,7 +248,7 @@ class GradientCompressor:
             global_g += SP.scatter_dense_segments(env["exempt_dense"],
                                                   layout, n)
             global_g += env["exempt_last"]
-            for k in range(self.K):
+            for k in range(held):
                 idx_k, last_k = idx_nodes[k], last_idx[k]
                 if gate is not None:
                     # a faulty node's indices go to the sentinel n, which
@@ -265,7 +276,7 @@ class GradientCompressor:
             if "_vals" not in env:
                 env["_vals"] = torch.stack(
                     [SP.gather_at(v[k], env["support"])
-                     for k in range(self.K)])
+                     for k in range(held)])
             return env["_vals"]
 
         feeds["support"] = lambda env: (own_idx, leader)
@@ -278,7 +289,7 @@ class GradientCompressor:
             if "_inno" not in env:
                 x = vals_of(env)
                 sel = [SP.select_innovation(x[k], frac)
-                       for k in range(self.K)]
+                       for k in range(held)]
                 ii = torch.stack([s[1] for s in sel])
                 env["_inno"] = (torch.stack([s[0] for s in sel]),
                                 torch.gather(x, 1, ii.long()), ii)
@@ -308,11 +319,14 @@ class GradientCompressor:
             # the leader ships E_c(g~) and every node its innovation; the
             # decoders reconstruct each node and the K reconstructions are
             # averaged (eq. 12-13).  Every node receives the same leader
-            # encoding, so only the leader's row is encoded here (the SPMD
-            # reference encodes on every node and keeps the leader's).
+            # encoding, so the emulation encodes only the leader's row;
+            # under a process group each node encodes its own, as the SPMD
+            # reference does, and the broadcast keeps the leader's.
+            row = t.nodes.index(leader) if leader in t.nodes else 0
+
             def z_common(env):
-                z = self._encode(state["ae"], vals_of(env)[leader])
-                return z[None].expand((self.K,) + tuple(z.shape)), leader
+                z = self._encode(state["ae"], vals_of(env)[row])
+                return z[None].expand((held,) + tuple(z.shape)), leader
             feeds["z_common"] = z_common
             feeds["innovations"] = lambda env: inno_of(env)[1:]
             env = XP.execute(plan, t, feeds)
@@ -329,7 +343,7 @@ class GradientCompressor:
             sent = AE.lgc_decode_rar(state["ae"], env["encoding"][None])[0]
         idx = env["support"]
         global_g = finish(env, gate, SP.scatter_to_dense(sent, idx, n),
-                          [idx] * self.K)
+                          [idx] * held)
         return global_g, new_state, stats
 
     def sim_step(self, states, g_nodes, step: int, phase: str):
@@ -341,6 +355,25 @@ class GradientCompressor:
         global_g, states, stats = self.step(t, states, g_nodes, step, phase)
         stats["wire"] = t.tally
         return global_g, states, stats
+
+    def dist_step(self, state, g, step: int, phase: str, group):
+        """One node per process (the reference's ``dist_step``): this
+        process's flat gradient ``g`` (n,) and its state (u, v: (n,),
+        updated in place; the AE replicated) over ``cc.transport`` across
+        the process mesh ``group`` (``dist.p2p.ProcessMesh``, node
+        ``group.node`` of K).  Returns (global gradient (n,), state,
+        stats); ``stats["wire"]`` holds the nodes' mean of the bytes each
+        sent, the emulated per-node rows, ``stats["wire_sent"]`` this
+        process's own and ``stats["wire_messages"]`` its message count per
+        op.  Every process of the mesh calls it in the same step."""
+        t = self._transport(group)
+        local = {**state, "u": state["u"][None], "v": state["v"][None]}
+        global_g, new_state, stats = self.step(t, local, g[None], step,
+                                               phase)
+        new_state = {**new_state, "u": state["u"], "v": state["v"]}
+        stats.update(wire=t.node_tally(), wire_sent=t.tally,
+                     wire_messages=t.messages)
+        return global_g, new_state, stats
 
 
 def build_compressor(cc: CompressionConfig, params_template, K: int,

@@ -194,6 +194,13 @@ class ChaosTransport:
         return self.base.K
 
     @property
+    def nodes(self):
+        return self.base.nodes
+
+    def node_tally(self):
+        return self.base.node_tally()
+
+    @property
     def guard(self) -> str:
         return self.base.guard
 

@@ -186,8 +186,8 @@ def hierarchical_ring_allreduce(x: torch.Tensor, Ks: Sequence[int],
     one axis it is :func:`ring_allreduce`, the same schedule.
     ``op="mean"`` multiplies by f32(1/K) at the end.  The reference's
     per-level message caps (``ring_intra_chunk`` / ``ring_inter_chunk``)
-    would change neither values nor bytes on the stacked axis, so the
-    port has none.
+    change neither values nor bytes on the stacked axis, so it takes
+    none; across processes (``dist.p2p``) they set the messages' sizes.
 
     ``n_buckets`` > 1 on two axes: bucket b is inter columns [b·cab,
     (b+1)·cab) of every inter chunk row, recorded per bucket at

@@ -201,6 +201,20 @@ def encode_indices(idx: torch.Tensor, plan: PackPlan
     return _with_checksum(_encode_indices_body(idx, plan), plan)
 
 
+def empty_index_payload(plan: PackPlan, device) -> Tuple[torch.Tensor, ...]:
+    """Uninitialised arrays of :func:`encode_indices`' payload shapes and
+    dtypes: what a node that receives the leader's index set allocates."""
+    if plan.raw_index:
+        shapes = [(plan.k,)]
+    else:
+        shapes = [(plan.n_buckets,),
+                  (plan.lo_bits, BP.word_count(plan.k))]
+    if plan.checksum:
+        shapes.append((1,))
+    return tuple(torch.empty(s, dtype=torch.int32, device=device)
+                 for s in shapes)
+
+
 def decode_indices(payload, plan: PackPlan) -> torch.Tensor:
     """Inverse of :func:`encode_indices` -> sorted int32 (plan.k,); on a
     gathered (B, ...) table of payloads -> (B, plan.k), one K5b launch

@@ -272,7 +272,9 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
     validators report (``chaos.structural_sink``) into the op's (K,)
     per-node count; ``env["__guard__"]`` is then {"policy", "bad":
     {label: (K,) counts}, "ok": (K,) bool}, tensors on the result's
-    device (nothing here waits for it)."""
+    device (nothing here waits for it).  The counts are per node held
+    here (``t.nodes``): all K emulated, this process's one under a
+    process group, a report's global node index taken to its row."""
     labels = set(plan.labels)
     missing, extra = labels - set(feeds), set(feeds) - labels
     if missing or extra:
@@ -294,7 +296,8 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
         with t.wire_op(op.label), CH.structural_sink(sink):
             res = _run_op(op, t, args)
         res, bad = _guard_result(op, res, args)
-        per_node = torch.zeros(t.K, dtype=torch.int64,
+        held = t.nodes
+        per_node = torch.zeros(len(held), dtype=torch.int64,
                                device=res.device) + bad
         for nodes, count in sink:
             if nodes is None:
@@ -303,7 +306,8 @@ def execute(plan: Plan, t, feeds: Dict[str, Callable]) -> Dict[str, Any]:
                 # one node at a time: a list index would be copied to the
                 # card, and a blocking copy waits for it
                 for i in nodes:
-                    per_node[i] += count
+                    if i in held:
+                        per_node[held.index(i)] += count
         env[op.label] = res
         bad_by_op[op.label] = per_node
     if guard != "off":

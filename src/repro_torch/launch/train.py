@@ -27,6 +27,22 @@ state (params, optimizer moments and the compressor's state, its EF
 residuals included) and ``--resume`` continues from such a file, bit for
 bit as an uninterrupted run.  Runs on the card unless ``--device cpu``;
 with no card it raises.  Flags follow ``repro.launch.train``.
+
+Under torchrun each process is one node (``launch.mesh``: ``WORLD_SIZE``
+must be pod x data shards), and every exchange of the wire runs between
+the processes over ``torch.distributed`` (``dist.p2p``), the values and
+per-op rows bitwise the emulated run's; ``--dist-backend gloo|nccl`` is
+required (gloo stages the card's messages through pinned host memory, so
+K processes may share one card):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --data-shards 2 --dist-backend gloo \
+        --compression lgc_rar --transport ring ...
+
+Rank 0 alone logs the rate report and the per-op rows and writes
+``--metrics-out``; ``--report DIR`` has every process write its own
+record.  The chaos wire, the guards and checkpointing do not run under a
+process group yet (ROADMAP.md Queue 1 item 7b) and raise.
 """
 from __future__ import annotations
 
@@ -38,6 +54,7 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_arch
@@ -47,9 +64,14 @@ from repro_torch.core.phases import phase_for_step
 from repro_torch.core.rate import rate_report
 from repro_torch.data import synthetic_token_batches
 from repro_torch.dist import chaos
+from repro_torch.dist.transport import PG_DEFERRED
+from repro_torch.kernels import LAUNCHES
+from repro_torch.launch.mesh import init_process_mesh, under_torchrun
 from repro_torch.launch.steps import make_lgc_train_step
 from repro_torch.models.model import build_model
-from repro_torch.utils import disable_tf32, resolve_device
+from repro_torch.utils import (deterministic_convs, disable_tf32,
+                               resolve_device)
+from repro_torch.utils.tree import tree_digest
 
 log = logging.getLogger("repro_torch.train")
 
@@ -69,8 +91,9 @@ def parse_args(argv=None):
     transports = ["mesh", "ring", "ring_q8", "ring_hier", "ring_packed"]
     p.add_argument("--transport", default="mesh",
                    choices=transports + ["chaos:" + t for t in transports],
-                   help="the emulated wire between the nodes (all run on "
-                        "one device): mesh = the lax collectives, ring = "
+                   help="the wire between the nodes (emulated on one "
+                        "device, or under torchrun between the processes): "
+                        "mesh = the lax collectives, ring = "
                         "the chunked ring, ring_q8 = the ring with an int8 "
                         "q8 reduction (lgc_rar_q8's encoding), ring_hier = "
                         "the intra-/inter-pod rings (with --pod-shards), "
@@ -128,7 +151,8 @@ def parse_args(argv=None):
                    choices=["adamw", "sgd_momentum"])
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--data-shards", type=int, default=1,
-                   help="emulated data-parallel nodes per pod")
+                   help="data-parallel nodes per pod (emulated, or under "
+                        "torchrun one process each)")
     p.add_argument("--pod-shards", type=int, default=1,
                    help="pods: the dp mesh becomes (pod x data), K = pod "
                         "x data nodes, the two levels of ring_hier")
@@ -143,7 +167,43 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default="")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                   help="under torchrun (one node per process): the "
+                        "process group's backend, no default.  gloo "
+                        "stages the card's messages through pinned host "
+                        "memory (several ranks may share a card); nccl "
+                        "needs a card per rank")
+    p.add_argument("--dist-init", default="env://",
+                   help="under torchrun: the process group's rendezvous "
+                        "(init_process_group's init_method), env:// as "
+                        "torchrun sets it or file:///path")
+    p.add_argument("--report", default="",
+                   help="directory: each process writes rank<r>.json, its "
+                        "steps, per-op wire rows (and, under torchrun, the "
+                        "bytes and messages it sent), a sha256 of its "
+                        "final params and AE, peak GiB and kernel "
+                        "launches")
     return p.parse_args(argv)
+
+
+def refuse_deferred(args, cc: CompressionConfig) -> None:
+    """Raise for what does not run under a process group yet, naming
+    the item that ports it."""
+    bad = []
+    if args.transport.startswith("chaos:") \
+            or chaos.spec_from_config(cc) is not None:
+        bad.append("the chaos wire (chaos:<base>, --fault-*)")
+    if args.guard != "off":
+        bad.append(f"--guard {args.guard}")
+    if args.checkpoint_dir or args.checkpoint_every:
+        bad.append("--checkpoint-dir/--checkpoint-every")
+    if args.resume:
+        bad.append("--resume")
+    if bad:
+        raise NotImplementedError(
+            f"{'; '.join(bad)} under a process group (torchrun) is "
+            f"{PG_DEFERRED}: the chaos wire, guards and checkpoint/resume "
+            f"across processes")
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -175,11 +235,13 @@ def run(cfg: ModelConfig, args,
     injected faults the step's ``fault_ops``; ``checkpoint_s`` where the
     step saved), "wire": {phase: {op: {kind: bytes}}}, "rate": the
     RateReport, "compressor": the GradientCompressor, "params": the
-    trained parameters, "resumed": {path, step, seconds} or None}.
+    trained parameters, "resumed": {path, step, seconds} or None,
+    "report": this process's ``--report`` record or None}.  Under
+    torchrun the process is one node of the mesh.
     ``on_step(record)`` runs after each step has finished on the device
     and after its checkpoint."""
-    device = resolve_device(args.device)
     disable_tf32()
+    deterministic_convs()
     cc = CompressionConfig(method=args.compression, sparsity=args.sparsity,
                            warmup_steps=args.warmup_steps,
                            ae_train_steps=args.ae_train_steps,
@@ -199,16 +261,36 @@ def run(cfg: ModelConfig, args,
                            extract_backend=args.extract_backend)
     tc = TrainConfig(optimizer=args.optimizer, learning_rate=args.lr,
                      steps=args.steps, seed=args.seed, compression=cc)
-    model = build_model(cfg)
     Ks = (args.pod_shards, args.data_shards) if args.pod_shards > 1 \
         else (args.data_shards,)
     K = args.pod_shards * args.data_shards
-    lts = make_lgc_train_step(model, tc, K, device, Ks)
+    if not under_torchrun():
+        if args.dist_backend:
+            raise ValueError("--dist-backend is for a run under torchrun "
+                             "(one node per process)")
+        return _run(cfg, args, cc, tc, Ks, K, None,
+                    resolve_device(args.device), on_step)
+    refuse_deferred(args, cc)
+    mesh = init_process_mesh(Ks, args.dist_backend, args.device,
+                             args.dist_init)
+    try:
+        return _run(cfg, args, cc, tc, Ks, K, mesh, mesh.device, on_step)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
+    rank0 = mesh is None or mesh.node == 0
+    model = build_model(cfg)
+    lts = make_lgc_train_step(model, tc, K, device, Ks, mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, opt_state, comp_state = lts.init(gen)
     layout = lts.compressor.layout
-    log.info("arch=%s params=%s device=%s nodes=%d mesh=%s", cfg.name,
-             f"{layout.n_total:,}", device, K, Ks)
+    if rank0:
+        log.info("arch=%s params=%s device=%s nodes=%d mesh=%s%s", cfg.name,
+                 f"{layout.n_total:,}", device, K, Ks,
+                 "" if mesh is None else
+                 f" one per process ({mesh.backend})")
     start, resumed = 0, None
     if args.resume:
         # the fresh state is the template: shapes, dtypes and the device
@@ -223,8 +305,9 @@ def run(cfg: ModelConfig, args,
         log.info("resumed the full train state from %s at step %d",
                  args.resume, start)
     report = rate_report(cc, layout, K)
-    log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
-             report.compression_ratio, report.bytes_per_node)
+    if rank0:
+        log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
+                 report.compression_ratio, report.bytes_per_node)
 
     data = synthetic_token_batches(
         cfg.vocab_size, args.batch, args.seq, seed=args.seed,
@@ -234,7 +317,7 @@ def run(cfg: ModelConfig, args,
         next(data)
     ckpt = os.path.join(args.checkpoint_dir, "ckpt.npz")
     guard_on, faults = cc.guard != "off", 0
-    history, wire = [], {}
+    history, wire, sent = [], {}, {}
     for step in range(start, args.steps):
         phase = phase_for_step(step, cc)
         batch = to_device(next(data), device)
@@ -261,10 +344,15 @@ def run(cfg: ModelConfig, args,
         history.append(rec)
         if phase not in wire:
             wire[phase] = metrics["wire"]
-            log.info("phase=%s wire bytes/node/step by op: %s", phase,
-                     {op: {k: int(b) for k, b in row.items()}
-                      for op, row in metrics["wire"].items()})
-        if step % args.log_every == 0 or step == args.steps - 1:
+            if "wire_sent" in metrics:
+                sent[phase] = {"bytes": metrics["wire_sent"],
+                               "messages": metrics["wire_messages"]}
+            if rank0:
+                log.info("phase=%s wire bytes/node/step by op: %s", phase,
+                         {op: {k: int(b) for k, b in row.items()}
+                          for op, row in metrics["wire"].items()})
+        if rank0 and (step % args.log_every == 0
+                      or step == args.steps - 1):
             log.info("step %4d  phase=%-10s loss=%.4f%s  %.1f ms", step,
                      phase, loss, f"  mtp_loss={rec['mtp_loss']:.4f}"
                      if "mtp_loss" in rec else "", ms)
@@ -282,12 +370,34 @@ def run(cfg: ModelConfig, args,
     if args.checkpoint_dir:
         save_checkpoint(ckpt, _state_tree(cc, params, opt_state,
                                           comp_state), args.steps)
-    if args.metrics_out:
+    if args.metrics_out and rank0:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=1)
+    record = None
+    if args.report:
+        record = _report(args, mesh, device, history, wire, sent, params,
+                         comp_state)
     return {"history": history, "wire": wire, "rate": report,
             "compressor": lts.compressor, "params": params,
-            "resumed": resumed}
+            "resumed": resumed, "report": record}
+
+
+def _report(args, mesh, device, history, wire, sent, params, comp_state):
+    """This process's record, written to ``args.report``/rank<r>.json."""
+    rank = 0 if mesh is None else mesh.node
+    digest, leaves = tree_digest({"params": params, **{
+        k: comp_state[k] for k in ("ae", "ae_mom") if k in comp_state}})
+    record = {
+        "rank": rank, "mesh": None if mesh is None else list(mesh.Ks),
+        "history": history, "wire": wire, "sent": sent or None,
+        "digest": digest, "leaf_digests": leaves,
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30
+        if device.type == "cuda" else None,
+        "launches": dict(LAUNCHES)}
+    os.makedirs(args.report, exist_ok=True)
+    with open(os.path.join(args.report, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return record
 
 
 def main(argv=None):

@@ -22,6 +22,15 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def deterministic_convs() -> None:
+    """cuDNN's deterministic algorithms, process-wide: its default
+    backward convolutions add in an order that varies from run to run, so
+    the AE's gradient, and its momentum, would differ between two runs of
+    one step, and between the processes that each train their replica of
+    the AE.  The trainer calls it."""
+    torch.backends.cudnn.deterministic = True
+
+
 _FMA_CHUNK = 1 << 24        # elements per pass: bounds the f64 temporaries
 
 

@@ -8,6 +8,7 @@ everywhere (counterpart of ``repro.utils.tree``).
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable, List, Tuple
 
 import numpy as np
@@ -86,3 +87,18 @@ def tree_unflatten_vector(vector: torch.Tensor, like: Any) -> Any:
         out.append(vector[offset:offset + n].view(leaf.shape).to(leaf.dtype))
         offset += n
     return tree_unflatten(like, out)
+
+
+def tree_digest(tree: Any) -> Tuple[str, dict]:
+    """sha256 over every leaf of ``tree`` in tree order (its path, dtype,
+    shape and bytes), and each leaf's own, by path.  Equal digests mean
+    bitwise equal trees, wherever each lives."""
+    whole, leaves = hashlib.sha256(), {}
+    for path, leaf in tree_leaves_with_path(tree):
+        t = leaf.detach().contiguous()
+        h = hashlib.sha256(f"{keystr_path(path)}:{t.dtype}:"
+                           f"{tuple(t.shape)};".encode())
+        h.update(t.reshape(-1).view(torch.uint8).cpu().numpy())
+        leaves[keystr_path(path)] = h.hexdigest()
+        whole.update(h.digest())
+    return whole.hexdigest(), leaves

@@ -131,3 +131,59 @@ def trajectory(method, backend, ae_rel=1e-12):
     for a, b in zip(tree_leaves(params), jax.tree_util.tree_leaves(rparams)):
         close(a.numpy(), b, 2e-5, f"{method} params after 6 steps")
     return phases
+
+
+# The reference's own training step (``repro.launch.steps``, what
+# ``repro.launch.train --pod-shards 2 --data-shards 2`` runs) on 4 host
+# devices: lgc_rar on ring_hier over a (2, 2) pod mesh, momentum SGD;
+# saves the initial weights (p<i>) and AE (a<i>), each step's loss and the
+# final weights to ``path``, and each phase's per-op rows to path.json.
+REF_HIER = """
+import numpy as np, jax, jax.flatten_util
+import jax.tree_util as jtu
+from repro.configs import get_arch
+from repro.configs.base import CompressionConfig, TrainConfig
+from repro.core.phases import phase_for_step
+from repro.data import synthetic_token_batches
+from repro.dist import collectives as coll
+from repro.launch.mesh import make_host_mesh
+from repro.launch.steps import make_lgc_train_step
+from repro.models import build_model
+import json
+
+cfg = get_arch("llama3.2-1b").reduced()
+model = build_model(cfg)
+cc = CompressionConfig(method="lgc_rar", warmup_steps=2, ae_train_steps=2,
+                       transport="ring_hier", topk_backend="jnp",
+                       ae_backend="jnp")
+tc = TrainConfig(optimizer="sgd_momentum", learning_rate=0.1,
+                 steps={STEPS}, compression=cc)
+mesh = make_host_mesh(2, 1, pod=2)
+lts = make_lgc_train_step(model, tc, mesh)
+params, opt_state, comp_state = lts.init(jax.random.PRNGKey(0), model, mesh)
+out = {{f"p{{i}}": np.asarray(a)
+       for i, a in enumerate(jtu.tree_leaves(params))}}
+out.update({{f"a{{i}}": np.asarray(a)
+            for i, a in enumerate(jtu.tree_leaves(comp_state["ae"]))}})
+data = synthetic_token_batches(cfg.vocab_size, {BATCH}, {SEQ}, seed=0)
+fns, wire = {{}}, {{}}
+for step in range({STEPS}):
+    phase = phase_for_step(step, cc)
+    batch = next(data)
+    new = phase not in fns
+    if new:
+        coll.reset_wire_tally()
+        fns[phase] = lts.make_step(phase, jtu.tree_map(
+            lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch))
+    params, opt_state, comp_state, metrics = fns[phase](
+        params, opt_state, comp_state, batch, step)
+    out[f"loss{{step}}"] = np.float64(metrics["loss"])
+    if new:
+        wire[phase] = coll.wire_report(by_op=True)
+out.update({{f"final{{i}}": np.asarray(a)
+            for i, a in enumerate(jtu.tree_leaves(params))}})
+np.savez({path!r}, **out)
+with open({path!r} + ".json", "w") as f:
+    json.dump(wire, f)
+print("PASS")
+"""

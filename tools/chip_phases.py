@@ -7,15 +7,17 @@ arctic-480b at 1 layer and 4 experts, K1 and K3 counted), ``serve``
 jamba-v0.1-52b at one superblock, the f32 decode-vs-prefill gate),
 ``mla`` (mla_fwd and mla_decode against the CPU), ``cross``
 (cross-attention against the CPU, the bf16 dtypes), ``train_mla_cross``
-(deepseek-v3-671b at 1 layer, llama-3.2-vision-90b at reduced()) and
+(deepseek-v3-671b at 1 layer, llama-3.2-vision-90b at reduced()),
 ``serve_mla_cross`` (deepseek-v3-671b at 1 layer with the 32768 prompt,
-vision at 2 superblocks, the f32 gates), with each phase's seconds.  A
+vision at 2 superblocks, the f32 gates) and ``pg_train`` (the trainer
+under torchrun, one node per process on this card, each run against
+its emulated twin, which it runs first), with each phase's seconds.  A
 quicker call than the whole smoke run while iterating on these paths.
 
     python3 tools/chip_phases.py [moe] [ssd] [train] [serve] [mla] \
-        [cross] [train_mla_cross] [serve_mla_cross]            # card
+        [cross] [train_mla_cross] [serve_mla_cross] [pg_train]  # card
 
-No names runs all eight.  Each phase prints its JSON lines as
+No names runs all nine.  Each phase prints its JSON lines as
 chip_smoke does and raises as chip_smoke would.
 """
 import json
@@ -31,7 +33,7 @@ import chip_smoke as CS  # noqa: E402  (sets the allocator before torch)
 import torch  # noqa: E402
 
 PHASES = ("moe", "ssd", "train", "serve", "mla", "cross",
-          "train_mla_cross", "serve_mla_cross")
+          "train_mla_cross", "serve_mla_cross", "pg_train")
 
 
 def main(argv=None):
@@ -39,6 +41,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("chip_phases: no CUDA device")
     dev = torch.device("cuda", 0)
+    torch.zeros((), device=dev)     # the allocator's stats need a context
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -54,7 +57,10 @@ def main(argv=None):
            "cross": lambda: CS.cross_phase(dev),
            "train_mla_cross": lambda: CS.mla_cross_train_runs(
                dev, {}, 2, lgc, len(ENCODER_SPEC)),
-           "serve_mla_cross": lambda: CS.serve_mla_cross_phase(dev)}
+           "serve_mla_cross": lambda: CS.serve_mla_cross_phase(dev),
+           "pg_train": lambda: CS.pg_train_phase(
+               dev, {}, smi, len(CS.llama_layout(0.001).compressed),
+               len(ENCODER_SPEC))}
     t0 = time.perf_counter()
     CS.build_phase(smi)
     seconds = {"build": time.perf_counter() - t0}
