@@ -147,8 +147,10 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               2 bit flips, 2 NaNs and 1 inf on its top-k exchange each
               step: the fault tally, fault/topk >= 3 and guard_ok = 0 on
               every sparsified step, +4 bytes per payload, and the
-              composed encode (K5a per node, no K4: K4 cannot count the
-              non-finites it zeroes); (b) lgc_rar_q8 on chaos:ring_q8
+              encode on K4 (one launch per node, its non-finites counted
+              beside it; no K5a) with one K5b decode of the gathered
+              table per step, which each payload's validation reads;
+              (b) lgc_rar_q8 on chaos:ring_q8
               with --guard skip_round and a NaN on its encoding: every
               compressed step guard_ok = 0, and one compressed step of
               the run's compressor driven directly gives a zero gradient
@@ -161,6 +163,28 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               losses at steps 4 and 5 must equal the uninterrupted
               lgc_rar run's bit for bit; the file's bytes and the save
               and load seconds; the file is deleted
+ 11b. pg_faults the failure runs one node per process (torchrun of this
+              script as each rank, K = 2 ranks sharing the card over
+              gloo), each held on every rank against its emulated twin
+              among (a)-(d) above: (a) dgc on chaos:ring_packed, scrub,
+              checksum, the same faults on topk (K6 per leaf, the encode
+              on K4, one launch per rank, and one K5b decode of the
+              gathered table a step; +4 bytes per payload); (b)
+              lgc_rar_q8 on chaos:ring_q8, skip_round (guard_ok = 0 on
+              every compressed step); each with its losses, guard
+              records (guard_ok, fault, faults, fault_ops), per-op rows
+              (the pricer's too) and final params + AE digest the twin's
+              and its launches per step; (c) lgc_rar on chaos:mesh,
+              fail_fast: every rank's run raises the twin's
+              WireFaultError, naming the encoding at step 4 (each rank
+              records it and exits; the launch accepts that failure and
+              no other); (d) lgc_rar with a checkpoint every 3 steps,
+              stopped after step 3 on every rank (run()'s on_step in the
+              rank script), then resumed under torchrun from the rank
+              files (ckpt.rank<r>.npz; node 0's with the replicated
+              state): steps 4 and 5 and the final digest the
+              uninterrupted pg_train lgc_rar mesh run's; each rank's
+              file bytes, save and load seconds; the files are deleted
  12. convnet5 the paper's ConvNet5 at its full widths (config(): channels
               32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
               of 8 images, through launch.steps.sim_sgd_step (the
@@ -1581,22 +1605,58 @@ def pg_rank(spec_path: str) -> None:
     """One rank of a pg_train launch (torchrun runs this script with
     ``--pg-rank SPEC``): launch.train's run() on llama3.2-1b cut to the
     spec's depth, with the spec's flags, as one node of the process
-    group torchrun's environment describes."""
+    group torchrun's environment describes.  A spec's ``stop_after``
+    stops the run after that step through run()'s ``on_step`` (as a
+    crash would, once the step's checkpoint is written); its
+    ``expect_error`` names the exception class the run must raise.
+    Either way the rank writes its record (the steps it ran, its
+    launches, the error) to the report directory and exits 0: torchrun
+    stops every rank as soon as one exits otherwise, and a rank stopped
+    before it writes its record shows nothing.  Any other outcome
+    raises."""
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import train
     with open(spec_path) as f:
         spec = json.load(f)
     cfg = dataclasses.replace(get_arch("llama3.2-1b"),
                               n_layers=spec["n_layers"])
-    train.run(cfg, train.parse_args(spec["flags"]))
+    args = train.parse_args(spec["flags"])
+    stop_after, expect = spec.get("stop_after"), spec.get("expect_error")
+    records = []
+
+    def on_step(rec):
+        records.append(rec)
+        if rec["step"] == stop_after:
+            raise _Interrupt
+    try:
+        train.run(cfg, args, on_step=on_step)
+    except _Interrupt:
+        outcome = {"stopped_after": stop_after}
+    except Exception as e:
+        if type(e).__name__ != expect:
+            raise
+        outcome = {"error": f"{type(e).__name__}: {e}"}
+    else:
+        if stop_after is None and expect is None:
+            return
+        raise AssertionError(f"the run was not stopped after {stop_after} "
+                             f"and did not raise {expect}")
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(args.report, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "history": records,
+                   "launches": dict(LAUNCHES), **outcome}, f)
 
 
-def pg_launch(name: str, flags, steps: int, K: int, n_layers: int):
+def pg_launch(name: str, flags, steps: int, K: int, n_layers: int,
+              stop_after=None, expect_error=None):
     """torchrun of K ranks of this script on the card; returns each rank's
     record.  Raises when the launch fails (torchrun stops every rank when
-    one fails) or outlives PG_TIMEOUT_S."""
+    one fails) or outlives PG_TIMEOUT_S.  ``stop_after`` / ``expect_error``
+    (see ``pg_rank``): every rank's record must say it was stopped, or
+    that its run raised that exception, and nothing else is accepted."""
     report = pg_report_flags("pg " + name)
     out_dir = report[1]
     os.makedirs(out_dir, exist_ok=True)
@@ -1604,11 +1664,12 @@ def pg_launch(name: str, flags, steps: int, K: int, n_layers: int):
         os.remove(os.path.join(out_dir, f))
     spec = os.path.join(ROOT, "build", "pg", "spec.json")
     with open(spec, "w") as f:
-        json.dump({"n_layers": n_layers, "flags": [
-            "--data-shards", "2", "--batch", "8", "--seq", "128",
-            "--warmup-steps", "2", "--steps", str(steps), "--log-every",
-            "1", "--device", "cuda", "--dist-backend", PG_BACKEND] + flags
-            + report}, f)
+        json.dump({"n_layers": n_layers, "stop_after": stop_after,
+                   "expect_error": expect_error, "flags": [
+                       "--data-shards", "2", "--batch", "8", "--seq", "128",
+                       "--warmup-steps", "2", "--steps", str(steps),
+                       "--log-every", "1", "--device", "cuda",
+                       "--dist-backend", PG_BACKEND] + flags + report}, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
                            "--format=csv,noheader,nounits"],
@@ -1636,6 +1697,14 @@ def pg_launch(name: str, flags, steps: int, K: int, n_layers: int):
     for r in range(K):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             recs.append(json.load(f))
+    for r, rec in enumerate(recs):
+        if stop_after is not None and rec.get("stopped_after") != stop_after:
+            raise AssertionError(f"pg {name} rank {r} was not stopped after "
+                                 f"step {stop_after}")
+        if expect_error is not None and not str(rec.get("error", "")) \
+                .startswith(expect_error + ":"):
+            raise AssertionError(f"pg {name} rank {r} did not raise "
+                                 f"{expect_error}: {rec.get('error')}")
     return recs, {"launch_s": seconds, "card_mib_used_before":
                   float(used[0]) if used else None}
 
@@ -1661,7 +1730,6 @@ def pg_train_phase(dev, runs, smi: str, n_leaves: int,
     when missing or at another depth): losses bitwise, rows equal, the
     final digest equal on every rank and to the twin's; each rank's
     launches per step."""
-    from repro_torch.dist import plan as XP
     fl = train_flags()
     lgc, dgc, packed, buckets, q8, hier = (
         fl[k] for k in ("lgc", "dgc", "packed", "buckets", "q8", "hier"))
@@ -1697,27 +1765,7 @@ def pg_train_phase(dev, runs, smi: str, n_leaves: int,
         gc_cuda()
         recs, launch = pg_launch(name, flags, steps, K, layers)
         comp = twin["compressor"]
-        for r, rec in enumerate(recs):
-            where = f"pg {name} rank {r}"
-            losses = [h["loss"] for h in rec["history"]]
-            if losses != twin["losses"]:
-                raise AssertionError(f"{where}: losses {losses} != the "
-                                     f"twin's {twin['losses']}")
-            if rec["wire"] != twin["wire"]:
-                raise AssertionError(f"{where}: rows {rec['wire']} != the "
-                                     f"twin's {twin['wire']}")
-            for phase, rows in rec["wire"].items():
-                plan = XP.build_plan(comp.cc, comp.layout, comp.K,
-                                     phase=phase)
-                if rows != XP.wire_terms_by_op(plan, axis_sizes=comp.Ks):
-                    raise AssertionError(f"{where} {phase}: rows != priced")
-            if rec["digest"] != twin["report"]["digest"]:
-                mine, theirs = rec["leaf_digests"], \
-                    twin["report"]["leaf_digests"]
-                differ = sorted(k for k in theirs if mine.get(k) != theirs[k])
-                raise AssertionError(f"{where}: the params and AE differ "
-                                     f"from the twin's in {differ}")
-            expect(rec["launches"], [h["phase"] for h in rec["history"]])
+        hold_to_twin(f"pg {name}", recs, twin, comp, expect)
         step_ms = [{} for _ in recs]
         for r, rec in enumerate(recs):
             for h in rec["history"]:
@@ -1735,9 +1783,160 @@ def pg_train_phase(dev, runs, smi: str, n_leaves: int,
              sent={phase: [rec["sent"][phase] for rec in recs]
                    for phase in recs[0]["sent"]},
              wire=twin["wire"])
-        runs["pg " + name] = {"launches": {
-            k: sum(rec["launches"].get(k, 0) for rec in recs)
-            for k in set().union(*(rec["launches"] for rec in recs))}}
+        runs["pg " + name] = {"launches": summed_launches(recs),
+                              "losses": twin["losses"],
+                              "digest": twin["report"]["digest"]}
+
+
+def summed_launches(recs):
+    """The ranks' kernel launches, summed by kernel."""
+    return {k: sum(rec["launches"].get(k, 0) for rec in recs)
+            for k in set().union(*(rec["launches"] for rec in recs))}
+
+
+def hold_to_twin(where: str, recs, twin, comp, expect) -> None:
+    """A process run's checks on every rank: its steps' losses and guard
+    records (guard_ok, fault, faults, fault_ops) the twin's, its per-op
+    rows the twin's and the pricer's, its final params + AE digest the
+    twin's, its launches per step."""
+    from repro_torch.dist import plan as XP
+    keys = ("step", "loss", "guard_ok", "fault", "faults", "fault_ops")
+    want = [{k: h[k] for k in keys if k in h} for h in twin["history"]]
+    for r, rec in enumerate(recs):
+        got = [{k: h[k] for k in keys if k in h} for h in rec["history"]]
+        if got != want:
+            raise AssertionError(f"{where} rank {r}: steps {got} != the "
+                                 f"twin's {want}")
+        if rec["wire"] != twin["wire"]:
+            raise AssertionError(f"{where} rank {r}: rows {rec['wire']} != "
+                                 f"the twin's {twin['wire']}")
+        for phase, rows in rec["wire"].items():
+            plan = XP.build_plan(comp.cc, comp.layout, comp.K, phase=phase)
+            if rows != XP.wire_terms_by_op(plan, axis_sizes=comp.Ks):
+                raise AssertionError(f"{where} rank {r} {phase}: rows != "
+                                     f"priced")
+        if rec["digest"] != twin["report"]["digest"]:
+            mine, theirs = rec["leaf_digests"], \
+                twin["report"]["leaf_digests"]
+            differ = sorted(k for k in theirs if mine.get(k) != theirs[k])
+            raise AssertionError(f"{where} rank {r}: the params and AE "
+                                 f"differ from the twin's in {differ}")
+        expect(rec["launches"], [h["phase"] for h in rec["history"]])
+
+
+def pg_fault_runs(dev, runs, smi: str, n_leaves: int,
+                  n_encoder: int) -> None:
+    """The failure runs one node per process, K = 2 ranks on the card,
+    each against its emulated twin (``runs``; run here when missing):
+    (a) and (b) guarded, (c) fail_fast, (d) stopped after step 3 and
+    resumed from the rank files against the uninterrupted ``pg lgc_rar
+    mesh`` run of ``pg_train_phase``, which runs first."""
+    import shutil
+    from repro_torch.checkpoint import rank_path
+    K = 2
+    lgc, gf = train_flags()["lgc"], guard_flags()
+    names = {"a": "dgc chaos:ring_packed scrub",
+             "b": "lgc_rar_q8 chaos:ring_q8 skip_round",
+             "c": "lgc_rar chaos:mesh fail_fast"}
+    if any(runs.get(n) is None for n in names.values()):
+        if "dgc ring_packed" not in runs:     # guard_runs' plain wire
+            runs["dgc ring_packed"] = train_phase(
+                dev, "dgc ring_packed", train_flags()["dgc"]
+                + train_flags()["packed"], 5,
+                per_step(block_topk=n_leaves * K, quantize_pack=K,
+                         unpack_bits=1))
+        guard_runs(dev, runs, n_leaves, K)
+    lgc_step = per_step(fused_ef_topk=1,
+                        compressed={"matmul_bias_lrelu": n_encoder})
+    specs = (("a", 5, per_step(block_topk=n_leaves, quantize_pack=1,
+                               pack_bits=0, unpack_bits=1)),
+             ("b", 6, lgc_step))
+    for key, steps, expect in specs:
+        twin = runs[names[key]]
+        gc_cuda()
+        recs, launch = pg_launch(names[key], gf[key], steps, K, N_LAYERS)
+        hold_to_twin(f"pg {names[key]}", recs, twin, twin["compressor"],
+                     expect)
+        runs["pg " + names[key]] = {"launches": summed_launches(recs)}
+        emit("pg_faults", run=names[key], card=smi, backend=PG_BACKEND,
+             nodes=K, n_layers=N_LAYERS, seq=128, batch=8,
+             reduced=["n_layers"], **launch, losses=twin["losses"],
+             guard=[{k: h[k] for k in ("guard_ok", "fault", "faults",
+                                       "fault_ops") if k in h}
+                    for h in twin["history"]],
+             digest=twin["report"]["digest"],
+             equal={"losses": True, "guard": True, "rows": True,
+                    "digest": True},
+             step_ms=[[h["ms"] for h in rec["history"]] for rec in recs],
+             twin_step_ms=twin["step_ms"],
+             peak_gib=[rec["peak_gib"] for rec in recs],
+             twin_peak_gib=twin["peak_gib"],
+             launches=[rec["launches"] for rec in recs],
+             wire=twin["wire"])
+
+    # (c): every rank raises the twin's error, naming the encoding at 4
+    twin = runs[names["c"]]
+    gc_cuda()
+    recs, launch = pg_launch(names["c"], gf["c"], 6, K, N_LAYERS,
+                             expect_error="WireFaultError")
+    want = f"WireFaultError: {twin['error']}"
+    for r, rec in enumerate(recs):
+        if rec["error"] != want:
+            raise AssertionError(f"pg {names['c']} rank {r} raised "
+                                 f"{rec['error']!r}, not the twin's {want!r}")
+        launched("fused_ef_topk", "matmul_bias_lrelu")(rec["launches"], [])
+    runs["pg " + names["c"]] = {"launches": summed_launches(recs)}
+    emit("pg_faults", run=names["c"], card=smi, nodes=K, **launch,
+         errors=[rec["error"] for rec in recs], twin_error=want,
+         launches=[rec["launches"] for rec in recs])
+
+    # (d): stopped after step 3 with its rank files, then resumed
+    whole = runs["pg lgc_rar mesh"]
+    ckdir = os.path.join(ROOT, "build", "ckpt_pg")
+    path = os.path.join(ckdir, "ckpt.npz")
+    try:
+        gc_cuda()
+        first, launch1 = pg_launch(
+            "lgc_rar stopped after step 3", lgc + [
+                "--checkpoint-dir", ckdir, "--checkpoint-every", "3"], 6, K,
+            N_LAYERS, stop_after=3)
+        nbytes = [os.path.getsize(rank_path(path, r)) for r in range(K)]
+        gc_cuda()
+        second, launch2 = pg_launch("lgc_rar resumed at step 4",
+                                    lgc + ["--resume", path], 6, K, N_LAYERS)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for r in range(K):
+        got = [h["loss"] for h in first[r]["history"]], \
+            [h["loss"] for h in second[r]["history"]]
+        if got != (whole["losses"][:4], whole["losses"][4:]) \
+                or [h["step"] for h in second[r]["history"]] != [4, 5] \
+                or second[r]["digest"] != whole["digest"]:
+            raise AssertionError(f"pg lgc_rar resumed rank {r}: losses "
+                                 f"{got} or its digest differ from the "
+                                 f"uninterrupted run's {whole['losses']}")
+        per_step(fused_ef_topk=1)(first[r]["launches"],
+                                  [h["phase"] for h in first[r]["history"]])
+        lgc_step(second[r]["launches"],
+                 [h["phase"] for h in second[r]["history"]])
+    runs["pg lgc_rar stopped"] = {"launches": summed_launches(first)}
+    runs["pg lgc_rar resumed"] = {"launches": summed_launches(second)}
+    emit("pg_resume", card=smi, nodes=K, file_bytes=nbytes,
+         save_s=[rec["history"][3]["checkpoint_s"] for rec in first],
+         load_s=[rec["resumed"]["seconds"] for rec in second],
+         resumed_at=[rec["resumed"]["step"] for rec in second],
+         launch_s=[launch1["launch_s"], launch2["launch_s"]],
+         step_ms={"stopped": [[h["ms"] for h in rec["history"]]
+                              for rec in first],
+                  "resumed": [[h["ms"] for h in rec["history"]]
+                              for rec in second]},
+         peak_gib=[rec["peak_gib"] for rec in second],
+         losses={"uninterrupted": whole["losses"],
+                 "stopped": [[h["loss"] for h in rec["history"]]
+                             for rec in first],
+                 "resumed": [[h["loss"] for h in rec["history"]]
+                             for rec in second]},
+         bitwise=True)
 
 
 def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
@@ -1796,7 +1995,26 @@ def mla_cross_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
                              reduced=("reduced()",))
 
 
-def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
+def guard_flags():
+    """The failure runs' flags: (a) dgc on the packed ring with the
+    checksum word, bit flips, NaNs and an inf on its top-k exchange,
+    scrubbed; (b) lgc_rar_q8 on the int8 ring with a NaN on its encoding,
+    the round skipped; (c) lgc_rar on the mesh wire under fail_fast with
+    a NaN on its encoding."""
+    fl = train_flags()
+    nan = ["--fault-nans", "1", "--fault-ops", "encoding"]
+    return {"a": fl["dgc"] + [
+                "--transport", "chaos:ring_packed", "--guard", "scrub",
+                "--guard-checksum", "--fault-seed", "3", "--fault-nans", "2",
+                "--fault-infs", "1", "--fault-bitflips", "2", "--fault-ops",
+                "topk"],
+            "b": fl["q8"][:-1] + ["chaos:ring_q8", "--guard", "skip_round"]
+            + nan,
+            "c": fl["lgc"] + ["--transport", "chaos:mesh", "--guard",
+                              "fail_fast"] + nan}
+
+
+def guard_runs(dev, runs, n_leaves: int, K: int) -> None:
     """The chaos wire under the guard policies, at the path's widths: (a)
     dgc on the packed ring with the checksum word, bit flips, NaNs and
     infs on its top-k exchange, scrubbed; (b) lgc_rar_q8 on the int8 ring
@@ -1807,8 +2025,6 @@ def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
     the encoding at the first compressed step."""
     from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
     from repro_torch.dist import chaos as CH
-    faults = ["--fault-seed", "3", "--fault-nans", "2", "--fault-infs", "1",
-              "--fault-bitflips", "2", "--fault-ops", "topk"]
     # under a guard each node's pairs still go through K4, their
     # non-finites counted beside it (the reference takes its composed
     # encode there: the same payload bits and counts).  The gathered table
@@ -1816,8 +2032,8 @@ def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
     # validation reads
     a = runs["dgc chaos:ring_packed scrub"] = train_phase(
         dev, "dgc chaos:ring_packed scrub",
-        dgc + ["--transport", "chaos:ring_packed", "--guard", "scrub",
-               "--guard-checksum"] + faults, 5,
+        guard_flags()["a"] + pg_report_flags("dgc chaos:ring_packed scrub"),
+        5,
         per_step(block_topk=n_leaves * K, quantize_pack=K, pack_bits=0,
                  unpack_bits=1))
     injected = {"topk": {"bitflip": 2, "nan": 2, "inf": 1}}
@@ -1841,8 +2057,8 @@ def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
 
     b = runs["lgc_rar_q8 chaos:ring_q8 skip_round"] = train_phase(
         dev, "lgc_rar_q8 chaos:ring_q8 skip_round",
-        q8[:-1] + ["chaos:ring_q8", "--guard", "skip_round",
-                   "--fault-nans", "1", "--fault-ops", "encoding"], 6,
+        guard_flags()["b"] + pg_report_flags(
+            "lgc_rar_q8 chaos:ring_q8 skip_round"), 6,
         per_step(fused_ef_topk=K,
                  compressed={"matmul_bias_lrelu": len(ENCODER) * K}))
     for h in b["history"]:
@@ -1869,15 +2085,12 @@ def guard_runs(dev, runs, n_leaves: int, K: int, lgc, dgc, q8) -> None:
                                    if k.startswith("fault/")},
          fault_ops=CH.fault_report(), checks=checks)
     del states, g, gg, want_u, want_v, comp
-    b["compressor"] = None
     torch.cuda.empty_cache()
     if not all(checks.values()):
         raise AssertionError(f"skip_round step: {checks}")
 
     c = runs["lgc_rar chaos:mesh fail_fast"] = train_phase(
-        dev, "lgc_rar chaos:mesh fail_fast",
-        lgc + ["--transport", "chaos:mesh", "--guard", "fail_fast",
-               "--fault-nans", "1", "--fault-ops", "encoding"], 6,
+        dev, "lgc_rar chaos:mesh fail_fast", guard_flags()["c"], 6,
         launched("fused_ef_topk", "matmul_bias_lrelu"),
         raises=CH.WireFaultError)
     if "encoding" not in c["error"] or "at step 4" not in c["error"]:
@@ -2733,8 +2946,9 @@ def main() -> None:
         reduced=("n_layers", "batch"))
     moe_ssm_train_runs(dev, runs, K, lgc, len(ENCODER))
     mla_cross_train_runs(dev, runs, K, lgc, len(ENCODER))
-    guard_runs(dev, runs, n_leaves, K, lgc, dgc, q8)
+    guard_runs(dev, runs, n_leaves, K)
     resume_run(dev, runs, K, lgc)
+    pg_fault_runs(dev, runs, smi, n_leaves, len(ENCODER))
     convnet5_phase(dev, runs)
     serve_phase(dev)
     serve_moe_ssm_phase(dev)

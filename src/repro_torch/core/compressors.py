@@ -16,9 +16,11 @@
 Each step compiles its exchanges with ``dist.plan.build_plan`` and runs
 them with ``dist.plan.execute`` against a transport, supplying the
 per-node compute as feed callbacks, as the reference does.  Under a guard
-policy (``cc.guard``) the step's stats carry ``fault/<label>`` and
-``guard_ok``; each node clears its u, v only after a clean round, and
-``skip_round`` drops a faulty round's gradient.  A fault set in the
+policy (``cc.guard``) the step's stats carry node 0's ``fault/<label>``
+and ``guard_ok``; each node clears its u, v only after its own clean
+round, and on node 0's round ``skip_round`` drops the gradient and the
+AE is not trained (under a process group node 0's counts reach every
+process in one small broadcast a guarded step).  A fault set in the
 config (``cc.fault_*``) wraps the transport in ``chaos:<base>``.  The K nodes'
 accumulators ``u``/``v`` are (K, n) tensors updated IN PLACE, node after
 node: at llama3.2-1b width each is gigabytes, and sweeping the nodes one
@@ -42,7 +44,7 @@ PyTorch version.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -57,6 +59,15 @@ from repro_torch.dist.transport import make_transport
 from repro_torch.kernels import ops as K_ops
 from repro_torch.utils import fma_f32
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+class Gate(NamedTuple):
+    """A guarded round's verdicts: ``ok`` (H,) bool, each held node's own
+    round clean (its clear of u, v acts on it); ``ok0`` 0-d, node 0's,
+    on which the stats, ``skip_round`` and the AE act; the policy."""
+    ok: torch.Tensor
+    ok0: torch.Tensor
+    policy: str
 
 
 @dataclass(frozen=True)
@@ -186,28 +197,37 @@ class GradientCompressor:
     # -- the guard's gates -----------------------------------------------------
 
     @staticmethod
-    def _guard_gate(env, stats):
+    def _guard_gate(t, env, stats):
         """The executor's guard counts into the stats, ``fault/<label>``
         and ``guard_ok`` as node 0 holds them (the reference's step stats
         leave its shard_map replicated, as node 0's), 0-d tensors the
-        caller reads once the step is done; returns (each node's ok, a
-        (K,) bool tensor, and the policy), or None when no guard ran.
-        Nothing here waits for the device: the gates act on ``ok`` there."""
+        caller reads once the step is done; returns a :class:`Gate`, or
+        None when no guard ran.  Under a process group node 0's counts
+        are rank 0's, broadcast: every process then reports, skips and
+        trains the AE on the same round, as the emulated step does, where
+        a process acting on its own would leave the replicas apart.
+        Emulated, nothing here waits for the device: the gates act on the
+        oks there."""
         g = env.get("__guard__")
         if g is None:
             return None
-        for lbl, bad in g["bad"].items():
-            stats[f"fault/{lbl}"] = bad[0]
-        stats["guard_ok"] = g["ok"][0].to(torch.int64)
-        return g["ok"], g["policy"]
+        labels = list(g["bad"])
+        bad0 = torch.stack([g["bad"][lbl][0] for lbl in labels])
+        if t.group is not None:
+            bad0 = t.group.broadcast(bad0, 0)
+        for i, lbl in enumerate(labels):
+            stats[f"fault/{lbl}"] = bad0[i]
+        ok0 = bad0.sum() == 0
+        stats["guard_ok"] = ok0.to(torch.int64)
+        return Gate(g["ok"], ok0, g["policy"])
 
     @staticmethod
     def _gate_round(gate, global_g):
         """skip_round: a round that saw a fault gives the optimizer zeros
         (node 0's round, whose gradient the step returns), in place."""
-        if gate is None or gate[1] != "skip_round":
+        if gate is None or gate.policy != "skip_round":
             return global_g
-        return global_g.masked_fill_(~gate[0][0], 0.0)
+        return global_g.masked_fill_(~gate.ok0, 0.0)
 
     # ==========================================================================
 
@@ -223,7 +243,7 @@ class GradientCompressor:
                              phase=phase)
         if phase == PHASE_WARMUP or cc.method == "none":
             env = XP.execute(plan, t, {"grad": lambda env: g})
-            gate = self._guard_gate(env, stats)
+            gate = self._guard_gate(t, env, stats)
             return self._gate_round(gate, env["grad"]), state, stats
 
         u, v = state["u"], state["v"]
@@ -253,8 +273,8 @@ class GradientCompressor:
                 if gate is not None:
                     # a faulty node's indices go to the sentinel n, which
                     # the clear drops
-                    idx_k = torch.where(gate[0][k], idx_k, n)
-                    last_k = torch.where(gate[0][k], last_k, n)
+                    idx_k = torch.where(gate.ok[k], idx_k, n)
+                    last_k = torch.where(gate.ok[k], last_k, n)
                 SP.clear_sent_merged(u[k], v[k], idx_k, last_k, n)
             return self._gate_round(gate, global_g)
 
@@ -262,7 +282,7 @@ class GradientCompressor:
             # each node ships its own (vals, idx); each clears its own set
             feeds["topk"] = lambda env: (vals, own_idx)
             env = XP.execute(plan, t, feeds)
-            gate = self._guard_gate(env, stats)
+            gate = self._guard_gate(t, env, stats)
             return finish(env, gate, env["topk"], own_idx), dict(state), \
                 stats
 
@@ -301,17 +321,16 @@ class GradientCompressor:
             if is_ps:
                 feeds["gather_inno"] = lambda env: inno_of(env)[0]
             env = XP.execute(plan, t, feeds)
-            gate = self._guard_gate(env, stats)
+            gate = self._guard_gate(t, env, stats)
             sent = env["support_vals"]
             ae, ae_mom, ae_loss = self._ae_update(
                 state, env["gather_vals"], env.get("gather_inno"), step)
             # the AE is not trained on a round that saw a fault (node 0's,
             # whose AE the step returns)
             if gate is not None:
-                ok0 = gate[0][0]
-                ae = tree_map(lambda a, b: torch.where(ok0, a, b), ae,
+                ae = tree_map(lambda a, b: torch.where(gate.ok0, a, b), ae,
                               state["ae"])
-                ae_mom = tree_map(lambda a, b: torch.where(ok0, a, b),
+                ae_mom = tree_map(lambda a, b: torch.where(gate.ok0, a, b),
                                   ae_mom, state["ae_mom"])
             new_state.update(ae=ae, ae_mom=ae_mom)
             stats["ae_loss"] = ae_loss
@@ -330,7 +349,7 @@ class GradientCompressor:
             feeds["z_common"] = z_common
             feeds["innovations"] = lambda env: inno_of(env)[1:]
             env = XP.execute(plan, t, feeds)
-            gate = self._guard_gate(env, stats)
+            gate = self._guard_gate(t, env, stats)
             recs = AE.lgc_decode_ps(state["ae"], env["z_common"],
                                     env["innovations"])    # (K, mu_pad)
             sent = C.node_mean(recs)
@@ -339,7 +358,7 @@ class GradientCompressor:
             feeds["encoding"] = lambda env: torch.stack(
                 [self._encode(state["ae"], x) for x in vals_of(env)])
             env = XP.execute(plan, t, feeds)
-            gate = self._guard_gate(env, stats)
+            gate = self._guard_gate(t, env, stats)
             sent = AE.lgc_decode_rar(state["ae"], env["encoding"][None])[0]
         idx = env["support"]
         global_g = finish(env, gate, SP.scatter_to_dense(sent, idx, n),

@@ -6,16 +6,23 @@ guard's channels (counterpart of ``repro.dist.chaos``).
                            node contribution, optionally only on some
                            exchange-plan op labels.
   :class:`ChaosTransport`  wraps any transport (``make_transport`` kind
-                           ``chaos:<base>``): contribution faults act on
-                           the stacked node axis before the collective,
-                           payload faults on its result after it, at
+                           ``chaos:<base>``), emulated or across
+                           processes: contribution faults act on the
+                           faulted node's row of the held nodes' stack
+                           before the collective (under a process group
+                           only its own process changes anything),
+                           payload faults on the result after it, at
                            positions drawn from ``(seed, crc32(op label),
                            salt)`` by numpy, the reference's own draws, so
-                           every wire of either package takes the same
-                           faults.
+                           every wire of either package and either layout
+                           takes the same faults.
   fault tally              every injection records (op label, kind,
                            count); ``reset_fault_tally`` before a step,
-                           ``fault_report`` after.
+                           ``fault_report`` after.  Every process records
+                           every injection, a contribution fault on a node
+                           it does not hold too, as the reference records
+                           each once at trace time: each process's tally
+                           is the emulated step's.
   structural sink          the list the executor opens around each guarded
                            op, into which validators (the packed payload
                            checks, the quantizer's non-finite count) report
@@ -179,8 +186,11 @@ def raise_on_faults(stats: Dict[str, Any], step=None) -> None:
 class ChaosTransport:
     """``spec``'s faults around a base transport's cross-node operations.
     ``kind`` is the base's, so the plan prices and dispatches as on the
-    base; the executor's other needs (K, guard, the byte tally, the op
-    label scope) are the base's."""
+    base; the executor's and the compressor's other needs (K, the held
+    nodes, guard, the process mesh, the byte and message tallies, the op
+    label scope) are the base's.  Every op's result has the same shape
+    on the stacked axis and under a process group, so a payload fault
+    lands on the same elements in both."""
 
     def __init__(self, base, spec: FaultSpec = FaultSpec()):
         self.base, self.spec = base, spec
@@ -205,8 +215,16 @@ class ChaosTransport:
         return self.base.guard
 
     @property
+    def group(self):
+        return self.base.group
+
+    @property
     def tally(self):
         return self.base.tally
+
+    @property
+    def messages(self):
+        return self.base.messages
 
     def wire_op(self, label: str):
         return self.base.wire_op(label)
@@ -270,18 +288,24 @@ class ChaosTransport:
         return flat.view(res.shape)
 
     def _contrib(self, x: torch.Tensor, label: str) -> torch.Tensor:
-        """``drop_node``'s row of the stacked contributions becomes zeros,
-        ``stale_node``'s is rolled by one along its last axis (finite and
-        wrong: no guard can see it)."""
+        """``drop_node``'s row of the held nodes' contributions becomes
+        zeros, ``stale_node``'s is rolled by one along its last axis
+        (finite and wrong: no guard can see it); where the node is not
+        held here (another process's), nothing changes but the tally, as
+        the reference's ``where(_index() == node)``."""
         s = self.spec
         if not self._on(label) or (s.drop_node < 0 and s.stale_node < 0):
             return x
         x = x.clone()
+        nodes = self.nodes
         if 0 <= s.drop_node < self.K:
-            x[s.drop_node] = 0
+            if s.drop_node in nodes:
+                x[nodes.index(s.drop_node)] = 0
             record_fault(label, "drop", 1)
         if 0 <= s.stale_node < self.K:
-            x[s.stale_node] = torch.roll(x[s.stale_node], 1, -1)
+            if s.stale_node in nodes:
+                row = nodes.index(s.stale_node)
+                x[row] = torch.roll(x[row], 1, -1)
             record_fault(label, "stale", 1)
         return x
 

@@ -64,8 +64,11 @@ is then the nodes' mean of those tallies, the emulated per-node rows.
 ``inter_chunk`` elements (``CompressionConfig.ring_intra_chunk`` /
 ``ring_inter_chunk``; 0 = one message a hop); on the stacked axis a cap
 changes neither values nor bytes, and the emulated wires ignore them.
-The chaos wire and the guards do not run under a process group yet
-(ROADMAP.md Queue 1 item 7b).
+Under a process group the chaos wire wraps any of them as on the stacked
+axis, and the guards run as there: each process's quantizer work
+reports its own node's non-finites, and the packed ring's process
+validates every payload of the gathered table it decoded, as each
+emulated node does.
 """
 from __future__ import annotations
 
@@ -83,9 +86,6 @@ from repro_torch.dist import p2p as P
 from repro_torch.dist import packed as PK
 from repro_torch.dist import quantize as Q
 from repro_torch.kernels.bitpack import f32_reciprocal
-
-# what a process-group error names: the item that ports it next
-PG_DEFERRED = "ROADMAP.md Queue 1 item 7b"
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -152,10 +152,6 @@ class SimTransport:
             if self.group.Ks != self.Ks:
                 raise ValueError(f"process mesh {self.group.Ks} is not the "
                                  f"dp mesh {self.Ks}")
-            if self.guard != "off":
-                raise NotImplementedError(
-                    f"guard {self.guard!r} under a process group is "
-                    f"{PG_DEFERRED}")
 
     @property
     def nodes(self) -> Tuple[int, ...]:
@@ -518,9 +514,6 @@ def make_transport(kind: str, K: int, scale_block: int = 0, *,
     if kind not in TRANSPORTS:
         raise ValueError(f"unknown transport {kind!r}; known: "
                          f"{tuple(TRANSPORTS)} (optionally chaos:<base>)")
-    if group is not None and spec is not None:
-        raise NotImplementedError(
-            f"the chaos wire under a process group is {PG_DEFERRED}")
     base = TRANSPORTS[kind](
         K, scale_block or Q.SCALE_BLOCK, tuple(Ks or (K,)),
         max(int(wire_buckets or 1), 1), guard, group=group,

@@ -41,8 +41,16 @@ K processes may share one card):
 
 Rank 0 alone logs the rate report and the per-op rows and writes
 ``--metrics-out``; ``--report DIR`` has every process write its own
-record.  The chaos wire, the guards and checkpointing do not run under a
-process group yet (ROADMAP.md Queue 1 item 7b) and raise.
+record.  The chaos wire, every ``--fault-*``, the guards and the checksum
+word run as in the emulated run: each process's fault tally and guard
+records are the emulated step's (node 0's counts, which every process
+receives), and fail_fast raises on every process at the same step.
+Each process checkpoints its own node's part of the state
+(``checkpoint.save_rank_checkpoint``: ``ckpt.rank<r>.npz``, node 0's
+with the replicated rest), and ``--resume <dir>/ckpt.npz`` has each read
+its own file and receive the rest from node 0, bit for bit as an
+uninterrupted run; a torn save makes every process raise
+``CheckpointError``.
 """
 from __future__ import annotations
 
@@ -56,7 +64,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.checkpoint import (load_checkpoint, load_rank_checkpoint,
+                                    save_checkpoint, save_rank_checkpoint)
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import (CompressionConfig, ModelConfig,
                                       TrainConfig)
@@ -64,7 +73,6 @@ from repro_torch.core.phases import phase_for_step
 from repro_torch.core.rate import rate_report
 from repro_torch.data import synthetic_token_batches
 from repro_torch.dist import chaos
-from repro_torch.dist.transport import PG_DEFERRED
 from repro_torch.kernels import LAUNCHES
 from repro_torch.launch.mesh import init_process_mesh, under_torchrun
 from repro_torch.launch.steps import make_lgc_train_step
@@ -163,7 +171,9 @@ def parse_args(argv=None):
                    help="checkpoint .npz to resume from: restores the full "
                         "train state, EF residuals included, fast-forwards "
                         "the data stream and continues at the saved step, "
-                        "bit for bit as an uninterrupted run")
+                        "bit for bit as an uninterrupted run (under "
+                        "torchrun each process reads its own "
+                        "<name>.rank<r>.npz beside it)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default="")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -186,26 +196,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_deferred(args, cc: CompressionConfig) -> None:
-    """Raise for what does not run under a process group yet, naming
-    the item that ports it."""
-    bad = []
-    if args.transport.startswith("chaos:") \
-            or chaos.spec_from_config(cc) is not None:
-        bad.append("the chaos wire (chaos:<base>, --fault-*)")
-    if args.guard != "off":
-        bad.append(f"--guard {args.guard}")
-    if args.checkpoint_dir or args.checkpoint_every:
-        bad.append("--checkpoint-dir/--checkpoint-every")
-    if args.resume:
-        bad.append("--resume")
-    if bad:
-        raise NotImplementedError(
-            f"{'; '.join(bad)} under a process group (torchrun) is "
-            f"{PG_DEFERRED}: the chaos wire, guards and checkpoint/resume "
-            f"across processes")
-
-
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A host batch on ``device``: token ids as int64, the encoder
     embeddings as they are (f32)."""
@@ -223,6 +213,15 @@ def _state_tree(cc: CompressionConfig, params, opt_state, comp_state):
     if cc.method != "none":
         tree["comp_state"] = comp_state
     return tree
+
+
+def _save(path: str, tree, step: int, mesh) -> None:
+    """The emulated run's one file, or under a process mesh this node's
+    own (``checkpoint.save_rank_checkpoint``)."""
+    if mesh is None:
+        save_checkpoint(path, tree, step)
+    else:
+        save_rank_checkpoint(path, tree, step, mesh.Ks, mesh.node)
 
 
 def run(cfg: ModelConfig, args,
@@ -270,7 +269,6 @@ def run(cfg: ModelConfig, args,
                              "(one node per process)")
         return _run(cfg, args, cc, tc, Ks, K, None,
                     resolve_device(args.device), on_step)
-    refuse_deferred(args, cc)
     mesh = init_process_mesh(Ks, args.dist_backend, args.device,
                              args.dist_init)
     try:
@@ -295,8 +293,11 @@ def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
     if args.resume:
         # the fresh state is the template: shapes, dtypes and the device
         t0 = time.perf_counter()
-        loaded, start = load_checkpoint(
-            args.resume, _state_tree(cc, params, opt_state, comp_state))
+        template = _state_tree(cc, params, opt_state, comp_state)
+        loaded, start = load_checkpoint(args.resume, template) \
+            if mesh is None else \
+            load_rank_checkpoint(args.resume, template, mesh)
+        del template
         params, opt_state = loaded["params"], loaded["opt_state"]
         comp_state = loaded.get("comp_state", comp_state)
         del loaded
@@ -362,27 +363,28 @@ def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
                 and step and step % args.checkpoint_every == 0:
             # step + 1: the next step to run on resume
             t0 = time.perf_counter()
-            save_checkpoint(ckpt, _state_tree(cc, params, opt_state,
-                                              comp_state), step + 1)
+            _save(ckpt, _state_tree(cc, params, opt_state, comp_state),
+                  step + 1, mesh)
             rec["checkpoint_s"] = time.perf_counter() - t0
         if on_step is not None:
             on_step(rec)
     if args.checkpoint_dir:
-        save_checkpoint(ckpt, _state_tree(cc, params, opt_state,
-                                          comp_state), args.steps)
+        _save(ckpt, _state_tree(cc, params, opt_state, comp_state),
+              args.steps, mesh)
     if args.metrics_out and rank0:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=1)
     record = None
     if args.report:
         record = _report(args, mesh, device, history, wire, sent, params,
-                         comp_state)
+                         comp_state, resumed)
     return {"history": history, "wire": wire, "rate": report,
             "compressor": lts.compressor, "params": params,
             "resumed": resumed, "report": record}
 
 
-def _report(args, mesh, device, history, wire, sent, params, comp_state):
+def _report(args, mesh, device, history, wire, sent, params, comp_state,
+            resumed):
     """This process's record, written to ``args.report``/rank<r>.json."""
     rank = 0 if mesh is None else mesh.node
     digest, leaves = tree_digest({"params": params, **{
@@ -393,7 +395,7 @@ def _report(args, mesh, device, history, wire, sent, params, comp_state):
         "digest": digest, "leaf_digests": leaves,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30
         if device.type == "cuda" else None,
-        "launches": dict(LAUNCHES)}
+        "launches": dict(LAUNCHES), "resumed": resumed}
     os.makedirs(args.report, exist_ok=True)
     with open(os.path.join(args.report, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)

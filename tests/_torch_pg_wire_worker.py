@@ -1,8 +1,9 @@
 """One rank of tests/test_torch_pg_transports.py: every wire op and every
-method's ``dist_step`` of the cases below on this rank's node, across
-the gloo processes of the launch (4: the flat and the pod mesh; 2: the
-mesh wire at K = 2), written to OUT/rank<r>.pt for the test to hold
-against the emulated transports.
+method's ``dist_step`` of the cases below on this rank's node, and the
+guarded ``dist_step`` of GUARD_CASES on the chaos wire, across the gloo
+processes of the launch (4: the flat and the pod mesh; 2: the mesh wire
+at K = 2), written to OUT/rank<r>.pt for the test to hold against the
+emulated transports.
 
     RANK=r WORLD_SIZE=4 python tests/_torch_pg_wire_worker.py \
         INPUTS.npz OUT_DIR file:///STORE
@@ -16,14 +17,17 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.compressors import build_compressor
+from repro_torch.dist import chaos as CH
 from repro_torch.dist import packed as PK
 from repro_torch.dist.p2p import ProcessMesh
 from repro_torch.dist.transport import make_transport
 from repro_torch.utils.tree import tree_leaves
 
 N, KP, KB, LEADER = 1000, 50, 48, 1
+# lm_head's top-k (205 pairs) is wide enough to ship packed, not as raw
+# indices: each node's exempt_last then goes through its own K4 encode
 PARAMS = {"embed": {"w": (32, 16)}, "layer1": {"w": (64, 64), "b": (64,)},
-          "layer2": {"w": (64, 64)}, "lm_head": {"w": (16, 32)}}
+          "layer2": {"w": (64, 64)}, "lm_head": {"w": (64, 64)}}
 # the process meshes: over 4 ranks the flat ring and 2 pods x 2; over 2
 # the mesh wire at K = 2
 MESHES = {"flat": (4,), "pods": (2, 2), "pair": (2,)}
@@ -44,6 +48,32 @@ STEP = 3
 STEP_WIRES = (("flat", "ring", 1, 0), ("flat", "ring_q8", 3, 0),
               ("pods", "ring_packed", 3, 0), ("pods", "ring_hier", 3, CAP),
               ("pair", "mesh", 1, 0))
+# the guarded dist_step cases on the flat mesh, at STEP: id -> (method,
+# phase, wire, guard, checksum, faults, gradient).  The gradient "nan1"
+# has a NaN in node 1's row alone at a compressed coordinate, "nan0" in
+# node 0's, "nan1_last" in node 1's at a top-k-only (lm_head) one: on
+# ring_packed the node's own K4 encode counts it and zeroes it, so that
+# node alone sees a fault, and node 0's round differs from another's
+NAN_AT = {"nan0": (0, 676), "nan1": (1, 676), "nan1_last": (1, 8800)}
+FLIPS = dict(fault_seed=3, fault_bitflips=2, fault_nans=2, fault_infs=1,
+             fault_ops="topk")
+GUARD_CASES = {
+    "dgc-ring-drop2-stale1": ("dgc", "topk_ae", "ring", "scrub", False,
+                              dict(fault_drop_node=2, fault_stale_node=1,
+                                   fault_ops="topk"), "g"),
+    "dgc-ring_packed-flips-checksum": ("dgc", "topk_ae", "ring_packed",
+                                       "scrub", True, FLIPS, "g"),
+    "dgc-ring_packed-nan1-skip": ("dgc", "topk_ae", "ring_packed",
+                                  "skip_round", True, {}, "nan1"),
+    "dgc-ring_packed-nan0-skip": ("dgc", "topk_ae", "ring_packed",
+                                  "skip_round", False, {}, "nan0"),
+    "lgc_ps-ring_packed-nan1-ae": ("lgc_ps", "topk_ae", "ring_packed",
+                                   "scrub", True, {}, "nan1_last"),
+    "lgc_rar_q8-ring_q8-fail_fast": ("lgc_rar_q8", "compressed", "ring_q8",
+                                     "fail_fast", False,
+                                     dict(fault_nans=1, fault_ops="encoding"),
+                                     "g"),
+}
 
 
 def params():
@@ -51,11 +81,24 @@ def params():
             for k, d in PARAMS.items()}
 
 
-def cc(method, transport, buckets, cap):
+def cc(method, transport, buckets=1, cap=0, **kw):
     return CompressionConfig(method=method, sparsity=0.05, warmup_steps=1,
                              ae_train_steps=1, transport=transport,
                              wire_buckets=buckets, ring_intra_chunk=cap,
-                             ring_inter_chunk=cap)
+                             ring_inter_chunk=cap, **kw)
+
+
+def guard_cc(key):
+    """A GUARD_CASES case's config, on the chaos:<wire>."""
+    method, _, wire, guard, chk, faults, _ = GUARD_CASES[key]
+    return cc(method, "chaos:" + wire, guard=guard, guard_checksum=chk,
+              **faults)
+
+
+def guard_stats(stats):
+    """What a guarded step reports: node 0's fault counts and ok."""
+    return {k: int(v) for k, v in stats.items()
+            if k.startswith("fault/") or k == "guard_ok"}
 
 
 def call(t, op, d, plans):
@@ -129,6 +172,27 @@ def step_cases(meshes, d):
     return out
 
 
+def guard_cases(meshes, d):
+    """{key: (global gradient, u, v, AE leaves, guard stats, per-op rows,
+    fault tally)} of every GUARD_CASES dist_step on the flat mesh."""
+    out = {}
+    pm = meshes.get("flat")
+    if pm is None:
+        return out
+    for key, (method, phase, *_, gk) in GUARD_CASES.items():
+        comp = build_compressor(guard_cc(key), params(), pm.K, pm.Ks)
+        state = comp.init_state(torch.Generator().manual_seed(0))
+        state["u"] = d["u"][pm.node].clone()
+        state["v"] = d["v"][pm.node].clone()
+        CH.reset_fault_tally()
+        gg, st, stats = comp.dist_step(state, d[gk][pm.node].clone(), STEP,
+                                       phase, pm)
+        ae = [a.clone() for a in tree_leaves(st.get("ae", {}))]
+        out[key] = (gg, st["u"], st["v"], ae, guard_stats(stats),
+                    stats["wire"], CH.fault_report())
+    return out
+
+
 def main(path_in, out_dir, store):
     torch.set_num_threads(1)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
@@ -137,7 +201,8 @@ def main(path_in, out_dir, store):
     meshes = {name: ProcessMesh(MESHES[name], "cpu")
               for name in LAUNCHES[world]}
     d = {k: torch.from_numpy(v) for k, v in np.load(path_in).items()}
-    res = {"wire": wire_cases(meshes, d), "step": step_cases(meshes, d)}
+    res = {"wire": wire_cases(meshes, d), "step": step_cases(meshes, d),
+           "guard": guard_cases(meshes, d)}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

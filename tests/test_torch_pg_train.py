@@ -13,8 +13,9 @@ batch 8, seq 16, from the reference's initial weights and AE:
   losses to 1e-5, rows exactly, params to 2e-5 of their largest value.
 
 And what a launch refuses: a world size other than pod x data shards,
-no ``--dist-backend`` under torchrun (or one without it), and each flag
-that does not run across processes yet, naming its ROADMAP item."""
+and no ``--dist-backend`` under torchrun (or one without it).  The
+chaos wire, the guards and checkpoint/resume under torchrun are
+tests/test_torch_pg_faults.py's."""
 import json
 import os
 import subprocess
@@ -33,7 +34,6 @@ from repro.configs.base import CompressionConfig as RCC
 from repro.core import build_compressor as ref_build_compressor
 from repro.models.model import Model as RefModel
 from repro_torch.configs import get_arch
-from repro_torch.dist.transport import PG_DEFERRED
 from repro_torch.launch import train
 from repro_torch.utils.tree import tree_leaves
 
@@ -140,15 +140,3 @@ def test_backend_is_chosen_not_defaulted(monkeypatch):
     _torchrun_env(monkeypatch, K)
     with pytest.raises(ValueError, match="--dist-backend"):
         train.run(cfg, _args())
-
-
-@pytest.mark.parametrize("flags", [
-    ["--transport", "chaos:ring_hier"], ["--fault-nans", "2"],
-    ["--guard", "scrub"], ["--checkpoint-dir", "ckpt"], ["--resume",
-                                                         "ckpt.npz"]],
-    ids=["chaos", "fault", "guard", "checkpoint", "resume"])
-def test_deferred_flags_raise(monkeypatch, flags):
-    _torchrun_env(monkeypatch, K)
-    with pytest.raises(NotImplementedError, match=PG_DEFERRED):
-        train.run(get_arch("llama3.2-1b").reduced(),
-                  _args("--dist-backend", "gloo", *flags))

@@ -18,6 +18,11 @@ one node.
   library's all_reduce adds in its own order (and mean_q8 sums each
   node's rounded dequantize, where the emulation fuses it into the add
   as one FMA: within that bound at K = 2 too).
+- ``dist_step`` under the chaos wire and the guards (flat): a dropped and
+  a stale node, payload faults with the checksum word, a NaN in node 0's
+  or node 1's gradient alone (skip_round, the AE gate), fail_fast on the
+  int8 ring: bitwise the emulated step on every rank, its stats node
+  0's.
 - ``dist_step`` of all six methods (each sparsified phase; none's
   warm-up) on ring, ring_q8 (B 3), ring_packed (pods, B 3), ring_hier
   (pods, B 3, capped) and mesh (K = 2): the global gradient, each node's
@@ -36,6 +41,7 @@ from _one_thread import one_thread  # noqa: F401  (autouse)
 from _torch_pg import launch, worker
 from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.compressors import build_compressor
+from repro_torch.dist import chaos as CH
 from repro_torch.dist import packed as PK
 from repro_torch.dist import plan as XP
 from repro_torch.dist.collectives import bucket_widths
@@ -58,6 +64,9 @@ def ranks(tmp_path_factory):
     r = np.random.default_rng(44)
     for key in ("u", "v", "g"):
         d[key] = (r.standard_normal((K, n)) * 0.01).astype(np.float32)
+    for key, (node, at) in W.NAN_AT.items():
+        d[key] = d["g"].copy()
+        d[key][node, at] = np.nan
     np.savez(tmp / "in.npz", **d)
     res = {}
     for world, meshes in W.LAUNCHES.items():
@@ -202,3 +211,49 @@ def test_dist_step_matches_sim_step(ranks, mesh, wire, B, cap):
             for a, b in zip(ae, tree_leaves(st.get("ae", {}))):
                 _same(a, b, what + " ae")
             assert pstats["wire"] == priced, (what, pstats["wire"])
+
+
+@pytest.mark.parametrize("key", list(W.GUARD_CASES))
+def test_guarded_dist_step_matches_sim_step(ranks, key):
+    """The chaos wire and the guards across processes (flat, K = 4): the
+    global gradient, each node's u and v, the AE, node 0's fault counts
+    and ok, the per-op rows and the fault tally on every rank bitwise the
+    emulated step's; where node 0's round and another's differ, every
+    rank skips (or trains the AE) on node 0's, and each clears its u, v
+    on its own."""
+    d, res = ranks
+    method, phase, wire, guard, chk, faults, gk = W.GUARD_CASES[key]
+    comp = build_compressor(W.guard_cc(key), W.params(), K)
+    states = comp.init_sim_states(torch.Generator().manual_seed(0))
+    states["u"] = d["u"].clone()
+    states["v"] = d["v"].clone()
+    CH.reset_fault_tally()
+    gg, st, stats = comp.sim_step(states, d[gk].clone(), W.STEP, phase)
+    tally = CH.fault_report()
+    want = W.guard_stats(stats)
+    assert stats["wire"] == XP.wire_terms_by_op(
+        XP.build_plan(comp.cc, comp.layout, K, phase=phase)), key
+    for r in range(K):
+        got, u, v, ae, gstats, rows, rtally = res["flat"][r]["guard"][key]
+        what = f"rank {r} {key}"
+        assert gstats == want, (what, gstats, want)
+        assert rows == stats["wire"], what
+        assert rtally == tally, (what, rtally, tally)
+        _same(got, gg, what + " global gradient")
+        _same(u, st["u"][r], what + " u")
+        _same(v, st["v"][r], what + " v")
+        for a, b in zip(ae, tree_leaves(st.get("ae", {}))):
+            _same(a, b, what + " ae")
+    if gk in W.NAN_AT:
+        # the case does what it is for: the faulty node alone saw a
+        # fault, node 0's verdict is the step's, and the faulty node kept
+        # its accumulators (no coordinate cleared to 0) where the others
+        # cleared what they sent
+        node = W.NAN_AT[gk][0]
+        assert want["guard_ok"] == int(node != 0), (key, want)
+        kept = [int((st["v"][r] == 0).sum()) == 0 for r in range(K)]
+        assert kept == [r == node for r in range(K)], (key, kept)
+        if guard == "skip_round":
+            assert bool((gg == 0).all()) == (node == 0), key
+    if "drop" in key:
+        assert tally["topk"] == {"drop": 1, "stale": 1}, tally

@@ -11,8 +11,11 @@ jamba-v0.1-52b at one superblock, the f32 decode-vs-prefill gate),
 ``serve_mla_cross`` (deepseek-v3-671b at 1 layer with the 32768 prompt,
 vision at 2 superblocks, the f32 gates) and ``pg_train`` (the trainer
 under torchrun, one node per process on this card, each run against
-its emulated twin, which it runs first), with each phase's seconds.  A
-quicker call than the whole smoke run while iterating on these paths.
+its emulated twin, which it runs first; then the failure runs (a)-(d)
+one node per process: the chaos wire under scrub and skip_round,
+fail_fast raising on every rank, a run stopped after step 3 and resumed
+from its rank files), with each phase's seconds.  A quicker call than
+the whole smoke run while iterating on these paths.
 
     python3 tools/chip_phases.py [moe] [ssd] [train] [serve] [mla] \
         [cross] [train_mla_cross] [serve_mla_cross] [pg_train]  # card
@@ -58,9 +61,7 @@ def main(argv=None):
            "train_mla_cross": lambda: CS.mla_cross_train_runs(
                dev, {}, 2, lgc, len(ENCODER_SPEC)),
            "serve_mla_cross": lambda: CS.serve_mla_cross_phase(dev),
-           "pg_train": lambda: CS.pg_train_phase(
-               dev, {}, smi, len(CS.llama_layout(0.001).compressed),
-               len(ENCODER_SPEC))}
+           "pg_train": lambda: pg_train(dev, smi, len(ENCODER_SPEC))}
     t0 = time.perf_counter()
     CS.build_phase(smi)
     seconds = {"build": time.perf_counter() - t0}
@@ -70,6 +71,15 @@ def main(argv=None):
         seconds[name] = time.perf_counter() - t
     print(smi)
     print(json.dumps({"seconds": seconds, "card": smi}))
+
+
+def pg_train(dev, smi: str, n_encoder: int) -> None:
+    """chip_smoke's process runs, then its process failure runs, sharing
+    the emulated twins."""
+    runs = {}
+    n_leaves = len(CS.llama_layout(0.001).compressed)
+    CS.pg_train_phase(dev, runs, smi, n_leaves, n_encoder)
+    CS.pg_fault_runs(dev, runs, smi, n_leaves, n_encoder)
 
 
 if __name__ == "__main__":
