@@ -49,6 +49,21 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               ties at scale blocks 1, 64, 256 and 1000 for K4), K5b also
               on a stack of two payloads; then the codec on the card
               against the CPU, and on a gathered table of two payloads
+  7b. dryrun  the dry run's memory account against the card: llama3.2-1b
+              cut to 4 layers, bf16, on a 1 x 1 mesh, its predicted
+              params (launch.dryrun.per_device_bytes), AdamW state and
+              decode cache at batch 4, prompt 4096 each equal to the
+              memory_allocated() delta of building them on the card
+              within 512 bytes a tensor (the allocator's rounding); then
+              --all on the meta device for none and lgc_rar (160 records
+              into build/dryrun), their count and seconds, and
+              llama3.2-1b train_4k's per-device bytes on pod16x16
+  7c. quickstart examples/quickstart.py's main on the card at
+              --topk-backend jnp, pallas (K6) and fused (K1), the launch
+              counts reset before and read after each: its layout, plan
+              and rate lines equal to its CPU run's, its ten step lines
+              equal as printed across the three, K6 and K1 launched at
+              their runs alone (the counts join the kernel list's)
   8. flash    flash attention (models/flash.py: online softmax over
               chunks, recompute backward; plain PyTorch, as the
               reference's is plain jnp) at one layer of llama3.2-1b (B 1,
@@ -2826,6 +2841,121 @@ def decode_f32_check(dev, cfg, batch: int = 4, plen: int = 64,
     return out
 
 
+# the caching allocator rounds every block up to a multiple of 512 bytes
+ALLOC_ROUND = 512
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+
+
+def dryrun_phase(dev) -> dict:
+    """The dry run's per-device bytes against what the card holds: for
+    llama3.2-1b cut to N_LAYERS layers in bf16 on a 1 x 1 mesh, its
+    predicted params (launch.dryrun.per_device_bytes of a train shape),
+    AdamW state, and the decode cache at serve_phase's batch 4, prompt
+    SERVE_LONG_PROMPT, each against the memory_allocated() delta of
+    building it on the card, within ALLOC_ROUND bytes a tensor; then
+    --all on the meta device for none and lgc_rar (160 records) into
+    build/dryrun, its count and seconds, and llama3.2-1b train_4k's
+    per-device bytes on pod16x16."""
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import build_optimizer
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), n_layers=N_LAYERS)
+    model = build_model(cfg)
+    mesh = host_mesh(1, 1)
+    train_pred, _ = D.per_device_bytes(
+        model, InputShape("card", 128, 8, "train"), mesh)
+    serve_pred, _ = D.per_device_bytes(
+        model, InputShape("card", SERVE_LONG_PROMPT, 4, "decode"), mesh)
+    gc_cuda()
+    held, result = [], {}
+
+    def measure(name, pred, build):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        tree = build()
+        torch.cuda.synchronize()
+        delta = torch.cuda.memory_allocated(dev) - before
+        n = len(tree_leaves(tree))
+        held.append(tree)
+        result[name] = {"predicted": pred, "allocated": delta,
+                        "tensors": n, "slack": ALLOC_ROUND * n}
+        if not 0 <= delta - pred <= ALLOC_ROUND * n:
+            raise AssertionError(
+                f"dryrun: {name} predicted {pred} B, the card allocated "
+                f"{delta} B over {n} tensors")
+        return tree
+
+    params = measure("params", train_pred["params"], lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    measure("adamw", train_pred["optimizer"], lambda: build_optimizer(
+        TrainConfig(optimizer="adamw")).init(params))
+    measure("cache", serve_pred["cache"], lambda: model.init_cache(
+        4, SERVE_LONG_PROMPT, dev))
+    del held, params
+    gc_cuda()
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    for comp in ("none", "lgc_rar"):
+        failures = D.run_all(D.parse_args(
+            ["--all", "--compression", comp, "--out", DRYRUN_OUT]))
+        if failures:
+            raise AssertionError(f"dryrun --all {comp}: {failures}")
+    seconds = time.perf_counter() - t0
+    records = len(os.listdir(DRYRUN_OUT))
+    if records != 160:
+        raise AssertionError(f"dryrun --all wrote {records} records")
+    with open(os.path.join(DRYRUN_OUT,
+                           "llama3.2-1b__train_4k__pod16x16.json")) as f:
+        llama = json.load(f)["per_device_bytes"]
+    print(f"dryrun --all: {records} records in {seconds:.2f} s", flush=True)
+    print(f"dryrun llama3.2-1b train_4k pod16x16: {llama['total']} B a "
+          f"device", flush=True)
+    emit("dryrun", layers=N_LAYERS, **result, all_records=records,
+         all_seconds=seconds, llama_train_4k_pod16x16=llama)
+    return result
+
+
+def quickstart_phase(dev) -> dict:
+    """examples/quickstart.py's main on the card at --topk-backend jnp,
+    pallas (K6) and fused (K1), each against its run on the CPU: the
+    layout, plan and rate lines equal; the ten step lines equal as
+    printed across the three card runs; K6 launched in the pallas run and
+    K1 in the fused run alone.  Returns each run's launch counts."""
+    from repro_torch.examples import quickstart as Q
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    runs, launches, cpu_steps = {}, {}, {}
+    for backend in ("jnp", "pallas", "fused"):
+        cpu = Q.main(["--topk-backend", backend, "--device", "cpu"])
+        reset_launches()
+        out = Q.main(["--topk-backend", backend])
+        torch.cuda.synchronize()
+        launches[backend] = dict(LAUNCHES)
+        for key in ("layout", "plan", "rate"):
+            if out[key] != cpu[key]:
+                raise AssertionError(f"quickstart {backend}: {key} line "
+                                     f"{out[key]!r} != CPU {cpu[key]!r}")
+        runs[backend] = out["steps"]
+        cpu_steps[backend] = cpu["steps"] == out["steps"]
+    if not runs["jnp"] == runs["pallas"] == runs["fused"]:
+        raise AssertionError(f"quickstart: step lines differ across "
+                             f"backends: {runs}")
+    want = {"jnp": (), "pallas": ("block_topk",), "fused": ("fused_ef_topk",)}
+    for backend, names in want.items():
+        for name in ("block_topk", "fused_ef_topk"):
+            n = launches[backend].get(name, 0)
+            if (n > 0) != (name in names):
+                raise AssertionError(f"quickstart {backend}: {name} "
+                                     f"launched {n} times")
+    emit("quickstart", steps=runs["jnp"], launches=launches,
+         steps_equal_cpu=cpu_steps)
+    return launches
+
+
 def main() -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
@@ -2844,6 +2974,8 @@ def main() -> None:
     k3 = k3_phase(dev)
     k7, k7_launches = k7_phase(dev)
     bp = bitpack_phase(dev)
+    dryrun_phase(dev)
+    qs_launches = quickstart_phase(dev)
     flash_phase(dev)
     moe_phase(dev)
     ssd_phase(dev)
@@ -2973,7 +3105,8 @@ def main() -> None:
 
     def count(name):
         return sum(r["launches"].get(name, 0) for r in runs.values()) \
-            + k2_launches.get(name, 0) + k7_launches.get(name, 0)
+            + k2_launches.get(name, 0) + k7_launches.get(name, 0) \
+            + sum(q.get(name, 0) for q in qs_launches.values())
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = [("fused_ef_topk", "sparsify_ef.cu", "sparsify_ef.py:117", k1),

@@ -17,6 +17,21 @@ from repro_torch.configs import (  # noqa: F401
     qwen2_1_5b,
 )
 
-__all__ = ["ARCH_REGISTRY", "INPUT_SHAPES", "CompressionConfig",
-           "InputShape", "ModelConfig", "TrainConfig", "get_arch",
-           "list_archs"]
+# the reference's assigned pool (10 archs, 6 families), in its order: the
+# dry run's --all iterates it
+ASSIGNED_ARCHS = (
+    "phi3-medium-14b",
+    "deepseek-v3-671b",
+    "musicgen-medium",
+    "jamba-v0.1-52b",
+    "arctic-480b",
+    "llama3.2-1b",
+    "llama-3.2-vision-90b",
+    "mamba2-130m",
+    "granite-8b",
+    "qwen2-1.5b",
+)
+
+__all__ = ["ARCH_REGISTRY", "ASSIGNED_ARCHS", "INPUT_SHAPES",
+           "CompressionConfig", "InputShape", "ModelConfig", "TrainConfig",
+           "get_arch", "list_archs"]

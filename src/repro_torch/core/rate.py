@@ -1,12 +1,15 @@
 """Transmission-rate accounting (paper Section VI-A), derived from the
-exchange-plan IR; counterpart of ``repro.core.rate`` for the ported
-methods.  Host-side functions of the layout and, when given, the concrete
-index set (exact DEFLATE size)."""
+exchange-plan IR; counterpart of ``repro.core.rate``.  Host-side
+functions of the layout and, when given, the concrete index set (exact
+DEFLATE size): ``rate_report`` prices one steady step's payload per node,
+``total_information_tb`` sums it over the nodes and the steps, and
+``wire_payload_terms`` predicts the transport's wire tally of one steady
+step by collective kind."""
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -66,3 +69,24 @@ def rate_report(cc: CompressionConfig, layout: GradientLayout, K: int,
                           baseline / b_other)
     return RateReport(cc.method, b_avg, b_avg, b_avg, baseline,
                       baseline / b_avg, baseline / b_avg, baseline / b_avg)
+
+
+def total_information_tb(bytes_per_node: float, K: int, steps: int) -> float:
+    """Information all K nodes send over ``steps`` steps, in TB (the
+    paper's Table IV "Information" column)."""
+    return bytes_per_node * K * steps / 1e12
+
+
+def wire_payload_terms(cc: CompressionConfig, layout: GradientLayout,
+                       K: int, transport: Optional[str] = None,
+                       axis_sizes: Optional[Sequence[int]] = None,
+                       ) -> Dict[str, float]:
+    """{collective kind: bytes} one steady-phase step of the method puts
+    on a node's wire (``transport``, default ``cc.transport``), over a dp
+    mesh of ``axis_sizes`` (default one axis of K): ``plan.wire_terms``
+    of the same op list ``rate_report`` prices and the compressor runs.
+    It differs from the rate by the ring's 2(K-1)/K factor and chunk
+    padding, and on the float wires by gathering (K-1) raw f32 values
+    and int32 indices where the rate prices one DEFLATE-coded send."""
+    plan = XP.build_plan(cc, layout, K, transport=transport)
+    return XP.wire_terms(plan, axis_sizes=axis_sizes)

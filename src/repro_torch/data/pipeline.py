@@ -1,10 +1,11 @@
-"""Deterministic synthetic data streams (numpy, seeded per step).
+"""Deterministic data streams (numpy, seeded per step).
 
 Counterparts of ``repro.data.pipeline.synthetic_token_batches`` (the same
-first-order Markov chain with a skewed stationary distribution) and
-``synthetic_image_batches`` (class templates plus noise), with the same
-numpy generators, so the port and the reference see the same tokens and
-images bit for bit.  Batches are host numpy; the caller moves them to
+first-order Markov chain with a skewed stationary distribution),
+``synthetic_image_batches`` (class templates plus noise) and
+``text_file_token_batches`` (byte-level windows of a real file), with
+the same numpy generators, so the port and the reference see the same
+tokens and images bit for bit.  Batches are host numpy; the caller moves them to
 its device.
 """
 from __future__ import annotations
@@ -68,4 +69,30 @@ def synthetic_image_batches(num_classes: int, batch: int, image_size: int,
                                channels)).astype(np.float32)
         images = templates[labels] + noise
         yield {"images": images, "labels": labels}
+        step += 1
+
+
+def text_file_token_batches(path: str, batch: int, seq_len: int,
+                            seed: int = 0,
+                            ) -> Iterator[Dict[str, np.ndarray]]:
+    """Byte-level LM batches from a real text file (vocab 256): per step,
+    ``batch`` windows of ``seq_len + 1`` bytes at starts drawn by the
+    step's generator, as the reference draws them, yielding int32
+    {"tokens": (batch, seq_len), "labels": the next bytes}.  A file of
+    ``seq_len + 1`` bytes or fewer is refused here, at the call."""
+    with open(path, "rb") as f:
+        data = np.frombuffer(f.read(), np.uint8).astype(np.int32)
+    if len(data) <= seq_len + 1:
+        raise ValueError(f"file too small: {path} holds {len(data)} bytes, "
+                         f"a window needs more than {seq_len + 1}")
+    return _text_windows(data, batch, seq_len, seed)
+
+
+def _text_windows(data: np.ndarray, batch: int, seq_len: int, seed: int):
+    step = 0
+    while True:
+        r = _rng(seed, step)
+        starts = r.integers(0, len(data) - seq_len - 1, size=batch)
+        toks = np.stack([data[s:s + seq_len + 1] for s in starts])
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
         step += 1

@@ -1,5 +1,11 @@
-"""The process layout of a run under ``torchrun`` (counterpart of
-``repro.launch.mesh``): one LGC node per process.
+"""Meshes (counterpart of ``repro.launch.mesh``): the descriptions the
+placement rules and the dry run read, and the process layout of a run
+under ``torchrun``, one LGC node per process.
+
+A :class:`MeshSpec` is a mesh's axis names and sizes, without devices:
+``production_mesh`` gives the reference's 256- and 512-chip meshes,
+``host_mesh`` a small one, and ``dp_axes_of``, ``dp_size_of`` and
+``model_size_of`` read them as the reference reads a device mesh.
 
 torchrun sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; the dp mesh is
 (pod, data) in the reference's row-major order, node ia·K_data + i1 the
@@ -16,7 +22,8 @@ from __future__ import annotations
 import datetime
 import math
 import os
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -25,6 +32,55 @@ from repro_torch.dist.p2p import ProcessMesh
 from repro_torch.utils import resolve_device
 
 BACKENDS = ("gloo", "nccl")
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """A mesh's axis names and their sizes, in order; no devices."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"axes {self.axis_names} for a shape "
+                             f"{self.shape}")
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def production_mesh(multi_pod: bool = False) -> MeshSpec:
+    """One pod: (data=16, model=16), 256 chips; two pods: (pod=2, data=16,
+    model=16), 512 chips."""
+    if multi_pod:
+        return MeshSpec(("pod", "data", "model"), (2, 16, 16))
+    return MeshSpec(("data", "model"), (16, 16))
+
+
+def host_mesh(data: int = 1, model: int = 1, pod: int = 1) -> MeshSpec:
+    """(data, model), or (pod, data, model) when ``pod`` > 1, whose dp
+    axes are then ("pod", "data")."""
+    if pod > 1:
+        return MeshSpec(("pod", "data", "model"), (pod, data, model))
+    return MeshSpec(("data", "model"), (data, model))
+
+
+def dp_axes_of(mesh: MeshSpec) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def model_size_of(mesh: MeshSpec) -> int:
+    return mesh.axis_sizes.get("model", 1)
+
+
+def dp_size_of(mesh: MeshSpec) -> int:
+    sizes = mesh.axis_sizes
+    return sizes.get("pod", 1) * sizes.get("data", 1)
 
 
 def under_torchrun() -> bool:

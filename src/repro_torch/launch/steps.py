@@ -16,6 +16,11 @@ exchange is the whole cross-node traffic.
 :func:`sim_sgd_step` is the same step for any loss, with plain SGD: the
 reference's own single-host ConvNet5 loop (``tests/test_system.py``'s
 ``test_convnet5_paper_model_trains``), which has no trainer entry point.
+
+The placement rules of the reference's step builders (``batch_pspecs``,
+``auto_train_pspecs``, ``lgc_state_specs``, ``serve_pspecs``,
+``serve_cache_pspecs``, ``decode_token_pspec``) are pure functions of
+the model and a ``launch.mesh.MeshSpec``, at the end of this module.
 """
 from __future__ import annotations
 
@@ -24,13 +29,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import (CompressionConfig, InputShape,
+                                      TrainConfig)
 from repro_torch.core.compressors import GradientCompressor, build_compressor
 from repro_torch.core.phases import phase_for_step
+from repro_torch.dist import sharding as SH
 from repro_torch.dist.p2p import ProcessMesh
+from repro_torch.launch.input_specs import params_specs
+from repro_torch.launch.mesh import (MeshSpec, dp_axes_of, dp_size_of,
+                                     model_size_of)
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer, build_optimizer
-from repro_torch.utils.tree import (tree_leaves, tree_map, tree_unflatten,
+from repro_torch.utils.tree import (keystr_path, tree_leaves,
+                                    tree_leaves_with_path, tree_map,
+                                    tree_size_bytes, tree_unflatten,
                                     tree_unflatten_vector)
 
 
@@ -177,3 +189,121 @@ def make_lgc_train_step(model: Model, tc: TrainConfig, K: int,
     return LGCTrainStep(model,
                         build_compressor(tc.compression, template, K, Ks),
                         build_optimizer(tc), device, mesh)
+
+
+# ===========================================================================
+# placement rules of the reference's step builders, on a MeshSpec
+# ===========================================================================
+#
+# The specs each of ``repro.launch.steps``'s builders gives its inputs
+# and state (``dist.sharding``'s tuples, {path: spec} per tree), as pure
+# functions of the model and a ``launch.mesh.MeshSpec``, which the dry
+# run prices.
+
+# The per-model-shard weight bytes above which serving also shards its
+# weights over ``data``: the reference's threshold (``_serve_pspecs``),
+# kept for parity; a 671B-class MoE cannot serve with data-replicated
+# weights
+SERVE_FSDP_BYTES = 8e9
+
+
+def batch_pspecs(batch_tree: Dict[str, Any], dp_axes: Sequence[str]
+                 ) -> Dict[str, tuple]:
+    """Each batch entry's rows over the dp axes, its other dims
+    replicated (the reference's ``_batch_pspecs``: no divisibility
+    check)."""
+    bp = SH.batch_pspec(dp_axes)
+    return {name: bp + (None,) * (x.dim() - 1)
+            for name, x in batch_tree.items()}
+
+
+def auto_train_pspecs(model: Model, tc: TrainConfig, mesh: MeshSpec,
+                      fsdp: bool = True):
+    """(params, optimizer state) specs of the reference's
+    ``make_auto_train_step``: TP over ``model``, and with ``fsdp`` the
+    ``data`` axis alone (sized by it, on the two-pod mesh too)."""
+    mp = model_size_of(mesh)
+    sizes = mesh.axis_sizes
+    fsdp_axes = ("data",) if (fsdp and "data" in sizes) else ()
+    fsdp_size = sizes.get("data", 1) if fsdp else 1
+    p_shapes = params_specs(model)
+    o_shapes = build_optimizer(tc).init(p_shapes)
+    return (SH.param_pspecs(p_shapes, model_size=mp, fsdp_axes=fsdp_axes,
+                            fsdp_size=fsdp_size),
+            SH.param_pspecs(o_shapes, model_size=mp, fsdp_axes=fsdp_axes,
+                            fsdp_size=fsdp_size))
+
+
+@dataclass(frozen=True)
+class LGCStateSpecs:
+    """The reference's ``make_lgc_train_step`` placement: params and the
+    optimizer state over ``model`` only (replicated over dp: every node
+    holds the model), each (node x model shard) its own EF rows ``u``,
+    ``v`` of the per-model-shard layout, the AE replicated."""
+    params: Dict[str, tuple]
+    optimizer: Dict[str, tuple]
+    comp: Dict[str, tuple]        # "u", "v"[, "ae", "ae_mom": whole tree]
+    template: Any                 # one model shard's params, on meta
+    compressor: GradientCompressor
+    n_local: int
+    dp: int
+    mp: int
+
+
+def lgc_state_specs(model: Model, cc: CompressionConfig, mesh: MeshSpec
+                    ) -> LGCStateSpecs:
+    """The LGC step's specs, its optimizer state AdamW's (the dry run's;
+    an SGD momentum tree is AdamW's ``m`` alone)."""
+    mp = model_size_of(mesh)
+    dp_axes = dp_axes_of(mesh)
+    dp = dp_size_of(mesh)
+    p_shapes = params_specs(model)
+    pspecs = SH.param_pspecs(p_shapes, model_size=mp)
+    tc = TrainConfig(optimizer="adamw", compression=cc)
+    ospecs = SH.param_pspecs(build_optimizer(tc).init(p_shapes),
+                             model_size=mp)
+    # the compressor's layout is one model shard's: each leaf's local shape
+    template = tree_unflatten(p_shapes, [
+        torch.empty(SH.local_shape(tuple(leaf.shape), pspecs[keystr_path(
+            path)], {"model": mp}), dtype=leaf.dtype, device="meta")
+        for path, leaf in tree_leaves_with_path(p_shapes)])
+    compressor = build_compressor(cc, template, dp)
+    dp_entry = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    comp = {"u": (dp_entry, "model", None), "v": (dp_entry, "model", None)}
+    if cc.method.startswith("lgc"):
+        comp["ae"] = ()
+        comp["ae_mom"] = ()
+    return LGCStateSpecs(pspecs, ospecs, comp, template, compressor,
+                         compressor.layout.n_total, dp, mp)
+
+
+def serve_pspecs(model: Model, mesh: MeshSpec) -> Dict[str, tuple]:
+    """Serving weights: TP over ``model``, and also over ``data``
+    (weight-sharded inference) when one model shard's weights exceed
+    ``SERVE_FSDP_BYTES``."""
+    mp = model_size_of(mesh)
+    sizes = mesh.axis_sizes
+    p_shapes = params_specs(model)
+    per_shard = tree_size_bytes(p_shapes) / max(mp, 1)
+    if per_shard > SERVE_FSDP_BYTES and "data" in sizes:
+        return SH.param_pspecs(p_shapes, model_size=mp, fsdp_axes=("data",),
+                               fsdp_size=sizes["data"])
+    return SH.param_pspecs(p_shapes, model_size=mp)
+
+
+def serve_cache_pspecs(cache_tree: Any, mesh: MeshSpec) -> Dict[str, tuple]:
+    """The cache's specs in the reference's prefill and decode steps (the
+    sequence over ``data`` when the batch does not divide)."""
+    dp = dp_size_of(mesh)
+    return SH.cache_pspecs(cache_tree, dp_axes=dp_axes_of(mesh), dp_size=dp,
+                           model_size=model_size_of(mesh),
+                           seq_shard_axis="data" if dp > 1 else None)
+
+
+def decode_token_pspec(shape: InputShape, mesh: MeshSpec) -> tuple:
+    """The reference's decode step's (B, 1) tokens: rows over the dp axes
+    when they divide B > 1, else replicated."""
+    B, dp = shape.global_batch, dp_size_of(mesh)
+    rows = SH.batch_pspec(dp_axes_of(mesh))[0] \
+        if B % dp == 0 and B > 1 else None
+    return (rows, None)

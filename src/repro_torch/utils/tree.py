@@ -54,6 +54,12 @@ def tree_count_params(tree: Any) -> int:
     return int(sum(int(np.prod(l.shape)) for l in tree_leaves(tree)))
 
 
+def tree_size_bytes(tree: Any) -> int:
+    """Bytes of every leaf (meta tensors too: shapes and dtypes only)."""
+    return int(sum(int(np.prod(l.shape)) * l.element_size()
+                   for l in tree_leaves(tree)))
+
+
 def tree_flatten_vector(tree: Any, dtype=torch.float32) -> torch.Tensor:
     """Every leaf raveled and concatenated: the paper's concatenate(g_l)."""
     return torch.cat([l.reshape(-1).to(dtype) for l in tree_leaves(tree)])

@@ -33,7 +33,17 @@ ARGS = ["--smoke", "--steps", "3", "--batch", "2", "--seq", "16",
         "--compression", "lgc_rar", "--topk-backend", "fused",
         "--ae-backend", "pallas", "--data-shards", "2",
         "--warmup-steps", "1", "--ae-train-steps", "1", "--log-every", "1"]
-
+# the ring_hier trajectory: lgc_rar on a (2, 2) pod mesh, K = 4 nodes, as
+# the reference's REF_HIER below runs it and as the port's entry point
+# takes it (its emulated run, and one node per process under torchrun)
+HIER_K, HIER_BATCH, HIER_SEQ = 4, 8, 16
+HIER_FLAGS = ["--smoke", "--steps", str(STEPS), "--batch", str(HIER_BATCH),
+              "--seq", str(HIER_SEQ), "--compression", "lgc_rar",
+              "--topk-backend", "fused", "--ae-backend", "pallas",
+              "--transport", "ring_hier", "--pod-shards", "2",
+              "--data-shards", "2", "--warmup-steps", "2",
+              "--ae-train-steps", "2", "--optimizer", "sgd_momentum",
+              "--lr", "0.1", "--log-every", "1", "--device", "cpu"]
 
 
 def close(a, b, rel, what):
@@ -131,6 +141,82 @@ def trajectory(method, backend, ae_rel=1e-12):
     for a, b in zip(tree_leaves(params), jax.tree_util.tree_leaves(rparams)):
         close(a.numpy(), b, 2e-5, f"{method} params after 6 steps")
     return phases
+
+
+def reference_hier_init():
+    """The reference trainer's initial weights and AE for the ring_hier
+    trajectory (PRNGKey(0), jitted as its trainer draws them), in this
+    process: {p<i>: weight leaf, a<i>: AE leaf}, numpy, in tree order
+    (REF_HIER saves the same keys from its 4-device run)."""
+    key = jax.random.PRNGKey(0)
+    rparams = jax.jit(RefModel(ref_get_arch("llama3.2-1b").reduced()).init)(
+        key)
+    rcc = RCC(method="lgc_rar", warmup_steps=2, ae_train_steps=2)
+    rae = jax.jit(lambda k: ref_build_compressor(rcc, rparams, HIER_K)
+                  .init_state(k)["ae"])(key)
+    out = {f"p{i}": np.asarray(a)
+           for i, a in enumerate(jax.tree_util.tree_leaves(rparams))}
+    out.update({f"a{i}": np.asarray(a)
+                for i, a in enumerate(jax.tree_util.tree_leaves(rae))})
+    return out
+
+
+def hier_loop(init):
+    """The port's ``LGCTrainStep`` with K = 4 nodes, Ks = (2, 2), on
+    ``ring_hier``, from ``init``'s weights and AE (``reference_hier_init``'s
+    keys), node k on batch shard k of the reference's stream: six steps
+    at HIER_FLAGS' settings.  Returns (each step's loss, each phase's
+    per-op rows, the final params)."""
+    rcfg = ref_get_arch("llama3.2-1b").reduced()
+    key = jax.random.PRNGKey(0)
+    pleaves, pdef = jax.tree_util.tree_flatten(
+        jax.eval_shape(RefModel(rcfg).init, key))
+    rparams = pdef.unflatten([init[f"p{i}"] for i in range(len(pleaves))])
+    rcc = RCC(method="lgc_rar", warmup_steps=2, ae_train_steps=2)
+    rae = jax.eval_shape(lambda k: ref_build_compressor(
+        rcc, rparams, HIER_K).init_state(k)["ae"], key)
+    aleaves, adef = jax.tree_util.tree_flatten(rae)
+    cc = CompressionConfig(method="lgc_rar", warmup_steps=2,
+                           ae_train_steps=2, transport="ring_hier",
+                           topk_backend="fused", ae_backend="pallas")
+    tc = TrainConfig(optimizer="sgd_momentum", learning_rate=0.1,
+                     steps=STEPS, compression=cc)
+    lts = make_lgc_train_step(build_model(get_arch("llama3.2-1b").reduced()),
+                              tc, HIER_K, torch.device("cpu"), (2, 2))
+    params = params_from_numpy(rparams)
+    opt_state = lts.optimizer.init(params)
+    state = lts.compressor.init_sim_states(torch.Generator())
+    state["ae"] = ae_from_numpy(adef.unflatten(
+        [init[f"a{i}"] for i in range(len(aleaves))]))
+    state["ae_mom"] = tree_map(torch.zeros_like, state["ae"])
+    data = ref_batches(rcfg.vocab_size, HIER_BATCH, HIER_SEQ, seed=0)
+    losses, wire = [], {}
+    for step in range(STEPS):
+        phase = phase_for_step(step, cc)
+        tbatch = {n: torch.from_numpy(x).long()
+                  for n, x in next(data).items()}
+        params, opt_state, state, metrics = lts.step(
+            params, opt_state, state, tbatch, step, phase)
+        losses.append(float(metrics["loss"]))
+        wire.setdefault(phase, metrics["wire"])
+    return losses, wire, params
+
+
+def hier_twin(init_path: str, monkeypatch, extra=()):
+    """The entry point's emulated run at HIER_FLAGS (``train.run``, K
+    nodes stacked on this device) from the weights and AE saved in
+    ``init_path`` (``reference_hier_init``'s keys), as the process runs of
+    tests/test_torch_pg_train.py start; the wrapped init is undone after
+    the test."""
+    import _torch_pg_train_worker as W
+    from repro_torch.launch import train
+    monkeypatch.setattr(W.steps.LGCTrainStep, "init",
+                        W.steps.LGCTrainStep.init)
+    W.start_from(init_path)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    return train.run(get_arch("llama3.2-1b").reduced(),
+                     train.parse_args(HIER_FLAGS + list(extra)))
 
 
 # The reference's own training step (``repro.launch.steps``, what

@@ -1,26 +1,24 @@
 """Two trajectories of the port's trainer on the emulated wires: lgc_rar
 on ring_packed against the mesh run bit for bit, and ring_hier on a
 (2, 2) pod mesh against the reference's own training step on 4 host
-devices (a subprocess)."""
-import jax
+devices (a subprocess), and the entry point's emulated run of its flags
+against the port's loop, bit for bit."""
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
 from _one_thread import one_thread  # noqa: F401  (autouse)
-from _torch_train_common import ARGS, REF_HIER, STEPS, close
-from repro.configs import get_arch as ref_get_arch
-from repro.configs.base import CompressionConfig as RCC
-from repro.core import build_compressor as ref_build_compressor
-from repro.data import synthetic_token_batches as ref_batches
-from repro.models.model import Model as RefModel
+from _torch_train_common import (ARGS, HIER_BATCH, HIER_K, HIER_SEQ,
+                                 REF_HIER, STEPS, close, hier_loop,
+                                 hier_twin, reference_hier_init)
+from _torch_pg import REPO
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import CompressionConfig, TrainConfig
-from repro_torch.core.phases import phase_for_step
 from repro_torch.launch import train
-from repro_torch.launch.steps import make_lgc_train_step
-from repro_torch.models.model import build_model
-from repro_torch.utils.convert import ae_from_numpy, params_from_numpy
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves
 
 
 def test_lgc_rar_on_ring_packed_equals_mesh():
@@ -50,57 +48,51 @@ def test_lgc_rar_on_ring_packed_equals_mesh():
         assert rows != mesh["wire"][phase]
 
 
-def test_ring_hier_trajectory_matches_reference_trainer(subproc, tmp_path):
+def test_ring_hier_trajectory_matches_reference_trainer(tmp_path,
+                                                        monkeypatch):
     """Six lgc_rar steps (2 warm-up, 2 top-k + AE, 2 compressed) on
     ``ring_hier`` over a (2, 2) pod mesh: the reference's own training
     step (``repro.launch.steps``, what ``repro.launch.train --pod-shards 2
-    --data-shards 2`` runs) on 4 host devices against the port's
-    LGCTrainStep with K = 4 nodes, Ks = (2, 2), from the reference's
-    initial weights and AE, node k on batch shard k: the losses to 1e-5,
-    each phase's per-op rows exactly, the weights after six steps to
-    2e-5 of their largest value, as the other trajectories."""
-    import json
-    batch, seq = 8, 16
+    --data-shards 2`` runs) on 4 host devices, a subprocess, against the
+    port's LGCTrainStep with K = 4 nodes, Ks = (2, 2) (``hier_loop``),
+    from the reference's initial weights and AE (``reference_hier_init``,
+    checked equal to the subprocess's), node k on batch shard k: the
+    losses to 1e-5, each phase's per-op rows exactly, the weights after
+    six steps to 2e-5 of their largest value, as the other trajectories.
+    And the entry point's emulated run of the same flags from the same
+    weights (``hier_twin``, the twin of tests/test_torch_pg_train.py's
+    process run) is that loop bit for bit: losses, rows, final params."""
     path = str(tmp_path / "hier.npz")
-    assert "PASS" in subproc(REF_HIER.format(STEPS=STEPS, BATCH=batch,
-                                             SEQ=seq, path=path), devices=4)
-    ref = dict(np.load(path))
+    ref = subprocess.Popen(
+        [sys.executable, "-c", REF_HIER.format(
+            STEPS=STEPS, BATCH=HIER_BATCH, SEQ=HIER_SEQ, path=path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                 XLA_FLAGS="--xla_force_host_platform_device_count="
+                           f"{HIER_K}"))
+    try:
+        init = reference_hier_init()
+        np.savez(tmp_path / "init.npz", **init)
+        losses, wire, params = hier_loop(init)
+        twin = hier_twin(str(tmp_path / "init.npz"), monkeypatch)
+        out, _ = ref.communicate(timeout=600)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+    assert [h["loss"] for h in twin["history"]] == losses
+    assert twin["wire"] == wire
+    for a, b in zip(tree_leaves(twin["params"]), tree_leaves(params)):
+        assert torch.equal(a, b)
+    assert ref.returncode == 0 and "PASS" in out, out[-3000:]
+    refd = dict(np.load(path))
     with open(path + ".json") as f:
         rwire = json.load(f)
-    rcfg = ref_get_arch("llama3.2-1b").reduced()
-    key = jax.random.PRNGKey(0)
-    pleaves, pdef = jax.tree_util.tree_flatten(
-        jax.eval_shape(RefModel(rcfg).init, key))
-    rparams = pdef.unflatten([ref[f"p{i}"] for i in range(len(pleaves))])
-    rcc = RCC(method="lgc_rar", warmup_steps=2, ae_train_steps=2)
-    rae = ref_build_compressor(rcc, rparams, 4).init_state(key)["ae"]
-    aleaves, adef = jax.tree_util.tree_flatten(rae)
-    cc = CompressionConfig(method="lgc_rar", warmup_steps=2,
-                           ae_train_steps=2, transport="ring_hier",
-                           topk_backend="fused", ae_backend="pallas")
-    tc = TrainConfig(optimizer="sgd_momentum", learning_rate=0.1,
-                     steps=STEPS, compression=cc)
-    lts = make_lgc_train_step(build_model(get_arch("llama3.2-1b").reduced()),
-                              tc, 4, torch.device("cpu"), (2, 2))
-    params = params_from_numpy(rparams)
-    opt_state = lts.optimizer.init(params)
-    state = lts.compressor.init_sim_states(torch.Generator())
-    state["ae"] = ae_from_numpy(adef.unflatten(
-        [ref[f"a{i}"] for i in range(len(aleaves))]))
-    state["ae_mom"] = tree_map(torch.zeros_like, state["ae"])
-    data = ref_batches(rcfg.vocab_size, batch, seq, seed=0)
-    wire = {}
-    for step in range(STEPS):
-        phase = phase_for_step(step, cc)
-        tbatch = {n: torch.from_numpy(x).long()
-                  for n, x in next(data).items()}
-        params, opt_state, state, metrics = lts.step(
-            params, opt_state, state, tbatch, step, phase)
-        np.testing.assert_allclose(float(metrics["loss"]),
-                                   float(ref[f"loss{step}"]), rtol=1e-5,
-                                   err_msg=f"step {step} ({phase})")
-        wire.setdefault(phase, metrics["wire"])
+    for key, a in init.items():
+        assert np.array_equal(refd[key], a), key
+    for step, loss in enumerate(losses):
+        np.testing.assert_allclose(loss, float(refd[f"loss{step}"]),
+                                   rtol=1e-5, err_msg=f"step {step}")
     assert list(wire) == ["warmup", "topk_ae", "compressed"]
     assert wire == rwire
     for i, a in enumerate(tree_leaves(params)):
-        close(a.numpy(), ref[f"final{i}"], 2e-5, f"param leaf {i}")
+        close(a.numpy(), refd[f"final{i}"], 2e-5, f"param leaf {i}")

@@ -14,16 +14,24 @@ under torchrun, one node per process on this card, each run against
 its emulated twin, which it runs first; then the failure runs (a)-(d)
 one node per process: the chaos wire under scrub and skip_round,
 fail_fast raising on every rank, a run stopped after step 3 and resumed
-from its rank files), with each phase's seconds.  A quicker call than
-the whole smoke run while iterating on these paths.
+from its rank files), ``dryrun`` (the dry run's predicted params,
+AdamW and cache bytes against the card's allocations, then --all on the
+meta device), ``quickstart`` (the quickstart example on the card at each
+--topk-backend against the CPU) and ``baselines``
+(examples/train_lgc_vs_baselines.py --smoke at its 120 steps: five
+finite losses; run here only, not in chip_smoke), with each phase's
+seconds.  A quicker call than the whole smoke run while iterating on
+these paths.
 
     python3 tools/chip_phases.py [moe] [ssd] [train] [serve] [mla] \
-        [cross] [train_mla_cross] [serve_mla_cross] [pg_train]  # card
+        [cross] [train_mla_cross] [serve_mla_cross] [pg_train] \
+        [dryrun] [quickstart] [baselines]                    # card
 
-No names runs all nine.  Each phase prints its JSON lines as
+No names runs all twelve.  Each phase prints its JSON lines as
 chip_smoke does and raises as chip_smoke would.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,7 +44,8 @@ import chip_smoke as CS  # noqa: E402  (sets the allocator before torch)
 import torch  # noqa: E402
 
 PHASES = ("moe", "ssd", "train", "serve", "mla", "cross",
-          "train_mla_cross", "serve_mla_cross", "pg_train")
+          "train_mla_cross", "serve_mla_cross", "pg_train", "dryrun",
+          "quickstart", "baselines")
 
 
 def main(argv=None):
@@ -61,7 +70,10 @@ def main(argv=None):
            "train_mla_cross": lambda: CS.mla_cross_train_runs(
                dev, {}, 2, lgc, len(ENCODER_SPEC)),
            "serve_mla_cross": lambda: CS.serve_mla_cross_phase(dev),
-           "pg_train": lambda: pg_train(dev, smi, len(ENCODER_SPEC))}
+           "pg_train": lambda: pg_train(dev, smi, len(ENCODER_SPEC)),
+           "dryrun": lambda: CS.dryrun_phase(dev),
+           "quickstart": lambda: CS.quickstart_phase(dev),
+           "baselines": baselines}
     t0 = time.perf_counter()
     CS.build_phase(smi)
     seconds = {"build": time.perf_counter() - t0}
@@ -71,6 +83,21 @@ def main(argv=None):
         seconds[name] = time.perf_counter() - t
     print(smi)
     print(json.dumps({"seconds": seconds, "card": smi}))
+
+
+def baselines() -> None:
+    """examples/train_lgc_vs_baselines.py --smoke on the card at its
+    default 120 steps (all three phases): five finite final losses and
+    the largest degradation against none."""
+    from repro_torch.examples import train_lgc_vs_baselines as E
+    t0 = time.perf_counter()
+    losses = E.main(["--smoke"])
+    if set(losses) != set(E.METHODS) or \
+            not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"baselines: {losses}")
+    CS.emit("baselines", losses=losses,
+            degradation=max(losses.values()) - losses["none"],
+            seconds=time.perf_counter() - t0)
 
 
 def pg_train(dev, smi: str, n_encoder: int) -> None:
