@@ -144,9 +144,12 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
   9b. pg_train one node per process: repro_torch.launch.train under
               torchrun (this script as each rank, --pg-rank), the K
               processes sharing this card over a gloo process group
-              (every message staged through pinned host memory), each
-              against its emulated twin of the same flags among the train
-              runs: lgc_rar on mesh (K = 2), dgc on ring_packed in 4
+              (every message staged through pinned host memory); every
+              process run of 9b, 11b and 11c goes through one of two
+              launches, one of K = 2 ranks and one of 4, each running its
+              runs one after another in the same processes, and each run
+              is held against its emulated twin of the same flags among
+              the train runs: lgc_rar on mesh (K = 2), dgc on ring_packed in 4
               buckets (K = 2), lgc_rar_q8 on ring_q8 (K = 2), lgc_rar on
               ring_hier over 2 pods x 2 (K = 4, at PG_HIER_LAYERS with
               its twin cut the same); every rank's per-step losses
@@ -200,6 +203,23 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               state): steps 4 and 5 and the final digest the
               uninterrupted pg_train lgc_rar mesh run's; each rank's
               file bytes, save and load seconds; the files are deleted
+ 11c. tp_train --model-shards 2 on the (data 2, model 2) mesh, 4 ranks,
+              llama3.2-1b at published widths cut to 4 layers, f32,
+              batch 8, seq 128: lgc_rar (fused sweep, kernel encoder)
+              through its three phases, each rank compressing its model
+              shard's block of its node's gradient (K1 and K3 on every
+              rank, the per-shard layout's rows), and the auto step
+              (--compression none: TP over model, FSDP over data); each
+              against its emulated K = 2 twin in f32 (losses within
+              TP_LOSS_REL), each rank's held parameter, optimizer and
+              u/v/AE bytes the dry run's prediction for host_mesh(2, 2)
+              to the byte; steady step ms and peak GiB a rank
+     tp_serve llama3.2-1b at full depth, bf16, under torchrun: the heads
+              over 2 ranks at B4 P64 G32, the cache's sequence over 2
+              ranks at B1 P4096 G8; then f32 at B4 P64 G16 over 2 model
+              shards, whose greedy tokens must equal one process's on
+              this card; every rank's tokens equal; prefill ms, median
+              decode ms, tokens/s and peak GiB a rank
  12. convnet5 the paper's ConvNet5 at its full widths (config(): channels
               32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
               of 8 images, through launch.steps.sim_sgd_step (the
@@ -299,7 +319,7 @@ N_LAYERS = 4                       # the only cut: 16 -> 4 layers
 # each, 76.9 of 79.18 GiB in use)
 PG_HIER_LAYERS = 1
 PG_BACKEND = "gloo"                # the only backend for K ranks on a card
-PG_TIMEOUT_S = 600                 # one torchrun launch
+PG_TIMEOUT_S = 900                 # one torchrun launch
 # lgc_rar ring_hier's peak at K = 4 with the garbage collector off,
 # 45.49 GiB on the H100, plus 1 GiB: less than one n-sized f32 tensor
 # (1.88 GiB) kept alive by a reference cycle
@@ -1617,29 +1637,59 @@ def pg_report_flags(name: str):
 
 
 def pg_rank(spec_path: str) -> None:
-    """One rank of a pg_train launch (torchrun runs this script with
-    ``--pg-rank SPEC``): launch.train's run() on llama3.2-1b cut to the
-    spec's depth, with the spec's flags, as one node of the process
-    group torchrun's environment describes.  A spec's ``stop_after``
-    stops the run after that step through run()'s ``on_step`` (as a
-    crash would, once the step's checkpoint is written); its
-    ``expect_error`` names the exception class the run must raise.
-    Either way the rank writes its record (the steps it ran, its
-    launches, the error) to the report directory and exits 0: torchrun
-    stops every rank as soon as one exits otherwise, and a rank stopped
-    before it writes its record shows nothing.  Any other outcome
-    raises."""
+    """One rank of a process launch (torchrun runs this script with
+    ``--pg-rank SPEC``): the spec's runs one after another in this
+    process, each joining its own process group (a file store of its
+    own) and leaving it.  A train run is launch.train's run() on the
+    spec's model (llama3.2-1b at ``n_layers``, in ``dtype``) with its
+    flags, as one shard of the mesh; a serve run is launch.serve's run().
+    A train run's ``stop_after`` stops it after that step through run()'s
+    ``on_step`` (as a crash would, once the step's checkpoint is
+    written); its ``expect_error`` names the exception class it must
+    raise.  Each run writes its record (its steps, launches and error, or
+    the serve run's tokens and times) to its report directory; a stopped
+    or raising run's rank goes on to the next run and the process exits
+    0 at the end: torchrun stops every rank as soon as one exits
+    otherwise.  Any other outcome raises."""
+    import gc
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.launch import train
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve, train
     with open(spec_path) as f:
         spec = json.load(f)
-    cfg = dataclasses.replace(get_arch("llama3.2-1b"),
-                              n_layers=spec["n_layers"])
-    args = train.parse_args(spec["flags"])
-    stop_after, expect = spec.get("stop_after"), spec.get("expect_error")
+    rank = int(os.environ["RANK"])
+    for run in spec["runs"]:
+        cfg = get_arch("llama3.2-1b")
+        cfg = dataclasses.replace(cfg, n_layers=run["n_layers"] or
+                                  cfg.n_layers, dtype=run["dtype"] or
+                                  cfg.dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        if run["kind"] == "serve":
+            res = serve.run(cfg, serve.parse_args(run["flags"]))
+            out = {"tokens": res["tokens"].tolist(), "logits_max": float(
+                abs(res["logits"]).max()), **{k: res[k] for k in (
+                    "prefill_ms", "step_ms", "decode_s", "held",
+                    "peak_gib")}}
+            del res
+        else:
+            out = _pg_train(train, cfg, run)
+            if out is None:
+                continue
+        out.update(rank=rank, launches=dict(LAUNCHES))
+        with open(os.path.join(run["report"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _pg_train(train, cfg, run):
+    """A train run of ``pg_rank``: None when it ran to its end (run()
+    wrote its record), else the record of a stopped or raising run."""
+    args = train.parse_args(run["flags"])
+    stop_after, expect = run["stop_after"], run["expect_error"]
     records = []
 
     def on_step(rec):
@@ -1649,42 +1699,61 @@ def pg_rank(spec_path: str) -> None:
     try:
         train.run(cfg, args, on_step=on_step)
     except _Interrupt:
-        outcome = {"stopped_after": stop_after}
+        return {"history": records, "stopped_after": stop_after}
     except Exception as e:
         if type(e).__name__ != expect:
             raise
-        outcome = {"error": f"{type(e).__name__}: {e}"}
-    else:
-        if stop_after is None and expect is None:
-            return
-        raise AssertionError(f"the run was not stopped after {stop_after} "
-                             f"and did not raise {expect}")
-    rank = int(os.environ["RANK"])
-    with open(os.path.join(args.report, f"rank{rank}.json"), "w") as f:
-        json.dump({"rank": rank, "history": records,
-                   "launches": dict(LAUNCHES), **outcome}, f)
+        return {"history": records, "error": f"{type(e).__name__}: {e}"}
+    if stop_after is None and expect is None:
+        return None
+    raise AssertionError(f"the run was not stopped after {stop_after} "
+                         f"and did not raise {expect}")
 
 
-def pg_launch(name: str, flags, steps: int, K: int, n_layers: int,
-              stop_after=None, expect_error=None):
-    """torchrun of K ranks of this script on the card; returns each rank's
-    record.  Raises when the launch fails (torchrun stops every rank when
-    one fails) or outlives PG_TIMEOUT_S.  ``stop_after`` / ``expect_error``
-    (see ``pg_rank``): every rank's record must say it was stopped, or
-    that its run raised that exception, and nothing else is accepted."""
-    report = pg_report_flags("pg " + name)
-    out_dir = report[1]
-    os.makedirs(out_dir, exist_ok=True)
-    for f in os.listdir(out_dir):
-        os.remove(os.path.join(out_dir, f))
-    spec = os.path.join(ROOT, "build", "pg", "spec.json")
+def pg_spec(name: str, flags, steps: int = 0, n_layers=N_LAYERS,
+            stop_after=None, expect_error=None, kind: str = "train",
+            dtype=None):
+    """One run of a process launch: a train run of ``steps`` steps with
+    the process runs' shared flags (2 data shards, batch 8, seq 128, 2
+    warm-up steps) and ``flags`` after them; a serve run with ``flags``
+    alone.  ``n_layers`` None: full depth; ``dtype`` None: the arch's."""
+    return {"name": name, "kind": kind, "n_layers": n_layers,
+            "dtype": dtype, "stop_after": stop_after,
+            "expect_error": expect_error, "steps": steps, "flags": flags}
+
+
+def pg_launch(label: str, specs, K: int):
+    """One torchrun of K ranks of this script on the card, running
+    ``specs`` (``pg_spec``) in order; returns ({name: each rank's
+    record}, the launch's seconds and the card's MiB in use before it).
+    Raises when the launch fails (torchrun stops every rank when one
+    fails) or outlives PG_TIMEOUT_S.  A run with ``stop_after`` /
+    ``expect_error`` must have been stopped, or have raised that
+    exception, on every rank."""
+    store = os.path.join(ROOT, "build", "pg", "stores")
+    os.makedirs(store, exist_ok=True)
+    runs = []
+    for i, s in enumerate(specs):
+        report = pg_report_flags("pg " + s["name"])
+        out_dir = report[1]
+        os.makedirs(out_dir, exist_ok=True)
+        for f in os.listdir(out_dir):
+            os.remove(os.path.join(out_dir, f))
+        url = f"file://{store}/{label}.{i}"
+        if os.path.exists(url[len("file://"):]):
+            os.remove(url[len("file://"):])
+        common = ["--device", "cuda", "--dist-backend", PG_BACKEND,
+                  "--dist-init", url]
+        if s["kind"] == "train":
+            flags = ["--data-shards", "2", "--batch", "8", "--seq", "128",
+                     "--warmup-steps", "2", "--steps", str(s["steps"]),
+                     "--log-every", "1"] + common + s["flags"] + report
+        else:
+            flags = common + s["flags"]
+        runs.append(dict(s, flags=flags, report=out_dir))
+    spec = os.path.join(ROOT, "build", "pg", f"spec_{label}.json")
     with open(spec, "w") as f:
-        json.dump({"n_layers": n_layers, "stop_after": stop_after,
-                   "expect_error": expect_error, "flags": [
-                       "--data-shards", "2", "--batch", "8", "--seq", "128",
-                       "--warmup-steps", "2", "--steps", str(steps),
-                       "--log-every", "1", "--device", "cuda",
-                       "--dist-backend", PG_BACKEND] + flags + report}, f)
+        json.dump({"runs": runs}, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
                            "--format=csv,noheader,nounits"],
@@ -1696,7 +1765,8 @@ def pg_launch(name: str, flags, steps: int, K: int, n_layers: int,
          "--pg-rank", spec], env=env, capture_output=True, text=True,
         timeout=PG_TIMEOUT_S)
     seconds = time.perf_counter() - t0
-    with open(os.path.join(out_dir, "torchrun.log"), "w") as f:
+    with open(os.path.join(ROOT, "build", "pg", f"torchrun_{label}.log"),
+              "w") as f:
         f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         # each rank's last lines: the first to fail names the cause, the
@@ -1706,22 +1776,28 @@ def pg_launch(name: str, flags, steps: int, K: int, n_layers: int,
             lines = [ln for ln in proc.stderr.splitlines()
                      if ln.startswith(f"[rank{r}]:")]
             tails.append("\n".join(lines[-12:]))
-        raise AssertionError(f"pg {name}: torchrun exited "
+        raise AssertionError(f"pg {label}: torchrun exited "
                              f"{proc.returncode}:\n" + "\n".join(tails))
-    recs = []
-    for r in range(K):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            recs.append(json.load(f))
-    for r, rec in enumerate(recs):
-        if stop_after is not None and rec.get("stopped_after") != stop_after:
-            raise AssertionError(f"pg {name} rank {r} was not stopped after "
-                                 f"step {stop_after}")
-        if expect_error is not None and not str(rec.get("error", "")) \
-                .startswith(expect_error + ":"):
-            raise AssertionError(f"pg {name} rank {r} did not raise "
-                                 f"{expect_error}: {rec.get('error')}")
-    return recs, {"launch_s": seconds, "card_mib_used_before":
-                  float(used[0]) if used else None}
+    out = {}
+    for run in runs:
+        recs = []
+        for r in range(K):
+            with open(os.path.join(run["report"], f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        for r, rec in enumerate(recs):
+            if run["stop_after"] is not None \
+                    and rec.get("stopped_after") != run["stop_after"]:
+                raise AssertionError(f"pg {run['name']} rank {r} was not "
+                                     f"stopped after {run['stop_after']}")
+            if run["expect_error"] is not None and not str(
+                    rec.get("error", "")).startswith(
+                        run["expect_error"] + ":"):
+                raise AssertionError(f"pg {run['name']} rank {r} did not "
+                                     f"raise {run['expect_error']}: "
+                                     f"{rec.get('error')}")
+        out[run["name"]] = recs
+    return out, {"launch_s": seconds, "runs_in_launch": len(runs),
+                 "card_mib_used_before": float(used[0]) if used else None}
 
 
 def train_flags():
@@ -1737,70 +1813,6 @@ def train_flags():
             "q8": ["--compression", "lgc_rar_q8"] + lgc[2:] + [
                 "--transport", "ring_q8"],
             "hier": lgc + ["--transport", "ring_hier", "--pod-shards", "2"]}
-
-
-def pg_train_phase(dev, runs, smi: str, n_leaves: int,
-                   n_encoder: int) -> None:
-    """Each process run against its emulated twin (``runs[twin]``, run here
-    when missing or at another depth): losses bitwise, rows equal, the
-    final digest equal on every rank and to the twin's; each rank's
-    launches per step."""
-    fl = train_flags()
-    lgc, dgc, packed, buckets, q8, hier = (
-        fl[k] for k in ("lgc", "dgc", "packed", "buckets", "q8", "hier"))
-    per_node = dict(fused_ef_topk=1,
-                    compressed={"matmul_bias_lrelu": n_encoder})
-    specs = [
-        ("lgc_rar mesh", "lgc_rar", lgc, 6, 2, N_LAYERS,
-         per_step(**per_node)),
-        # each rank: its 4 buckets through 4 K4 launches, the gathered
-        # table of the 8 payloads through one K5b
-        ("dgc ring_packed B4", "dgc ring_packed B4", dgc + packed + buckets,
-         5, 2, N_LAYERS,
-         per_step(block_topk=n_leaves, quantize_pack=4, unpack_bits=1)),
-        ("lgc_rar_q8 ring_q8", "lgc_rar_q8 ring_q8", q8, 6, 2, N_LAYERS,
-         per_step(**per_node)),
-        ("lgc_rar ring_hier", "lgc_rar ring_hier", hier, 6, 4,
-         PG_HIER_LAYERS, per_step(**per_node)),
-    ]
-    for name, twin_name, flags, steps, K, layers, expect in specs:
-        twin = runs.get(twin_name)
-        if twin is None or twin.get("report") is None or layers != N_LAYERS:
-            twin_name = twin_name + ("" if layers == N_LAYERS
-                                     else f" {layers} layers")
-            cfg = None
-            if layers != N_LAYERS:
-                from repro_torch.configs import get_arch
-                cfg = dataclasses.replace(get_arch("llama3.2-1b"),
-                                          n_layers=layers)
-            twin = train_phase(
-                dev, twin_name, flags + pg_report_flags(twin_name), steps,
-                cfg=cfg)
-            runs[twin_name] = twin
-        gc_cuda()
-        recs, launch = pg_launch(name, flags, steps, K, layers)
-        comp = twin["compressor"]
-        hold_to_twin(f"pg {name}", recs, twin, comp, expect)
-        step_ms = [{} for _ in recs]
-        for r, rec in enumerate(recs):
-            for h in rec["history"]:
-                step_ms[r].setdefault(h["phase"], []).append(h["ms"])
-        emit("pg_train", run=name, twin=twin_name, card=smi,
-             backend=PG_BACKEND, nodes=K, mesh=comp.Ks, n_layers=layers,
-             seq=128, batch=8, reduced=["n_layers"], **launch,
-             losses=twin["losses"], digest=twin["report"]["digest"],
-             equal={"losses": True, "rows": True, "digest": True},
-             step_ms=step_ms, twin_step_ms=twin["step_ms"],
-             peak_gib=[rec["peak_gib"] for rec in recs],
-             twin_peak_gib=twin["peak_gib"],
-             launches=[rec["launches"] for rec in recs],
-             twin_launches=twin["launches"],
-             sent={phase: [rec["sent"][phase] for rec in recs]
-                   for phase in recs[0]["sent"]},
-             wire=twin["wire"])
-        runs["pg " + name] = {"launches": summed_launches(recs),
-                              "losses": twin["losses"],
-                              "digest": twin["report"]["digest"]}
 
 
 def summed_launches(recs):
@@ -1839,43 +1851,158 @@ def hold_to_twin(where: str, recs, twin, comp, expect) -> None:
         expect(rec["launches"], [h["phase"] for h in rec["history"]])
 
 
-def pg_fault_runs(dev, runs, smi: str, n_leaves: int,
-                  n_encoder: int) -> None:
-    """The failure runs one node per process, K = 2 ranks on the card,
-    each against its emulated twin (``runs``; run here when missing):
-    (a) and (b) guarded, (c) fail_fast, (d) stopped after step 3 and
-    resumed from the rank files against the uninterrupted ``pg lgc_rar
-    mesh`` run of ``pg_train_phase``, which runs first."""
+def _f32_llama(n_layers=N_LAYERS):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("llama3.2-1b"), n_layers=n_layers,
+                               dtype="float32")
+
+
+def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
+              parts=("pg", "tp")) -> None:
+    """Every process run, in two torchrun launches of this script (one of
+    K = 2 ranks, one of 4), each run held to what it is compared with:
+    ``parts`` "pg", pg_train (the process runs against their emulated
+    twins), pg_faults and pg_resume (the failure runs); "tp", tp_train
+    and tp_serve (``--model-shards``).  The twins are ``runs``' (run here
+    when missing)."""
     import shutil
     from repro_torch.checkpoint import rank_path
-    K = 2
-    lgc, gf = train_flags()["lgc"], guard_flags()
-    names = {"a": "dgc chaos:ring_packed scrub",
-             "b": "lgc_rar_q8 chaos:ring_q8 skip_round",
-             "c": "lgc_rar chaos:mesh fail_fast"}
-    if any(runs.get(n) is None for n in names.values()):
+    fl, gf = train_flags(), guard_flags()
+    lgc, dgc, packed, buckets, q8, hier = (
+        fl[k] for k in ("lgc", "dgc", "packed", "buckets", "q8", "hier"))
+    per_node = dict(fused_ef_topk=1,
+                    compressed={"matmul_bias_lrelu": n_encoder})
+    lgc_step = per_step(**per_node)
+    # pg_train: (name, twin, flags, steps, K, layers, expect)
+    train_specs = [
+        ("lgc_rar mesh", "lgc_rar", lgc, 6, 2, N_LAYERS, lgc_step),
+        # each rank: its 4 buckets through 4 K4 launches, the gathered
+        # table of the 8 payloads through one K5b
+        ("dgc ring_packed B4", "dgc ring_packed B4", dgc + packed + buckets,
+         5, 2, N_LAYERS,
+         per_step(block_topk=n_leaves, quantize_pack=4, unpack_bits=1)),
+        ("lgc_rar_q8 ring_q8", "lgc_rar_q8 ring_q8", q8, 6, 2, N_LAYERS,
+         lgc_step),
+        ("lgc_rar ring_hier", "lgc_rar ring_hier", hier, 6, 4,
+         PG_HIER_LAYERS, lgc_step),
+    ]
+    if "pg" not in parts:
+        train_specs = []
+    twins = {}
+    for name, twin_name, flags, steps, K, layers, _ in train_specs:
+        twin = runs.get(twin_name)
+        if twin is None or twin.get("report") is None or layers != N_LAYERS:
+            twin_name = twin_name + ("" if layers == N_LAYERS
+                                     else f" {layers} layers")
+            cfg = None
+            if layers != N_LAYERS:
+                from repro_torch.configs import get_arch
+                cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                                          n_layers=layers)
+            twin = train_phase(
+                dev, twin_name, flags + pg_report_flags(twin_name), steps,
+                cfg=cfg)
+            runs[twin_name] = twin
+        twins[name] = (twin_name, twin)
+    faults = {"a": "dgc chaos:ring_packed scrub",
+              "b": "lgc_rar_q8 chaos:ring_q8 skip_round",
+              "c": "lgc_rar chaos:mesh fail_fast"}
+    if "pg" in parts and any(runs.get(n) is None for n in faults.values()):
         if "dgc ring_packed" not in runs:     # guard_runs' plain wire
             runs["dgc ring_packed"] = train_phase(
-                dev, "dgc ring_packed", train_flags()["dgc"]
-                + train_flags()["packed"], 5,
-                per_step(block_topk=n_leaves * K, quantize_pack=K,
+                dev, "dgc ring_packed", dgc + packed, 5,
+                per_step(block_topk=n_leaves * 2, quantize_pack=2,
                          unpack_bits=1))
-        guard_runs(dev, runs, n_leaves, K)
-    lgc_step = per_step(fused_ef_topk=1,
-                        compressed={"matmul_bias_lrelu": n_encoder})
-    specs = (("a", 5, per_step(block_topk=n_leaves, quantize_pack=1,
-                               pack_bits=0, unpack_bits=1)),
-             ("b", 6, lgc_step))
-    for key, steps, expect in specs:
-        twin = runs[names[key]]
-        gc_cuda()
-        recs, launch = pg_launch(names[key], gf[key], steps, K, N_LAYERS)
-        hold_to_twin(f"pg {names[key]}", recs, twin, twin["compressor"],
+        guard_runs(dev, runs, n_leaves, 2)
+    # tp_train's twins: the emulated K = 2 runs of the same flags in f32
+    tp_lgc = lgc + ["--model-shards", "2"]
+    tp_none = ["--compression", "none", "--model-shards", "2"]
+    for name, flags, steps in (("lgc_rar f32", lgc, 6),
+                               ("none f32", ["--compression", "none"],
+                                TP_AUTO_STEPS)):
+        if "tp" in parts and name not in runs:
+            runs[name] = train_phase(dev, name, flags + pg_report_flags(
+                name), steps, cfg=_f32_llama())
+
+    ckdir = os.path.join(ROOT, "build", "ckpt_pg")
+    path = os.path.join(ckdir, "ckpt.npz")
+    two = [pg_spec(n, f, s) for n, _, f, s, K, _, _ in train_specs if K == 2]
+    if "pg" in parts:
+        two += [
+            pg_spec(faults["a"], gf["a"], 5),
+            pg_spec(faults["b"], gf["b"], 6),
+            pg_spec(faults["c"], gf["c"], 6, expect_error="WireFaultError"),
+            # (d): stopped after step 3 with its rank files, then resumed
+            pg_spec("lgc_rar stopped after step 3", lgc + [
+                "--checkpoint-dir", ckdir, "--checkpoint-every", "3"], 6,
+                stop_after=3),
+            pg_spec("lgc_rar resumed at step 4", lgc + ["--resume", path],
+                    6)]
+    serve_specs = tp_serve_specs() if "tp" in parts else []
+    two += serve_specs
+    four = [pg_spec(n, f, s, n_layers=layers)
+            for n, _, f, s, K, layers, _ in train_specs if K == 4]
+    if "tp" in parts:
+        four += [pg_spec("tp lgc_rar", tp_lgc, 6, dtype="float32"),
+                 pg_spec("tp none", tp_none, TP_AUTO_STEPS,
+                         dtype="float32")]
+    gc_cuda()
+    got4, launch4 = pg_launch("four", four, 4)
+    gc_cuda()
+    try:
+        nbytes = None
+        got2, launch2 = pg_launch("two", two, 2)
+        if "pg" in parts:
+            nbytes = [os.path.getsize(rank_path(path, r)) for r in range(2)]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    got = {**got2, **got4}
+    launches = {"two": launch2, "four": launch4}
+    if "tp" in parts:
+        tp_train_checks(runs, got, smi, launch4, lgc_step)
+        tp_serve_checks(runs, got, smi, launch2, serve_specs)
+    if "pg" not in parts:
+        return
+
+    # pg_train: each process run bitwise its twin
+    for name, _, flags, steps, K, layers, expect in train_specs:
+        twin_name, twin = twins[name]
+        recs = got[name]
+        comp = twin["compressor"]
+        hold_to_twin(f"pg {name}", recs, twin, comp, expect)
+        step_ms = [{} for _ in recs]
+        for r, rec in enumerate(recs):
+            for h in rec["history"]:
+                step_ms[r].setdefault(h["phase"], []).append(h["ms"])
+        emit("pg_train", run=name, twin=twin_name, card=smi,
+             backend=PG_BACKEND, nodes=K, mesh=comp.Ks, n_layers=layers,
+             seq=128, batch=8, reduced=["n_layers"],
+             launch=launches["two" if K == 2 else "four"],
+             losses=twin["losses"], digest=twin["report"]["digest"],
+             equal={"losses": True, "rows": True, "digest": True},
+             step_ms=step_ms, twin_step_ms=twin["step_ms"],
+             peak_gib=[rec["peak_gib"] for rec in recs],
+             twin_peak_gib=twin["peak_gib"],
+             launches=[rec["launches"] for rec in recs],
+             twin_launches=twin["launches"],
+             sent={phase: [rec["sent"][phase] for rec in recs]
+                   for phase in recs[0]["sent"]},
+             wire=twin["wire"])
+        runs["pg " + name] = {"launches": summed_launches(recs),
+                              "losses": twin["losses"],
+                              "digest": twin["report"]["digest"]}
+
+    # pg_faults: (a), (b) against their twins; (c) raises the twin's error
+    for key, expect in (("a", per_step(block_topk=n_leaves, quantize_pack=1,
+                                       pack_bits=0, unpack_bits=1)),
+                        ("b", lgc_step)):
+        twin, recs = runs[faults[key]], got[faults[key]]
+        hold_to_twin(f"pg {faults[key]}", recs, twin, twin["compressor"],
                      expect)
-        runs["pg " + names[key]] = {"launches": summed_launches(recs)}
-        emit("pg_faults", run=names[key], card=smi, backend=PG_BACKEND,
-             nodes=K, n_layers=N_LAYERS, seq=128, batch=8,
-             reduced=["n_layers"], **launch, losses=twin["losses"],
+        runs["pg " + faults[key]] = {"launches": summed_launches(recs)}
+        emit("pg_faults", run=faults[key], card=smi, backend=PG_BACKEND,
+             nodes=2, n_layers=N_LAYERS, seq=128, batch=8,
+             reduced=["n_layers"], launch=launch2, losses=twin["losses"],
              guard=[{k: h[k] for k in ("guard_ok", "fault", "faults",
                                        "fault_ops") if k in h}
                     for h in twin["history"]],
@@ -1888,47 +2015,30 @@ def pg_fault_runs(dev, runs, smi: str, n_leaves: int,
              twin_peak_gib=twin["peak_gib"],
              launches=[rec["launches"] for rec in recs],
              wire=twin["wire"])
-
-    # (c): every rank raises the twin's error, naming the encoding at 4
-    twin = runs[names["c"]]
-    gc_cuda()
-    recs, launch = pg_launch(names["c"], gf["c"], 6, K, N_LAYERS,
-                             expect_error="WireFaultError")
+    twin, recs = runs[faults["c"]], got[faults["c"]]
     want = f"WireFaultError: {twin['error']}"
     for r, rec in enumerate(recs):
         if rec["error"] != want:
-            raise AssertionError(f"pg {names['c']} rank {r} raised "
+            raise AssertionError(f"pg {faults['c']} rank {r} raised "
                                  f"{rec['error']!r}, not the twin's {want!r}")
         launched("fused_ef_topk", "matmul_bias_lrelu")(rec["launches"], [])
-    runs["pg " + names["c"]] = {"launches": summed_launches(recs)}
-    emit("pg_faults", run=names["c"], card=smi, nodes=K, **launch,
+    runs["pg " + faults["c"]] = {"launches": summed_launches(recs)}
+    emit("pg_faults", run=faults["c"], card=smi, nodes=2, launch=launch2,
          errors=[rec["error"] for rec in recs], twin_error=want,
          launches=[rec["launches"] for rec in recs])
 
-    # (d): stopped after step 3 with its rank files, then resumed
+    # pg_resume: (d) against the uninterrupted pg lgc_rar mesh run
     whole = runs["pg lgc_rar mesh"]
-    ckdir = os.path.join(ROOT, "build", "ckpt_pg")
-    path = os.path.join(ckdir, "ckpt.npz")
-    try:
-        gc_cuda()
-        first, launch1 = pg_launch(
-            "lgc_rar stopped after step 3", lgc + [
-                "--checkpoint-dir", ckdir, "--checkpoint-every", "3"], 6, K,
-            N_LAYERS, stop_after=3)
-        nbytes = [os.path.getsize(rank_path(path, r)) for r in range(K)]
-        gc_cuda()
-        second, launch2 = pg_launch("lgc_rar resumed at step 4",
-                                    lgc + ["--resume", path], 6, K, N_LAYERS)
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    for r in range(K):
-        got = [h["loss"] for h in first[r]["history"]], \
+    first = got["lgc_rar stopped after step 3"]
+    second = got["lgc_rar resumed at step 4"]
+    for r in range(2):
+        losses = [h["loss"] for h in first[r]["history"]], \
             [h["loss"] for h in second[r]["history"]]
-        if got != (whole["losses"][:4], whole["losses"][4:]) \
+        if losses != (whole["losses"][:4], whole["losses"][4:]) \
                 or [h["step"] for h in second[r]["history"]] != [4, 5] \
                 or second[r]["digest"] != whole["digest"]:
             raise AssertionError(f"pg lgc_rar resumed rank {r}: losses "
-                                 f"{got} or its digest differ from the "
+                                 f"{losses} or its digest differ from the "
                                  f"uninterrupted run's {whole['losses']}")
         per_step(fused_ef_topk=1)(first[r]["launches"],
                                   [h["phase"] for h in first[r]["history"]])
@@ -1936,11 +2046,11 @@ def pg_fault_runs(dev, runs, smi: str, n_leaves: int,
                  [h["phase"] for h in second[r]["history"]])
     runs["pg lgc_rar stopped"] = {"launches": summed_launches(first)}
     runs["pg lgc_rar resumed"] = {"launches": summed_launches(second)}
-    emit("pg_resume", card=smi, nodes=K, file_bytes=nbytes,
+    emit("pg_resume", card=smi, nodes=2, file_bytes=nbytes,
          save_s=[rec["history"][3]["checkpoint_s"] for rec in first],
          load_s=[rec["resumed"]["seconds"] for rec in second],
          resumed_at=[rec["resumed"]["step"] for rec in second],
-         launch_s=[launch1["launch_s"], launch2["launch_s"]],
+         launch=launch2,
          step_ms={"stopped": [[h["ms"] for h in rec["history"]]
                               for rec in first],
                   "resumed": [[h["ms"] for h in rec["history"]]
@@ -1952,6 +2062,134 @@ def pg_fault_runs(dev, runs, smi: str, n_leaves: int,
                  "resumed": [[h["loss"] for h in rec["history"]]
                              for rec in second]},
          bitwise=True)
+
+
+# tp_train: llama3.2-1b at N_LAYERS in f32 on the (data 2, model 2) mesh,
+# each run against its emulated K = 2 twin of the same flags: losses
+# within TP_LOSS_REL of the twin's (TP sums each matmul in another order,
+# and AdamW turns a rounding-sized difference at a near-zero gradient
+# into a whole step)
+TP_LOSS_REL = 2e-5
+TP_AUTO_STEPS = 4
+# tp_serve: llama3.2-1b at full depth in bf16, and the f32 check
+TP_SERVE = (("tp serve B4 P64 G32", ["--model-shards", "2", "--batch", "4",
+                                      "--prompt-len", "64", "--gen", "32"],
+             None),
+            ("tp serve B1 P4096 seq", ["--data-shards", "2", "--batch", "1",
+                                       "--prompt-len", "4096", "--gen", "8"],
+             None),
+            ("tp serve f32 B4 P64 G16", ["--model-shards", "2", "--batch",
+                                         "4", "--prompt-len", "64", "--gen",
+                                         "16"], "float32"))
+
+
+def tp_serve_specs():
+    return [pg_spec(name, flags, n_layers=None, kind="serve", dtype=dtype)
+            for name, flags, dtype in TP_SERVE]
+
+
+def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
+    """tp_train: the lgc_rar and auto (``none``) runs with model shards,
+    each rank against the emulated twin's losses (TP_LOSS_REL), its held
+    bytes against the dry run's per-device prediction for host_mesh(2, 2)
+    to the byte, K1 and K3 launched on every rank of lgc_rar."""
+    from repro_torch.configs.base import CompressionConfig, InputShape
+    from repro_torch.dist import plan as XP
+    from repro_torch.launch.dryrun import per_device_bytes
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.steps import lgc_state_specs
+    from repro_torch.models.model import build_model
+    model = build_model(_f32_llama())
+    shape = InputShape("tp_train", 128, 8, "train")
+    # the rows a node of one model shard's column moves: the per-shard
+    # layout's plan
+    cc = CompressionConfig(method="lgc_rar")
+    shard = lgc_state_specs(model, cc, host_mesh(2, 2)).compressor.layout
+    priced = {phase: XP.wire_terms_by_op(XP.build_plan(cc, shard, 2,
+                                                       phase=phase))
+              for phase in ("warmup", "topk_ae", "compressed")}
+    for name, twin_name, method in (("tp lgc_rar", "lgc_rar f32",
+                                     "lgc_rar"),
+                                    ("tp none", "none f32", "none")):
+        recs, twin = got[name], runs[twin_name]
+        want, _ = per_device_bytes(model, shape, host_mesh(2, 2),
+                                   compression=method, fsdp="on")
+        losses = [[h["loss"] for h in rec["history"]] for rec in recs]
+        worst = max(abs(a - b) / abs(b) for ls in losses
+                    for a, b in zip(ls, twin["losses"]))
+        held = [rec["held"] for rec in recs]
+        steady = [{} for _ in recs]
+        for r, rec in enumerate(recs):
+            for h in rec["history"][1:]:
+                steady[r].setdefault(h["phase"], []).append(h["ms"])
+        emit("tp_train", run=name, twin=twin_name, card=smi,
+             backend=PG_BACKEND, mesh={"data": 2, "model": 2},
+             n_layers=N_LAYERS, dtype="float32", seq=128, batch=8,
+             reduced=["n_layers"], launch=launch, losses=losses,
+             twin_losses=twin["losses"], worst_rel=worst,
+             tol_rel=TP_LOSS_REL, held=held,
+             predicted={k: want[k] for k in ("params", "optimizer",
+                                             "compressor")},
+             step_ms=steady, twin_step_ms=twin["step_ms"],
+             peak_gib=[rec["peak_gib"] for rec in recs],
+             twin_peak_gib=twin["peak_gib"],
+             launches=[rec["launches"] for rec in recs],
+             wire=recs[0]["wire"])
+        if len(losses[0]) != len(twin["losses"]) or worst > TP_LOSS_REL:
+            raise AssertionError(f"{name}: losses {losses} against the "
+                                 f"twin's {twin['losses']}")
+        for r, h in enumerate(held):
+            if h != {k: want[k] for k in h}:
+                raise AssertionError(f"{name} rank {r} holds {h}, the dry "
+                                     f"run predicts {want}")
+        if method == "lgc_rar":
+            for rec in recs:
+                lgc_step(rec["launches"],
+                         [h["phase"] for h in rec["history"]])
+            for r, rec in enumerate(recs):
+                if rec["wire"] != priced:
+                    raise AssertionError(f"{name} rank {r}: rows "
+                                         f"{rec['wire']} != the per-shard "
+                                         f"layout's {priced}")
+        runs["pg " + name] = {"launches": summed_launches(recs)}
+
+
+def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:
+    """tp_serve: each serving run's greedy tokens equal on every rank;
+    the f32 run's equal to one process's on this card; prefill ms, median
+    decode ms, tokens/s and peak GiB a rank."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    for spec in specs:
+        recs = got[spec["name"]]
+        toks = recs[0]["tokens"]
+        if any(rec["tokens"] != toks for rec in recs):
+            raise AssertionError(f"{spec['name']}: the ranks' tokens differ")
+        one = None
+        if spec["dtype"] == "float32":
+            # one process on this card, the same weights (seed 0)
+            gc_cuda()
+            cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                                      dtype="float32")
+            one = serve.run(cfg, serve.parse_args(
+                ["--batch", "4", "--prompt-len", "64", "--gen", "16"])
+                )["tokens"].tolist()
+            gc_cuda()
+            if one != toks:
+                raise AssertionError(f"{spec['name']}: tokens {toks} != one "
+                                     f"process's {one}")
+        B = len(toks)
+        emit("tp_serve", run=spec["name"], card=smi, backend=PG_BACKEND,
+             dtype=spec["dtype"] or "bfloat16", launch=launch,
+             prefill_ms=[rec["prefill_ms"] for rec in recs],
+             decode_ms_median=[sorted(rec["step_ms"])[len(rec["step_ms"])
+                                                      // 2] for rec in recs],
+             tokens_per_s=[B * len(rec["step_ms"]) / rec["decode_s"]
+                           for rec in recs],
+             peak_gib=[rec["peak_gib"] for rec in recs],
+             held=[rec["held"] for rec in recs],
+             tokens_equal_one_process=None if one is None else True,
+             tokens=toks[0][:8])
 
 
 def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
@@ -3068,7 +3306,6 @@ def main() -> None:
             f"ring_hier: peak {hier_runs[0]['peak_gib']} GiB with the "
             f"collector off exceeds {HIER_PEAK_GIB} GiB: a reference cycle "
             "keeps tensors alive")
-    pg_train_phase(dev, runs, smi, n_leaves, len(ENCODER))
     # train_4k's sequence length (its batch of 256 cut to 8: 4 sequences
     # a node): flash attention and each block rematerialised
     runs["lgc_rar seq 4096"] = train_phase(
@@ -3080,7 +3317,7 @@ def main() -> None:
     mla_cross_train_runs(dev, runs, K, lgc, len(ENCODER))
     guard_runs(dev, runs, n_leaves, K)
     resume_run(dev, runs, K, lgc)
-    pg_fault_runs(dev, runs, smi, n_leaves, len(ENCODER))
+    pg_phases(dev, runs, smi, n_leaves, len(ENCODER))
     convnet5_phase(dev, runs)
     serve_phase(dev)
     serve_moe_ssm_phase(dev)

@@ -167,12 +167,17 @@ class GradientCompressor:
 
     # -- AE online training (phase 2) ------------------------------------------
 
-    def _ae_update(self, state, g_nodes, inno_nodes, step: int):
+    def _ae_update(self, state, g_nodes, inno_nodes, step: int,
+                   ae_group=None):
         """One SGD step on the AE params (global-norm clip to 1, momentum
         0.9, lr ``ae_lr``), each momentum and parameter update one FMA
         as the reference's is under ``jit``.  g_nodes, inno_nodes: (K,
         mu_pad); the PS loss takes node ``step % K``'s encoding as the
-        common representation."""
+        common representation.  ``ae_group`` (a ``dist.tp.Group``, the
+        model group under tensor parallelism, where each model shard
+        compresses its own block of the gradient): the AE's gradients
+        and loss are averaged over it before the clip, the reference's
+        ``ae_axes`` pmean, so the shared AE stays replicated."""
         cc = self.cc
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state["ae"])]
@@ -185,6 +190,10 @@ class GradientCompressor:
             else:
                 ae_loss = AE.ae_loss_rar(ae, g_nodes)
             grads = torch.autograd.grad(ae_loss, leaves)
+        if ae_group is not None and ae_group.size > 1:
+            n = ae_group.size           # pmean: the sum over n, / n
+            grads = [ae_group.all_reduce(g) / n for g in grads]
+            ae_loss = ae_group.all_reduce(ae_loss.detach()) / n
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0)
         mom = [fma_f32(0.9, m, g * scale)
@@ -232,7 +241,7 @@ class GradientCompressor:
     # ==========================================================================
 
     @torch.no_grad()
-    def step(self, t, state, g, step: int, phase: str):
+    def step(self, t, state, g, step: int, phase: str, ae_group=None):
         """Compress the per-node gradients ``g`` (H, n) of the H nodes
         ``t.nodes`` held here and return (global gradient (n,), new state,
         stats).  ``state["u"]``/``["v"]`` (H, n) are updated in place."""
@@ -324,7 +333,8 @@ class GradientCompressor:
             gate = self._guard_gate(t, env, stats)
             sent = env["support_vals"]
             ae, ae_mom, ae_loss = self._ae_update(
-                state, env["gather_vals"], env.get("gather_inno"), step)
+                state, env["gather_vals"], env.get("gather_inno"), step,
+                ae_group)
             # the AE is not trained on a round that saw a fault (node 0's,
             # whose AE the step returns)
             if gate is not None:
@@ -375,7 +385,8 @@ class GradientCompressor:
         stats["wire"] = t.tally
         return global_g, states, stats
 
-    def dist_step(self, state, g, step: int, phase: str, group):
+    def dist_step(self, state, g, step: int, phase: str, group,
+                  ae_group=None):
         """One node per process (the reference's ``dist_step``): this
         process's flat gradient ``g`` (n,) and its state (u, v: (n,),
         updated in place; the AE replicated) over ``cc.transport`` across
@@ -384,11 +395,14 @@ class GradientCompressor:
         stats); ``stats["wire"]`` holds the nodes' mean of the bytes each
         sent, the emulated per-node rows, ``stats["wire_sent"]`` this
         process's own and ``stats["wire_messages"]`` its message count per
-        op.  Every process of the mesh calls it in the same step."""
+        op.  Every process of the mesh calls it in the same step.  Under
+        tensor parallelism ``group`` is this model shard's dp column, ``g``
+        its block of the gradient, and ``ae_group`` the model group over
+        which the shared AE's gradients are averaged."""
         t = self._transport(group)
         local = {**state, "u": state["u"][None], "v": state["v"][None]}
         global_g, new_state, stats = self.step(t, local, g[None], step,
-                                               phase)
+                                               phase, ae_group)
         new_state = {**new_state, "u": state["u"], "v": state["v"]}
         stats.update(wire=t.node_tally(), wire_sent=t.tally,
                      wire_messages=t.messages)

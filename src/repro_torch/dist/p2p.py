@@ -4,8 +4,9 @@ point-to-point exchange.
 
 :class:`ProcessMesh` is this process's place in the dp mesh: the mesh
 shape ``Ks`` ((K,) or (K_pod, K_data), row-major, node ia·K_data + i1 is
-the dp group's rank ia·K_data + i1), its node, and per mesh axis the ring
-through it with that ring's process group.  Every process of the world
+the dp column's rank ia·K_data + i1; under tensor parallelism each model
+shard has its own column), its node, and per mesh axis the ring through
+it with that ring's process group.  Every process of the world
 builds the same groups in the same order (``dist.new_group`` is
 collective).
 
@@ -118,39 +119,52 @@ class _Posted:
 
 class ProcessMesh:
     """One LGC node per process over the dp mesh ``Ks``, on the initialised
-    default process group: node r is rank r of the world, which must hold
-    exactly the mesh's K processes.  Every process constructs it (building
-    the rings' groups is collective).  ``device`` is where this node's
-    tensors live: a CUDA device on the gloo backend moves every message
-    through pinned host buffers."""
+    default process group.  The world is the (pod, data, model) mesh
+    ``Ks + (model,)`` in row-major order (``jax.make_mesh``'s device
+    order), rank (node·model + shard); this process's mesh is its model
+    shard's dp column, node i of it the world's rank i·model + shard, so
+    with ``model`` = 1 node r is rank r.  Every process constructs it,
+    building every column's groups and rings in the same order (building
+    a group is collective).  ``device`` is where this node's tensors
+    live: a CUDA device on the gloo backend moves every message through
+    pinned host buffers."""
 
-    def __init__(self, Ks: Sequence[int], device):
+    def __init__(self, Ks: Sequence[int], device, model: int = 1):
         if not dist.is_initialized():
             raise RuntimeError("ProcessMesh needs an initialised process "
                                "group (torch.distributed)")
         self.Ks = tuple(int(k) for k in Ks)
         self.K = math.prod(self.Ks)
-        if dist.get_world_size() != self.K:
-            raise ValueError(f"mesh {self.Ks} holds {self.K} nodes, not the "
-                             f"{dist.get_world_size()} processes")
-        self.node = dist.get_rank()
+        if dist.get_world_size() != self.K * model:
+            raise ValueError(f"mesh {self.Ks} x model {model} holds "
+                             f"{self.K * model} processes, not the "
+                             f"{dist.get_world_size()} of the world")
+        rank = dist.get_rank()
+        self.node, self.shard = divmod(rank, model)
         self.device = torch.device(device)
         self.backend = dist.get_backend()
         self.stage = self.device.type == "cuda" and self.backend == "gloo"
-        self.group = dist.group.WORLD
         self.coords = tuple(int(c) for c in np.unravel_index(self.node,
                                                              self.Ks))
-        grid = np.arange(self.K).reshape(self.Ks)
+        world = np.arange(self.K * model).reshape(self.Ks + (model,))
         self.rings: List[Ring] = []
-        for a in range(len(self.Ks)):
-            # every ring of axis a, the other axes row-major
-            for line in np.moveaxis(grid, a, -1).reshape(-1, self.Ks[a]):
-                line = tuple(int(r) for r in line)
-                group = self.group if len(self.Ks) == 1 \
-                    else dist.new_group(list(line))
-                if self.node in line:
-                    self.rings.append(Ring(line, line.index(self.node),
-                                           group))
+        for m in range(model):
+            grid = world[..., m]
+            ranks = tuple(int(r) for r in grid.reshape(-1))
+            col = dist.group.WORLD if model == 1 \
+                else dist.new_group(list(ranks))
+            if m == self.shard:
+                self.ranks, self.group = ranks, col
+            for a in range(len(self.Ks)):
+                # every ring of axis a, the other axes row-major
+                for line in np.moveaxis(grid, a, -1).reshape(-1,
+                                                             self.Ks[a]):
+                    line = tuple(int(r) for r in line)
+                    group = col if len(self.Ks) == 1 \
+                        else dist.new_group(list(line))
+                    if rank in line:
+                        self.rings.append(Ring(line, line.index(rank),
+                                               group))
 
     # -- messages -------------------------------------------------------------
 
@@ -243,7 +257,7 @@ class ProcessMesh:
         """Node ``leader``'s ``x`` on every node (each passes a tensor of
         the same shape and dtype)."""
         buf = self._wire(x)
-        dist.broadcast(buf, src=leader, group=self.group)
+        dist.broadcast(buf, src=self.ranks[leader], group=self.group)
         return self._back(buf)
 
     def gather_objects(self, obj) -> list:

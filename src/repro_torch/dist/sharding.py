@@ -25,6 +25,10 @@ Naming convention (paths are '/'-joined key paths, see models/layers.py):
 The FSDP axes then take the largest remaining dim they divide (size > 1;
 the lowest such dim on a tie); that includes a leading ``n_blocks`` dim
 of stacked blocks and biases, but not norm scales.
+
+``shard_tree`` cuts the block of every leaf that one device (one process
+of a ``launch.mesh.ProcessGrid``) holds under a tree of specs, and
+``gather_tree`` is its inverse across the processes.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from repro_torch.utils.tree import keystr_path, tree_leaves_with_path
+from repro_torch.utils.tree import (keystr_path, tree_leaves_with_path,
+                                    tree_unflatten)
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -161,3 +166,49 @@ def local_shape(shape: Sequence[int], spec: Spec,
                                  f"{spec}")
             out[d] //= denom
     return tuple(out)
+
+
+def _axes(entry: Entry) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def dims_over(spec: Spec, axis: str) -> Tuple[int, ...]:
+    """The dims of ``spec`` split over ``axis`` (alone or with others)."""
+    return tuple(d for d, e in enumerate(spec) if axis in _axes(e))
+
+
+def shard_tree(full: Any, specs: Dict[str, Spec], coords: Dict[str, int],
+               sizes: Dict[str, int]) -> Any:
+    """The block of every leaf of ``full`` that the device at ``coords``
+    ({axis: index}) holds on a mesh of ``sizes`` under ``specs``: a dim
+    over axes (a0, a1, ...) is cut into their product of blocks, block
+    i_a0·size_a1·... + i_a1 + ... (the first axis major, as a
+    ``PartitionSpec`` lays them); a dim whose entry is None stays whole."""
+    out = []
+    for path, leaf in tree_leaves_with_path(full):
+        x = leaf
+        for d, entry in enumerate(specs[keystr_path(path)]):
+            idx, n = 0, 1
+            for a in _axes(entry):
+                idx, n = idx * sizes.get(a, 1) + coords.get(a, 0), \
+                    n * sizes.get(a, 1)
+            if n > 1:
+                w = x.shape[d] // n
+                x = x.narrow(d, idx * w, w)
+        out.append(x)
+    return tree_unflatten(full, out)
+
+
+def gather_tree(local: Any, specs: Dict[str, Spec], groups: Dict[str, Any]
+                ) -> Any:
+    """The inverse of :func:`shard_tree` across processes: every leaf whole
+    on every process, each sharded dim all-gathered over its axes' groups
+    ({axis: ``dist.tp.Group``}), the last axis of an entry first."""
+    out = []
+    for path, x in tree_leaves_with_path(local):
+        for d, entry in enumerate(specs[keystr_path(path)]):
+            for a in reversed(_axes(entry)):
+                x = groups[a].all_gather(x, d)
+        out.append(x)
+    return tree_unflatten(local, out)

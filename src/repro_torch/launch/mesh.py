@@ -7,9 +7,11 @@ A :class:`MeshSpec` is a mesh's axis names and sizes, without devices:
 ``host_mesh`` a small one, and ``dp_axes_of``, ``dp_size_of`` and
 ``model_size_of`` read them as the reference reads a device mesh.
 
-torchrun sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; the dp mesh is
-(pod, data) in the reference's row-major order, node ia·K_data + i1 the
-process of rank ia·K_data + i1, and ``WORLD_SIZE`` must be pod x data.
+torchrun sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; the mesh is
+(pod, data, model) in the row-major order of ``jax.make_mesh``'s devices
+(rank r holds device r's coordinates: node ia·K_data + i1 and model shard
+m are rank (ia·K_data + i1)·model + m), and ``WORLD_SIZE`` must be pod x
+data x model (:class:`ProcessGrid`).
 Rank r runs on ``cuda:(LOCAL_RANK mod device_count)`` unless it is asked
 for the CPU, so K processes may share one card; without a card every rank
 raises.
@@ -25,10 +27,12 @@ import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.dist.p2p import ProcessMesh
+from repro_torch.dist.tp import Group
 from repro_torch.utils import resolve_device
 
 BACKENDS = ("gloo", "nccl")
@@ -89,18 +93,19 @@ def under_torchrun() -> bool:
     return "WORLD_SIZE" in os.environ and "RANK" in os.environ
 
 
-def layout_from_env(Ks: Sequence[int]):
+def layout_from_env(Ks: Sequence[int], model: int = 1):
     """(rank, world size, local rank) from torchrun's environment; raises
-    unless the world holds exactly the mesh's pod x data nodes."""
+    unless the world holds exactly the mesh's pod x data x model
+    processes."""
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_RANK", rank))
     K = math.prod(Ks)
-    if world != K:
+    if world != K * model:
         raise ValueError(
             f"WORLD_SIZE={world} processes for a dp mesh {tuple(Ks)} of {K} "
-            f"nodes: launch pod-shards x data-shards processes, one per "
-            f"node")
+            f"nodes x {model} model shards: launch pod-shards x data-shards "
+            f"x model-shards processes, one per shard")
     return rank, world, local
 
 
@@ -113,21 +118,74 @@ def rank_device(kind: str, local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
+@dataclass(eq=False)
+class ProcessGrid:
+    """This process's place in a launch's (pod, data, model) mesh, rank
+    r at the coordinates of ``jax.make_mesh``'s device r (row-major):
+    ``pm``, its model shard's dp column as a ``ProcessMesh`` (the LGC
+    step's wire); ``model``, the model group of its dp coordinate;
+    ``dp``, its column (pod and data); ``data``, the data group of its
+    (pod, model); ``pod``, the pod group of its (data, model)."""
+    spec: MeshSpec
+    rank: int
+    coords: Dict[str, int]
+    device: torch.device
+    pm: ProcessMesh
+    model: Group
+    dp: Group
+    data: Group
+    pod: Group
+
+    @property
+    def backend(self) -> str:
+        return self.pm.backend
+
+    def groups(self) -> Dict[str, Group]:
+        """{axis: group} for ``dist.sharding.gather_tree``."""
+        return {"pod": self.pod, "data": self.data, "model": self.model}
+
+
+def _axis_groups(world, axis: int, rank: int, device) -> Group:
+    """Every line of ``axis`` through the rank grid ``world`` as a group
+    (each rank creates all, in row-major order of the other axes); this
+    rank's."""
+    mine = None
+    size = world.shape[axis]
+    for line in np.moveaxis(world, axis, -1).reshape(-1, size):
+        ranks = [int(r) for r in line]
+        group = dist.new_group(ranks) if size > 1 else None
+        if rank in ranks:
+            mine = (ranks, group)
+    return Group(mine[0], mine[1], device)
+
+
 def init_process_mesh(Ks: Sequence[int], backend: Optional[str],
                       device_kind: str, init_method: str = "env://",
-                      timeout_s: float = 1800.0) -> ProcessMesh:
-    """Join the launch's process group and build the (pod, data) process
-    mesh: every rank creates the mesh's groups in the same order.
+                      timeout_s: float = 1800.0, model: int = 1
+                      ) -> ProcessGrid:
+    """Join the launch's process group and build the (pod, data, model)
+    process grid: every rank creates every group in the same order (the
+    dp columns and their rings, then the model, data and pod groups).
     ``backend`` is gloo or nccl, chosen by the caller (NCCL needs a card
     per rank)."""
     if backend not in BACKENDS:
         raise ValueError(f"a run under torchrun needs --dist-backend, one "
                          f"of {BACKENDS}; got {backend!r}")
-    rank, world, local = layout_from_env(Ks)
+    rank, world, local = layout_from_env(Ks, model)
     device = rank_device(device_kind, local)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
-    return ProcessMesh(Ks, device)
+    pm = ProcessMesh(Ks, device, model)
+    Ks = tuple(Ks)
+    pod, data = (Ks if len(Ks) == 2 else (1,) + Ks)
+    spec = host_mesh(data, model, pod)
+    grid = np.arange(world).reshape(pod, data, model)
+    coords = dict(zip(("pod", "data", "model"),
+                      (int(c) for c in np.unravel_index(rank, grid.shape))))
+    groups = [_axis_groups(grid, a, rank, device) for a in (2, 1, 0)]
+    return ProcessGrid(spec, rank, coords, device, pm, groups[0],
+                       Group(pm.ranks, pm.group, device), groups[1],
+                       groups[2])

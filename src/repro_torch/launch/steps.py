@@ -17,6 +17,15 @@ exchange is the whole cross-node traffic.
 reference's own single-host ConvNet5 loop (``tests/test_system.py``'s
 ``test_convnet5_paper_model_trains``), which has no trainer entry point.
 
+With model shards (a ``launch.mesh.ProcessGrid`` whose ``model`` axis
+is > 1) each process holds its model shard of the params and its node's
+block of the gradient goes through the compressor over its shard's dp
+column (``make_lgc_train_step(..., grid=)``).  The reference's other
+builders run one process a device of the grid, on explicit collectives
+(``dist.tp``): ``make_auto_train_step`` (TP over ``model``, FSDP over
+``data``, DP over ``pod``), ``make_prefill_step`` and
+``make_decode_step``.
+
 The placement rules of the reference's step builders (``batch_pspecs``,
 ``auto_train_pspecs``, ``lgc_state_specs``, ``serve_pspecs``,
 ``serve_cache_pspecs``, ``decode_token_pspec``) are pure functions of
@@ -24,7 +33,7 @@ the model and a ``launch.mesh.MeshSpec``, at the end of this module.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -35,6 +44,7 @@ from repro_torch.core.compressors import GradientCompressor, build_compressor
 from repro_torch.core.phases import phase_for_step
 from repro_torch.dist import sharding as SH
 from repro_torch.dist.p2p import ProcessMesh
+from repro_torch.dist.tp import Shards
 from repro_torch.launch.input_specs import params_specs
 from repro_torch.launch.mesh import (MeshSpec, dp_axes_of, dp_size_of,
                                      model_size_of)
@@ -53,6 +63,10 @@ class LGCTrainStep:
     optimizer: Optimizer
     device: torch.device
     mesh: Optional[ProcessMesh] = None     # one node per process
+    # tensor parallelism: the model group and this shard's coordinates;
+    # ``specs`` the params' {path: spec} over ``model``
+    grid: Any = None
+    specs: Optional[Dict[str, tuple]] = None
 
     @property
     def K(self) -> int:
@@ -63,6 +77,8 @@ class LGCTrainStep:
         n) accumulators, or under a process mesh this node's (n,).  Every
         process draws the same params and AE from the same seed."""
         params = self.model.init(gen, self.device)
+        if self.specs is not None:
+            params = shard_params(params, self.specs, self.grid)
         opt_state = self.optimizer.init(params)
         comp_state = self.compressor.init_sim_states(gen, self.device) \
             if self.mesh is None else \
@@ -92,7 +108,8 @@ class LGCTrainStep:
                 for m in self.mesh.gather_objects(
                     {k: v.cpu() for k, v in per_node[0].items()})], self.K)
             g_global, comp_state, stats = self.compressor.dist_step(
-                comp_state, g_nodes[0], step, phase, self.mesh)
+                comp_state, g_nodes[0], step, phase, self.mesh,
+                None if self.grid is None else self.grid.model)
         del g_nodes
         grads = tree_unflatten_vector(g_global, params)
         del g_global
@@ -176,19 +193,213 @@ def sim_sgd_step(loss_fn: Callable, compressor: GradientCompressor, params,
 
 def make_lgc_train_step(model: Model, tc: TrainConfig, K: int,
                         device: torch.device, Ks: Tuple[int, ...] = (),
-                        mesh: Optional[ProcessMesh] = None
+                        mesh: Optional[ProcessMesh] = None, grid=None
                         ) -> LGCTrainStep:
     """``Ks``: the K nodes' dp mesh shape, (K_pod, K_data) for a pod
     axis; node ia·K_data + i1 takes batch shard ia·K_data + i1, the
     reference's order over ("pod", "data").  ``mesh``: one node per
-    process over that mesh (``launch.mesh.init_process_mesh``)."""
+    process over that mesh (``launch.mesh.init_process_mesh``).
+
+    ``grid`` (a ``launch.mesh.ProcessGrid`` with model shards): the
+    reference's step with a model axis.  Each process holds its model
+    shard of the params (``lgc_state_specs``: replicated over dp), runs
+    the forward and backward with tensor parallelism over the model
+    group, and compresses its local flat gradient (the per-model-shard
+    layout, ``n_local``) over its model shard's dp column, the shared
+    AE's gradients averaged over the model group.  A leaf the spec does
+    not split (a norm scale) is compressed by every model shard, as in
+    the reference, which keeps each shard's copy."""
     if mesh is not None and (mesh.K, mesh.Ks) != (K, tuple(Ks or (K,))):
         raise ValueError(f"process mesh {mesh.Ks} is not the dp mesh "
                          f"{tuple(Ks or (K,))}")
-    template = model.init(torch.Generator(), "meta")
-    return LGCTrainStep(model,
-                        build_compressor(tc.compression, template, K, Ks),
-                        build_optimizer(tc), device, mesh)
+    if grid is None or model_size_of(grid.spec) == 1:
+        template = model.init(torch.Generator(), "meta")
+        return LGCTrainStep(model,
+                            build_compressor(tc.compression, template, K, Ks),
+                            build_optimizer(tc), device, mesh)
+    _check_clip(tc)
+    st = lgc_state_specs(model, tc.compression, grid.spec)
+    tp = Shards(model=grid.model, specs=st.params)
+    return LGCTrainStep(replace(model, tp=tp),
+                        build_compressor(tc.compression, st.template, K, Ks),
+                        build_optimizer(tc), device, mesh, grid, st.params)
+
+
+def _check_clip(tc: TrainConfig) -> None:
+    if tc.grad_clip_norm:
+        raise NotImplementedError(
+            "grad_clip_norm > 0 on sharded params: the global norm's sum "
+            "of squares over the distinct shards is not ported")
+
+
+def shard_params(full, specs: Dict[str, tuple], grid):
+    """This process's block of every leaf of ``full`` under ``specs``
+    (``dist.sharding.shard_tree``), each its own copy, so the whole tree
+    can be freed."""
+    return tree_map(lambda t: t.clone(), SH.shard_tree(
+        full, specs, grid.coords, grid.spec.axis_sizes))
+
+
+def held_bytes(tree) -> int:
+    """The bytes of the tensors of ``tree`` (what a process holds)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+# ===========================================================================
+# the auto step: TP over model, FSDP over data, DP over pod (processes)
+# ===========================================================================
+
+
+@dataclass(eq=False)
+class AutoTrainStep:
+    """The reference's ``make_auto_train_step`` one process per device of
+    the (pod, data, model) grid: each holds its block of the params and
+    of AdamW's moments under ``auto_train_pspecs``; the forward gathers a
+    block's ``data``-sharded dims on use (again under remat) and splits
+    heads, FFN and vocabulary over ``model``; the gather's backward
+    reduce-scatters the gradient over ``data``, a leaf no dp axis splits
+    has its gradient summed over the dp column, and every gradient is
+    summed over ``pod``.  The loss is the global batch's mean over its
+    valid tokens: this process's sum over the all-reduced count."""
+    model: Model
+    optimizer: Optimizer
+    grid: Any
+    pspecs: Dict[str, tuple]
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid.device
+
+    def init(self, gen: torch.Generator):
+        """Params (drawn whole from ``gen``, as one device draws them,
+        then cut to this process's block) and the optimizer state."""
+        return self.init_from(self.model.init(gen, self.device))
+
+    def init_from(self, full):
+        params = shard_params(full, self.pspecs, self.grid)
+        return params, self.optimizer.init(params)
+
+    def rows(self, batch: Dict[str, torch.Tensor]):
+        """This process's rows of the global batch: its dp node's."""
+        K, d = self.grid.pm.K, self.grid.pm.node
+        return {k: x[d * x.shape[0] // K:(d + 1) * x.shape[0] // K]
+                for k, x in batch.items()}
+
+    def grads(self, params, batch: Dict[str, torch.Tensor]):
+        """(loss, gradient tree): the global batch's loss and this
+        process's block of its gradient."""
+        grid = self.grid
+        shard = self.rows(batch)
+        n_tok = grid.dp.all_reduce((shard["labels"] >= 0).sum().float())
+        paths = [keystr_path(p) for p, _ in tree_leaves_with_path(params)]
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, _ = self.model.loss(tree_unflatten(params, leaves), shard,
+                                      n_tokens=n_tok)
+            grads = torch.autograd.grad(loss, leaves)
+        out = [grid.pod.all_reduce(g)
+               if SH.dims_over(self.pspecs[path], "data")
+               else grid.dp.all_reduce(g) for path, g in zip(paths, grads)]
+        return grid.dp.all_reduce(loss.detach()), tree_unflatten(params, out)
+
+    @torch.no_grad()
+    def step(self, params, opt_state, batch, step: int):
+        loss, grads = self.grads(params, batch)
+        params, opt_state = self.optimizer.update(grads, opt_state, params,
+                                                  step)
+        return params, opt_state, {"loss": loss}
+
+
+def make_auto_train_step(model: Model, tc: TrainConfig, grid
+                         ) -> AutoTrainStep:
+    """The auto step on ``grid`` (a ``launch.mesh.ProcessGrid``), its
+    placement ``auto_train_pspecs`` with FSDP, as the reference's
+    trainer builds it; the optimizer state takes its params' specs."""
+    _check_clip(tc)
+    pspecs = auto_train_pspecs(model, tc, grid.spec)[0]
+    tp = Shards(model=grid.model, fsdp=grid.data, specs=pspecs)
+    return AutoTrainStep(replace(model, tp=tp), build_optimizer(tc), grid,
+                         pspecs)
+
+
+# ===========================================================================
+# serving steps: TP over model, the batch or the cache's sequence over dp
+# ===========================================================================
+
+
+@dataclass(eq=False)
+class ServeLayout:
+    """How a serving grid holds the model and the cache: ``model`` bound
+    to the params' Shards; the batch rows of this process (``rows``, a
+    slice, when the dp column splits the batch), or the cache's sequence
+    split over ``data`` (``model.tp.seq``)."""
+    model: Model
+    grid: Any
+    pspecs: Dict[str, tuple]
+    rows: Optional[slice]
+
+
+def _serve_layout(model: Model, grid, shape: InputShape) -> ServeLayout:
+    """The reference's serving placement on ``grid``: ``serve_pspecs``,
+    and the cache's ``serve_cache_pspecs`` (its batch over the dp axes
+    when they divide it and it is > 1, as ``decode_token_pspec`` splits
+    the tokens; else its sequence over ``data``)."""
+    spec = grid.spec
+    pspecs = serve_pspecs(model, spec)
+    cache = model.init_cache(shape.global_batch, shape.seq_len, "meta")
+    cspecs = serve_cache_pspecs(cache, spec)
+    kv = next(v for k, v in cspecs.items() if k.endswith("/k"))
+    rows, seq = None, None
+    if kv[1] is not None:
+        B, K, d = shape.global_batch, grid.pm.K, grid.pm.node
+        rows = slice(d * B // K, (d + 1) * B // K)
+    elif kv[2] == "data":
+        if model.cfg.sliding_window or spec.axis_sizes.get("pod", 1) > 1:
+            raise NotImplementedError(
+                "a cache split along the sequence under a sliding window "
+                "or over pods is not ported")
+        seq = grid.data
+    fsdp = any(SH.dims_over(sp, "data") for sp in pspecs.values())
+    tp = Shards(model=grid.model, fsdp=grid.data if fsdp else None,
+                specs=pspecs, seq=seq)
+    return ServeLayout(replace(model, tp=tp), grid, pspecs, rows)
+
+
+def _gather_rows(lay: ServeLayout, logits):
+    return logits if lay.rows is None else lay.grid.dp.all_gather(logits, 0)
+
+
+def make_prefill_step(model: Model, grid, shape: InputShape):
+    """The reference's ``make_prefill_step`` on a process grid: returns
+    (prefill(params, batch, cache_len) -> (the (B, 1, V) last-token
+    logits, whole on every process; this process's cache), the
+    ServeLayout; ``params`` this process's block under
+    ``serve_pspecs``)."""
+    lay = _serve_layout(model, grid, shape)
+
+    def prefill(params, batch, cache_len=None):
+        if lay.rows is not None:
+            batch = {k: x[lay.rows] for k, x in batch.items()}
+        logits, cache = lay.model.prefill(params, batch,
+                                          cache_len=cache_len)
+        return _gather_rows(lay, logits), cache
+    return prefill, lay
+
+
+def make_decode_step(model: Model, grid, shape: InputShape):
+    """The reference's ``make_decode_step`` on a process grid: returns
+    (decode(params, cache, tokens (B, 1), pos) -> (the (B, 1, V) logits,
+    whole on every process; the cache, updated in place), the
+    ServeLayout)."""
+    lay = _serve_layout(model, grid, shape)
+
+    def decode(params, cache, tokens, pos: int):
+        if lay.rows is not None:
+            tokens = tokens[lay.rows]
+        logits, cache = lay.model.decode_step(params, cache, tokens, pos)
+        return _gather_rows(lay, logits), cache
+    return decode, lay
 
 
 # ===========================================================================

@@ -51,6 +51,24 @@ with the replicated rest), and ``--resume <dir>/ckpt.npz`` has each read
 its own file and receive the rest from node 0, bit for bit as an
 uninterrupted run; a torn save makes every process raise
 ``CheckpointError``.
+
+``--model-shards`` M > 1 (under torchrun only: one process holds one
+model shard) makes the world the (pod, data, model) mesh, pod x data x M
+processes.  With a compression method each process compresses its model
+shard's block of its node's gradient over its shard's dp column
+(``launch.steps.make_lgc_train_step`` with a grid: tensor parallelism
+over ``model``, the per-model-shard layout, the AE's gradients averaged
+over ``model``).  Under torchrun ``--compression none`` runs the
+reference's auto step at any M, as the reference's trainer does
+(``use_lgc``): TP over ``model``, FSDP over ``data``, DP over ``pod``
+(``make_auto_train_step``); the emulated one-process run keeps its K-node
+``none`` through the LGC step, since one process holds no shards.  A
+model-sharded or auto run refuses ``--checkpoint-dir`` and ``--resume``
+(ROADMAP.md Queue 1 item 6).
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --data-shards 2 --model-shards 2 \
+        --dist-backend gloo --compression lgc_rar --smoke --device cpu ...
 """
 from __future__ import annotations
 
@@ -74,8 +92,10 @@ from repro_torch.core.rate import rate_report
 from repro_torch.data import synthetic_token_batches
 from repro_torch.dist import chaos
 from repro_torch.kernels import LAUNCHES
+from repro_torch.dist.sharding import gather_tree
 from repro_torch.launch.mesh import init_process_mesh, under_torchrun
-from repro_torch.launch.steps import make_lgc_train_step
+from repro_torch.launch.steps import (held_bytes, make_auto_train_step,
+                                      make_lgc_train_step)
 from repro_torch.models.model import build_model
 from repro_torch.utils import (deterministic_convs, disable_tf32,
                                resolve_device)
@@ -164,6 +184,9 @@ def parse_args(argv=None):
     p.add_argument("--pod-shards", type=int, default=1,
                    help="pods: the dp mesh becomes (pod x data), K = pod "
                         "x data nodes, the two levels of ring_hier")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help="tensor parallelism over this many processes a "
+                        "node (under torchrun only)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--checkpoint-every", type=int, default=0)
@@ -267,26 +290,61 @@ def run(cfg: ModelConfig, args,
         if args.dist_backend:
             raise ValueError("--dist-backend is for a run under torchrun "
                              "(one node per process)")
+        if args.model_shards > 1:
+            raise ValueError(
+                f"--model-shards {args.model_shards} needs one process a "
+                f"shard: launch it under torchrun (python -m "
+                f"torch.distributed.run --nproc-per-node "
+                f"{K * args.model_shards} ...)")
         return _run(cfg, args, cc, tc, Ks, K, None,
                     resolve_device(args.device), on_step)
-    mesh = init_process_mesh(Ks, args.dist_backend, args.device,
-                             args.dist_init)
+    grid = init_process_mesh(Ks, args.dist_backend, args.device,
+                             args.dist_init, model=args.model_shards)
     try:
-        return _run(cfg, args, cc, tc, Ks, K, mesh, mesh.device, on_step)
+        return _run(cfg, args, cc, tc, Ks, K, grid, grid.device, on_step)
     finally:
         dist.destroy_process_group()
 
 
-def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
-    rank0 = mesh is None or mesh.node == 0
+class _Auto:
+    """The auto step in the trainer's loop: no compressor state, no
+    wire."""
+
+    def __init__(self, model, tc, grid):
+        self.ats = make_auto_train_step(model, tc, grid)
+        self.specs = self.ats.pspecs
+
+    def init(self, gen):
+        params, opt_state = self.ats.init(gen)
+        return params, opt_state, {}
+
+    def step(self, params, opt_state, comp_state, batch, step, phase):
+        params, opt_state, metrics = self.ats.step(params, opt_state, batch,
+                                                   step)
+        return params, opt_state, comp_state, dict(metrics, wire={})
+
+
+def _run(cfg, args, cc, tc, Ks, K, grid, device, on_step):
+    mesh = None if grid is None else grid.pm
+    rank0 = grid is None or grid.rank == 0
     model = build_model(cfg)
-    lts = make_lgc_train_step(model, tc, K, device, Ks, mesh)
+    auto = grid is not None and cc.method == "none"
+    sharded = auto or args.model_shards > 1
+    if sharded and (args.checkpoint_dir or args.resume):
+        raise NotImplementedError(
+            "--checkpoint-dir / --resume of a sharded run (--model-shards "
+            "> 1, or the auto step of --compression none under torchrun) "
+            "is not ported (ROADMAP.md Queue 1 item 6)")
+    lts = _Auto(model, tc, grid) if auto else \
+        make_lgc_train_step(model, tc, K, device, Ks, mesh, grid)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, opt_state, comp_state = lts.init(gen)
-    layout = lts.compressor.layout
+    layout = None if auto else lts.compressor.layout
     if rank0:
-        log.info("arch=%s params=%s device=%s nodes=%d mesh=%s%s", cfg.name,
-                 f"{layout.n_total:,}", device, K, Ks,
+        log.info("arch=%s params=%s device=%s nodes=%d mesh=%s%s%s",
+                 cfg.name, "auto step" if auto else f"{layout.n_total:,}",
+                 device, K, Ks, "" if args.model_shards == 1 else
+                 f" x model {args.model_shards}",
                  "" if mesh is None else
                  f" one per process ({mesh.backend})")
     start, resumed = 0, None
@@ -305,8 +363,8 @@ def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
                    "seconds": time.perf_counter() - t0}
         log.info("resumed the full train state from %s at step %d",
                  args.resume, start)
-    report = rate_report(cc, layout, K)
-    if rank0:
+    report = None if auto else rate_report(cc, layout, K)
+    if rank0 and not auto:
         log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
                  report.compression_ratio, report.bytes_per_node)
 
@@ -320,7 +378,7 @@ def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
     guard_on, faults = cc.guard != "off", 0
     history, wire, sent = [], {}, {}
     for step in range(start, args.steps):
-        phase = phase_for_step(step, cc)
+        phase = "dense" if auto else phase_for_step(step, cc)
         batch = to_device(next(data), device)
         chaos.reset_fault_tally()
         t0 = time.perf_counter()
@@ -343,7 +401,7 @@ def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
         if chaos.fault_report():
             rec["fault_ops"] = chaos.fault_report()
         history.append(rec)
-        if phase not in wire:
+        if phase not in wire and not auto:
             wire[phase] = metrics["wire"]
             if "wire_sent" in metrics:
                 sent[phase] = {"bytes": metrics["wire_sent"],
@@ -374,25 +432,34 @@ def _run(cfg, args, cc, tc, Ks, K, mesh, device, on_step):
     if args.metrics_out and rank0:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=1)
+    held = {"params": held_bytes(params), "optimizer": held_bytes(opt_state),
+            "compressor": held_bytes(comp_state)}
+    full = params
+    if sharded and args.report:
+        # the whole params on every process, for the digest
+        full = gather_tree(params, lts.specs, grid.groups())
     record = None
     if args.report:
-        record = _report(args, mesh, device, history, wire, sent, params,
-                         comp_state, resumed)
+        record = _report(args, grid, device, history, wire, sent, full,
+                         comp_state, resumed, held)
     return {"history": history, "wire": wire, "rate": report,
-            "compressor": lts.compressor, "params": params,
-            "resumed": resumed, "report": record}
+            "compressor": None if auto else lts.compressor,
+            "params": params, "full_params": full, "opt_state": opt_state,
+            "comp_state": comp_state, "held": held, "resumed": resumed,
+            "report": record}
 
 
-def _report(args, mesh, device, history, wire, sent, params, comp_state,
-            resumed):
+def _report(args, grid, device, history, wire, sent, params, comp_state,
+            resumed, held):
     """This process's record, written to ``args.report``/rank<r>.json."""
-    rank = 0 if mesh is None else mesh.node
+    rank = 0 if grid is None else grid.rank
     digest, leaves = tree_digest({"params": params, **{
         k: comp_state[k] for k in ("ae", "ae_mom") if k in comp_state}})
     record = {
-        "rank": rank, "mesh": None if mesh is None else list(mesh.Ks),
+        "rank": rank, "mesh": None if grid is None else list(grid.pm.Ks),
+        "model_shards": args.model_shards,
         "history": history, "wire": wire, "sent": sent or None,
-        "digest": digest, "leaf_digests": leaves,
+        "digest": digest, "leaf_digests": leaves, "held": held,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30
         if device.type == "cuda" else None,
         "launches": dict(LAUNCHES), "resumed": resumed}

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tp as TP
 from repro_torch.models import flash
 from repro_torch.models.flash import blockwise_attention  # noqa: F401
 
@@ -112,30 +113,65 @@ def init_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
     }
 
 
-def attention_fwd(p, cfg: ModelConfig, x, positions):
+def _col(p, h, tp=None):
+    """A column-parallel linear (``h`` already through ``tp.copy``): a
+    bias whole on every shard is cut to this shard's columns, its
+    gradient summed over the model group."""
+    w = p["w"]
+    y = h @ w
+    if "b" in p:
+        b = p["b"]
+        if b.shape[-1] != w.shape[-1]:
+            b = tp.copy(b).narrow(-1, tp.m * w.shape[-1], w.shape[-1])
+        y = y + b
+    return y
+
+
+def _row(p, x, tp=None):
+    """A row-parallel linear: the partial products summed over the model
+    group (``tp.reduce``), then the bias once."""
+    y = x @ p["w"]
+    if tp is not None:
+        y = tp.reduce(y)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def attention_fwd(p, cfg: ModelConfig, x, positions, tp=None):
     """Pre-norm self-attention with residual, for training and prefill.
     x: (B, S, D).  Returns (x + attention, (k, v)): the roped keys and the
-    values, (B, S, KH, hd) each, which prefill keeps as the cache."""
+    values, (B, S, KH, hd) each, which prefill keeps as the cache.  Under
+    tensor parallelism (``tp``, a ``dist.tp.Shards``) ``wq``, ``wk``,
+    ``wv`` are column shards holding whole heads (the head counts are the
+    shards' widths over ``head_dim``: query heads [m·H/mp, (m+1)·H/mp)
+    meet their own kv heads [m·KH/mp, ...), GQA's contiguous grouping) and
+    ``wo`` a row shard, its products summed over the model group."""
     B, S, _ = x.shape
+    hd = cfg.head_dim
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    q = linear(p["wq"], h).view(B, S, cfg.n_heads, cfg.head_dim)
-    k = linear(p["wk"], h).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(p["wv"], h).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if tp is not None:
+        h = tp.copy(h)
+    q = _col(p["wq"], h, tp).view(B, S, p["wq"]["w"].shape[-1] // hd, hd)
+    k = _col(p["wk"], h, tp).view(B, S, p["wk"]["w"].shape[-1] // hd, hd)
+    v = _col(p["wv"], h, tp).view(B, S, p["wv"]["w"].shape[-1] // hd, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = flash.flash_attention(q, k, v, True, cfg.sliding_window)
-    return x + linear(p["wo"], o.reshape(B, S, -1)), (k, v)
+    return x + _row(p["wo"], o.reshape(B, S, -1), tp), (k, v)
 
 
 def decode_attention(q, k_cache, v_cache, *, kv_positions, pos: int,
-                     window: int = 0):
+                     window: int = 0, seq=None):
     """Single-token attention against a (possibly only partially valid)
     cache.  q: (B, 1, H, D); caches: (B, S, KH, D); kv_positions: (S,)
     absolute positions held by each cache slot; pos: the current
     position.  Slots with kv_positions > pos (unwritten: the int32-max
     sentinel) are masked, and under a window those pos - window or
     older.  Scores and softmax in f32; returns (B, 1, H, D) in q's
-    dtype."""
+    dtype.  ``seq``: the group over which the cache is split along the
+    sequence; each member's partial softmax is combined (the max
+    all-reduced, then the sums of exponentials and of weighted values)."""
     B, _, H, D = q.shape
     KH = k_cache.shape[2]
     qr = q.reshape(B, KH, H // KH, D).float()
@@ -144,48 +180,69 @@ def decode_attention(q, k_cache, v_cache, *, kv_positions, pos: int,
     valid = kv_positions <= pos
     if window:
         valid &= pos - kv_positions < window
-    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    s = s.masked_fill(~valid, float("-inf"))
+    if seq is not None:
+        mx = TP.all_reduce_max(s.amax(-1, keepdim=True), seq)
+        e = torch.exp(s - mx)
+        num = seq.all_reduce(torch.einsum("bhgk,bkhd->bhgd", e,
+                                          v_cache.float()))
+        o = num / seq.all_reduce(e.sum(-1, keepdim=True))
+        return o.reshape(B, 1, H, D).to(q.dtype)
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache, pos: int):
+def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None,
+                     seq=None):
     """x: (B, 1, D); cache: {"k", "v": (B, S, KH, hd), "pos": (S,) int32
     absolute positions}.  The token's k, v and position go into slot
     ``pos`` (``pos % S`` under a sliding window: a ring buffer) IN PLACE.
-    Returns (x + attention, cache)."""
+    Returns (x + attention, cache).  ``tp``: as in :func:`attention_fwd`
+    (the cache holds this shard's kv heads); ``seq``: the cache is split
+    along the sequence over this group, member i holding slots [i·S,
+    (i+1)·S), and the member holding ``pos`` writes it."""
     B = x.shape[0]
+    hd = cfg.head_dim
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    q = linear(p["wq"], h).view(B, 1, cfg.n_heads, cfg.head_dim)
-    k = linear(p["wk"], h).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(p["wv"], h).view(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = _col(p["wq"], h, tp).view(B, 1, p["wq"]["w"].shape[-1] // hd, hd)
+    k = _col(p["wk"], h, tp).view(B, 1, p["wk"]["w"].shape[-1] // hd, hd)
+    v = _col(p["wv"], h, tp).view(B, 1, p["wv"]["w"].shape[-1] // hd, hd)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     S = cache["k"].shape[1]
     slot = pos % S if cfg.sliding_window else pos
-    if not 0 <= slot < S:
+    if seq is not None:
+        if not 0 <= pos < S * seq.size:
+            raise IndexError(f"decode position {pos} is past the cache's "
+                             f"{S * seq.size} slots")
+        slot = pos - seq.index * S
+    elif not 0 <= slot < S:
         raise IndexError(f"decode position {pos} is past the cache's "
                          f"{S} slots")
-    cache["k"][:, slot].copy_(k[:, 0])
-    cache["v"][:, slot].copy_(v[:, 0])
-    cache["pos"][slot:slot + 1].fill_(pos)     # no host-to-device copy
+    if 0 <= slot < S:
+        cache["k"][:, slot].copy_(k[:, 0])
+        cache["v"][:, slot].copy_(v[:, 0])
+        cache["pos"][slot:slot + 1].fill_(pos)     # no host-to-device copy
     o = decode_attention(q, cache["k"], cache["v"],
                          kv_positions=cache["pos"], pos=pos,
-                         window=cfg.sliding_window)
-    return x + linear(p["wo"], o.reshape(B, 1, -1)), cache
+                         window=cfg.sliding_window, seq=seq)
+    return x + _row(p["wo"], o.reshape(B, 1, -1), tp), cache
 
 
 INT32_MAX = 2 ** 31 - 1       # a cache slot's position before it is written
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
-                         device, lead=()):
+                         device, lead=(), kv_heads: int = 0):
     """Zero k, v (lead + (B, S, KH, hd)) and int32-max positions
     (lead + (S,)), so decode masks every slot not yet written; S is
-    ``seq_len``, or the window under a sliding window."""
+    ``seq_len``, or the window under a sliding window; KH is
+    ``kv_heads`` (a model shard's) or ``cfg.n_kv_heads``."""
     S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    shape = tuple(lead) + (batch, S, cfg.n_kv_heads, cfg.head_dim)
+    shape = tuple(lead) + (batch, S, kv_heads or cfg.n_kv_heads,
+                           cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -384,8 +441,16 @@ def init_swiglu(gen, d_model, d_ff, dtype, device, lead=()):
     }
 
 
-def swiglu_fwd(p, x, eps=1e-5, residual=True):
+def swiglu_fwd(p, x, eps=1e-5, residual=True, tp=None):
+    """Pre-norm SwiGLU.  Under tensor parallelism (``tp``) ``w_gate`` and
+    ``w_up`` are column shards and ``w_down`` a row shard; its products
+    are summed over the model group before the residual is added."""
     h = rmsnorm(p["norm"], x, eps)
+    if tp is not None:
+        h = tp.copy(h)
+        y = _row(p["w_down"], F.silu(_col(p["w_gate"], h, tp))
+                 * _col(p["w_up"], h, tp), tp)
+        return x + y if residual else y
     y = linear(p["w_down"],
                F.silu(linear(p["w_gate"], h)) * linear(p["w_up"], h))
     return x + y if residual else y

@@ -43,9 +43,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, CROSS, MAMBA, MLA, ModelConfig
+from repro_torch.dist import tp as TP
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.utils.tree import tree_count_params, tree_map
+from repro_torch.utils.tree import (keystr_path, tree_count_params,
+                                    tree_leaves_with_path, tree_map,
+                                    tree_unflatten)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -65,12 +68,21 @@ def _has_ffn(cfg: ModelConfig) -> bool:
     return cfg.d_ff > 0 or cfg.moe is not None
 
 
+# the ROADMAP item that shards the other block kinds over ``model``
+TP_ITEM = "ROADMAP.md Queue 1 item 5"
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    # a sharded forward (``dist.tp.Shards``): each process holds its
+    # shards of the params and computes on them with explicit collectives
+    tp: Optional[TP.Shards] = None
 
     def __post_init__(self):
         cfg = self.cfg
+        if self.mp > 1:
+            self._check_tp()
         for kind in cfg.block_pattern:
             if kind == MLA:
                 # the reference builds this kind's params, but its loss,
@@ -88,6 +100,72 @@ class Model:
                                                and cfg.encoder_dim):
             raise ValueError(f"{cfg.name}: a cross block needs "
                              "num_encoder_tokens and encoder_dim")
+
+    @property
+    def mp(self) -> int:
+        return self.tp.mp if self.tp is not None else 1
+
+    def _check_tp(self):
+        """Tensor parallelism covers the dense decoder: attention and
+        SwiGLU, whole heads on every shard."""
+        cfg, mp = self.cfg, self.mp
+        kinds = [k for k, on in (
+            ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
+            ("Mamba2", MAMBA in cfg.block_pattern),
+            ("cross-attention", CROSS in cfg.block_pattern),
+            ("MTP", cfg.mtp_depth > 0)) if on]
+        if kinds:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(kinds)} under --model-shards "
+                f"{mp} is not ported ({TP_ITEM}); the dense decoder is")
+        if cfg.n_heads % mp or cfg.n_kv_heads % mp:
+            raise ValueError(
+                f"{cfg.name}: --model-shards {mp} splits a head ({cfg.n_heads}"
+                f" query, {cfg.n_kv_heads} kv heads): the port needs whole "
+                f"heads on each shard (ROADMAP.md Queue 3)")
+
+    def _tpm(self):
+        """The Shards when the heads are split over ``model``, else None."""
+        return self.tp if self.mp > 1 else None
+
+    def _w(self, params, path: str):
+        """The leaf at ``path``, its data-sharded dims gathered."""
+        x = params
+        for key in path.split("/"):
+            x = x[key]
+        return x if self.tp is None else self.tp.leaf(path, x)
+
+    def _sub(self, params, prefix: str):
+        """The subtree at ``prefix``, every leaf gathered."""
+        if self.tp is None:
+            return params[prefix]
+        return tree_unflatten(params[prefix], [
+            self.tp.leaf(f"{prefix}/{keystr_path(path)}", x)
+            for path, x in tree_leaves_with_path(params[prefix])])
+
+    def _block(self, params, i: int):
+        if self.tp is None:
+            return _block(params, i)
+        return self.tp.block(params["blocks"], i)
+
+    def _embed(self, params, tokens):
+        """The embedding rows of ``tokens``; over a vocab-sharded table,
+        each shard's own rows (zero elsewhere) summed over ``model``."""
+        w = self._w(params, "embed/w")
+        if w.shape[0] == self.cfg.vocab_size:
+            return w[tokens]
+        Vl = w.shape[0]
+        ids = tokens - self.tp.m * Vl
+        mine = (ids >= 0) & (ids < Vl)
+        h = w[ids.clamp(0, Vl - 1)].masked_fill(~mine[..., None], 0)
+        return self.tp.reduce(h)
+
+    def _logits(self, h, w):
+        """(h @ w) in f32, a vocab-sharded head's columns gathered."""
+        logits = (h @ w).float()
+        if w.shape[-1] != self.cfg.vocab_size:
+            logits = self.tp.model.all_gather(logits, -1)
+        return logits
 
     def _init_position(self, gen, pos: int, device, lead):
         """Params of pattern position ``pos``, stacked over ``lead``."""
@@ -135,15 +213,16 @@ class Model:
 
     def _lm_head_w(self, params):
         if self.cfg.tie_embeddings:
-            return params["embed"]["w"].T
-        return params["lm_head"]["w"]
+            return self._w(params, "embed/w").T
+        return self._w(params, "lm_head/w")
 
     def _mixer(self, p, kind: str, h, positions, enc):
         """One position's mixer, for training (and the MTP block)."""
         cfg = self.cfg
         if kind == ATTN:
-            fwd = L.mla_fwd if cfg.mla is not None else L.attention_fwd
-            return fwd(p, cfg, h, positions)[0]
+            if cfg.mla is not None:
+                return L.mla_fwd(p, cfg, h, positions)[0]
+            return L.attention_fwd(p, cfg, h, positions, self._tpm())[0]
         if kind == MAMBA:
             return M.mamba_fwd(p, cfg, h)
         return L.cross_attention_fwd(p, cfg, h,
@@ -157,11 +236,19 @@ class Model:
         if _moe_at(self.cfg, pos):
             h, a = L.moe_fwd(p["ffn"], self.cfg, h, dropless=dropless)
             return h, (None if aux is None else aux + a)
-        return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps), aux
+        return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps,
+                            tp=self._ffn_tp(p["ffn"])), aux
+
+    def _ffn_tp(self, p):
+        """The Shards when this SwiGLU's hidden dim is split over
+        ``model`` (its spec put ``model`` there), else None."""
+        if self.mp > 1 and p["w_gate"]["w"].shape[-1] != self.cfg.d_ff:
+            return self.tp
+        return None
 
     def _block_fn(self, params, i: int, h, aux, positions, enc):
         """Superblock i, every pattern position in order: (h, aux)."""
-        blk = _block(params, i)
+        blk = self._block(params, i)
         for pos, kind in enumerate(self.cfg.block_pattern):
             p = blk[f"p{pos}"]
             h = self._mixer(p["mixer"], kind, h, positions, enc)
@@ -175,7 +262,7 @@ class Model:
         superblock under ``checkpoint``, which keeps only its inputs and
         recomputes the rest in the backward."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        h = params["embed"]["w"][tokens]
+        h = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(self.cfg.n_blocks):
             if remat:
@@ -189,7 +276,8 @@ class Model:
                 h, aux = self._block_fn(params, i, h, aux, positions, enc)
         return h, aux
 
-    def loss(self, params, batch, remat: Optional[bool] = None):
+    def loss(self, params, batch, remat: Optional[bool] = None,
+             n_tokens=None):
         """batch: {"tokens": (B, S), "labels": (B, S) (-1 = pad),
         ["encoder_embeds": (B, T, encoder_dim)]} on the params' device.
         ``remat`` None or True recomputes each block and each
@@ -197,17 +285,19 @@ class Model:
         the same operations on the same inputs, so the same values (bit
         for bit where the embedding's backward sums in a fixed order).
         The loss is (the mean cross-entropy + 0.3 x the MTP loss) + the
-        MoE layers' aux, in the reference's order.  Returns (loss,
-        metrics)."""
+        MoE layers' aux, in the reference's order.  ``n_tokens``: the
+        count the cross-entropy's sum is divided by (the global batch's
+        valid tokens, when this process holds a part of the batch), else
+        this batch's.  Returns (loss, metrics)."""
         cfg = self.cfg
         remat = True if remat is None else remat
         tokens, labels = batch["tokens"], batch["labels"]
         h, aux = self._trunk(params, tokens, batch.get("encoder_embeds"),
                              remat=remat)
-        h = L.rmsnorm(params["final_norm"], h, cfg.rms_norm_eps)
-        xent, n_tok = _chunked_xent(h, self._lm_head_w(params), labels,
-                                    remat=remat)
-        loss = xent / torch.clamp(n_tok, min=1.0)
+        h = L.rmsnorm(self._sub(params, "final_norm"), h, cfg.rms_norm_eps)
+        xent, n_tok = self._xent(h, self._lm_head_w(params), labels, remat)
+        loss = xent / torch.clamp(n_tok if n_tokens is None else n_tokens,
+                                  min=1.0)
         metrics = {"xent": loss, "aux_loss": aux, "tokens": n_tok}
         if cfg.mtp_depth > 0:
             mtp = self._mtp_loss(params, h, tokens, labels, remat)
@@ -229,8 +319,8 @@ class Model:
         and ``xent_chunk_plan`` pad instead, with the same values up to
         the order of f32 sums."""
         cfg = self.cfg
-        p = params["mtp"]
-        e_next = params["embed"]["w"][tokens[:, 1:]]
+        p = self._sub(params, "mtp")
+        e_next = self._embed(params, tokens[:, 1:])
         hh = torch.cat([L.rmsnorm(p["norm_h"], h[:, :-1], cfg.rms_norm_eps),
                         L.rmsnorm(p["norm_e"], e_next, cfg.rms_norm_eps)],
                        dim=-1)
@@ -239,20 +329,36 @@ class Model:
         hm = self._mixer(p["block"]["mixer"], cfg.block_pattern[0], hm,
                          positions, None)
         hm, _ = self._ffn(p["block"], 0, hm)
-        hm = L.rmsnorm(params["final_norm"], hm, cfg.rms_norm_eps)
-        xent, n_tok = _chunked_xent(hm, self._lm_head_w(params),
-                                    labels[:, 1:], remat=remat)
+        hm = L.rmsnorm(self._sub(params, "final_norm"), hm, cfg.rms_norm_eps)
+        xent, n_tok = self._xent(hm, self._lm_head_w(params), labels[:, 1:],
+                                 remat)
         return xent / torch.clamp(n_tok, min=1.0)
+
+    def _xent(self, h, w, labels, remat: bool):
+        """(sum of xent, valid tokens); over a vocab-sharded head, the
+        vocab-parallel cross-entropy on the full vocabulary's chunk
+        plan."""
+        if w.shape[-1] == self.cfg.vocab_size:
+            return _chunked_xent(h, w, labels, remat=remat)
+        return _chunked_xent(self.tp.copy(h), w, labels, remat=remat,
+                             group=self.tp.model,
+                             vocab=self.cfg.vocab_size)
 
     def param_count(self) -> int:
         return tree_count_params(self.init(torch.Generator(), "meta"))
 
     # -- inference ------------------------------------------------------------
 
+    def _seq_parts(self) -> int:
+        return self.tp.seq.size if self.tp is not None \
+            and self.tp.seq is not None else 1
+
     def init_cache(self, batch: int, seq_len: int, device="cpu"):
         """An empty cache for ``seq_len`` positions (the window under a
         sliding window), per pattern position, stacked over the blocks.
-        A cross position's k, v are f32 (see the module docstring)."""
+        A cross position's k, v are f32 (see the module docstring).
+        Sharded, an attention cache holds this shard's kv heads and, split
+        along the sequence, its part of the positions."""
         cfg, dtype = self.cfg, _dtype(self.cfg)
         lead = (cfg.n_blocks,)
 
@@ -261,8 +367,9 @@ class Model:
                 if cfg.mla is not None:
                     return L.init_mla_cache(cfg, batch, seq_len, dtype,
                                             device, lead)
-                return L.init_attention_cache(cfg, batch, seq_len, dtype,
-                                              device, lead)
+                return L.init_attention_cache(
+                    cfg, batch, seq_len // self._seq_parts(), dtype, device,
+                    lead, cfg.n_kv_heads // self.mp)
             if kind == MAMBA:
                 return M.init_mamba_cache(cfg, batch, dtype, device, lead)
             shape = lead + (batch, cfg.num_encoder_tokens, cfg.n_kv_heads,
@@ -290,9 +397,10 @@ class Model:
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
         cache = self.init_cache(B, cache_len or S, tokens.device)
-        h = params["embed"]["w"][tokens]
+        seq = self.tp.seq if self.tp is not None else None
+        h = self._embed(params, tokens)
         for i in range(cfg.n_blocks):
-            blk = _block(params, i)
+            blk = self._block(params, i)
             for pos, kind in enumerate(cfg.block_pattern):
                 p, c = blk[f"p{pos}"], cache[f"p{pos}"]
                 if kind == ATTN and cfg.mla is not None:
@@ -303,11 +411,18 @@ class Model:
                     c["pos"][i, :S] = positions.to(torch.int32)
                 elif kind == ATTN:
                     h, (k, v) = L.attention_fwd(p["mixer"], cfg, h,
-                                                positions)
+                                                positions, self._tpm())
                     n_slots = c["pos"].shape[1]
-                    keep = torch.arange(max(0, S - n_slots), S,
-                                        device=tokens.device)
-                    slots = keep % n_slots
+                    if seq is None:
+                        keep = torch.arange(max(0, S - n_slots), S,
+                                            device=tokens.device)
+                        slots = keep % n_slots
+                    else:
+                        # this member's slots [lo, lo + n_slots)
+                        lo = seq.index * n_slots
+                        keep = torch.arange(lo, max(lo, min(S, lo + n_slots)),
+                                            device=tokens.device)
+                        slots = keep - lo
                     c["k"][i][:, slots] = k[:, keep]
                     c["v"][i][:, slots] = v[:, keep]
                     c["pos"][i, slots] = keep.to(torch.int32)
@@ -321,8 +436,9 @@ class Model:
                     c["k"][i].copy_(k)
                     c["v"][i].copy_(v)
                 h, _ = self._ffn(p, pos, h)
-        h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.rms_norm_eps)
-        return (h @ self._lm_head_w(params)).float(), cache
+        h = L.rmsnorm(self._sub(params, "final_norm"), h[:, -1:],
+                      cfg.rms_norm_eps)
+        return self._logits(h, self._lm_head_w(params)), cache
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, pos: int):
@@ -333,24 +449,26 @@ class Model:
         cached k, v.  Returns (logits (B, 1, V) f32, the cache).  MoE
         runs dropless: few tokens a step, so capacity would drop them."""
         cfg = self.cfg
-        h = params["embed"]["w"][tokens]
+        seq = self.tp.seq if self.tp is not None else None
+        h = self._embed(params, tokens)
         for i in range(cfg.n_blocks):
-            blk = _block(params, i)
+            blk = self._block(params, i)
             for j, kind in enumerate(cfg.block_pattern):
                 p = blk[f"p{j}"]
                 c = {key: x[i] for key, x in cache[f"p{j}"].items()}  # views
-                if kind == ATTN:
-                    dec = (L.mla_decode if cfg.mla is not None
-                           else L.attention_decode)
-                    h, _ = dec(p["mixer"], cfg, h, c, pos)
+                if kind == ATTN and cfg.mla is not None:
+                    h, _ = L.mla_decode(p["mixer"], cfg, h, c, pos)
+                elif kind == ATTN:
+                    h, _ = L.attention_decode(p["mixer"], cfg, h, c, pos,
+                                              self._tpm(), seq)
                 elif kind == MAMBA:
                     h, _ = M.mamba_decode(p["mixer"], cfg, h, c)
                 else:
                     h = L.cross_attention_fwd(p["mixer"], cfg, h,
                                               (c["k"], c["v"]))
                 h, _ = self._ffn(p, j, h, dropless=True)
-        h = L.rmsnorm(params["final_norm"], h, cfg.rms_norm_eps)
-        return (h @ self._lm_head_w(params)).float(), cache
+        h = L.rmsnorm(self._sub(params, "final_norm"), h, cfg.rms_norm_eps)
+        return self._logits(h, self._lm_head_w(params)), cache
 
 
 def _block(params, i: int):
@@ -388,8 +506,26 @@ def xent_chunk_plan(S: int, target: int):
     return chunk, -(-S // chunk) * chunk
 
 
+def _xent_chunk_vp(hc, w, lb, group, lo: int):
+    """One chunk's (sum of xent, valid tokens) over this shard's vocab
+    columns [lo, lo + w.shape[-1]): the max and the sum of exponentials
+    all-reduced over ``group``, the target logit from the shard that
+    holds it."""
+    Vl = w.shape[-1]
+    logits = (hc @ w).float()
+    mx = TP.all_reduce_max(logits.amax(-1), group)
+    se = TP.reduce_from(torch.exp(logits - mx[..., None]).sum(-1), group)
+    lse = mx + torch.log(se)
+    ids = lb.long() - lo
+    mine = (ids >= 0) & (ids < Vl)
+    gold = logits.gather(-1, ids.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = TP.reduce_from(torch.where(mine, gold, 0.0), group)
+    valid = (lb >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
 def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28,
-                  remat: bool = False):
+                  remat: bool = False, group=None, vocab: int = 0):
     """Cross-entropy in sequence chunks, summed in order, so the (B,
     chunk, V) logits, not (B, S, V), bound the memory; with ``remat`` each
     chunk is recomputed in the backward, as the reference's
@@ -397,9 +533,11 @@ def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28,
     are the reference's unless its rule collapses (``xent_chunk_plan``);
     padded rows have label -1 and add exactly 0.  h: (B, S, D); w: (D,
     V); labels: (B, S), -1 = ignore.  Returns (sum_xent, n_tokens), f32
-    scalars."""
+    scalars.  ``group``: w is this process's vocab shard of ``vocab``
+    columns over that model group (the vocab-parallel cross-entropy, the
+    full vocabulary's chunk plan)."""
     B, S, _ = h.shape
-    V = w.shape[-1]
+    V = vocab or w.shape[-1]
     chunk, Sp = xent_chunk_plan(
         S, max(8, min(512, target_chunk_bytes // max(1, 4 * B * V))))
     if Sp != S:
@@ -407,13 +545,17 @@ def _chunked_xent(h, w, labels, target_chunk_bytes: int = 2 ** 28,
         labels = torch.nn.functional.pad(labels, (0, Sp - S), value=-1)
     xent = torch.zeros((), dtype=torch.float32, device=h.device)
     n_tok = torch.zeros((), dtype=torch.float32, device=h.device)
+    fn = _xent_chunk
+    args = ()
+    if group is not None:
+        fn, args = _xent_chunk_vp, (group, group.index * w.shape[-1])
     for c in range(0, Sp, chunk):
-        args = (h[:, c:c + chunk], w, labels[:, c:c + chunk])
+        a = (h[:, c:c + chunk], w, labels[:, c:c + chunk]) + args
         if remat:
-            x, n = checkpoint(_xent_chunk, *args, use_reentrant=False,
+            x, n = checkpoint(fn, *a, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, n = _xent_chunk(*args)
+            x, n = fn(*a)
         xent = xent + x
         n_tok = n_tok + n
     return xent, n_tok

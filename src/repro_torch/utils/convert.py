@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import shard_tree
 from repro_torch.utils.tree import tree_map
 
 
@@ -26,9 +27,17 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
-    """Model params (``repro.models.Model.init`` layout) as tensors."""
-    return tree_map(lambda a: _tensor(a, device), tree)
+def params_from_numpy(tree: Any, device="cpu", specs=None, coords=None,
+                      sizes=None) -> Any:
+    """Model params (``repro.models.Model.init`` layout) as tensors; with
+    ``specs`` ({path: spec}), the block of each that the device at
+    ``coords`` of a mesh of ``sizes`` holds (``dist.sharding.shard_tree``),
+    each its own copy."""
+    out = tree_map(lambda a: _tensor(a, device), tree)
+    if specs is None:
+        return out
+    return tree_map(lambda t: t.clone(),
+                    shard_tree(out, specs, coords or {}, sizes or {}))
 
 
 def ae_from_numpy(tree: Any, device="cpu") -> Any:

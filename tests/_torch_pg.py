@@ -5,7 +5,6 @@ store under the test's tmp dir (never a fixed TCP port: the suite's
 xdist workers share the machine), each on one torch thread, the whole
 launch killed at its own timeout so that a deadlock fails in seconds."""
 import os
-import re
 import subprocess
 import sys
 import time
@@ -13,18 +12,11 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def launch(tmp, argv, K: int, timeout: float = 120.0,
-           expect_error: str = ""):
+def launch(tmp, argv, K: int, timeout: float = 120.0):
     """Run ``argv`` (a command list; ``{store}`` in it becomes the store's
     file:// URL) as ranks 0..K-1; returns their stdouts.  Raises with
     every rank's output tail if any rank fails or the launch outlives
-    ``timeout`` seconds, after killing all of them.
-
-    ``expect_error``, an exception's class name: every rank must fail
-    with it instead, each on its own (no rank is killed for another's
-    exit), and the launch still fails if a rank succeeds, fails with
-    anything else, or outlives ``timeout``: a rank that raised while its
-    peers went on into a collective leaves them hanging."""
+    ``timeout`` seconds, after killing all of them."""
     store = os.path.join(str(tmp), "pg_store")
     if os.path.exists(store):
         os.remove(store)
@@ -42,8 +34,7 @@ def launch(tmp, argv, K: int, timeout: float = 120.0,
     failed = None
     try:
         while any(p.poll() is None for p in procs):
-            if not expect_error \
-                    and any(p.poll() not in (None, 0) for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
                 failed = "a rank failed"
                 break
             if time.monotonic() > deadline:
@@ -61,27 +52,13 @@ def launch(tmp, argv, K: int, timeout: float = 120.0,
         f.seek(0)
         outs.append(f.read())
         f.close()
-    if failed is None and expect_error:
-        last = [_last_error(o) for o in outs]
-        if not all(p.returncode and e.startswith(expect_error + ":")
-                   for p, e in zip(procs, last)):
-            failed = f"not every rank failed with {expect_error}: {last}"
-    elif failed is None and any(p.returncode for p in procs):
+    if failed is None and any(p.returncode for p in procs):
         failed = "a rank failed"
     if failed:
         tails = "\n".join(f"--- rank {r} (rc {p.returncode}):\n{o[-3000:]}"
                           for r, (p, o) in enumerate(zip(procs, outs)))
         raise AssertionError(f"{failed}:\n{tails}")
     return outs
-
-
-def _last_error(out: str) -> str:
-    """The last exception line of a traceback in ``out`` (under a process
-    group each line starts "[rank<r>]: "), its class name unqualified
-    ("WireFaultError: ..."), or ""."""
-    found = re.findall(r"^(?:\[rank\d+\]: )?(?:[\w.]+\.)?"
-                       r"(\w+(?:Error|Exception): .*)$", out, re.MULTILINE)
-    return found[-1] if found else ""
 
 
 def worker(script: str):

@@ -9,8 +9,7 @@ reference):
 - (a) K = 4, dgc on ``chaos:ring_packed --guard scrub --guard-checksum``
   with bit flips, NaNs and an inf on ``topk`` and node 2's contribution
   dropped, 5 steps with a checkpoint every 2, stopped after step 2 on
-  every rank (tests/_torch_pg_stop_worker.py, through ``run()``'s
-  ``on_step``): each step's loss and guard record (guard_ok, fault,
+  every rank (through ``run()``'s ``on_step``): each step's loss and guard record (guard_ok, fault,
   faults, fault_ops) are the twin's, and the 4 rank files stitched (u, v
   stacked, the rest node 0's) are the twin's file of step 3 key by key.
   The twin is one uninterrupted emulated 5-step run of the same flags:
@@ -27,18 +26,21 @@ reference):
   raises the twin's WireFaultError, at the same step;
 - the rank files' consistency check itself, in-process: a torn save, a
   missing or foreign file, another mesh, another node's file.
+
+Two launches run them all (tests/_torch_pg_faults_worker.py: the runs
+one after another in the same processes): (a) then (b) at K = 4; (c),
+the torn save and (d) at K = 2.
 """
 import json
 import os
 import shutil
-import sys
 
 import numpy as np
 import pytest
 import torch
 
 from _one_thread import one_thread  # noqa: F401  (autouse)
-from _torch_pg import _last_error, launch, worker
+from _torch_pg import launch, worker
 from repro_torch.checkpoint import (CheckpointError, check_rank_headers,
                                     rank_path, save_checkpoint,
                                     save_rank_checkpoint)
@@ -67,12 +69,16 @@ NODE_KEYS = {"comp_state/u", "comp_state/v"}
 META = {"__step__", "__mesh__", "__node__"}
 
 
-def _launch(tmp, name, flags, K, **kw):
-    """The entry point as K ranks, each writing its --report record into
-    tmp/name; returns the ranks' stdouts."""
-    return launch(tmp, [sys.executable, "-m", "repro_torch.launch.train"]
-                  + flags + ["--dist-backend", "gloo", "--dist-init",
-                             "{store}", "--report", str(tmp / name)], K, **kw)
+DIST = ["--dist-backend", "gloo", "--dist-init", "{store}"]
+
+
+def _chain(tmp, specs, K):
+    """Run ``specs`` (tests/_torch_pg_faults_worker.py's plan) as one
+    launch of K ranks."""
+    with open(tmp / "plan.json", "w") as f:
+        json.dump(specs, f)
+    launch(tmp, worker("_torch_pg_faults_worker.py") + [
+        str(tmp / "plan.json"), "{store}"], K, timeout=180)
 
 
 def _records(tmp, name, K):
@@ -105,8 +111,9 @@ def _hold(ranks, emu, first=0):
 
 @pytest.fixture(scope="module")
 def guarded(tmp_path_factory):
-    """(a): the K = 4 launch stopped after step 2, and the uninterrupted
-    emulated twin, whose file of step 3 is kept as ckpt3.npz."""
+    """(a): the K = 4 run stopped after step 2, then (b) resumed from its
+    rank files in the same launch; and the uninterrupted emulated twin,
+    whose file of step 3 is kept as ckpt3.npz."""
     tmp = tmp_path_factory.mktemp("pg_guarded")
     n = torch.get_num_threads()
     torch.set_num_threads(1)        # the ranks' one thread
@@ -117,10 +124,12 @@ def guarded(tmp_path_factory):
         if rec["step"] == 2:
             shutil.copyfile(emu_ckpt / "ckpt.npz", emu_ckpt / "ckpt3.npz")
     try:
-        launch(tmp, worker("_torch_pg_stop_worker.py") + [
-            "2", str(tmp / "ranks")] + flags + [
-            "--checkpoint-dir", str(tmp / "ckpt"), "--dist-backend", "gloo",
-            "--dist-init", "{store}"], 4)
+        _chain(tmp, [
+            {"argv": flags + ["--checkpoint-dir", str(tmp / "ckpt")] + DIST,
+             "stop_after": 2, "out": str(tmp / "ranks")},
+            {"argv": GUARDED + [
+                "--steps", "5", "--resume", str(tmp / "ckpt" / "ckpt.npz"),
+                "--report", str(tmp / "resumed")] + DIST}], 4)
         emu = train.run(get_arch("llama3.2-1b").reduced(), train.parse_args(
             flags + ["--checkpoint-dir", str(emu_ckpt), "--report",
                      str(tmp / "emu")]), on_step=keep)
@@ -165,8 +174,6 @@ def test_resumed_process_run_matches_uninterrupted(guarded):
     """(b): the data stream fast-forwarded, the same seeded faults, the
     running fault total restarted as an emulated resume restarts it."""
     tmp, emu = guarded
-    _launch(tmp, "resumed", GUARDED + [
-        "--steps", "5", "--resume", str(tmp / "ckpt" / "ckpt.npz")], 4)
     ranks = _records(tmp, "resumed", 4)
     keep = tuple(k for k in KEEP if k != "faults")
     for r, rec in enumerate(ranks):
@@ -182,13 +189,24 @@ def test_resumed_process_run_matches_uninterrupted(guarded):
 
 @pytest.fixture(scope="module")
 def skipped(tmp_path_factory):
-    """(c): the K = 2 launch, saved at its end, and its emulated twin."""
+    """The K = 2 launch: (c) saved at its end; rank 1's file of it torn
+    (marked as saved at step 5) and resumed from, which must raise
+    CheckpointError; (d), which must raise WireFaultError.  And (c)'s
+    emulated twin."""
     tmp = tmp_path_factory.mktemp("pg_skip")
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        _launch(tmp, "ranks", SKIP + ["--checkpoint-dir", str(tmp / "ckpt")],
-                2)
+        _chain(tmp, [
+            {"argv": SKIP + ["--checkpoint-dir", str(tmp / "ckpt"),
+                             "--report", str(tmp / "ranks")] + DIST},
+            {"tear": str(tmp / "ckpt" / "ckpt.npz"),
+             "into": str(tmp / "torn"), "rank": 1, "step": 5},
+            {"argv": SKIP + ["--resume", str(tmp / "torn" / "ckpt.npz")]
+             + DIST, "expect": "CheckpointError",
+             "out": str(tmp / "torn_report")},
+            {"argv": FAIL + DIST, "expect": "WireFaultError",
+             "out": str(tmp / "fail")}], 2)
         emu = _emulated(SKIP + ["--report", str(tmp / "emu")])
     finally:
         torch.set_num_threads(n)
@@ -209,33 +227,30 @@ def test_torn_save_is_refused_on_every_rank(skipped):
     """Rank 1's file from a later save than rank 0's: every rank raises
     the same CheckpointError, naming the files, and none hangs."""
     tmp, _ = skipped
-    torn = tmp / "torn"
-    shutil.copytree(tmp / "ckpt", torn)
-    path = rank_path(str(torn / "ckpt.npz"), 1)
-    payload = dict(np.load(path))
-    payload["__step__"] = np.asarray(5, np.int64)
-    np.savez(path, **payload)
-    outs = _launch(tmp, "torn_report", SKIP + [
-        "--resume", str(torn / "ckpt.npz")], 2,
-        expect_error="CheckpointError")
-    errors = {_last_error(o) for o in outs}
+    errors = {rec["error"] for rec in _records(tmp, "torn_report", 2)}
     assert len(errors) == 1, errors
     error = errors.pop()
     assert "torn save" in error and "ckpt.rank1.npz at 5" in error \
         and "ckpt.rank0.npz at 3" in error, error
 
 
-def test_fail_fast_raises_on_every_rank_at_one_step(tmp_path):
+def test_fail_fast_raises_on_every_rank_at_one_step(skipped):
     """(d): the first compressed step's NaN on the encoding: every rank
     raises the twin's WireFaultError (node 0's counts, the same step and
-    op on each) and the launch ends, no rank left in a collective."""
-    outs = _launch(tmp_path, "ranks", FAIL, 2,
-                   expect_error="WireFaultError")
-    with pytest.raises(CH.WireFaultError) as ei:
-        _emulated(FAIL)
+    op on each), no rank left in a collective, and the processes go on
+    to their next run."""
+    tmp, _ = skipped
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.raises(CH.WireFaultError) as ei:
+            _emulated(FAIL)
+    finally:
+        torch.set_num_threads(n)
     want = f"WireFaultError: {ei.value}"
     assert "at step 2" in want and "encoding" in want, want
-    assert [_last_error(o) for o in outs] == [want, want]
+    assert [rec["error"] for rec in _records(tmp, "fail", 2)] == [want,
+                                                                  want]
 
 
 def _state(seed):

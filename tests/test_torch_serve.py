@@ -182,8 +182,10 @@ def test_serve_sampling_is_seeded():
 
 
 @pytest.mark.parametrize("flag", ["--data-shards", "--model-shards"])
-def test_serve_on_several_devices_raises(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+def test_serve_on_several_devices_outside_torchrun_raises(flag):
+    """One process a shard: several shards need torchrun (their runs are
+    tests/test_torch_tp.py's)."""
+    with pytest.raises(ValueError, match="under torchrun"):
         serve.main(["--smoke", flag, "2", "--device", "cpu"])
 
 

@@ -1,0 +1,400 @@
+"""``--model-shards``: tensor parallelism over ``model`` and FSDP over
+``data`` for the dense decoder, one process a shard, held to the
+reference's own runs on 4 host devices at ``reduced()`` llama3.2-1b.
+
+One launch (tests/_torch_tp_worker.py: world 4, data 2 x model 2, gloo)
+runs every path in one process set, from the reference's initial weights
+and AE (``reference_hier_init``: PRNGKey(0), as its trainer and server
+draw them), while the reference's CLIs run once beside it in two
+subprocesses (its trainer's auto step and lgc_rar on (2, 2); its server
+at batch 4 on (2, 2) and at batch 1 on (data 2)):
+
+- the auto step (``--compression none``, 3 steps): losses within 1e-5,
+  the gathered final params within 2e-5 of their largest value (AdamW
+  on rounding-sized gradient differences), the first step's gradient
+  blocks within 1e-5 (of the largest) of the one-process port's
+  gradient cut by the spec;
+- lgc_rar through its three phases (4 steps): losses within 1e-5, each
+  phase's wire bytes per node per op kind equal to the reference's
+  logged rows, params, and each process's u and v against the
+  reference's ``comp_state`` [d, m] block within 2e-5 of the largest;
+- serving: greedy tokens equal to the reference's and to one process's
+  at batch 4 (the batch over data, the heads over model), at batch 1
+  (the cache split along the sequence over data), and at batch 4 with
+  the weights also over data (``SERVE_FSDP_BYTES`` forced to 0); the
+  last decode step's logits within 1e-5 of one process's;
+- each process's held bytes equal to ``launch.dryrun``'s prediction for
+  the mesh, but for one difference it names: at batch 4 the reference's
+  rule splits the (n_blocks, S) position ring's S over data (it reads
+  dim 1 as the batch), while every process here holds the whole ring.
+
+Without a launch: ``shard_tree`` and ``gather_tree`` inverse (threads
+standing in for the processes), the GQA grouping under a shard of the
+heads, and what is refused.
+"""
+import ast
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+from functools import lru_cache
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_tp_worker as W
+from _one_thread import one_thread  # noqa: F401  (autouse)
+from _torch_pg import REPO, launch, worker
+from _torch_train_common import close, reference_hier_init
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import (CompressionConfig, InputShape,
+                                      TrainConfig)
+from repro_torch.data import synthetic_token_batches
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.tp import Shards
+from repro_torch.launch import dryrun, serve, steps, train
+from repro_torch.launch.input_specs import params_specs
+from repro_torch.launch.mesh import host_mesh
+from repro_torch.models import layers as L
+from repro_torch.models.model import Model, build_model
+from repro_torch.optim.optimizers import build_optimizer
+from repro_torch.utils.convert import params_from_numpy
+from repro_torch.utils.tree import (keystr_path, tree_leaves,
+                                    tree_leaves_with_path, tree_unflatten)
+
+CFG = get_arch("llama3.2-1b").reduced()
+MESH = host_mesh(2, 2)
+COORDS = [{"data": r // 2, "model": r % 2} for r in range(4)]
+
+REF_TRAIN = """
+import json, sys
+from repro.launch import train
+auto, lgc = json.loads(sys.argv[1])
+train.main(auto + ["--metrics-out", "auto.json", "--checkpoint-dir", "auto"])
+train.main(lgc + ["--metrics-out", "lgc.json", "--checkpoint-dir", "lgc"])
+"""
+REF_SERVE = """
+import json, sys
+from repro.launch import serve
+out = {name: serve.main(flags).tolist()
+       for name, flags in json.loads(sys.argv[1]).items()}
+json.dump(out, open("serve.json", "w"))
+"""
+
+
+@lru_cache(maxsize=1)
+def _init():
+    return reference_hier_init()
+
+
+def _full():
+    return W.whole_params(CFG, [v for k, v in sorted(
+        _init().items(), key=lambda kv: int(kv[0][1:])) if k[0] == "p"])
+
+
+def _reference(tmp, name, code, arg):
+    """The reference's CLIs in a subprocess, their log tmp/<name>.log."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)        # the CLIs ask for their devices
+    log = open(tmp / f"{name}.log", "w")
+    return subprocess.Popen([sys.executable, "-c", code, json.dumps(arg)],
+                            cwd=str(tmp), env=env, stdout=log,
+                            stderr=subprocess.STDOUT), log
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp")
+    np.savez(tmp / "init.npz", **_init())
+    refs = [_reference(tmp, "train", REF_TRAIN, [W.AUTO, W.LGC]),
+            _reference(tmp, "serve", REF_SERVE, {"b4": W.SERVE_B4,
+                                                 "b1": W.SERVE_B1})]
+    try:
+        launch(tmp, worker("_torch_tp_worker.py") + [
+            str(tmp / "init.npz"), str(tmp / "out"), "{store}"], 4,
+            timeout=240)
+    finally:
+        for p, log in refs:
+            try:
+                p.wait(timeout=240)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                log.close()
+    for p, _ in refs:
+        assert p.returncode == 0, (tmp / "train.log").read_text()[-3000:] \
+            + (tmp / "serve.log").read_text()[-3000:]
+    ranks = []
+    for r in range(4):
+        with open(tmp / "out" / f"rank{r}.json") as f:
+            rec = json.load(f)
+        rec["arrays"] = dict(np.load(tmp / "out" / f"rank{r}.npz"))
+        ranks.append(rec)
+    wire = {m.group(1): ast.literal_eval(m.group(2)) for m in re.finditer(
+        r"phase=(\w+) wire bytes/node/step: (\{.*\})",
+        (tmp / "train.log").read_text())}
+    ref = {"wire": wire, "serve": json.loads((tmp / "serve.json").read_text())}
+    for name in ("auto", "lgc"):
+        ref[name] = [h["loss"] for h in json.loads(
+            (tmp / f"{name}.json").read_text())]
+        with np.load(tmp / name / "ckpt.npz") as z:
+            ref[name + "_ckpt"] = {k: z[k] for k in z.files}
+    return ranks, ref
+
+
+def _batch():
+    return train.to_device(next(synthetic_token_batches(
+        CFG.vocab_size, W.BATCH, W.SEQ, seed=0)), "cpu")
+
+
+def _grads(params, batch):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = build_model(CFG).loss(tree_unflatten(params, leaves), batch)
+    return loss, tree_unflatten(params, torch.autograd.grad(loss, leaves))
+
+
+def _hold_params(got, ckpt, what):
+    """The gathered params (rank 0's p<i>) against the reference's saved
+    ones, within 2e-5 of the largest value."""
+    for i, (path, _) in enumerate(tree_leaves_with_path(_full())):
+        close(got[f"p{i}"], ckpt["params/" + keystr_path(path)], 2e-5,
+              f"{what} {keystr_path(path)}")
+
+
+def _tc(method, optimizer="adamw"):
+    return TrainConfig(optimizer=optimizer,
+                       compression=CompressionConfig(method=method))
+
+
+def _predicted(method):
+    """``launch.dryrun``'s bytes a device holds for the step on MESH; its
+    optimizer state is AdamW's, so the momentum SGD state these runs
+    hold (one f32 tree) is priced by the same rules: the optimizer
+    tree's leaves under the step's specs (``dryrun.local_bytes``)."""
+    model = build_model(CFG)
+    out, _ = dryrun.per_device_bytes(
+        model, InputShape("t", W.SEQ, W.BATCH, "train"), MESH,
+        compression=method, fsdp="on")
+    tc = _tc(method, "sgd_momentum")
+    o_shapes = build_optimizer(tc).init(params_specs(model))
+    fsdp = ("data",) if method == "none" else ()
+    out["optimizer"] = dryrun.local_bytes(o_shapes, SH.param_pspecs(
+        o_shapes, model_size=2, fsdp_axes=fsdp, fsdp_size=2 if fsdp else 1),
+        MESH.axis_sizes)
+    return out
+
+
+def test_auto_step_matches_reference(runs):
+    ranks, ref = runs
+    full = _full()
+    loss, grads = _grads(full, _batch())
+    pspecs = steps.auto_train_pspecs(build_model(CFG), _tc("none"), MESH)[0]
+    want = _predicted("none")
+    for r, rec in enumerate(ranks):
+        losses = [h["loss"] for h in rec["auto"]["history"]]
+        np.testing.assert_allclose(losses, ref["auto"], rtol=0, atol=1e-5,
+                                   err_msg=f"rank {r}")
+        assert [h["phase"] for h in rec["auto"]["history"]] == ["dense"] * 3
+        # the first step: this process's gradient block, the global loss
+        a = rec["arrays"]
+        np.testing.assert_allclose(a["auto_loss"], loss.item(), rtol=0,
+                                   atol=1e-5)
+        block = SH.shard_tree(grads, pspecs, COORDS[r], MESH.axis_sizes)
+        for i, (path, g) in enumerate(tree_leaves_with_path(block)):
+            close(a[f"auto_g{i}"], g.numpy(), 1e-5,
+                  f"rank {r} gradient {keystr_path(path)}")
+        held = rec["auto"]["held"]
+        assert (held["params"], held["optimizer"], held["compressor"]) == (
+            want["params"], want["optimizer"], 0), (r, held, want)
+    _hold_params({k[len("auto_"):]: v for k, v in ranks[0]["arrays"].items()
+                  if k.startswith("auto_p")}, ref["auto_ckpt"], "auto")
+
+
+def test_lgc_step_with_model_shards_matches_reference(runs):
+    ranks, ref = runs
+    full, batch = _full(), _batch()
+    st = steps.lgc_state_specs(build_model(CFG),
+                               CompressionConfig(method="lgc_rar"), MESH)
+    want = _predicted("lgc_rar")
+    for r, rec in enumerate(ranks):
+        d, m = COORDS[r]["data"], COORDS[r]["model"]
+        hist = rec["lgc"]["history"]
+        np.testing.assert_allclose([h["loss"] for h in hist], ref["lgc"],
+                                   rtol=0, atol=1e-5, err_msg=f"rank {r}")
+        assert [h["phase"] for h in hist] == [
+            "warmup", "topk_ae", "compressed", "compressed"]
+        # each phase's bytes a node, per op kind: the reference's rows
+        for phase, row in rec["lgc"]["wire"].items():
+            kinds = {}
+            for op in row.values():
+                for kind, b in op.items():
+                    kinds[kind] = kinds.get(kind, 0) + b
+            assert kinds == ref["wire"][phase], (r, phase, kinds)
+        # the first step: node d's gradient, model shard m's block, flat
+        rows = {k: x[d * W.BATCH // 2:(d + 1) * W.BATCH // 2]
+                for k, x in batch.items()}
+        _, g = _grads(full, rows)
+        block = SH.shard_tree(g, st.params, COORDS[r], MESH.axis_sizes)
+        close(rec["arrays"]["lgc_g"], torch.cat(
+            [x.reshape(-1) for x in tree_leaves(block)]).numpy(), 1e-5,
+            f"rank {r} node gradient")
+        # the EF accumulators of (node d, model shard m)
+        for key in ("u", "v"):
+            ours = rec["arrays"][key]
+            theirs = ref["lgc_ckpt"][f"comp_state/{key}"][d, m]
+            np.testing.assert_array_equal(ours == 0, theirs == 0,
+                                          f"rank {r} cleared {key}")
+            close(ours, theirs, 2e-5, f"rank {r} {key}")
+        held = rec["lgc"]["held"]
+        assert held == {k: want[k] for k in held}, (r, held, want)
+    _hold_params({k[len("lgc_"):]: v for k, v in ranks[0]["arrays"].items()
+                  if k.startswith("lgc_p")}, ref["lgc_ckpt"], "lgc")
+
+
+def test_serving_matches_reference_and_one_device(runs, monkeypatch):
+    ranks, ref = runs
+    full = _full()
+    for name, ref_name, B in (("b4", "b4", 4), ("b1", "b1", 1),
+                              ("b4_fsdp", "b4", 4)):
+        one = serve.run(CFG, serve.parse_args(
+            W.SERVE + ["--batch", str(B), "--device", "cpu"]), params=full)
+        assert one["tokens"].tolist() == ref["serve"][ref_name], name
+        shape = InputShape("d", W.PROMPT + W.GEN, B, "decode")
+        # the fsdp run's weights: the rule with its threshold at 0, as the
+        # launch forced it
+        monkeypatch.setattr(steps, "SERVE_FSDP_BYTES",
+                            0 if name == "b4_fsdp" else 8e9)
+        want, _ = dryrun.per_device_bytes(build_model(CFG), shape, MESH)
+        ring = 4 * CFG.n_blocks * (W.PROMPT + W.GEN)     # int32 positions
+        for r, rec in enumerate(ranks):
+            assert rec[name]["tokens"] == ref["serve"][ref_name], (r, name)
+            close(rec["arrays"][f"{name}_logits"], one["logits"], 1e-5,
+                  f"rank {r} {name} logits")
+            held = rec[name]["held"]
+            # the batch over data: the whole position ring here, half of
+            # it under the reference's rule
+            extra = ring // 2 if B > 1 else 0
+            assert held["cache"] == want["cache"] + extra, (r, name, held)
+            assert held["params"] == want["params"], (r, name, held)
+
+
+class _Threads:
+    """Threads standing in for the processes of ``mesh``: each axis line
+    a group whose ``all_gather`` swaps blocks through a barrier."""
+
+    def __init__(self, mesh):
+        self.mesh, self.boards = mesh, {}
+        self.coords = [dict(zip(mesh.axis_names, (int(c) for c in
+                                                  np.unravel_index(r,
+                                                                   mesh.shape))))
+                       for r in range(mesh.size)]
+        for c in self.coords:
+            for a in mesh.axis_names:
+                key = (a,) + tuple(v for b, v in c.items() if b != a)
+                n = mesh.axis_sizes[a]
+                self.boards.setdefault(key, (threading.Barrier(n), [None] * n))
+
+    def groups(self, c):
+        out = {}
+        for a in self.mesh.axis_names:
+            barrier, slots = self.boards[(a,) + tuple(
+                v for b, v in c.items() if b != a)]
+
+            class G:
+                def all_gather(self, x, dim, i=c[a], slots=slots,
+                               barrier=barrier):
+                    slots[i] = x
+                    barrier.wait()
+                    y = torch.cat(list(slots), dim)
+                    barrier.wait()
+                    return y
+            out[a] = G()
+        return out
+
+
+@pytest.mark.parametrize("data,model", [(2, 2), (1, 4)])
+def test_shard_and_gather_are_inverse(data, model):
+    """The reference's numpy weights carried across as each process's
+    block (``params_from_numpy`` with a spec), then gathered: the
+    unsharded conversion, bit for bit; every block a strict part."""
+    mesh = host_mesh(data, model)
+    specs = steps.auto_train_pspecs(build_model(CFG), _tc("none"), mesh)[0]
+    numpy_full = tree_unflatten(_full(), [v for k, v in sorted(
+        _init().items(), key=lambda kv: int(kv[0][1:])) if k[0] == "p"])
+    whole = params_from_numpy(numpy_full)
+    threads, out = _Threads(mesh), [None] * mesh.size
+
+    def rank(r):
+        c = threads.coords[r]
+        local = params_from_numpy(numpy_full, specs=specs, coords=c,
+                                  sizes=mesh.axis_sizes)
+        out[r] = (local, SH.gather_tree(local, specs, threads.groups(c)))
+    ts = [threading.Thread(target=rank, args=(r,)) for r in range(mesh.size)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60)
+    for local, back in out:
+        assert sum(x.numel() for x in tree_leaves(local)) < sum(
+            x.numel() for x in tree_leaves(whole))
+        for a, b in zip(tree_leaves(back), tree_leaves(whole)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+class _Stub:
+    """The model group of ``mp`` shards, seen from shard ``m`` alone:
+    the collectives left out, so each shard's output is its part."""
+
+    def __init__(self, mp, m=0):
+        self.size, self.index = mp, m
+
+
+def test_gqa_heads_meet_their_kv_heads_under_a_shard():
+    """A shard of wq holding query heads [m·H/mp, (m+1)·H/mp) with the
+    kv heads [m·KH/mp, ...) of its own wk, wv shards: the shards'
+    row-parallel parts sum to the whole attention's output, at 2 and 4
+    shards."""
+    g = torch.Generator().manual_seed(0)
+    p = L.init_attention(g, CFG, torch.float32, "cpu")
+    x = torch.randn(2, 8, CFG.d_model, generator=g)
+    pos = torch.arange(8)
+    whole = L.attention_fwd(p, CFG, x, pos)[0] - x
+    for mp in (2, 4):
+        specs = SH.param_pspecs(p, model_size=mp)
+        parts = 0
+        for m in range(mp):
+            local = SH.shard_tree(p, specs, {"model": m}, {"model": mp})
+            tp = Shards(model=_Stub(mp, m), specs=specs)
+            tp.copy = tp.reduce = lambda t: t
+            parts = parts + (L.attention_fwd(local, CFG, x, pos, tp)[0] - x)
+        close(parts.detach().numpy(), whole.detach().numpy(), 1e-5,
+              f"GQA over {mp} shards")
+
+
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_model_shards_outside_torchrun_raises(entry):
+    mod = train if entry == "train" else serve
+    with pytest.raises(ValueError, match="torchrun"):
+        mod.run(CFG, mod.parse_args(["--smoke", "--model-shards", "2",
+                                     "--device", "cpu"]))
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "mamba2-130m",
+                                  "deepseek-v3-671b",
+                                  "llama-3.2-vision-90b"])
+def test_unsharded_block_kinds_raise_under_tp(arch):
+    """MoE, Mamba2, MLA (with MTP) and cross-attention are not split over
+    ``model`` yet: no quiet unsharded compute."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        Model(get_arch(arch).reduced(), Shards(model=_Stub(2)))
+
+
+def test_a_mesh_that_splits_a_head_raises():
+    """8 query and 4 kv heads over 8 shards: half a kv head each (the
+    reference's GSPMD would split the flattened heads x head_dim)."""
+    with pytest.raises(ValueError, match="whole heads"):
+        Model(CFG, Shards(model=_Stub(8)))

@@ -24,10 +24,10 @@ seconds.  A quicker call than the whole smoke run while iterating on
 these paths.
 
     python3 tools/chip_phases.py [moe] [ssd] [train] [serve] [mla] \
-        [cross] [train_mla_cross] [serve_mla_cross] [pg_train] \
+        [cross] [train_mla_cross] [serve_mla_cross] [pg_train] [tp] \
         [dryrun] [quickstart] [baselines]                    # card
 
-No names runs all twelve.  Each phase prints its JSON lines as
+No names runs all thirteen.  Each phase prints its JSON lines as
 chip_smoke does and raises as chip_smoke would.
 """
 import json
@@ -44,7 +44,7 @@ import chip_smoke as CS  # noqa: E402  (sets the allocator before torch)
 import torch  # noqa: E402
 
 PHASES = ("moe", "ssd", "train", "serve", "mla", "cross",
-          "train_mla_cross", "serve_mla_cross", "pg_train", "dryrun",
+          "train_mla_cross", "serve_mla_cross", "pg_train", "tp", "dryrun",
           "quickstart", "baselines")
 
 
@@ -70,7 +70,9 @@ def main(argv=None):
            "train_mla_cross": lambda: CS.mla_cross_train_runs(
                dev, {}, 2, lgc, len(ENCODER_SPEC)),
            "serve_mla_cross": lambda: CS.serve_mla_cross_phase(dev),
-           "pg_train": lambda: pg_train(dev, smi, len(ENCODER_SPEC)),
+           "pg_train": lambda: pg_train(dev, smi, len(ENCODER_SPEC),
+                                        ("pg",)),
+           "tp": lambda: pg_train(dev, smi, len(ENCODER_SPEC), ("tp",)),
            "dryrun": lambda: CS.dryrun_phase(dev),
            "quickstart": lambda: CS.quickstart_phase(dev),
            "baselines": baselines}
@@ -100,13 +102,12 @@ def baselines() -> None:
             seconds=time.perf_counter() - t0)
 
 
-def pg_train(dev, smi: str, n_encoder: int) -> None:
-    """chip_smoke's process runs, then its process failure runs, sharing
-    the emulated twins."""
-    runs = {}
+def pg_train(dev, smi: str, n_encoder: int, parts) -> None:
+    """chip_smoke's process runs (``parts``: "pg", the runs one node per
+    process and the failure runs; "tp", the runs with model shards), each
+    against what it is compared with, its emulated twins run here."""
     n_leaves = len(CS.llama_layout(0.001).compressed)
-    CS.pg_train_phase(dev, runs, smi, n_leaves, n_encoder)
-    CS.pg_fault_runs(dev, runs, smi, n_leaves, n_encoder)
+    CS.pg_phases(dev, {}, smi, n_leaves, n_encoder, parts)
 
 
 if __name__ == "__main__":
