@@ -213,13 +213,25 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               against its emulated K = 2 twin in f32 (losses within
               TP_LOSS_REL), each rank's held parameter, optimizer and
               u/v/AE bytes the dry run's prediction for host_mesh(2, 2)
-              to the byte; steady step ms and peak GiB a rank
+              to the byte; steady step ms and peak GiB a rank.  The
+              other block kinds (TP_KINDS) with momentum SGD, the same
+              gates, the auto step against the one-node run on the
+              whole batch: mamba2-130m at full depth and widths,
+              deepseek-v3-671b's auto step at 1 layer, 4 experts,
+              top-2, vocab 8192 (its capacity drops tokens) and its
+              lgc_rar at reduced(), llama-3.2-vision-90b at reduced()
      tp_serve llama3.2-1b at full depth, bf16, under torchrun: the heads
               over 2 ranks at B4 P64 G32, the cache's sequence over 2
               ranks at B1 P4096 G8; then f32 at B4 P64 G16 over 2 model
               shards, whose greedy tokens must equal one process's on
               this card; every rank's tokens equal; prefill ms, median
-              decode ms, tokens/s and peak GiB a rank
+              decode ms, tokens/s and peak GiB a rank.  The other kinds
+              (TP_SERVE_KINDS) bf16 at B4 P64 G32 at published widths:
+              mamba2-130m, deepseek-v3-671b (1 layer, 256 experts),
+              jamba-v0.1-52b (one superblock), llama-3.2-vision-90b (2
+              superblocks); in f32 against one process: deepseek (1
+              layer, 32 experts), mamba2-130m, jamba (one superblock, 4
+              experts); deepseek at B1 P4096 G8 on (data 2, model 2)
  12. convnet5 the paper's ConvNet5 at its full widths (config(): channels
               32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
               of 8 images, through launch.steps.sim_sgd_step (the
@@ -287,6 +299,7 @@ exits non-zero and prints no result.  Without a CUDA device it refuses.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -1654,17 +1667,15 @@ def pg_rank(spec_path: str) -> None:
     import gc
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(name)s %(message)s")
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import serve, train
     with open(spec_path) as f:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
     for run in spec["runs"]:
-        cfg = get_arch("llama3.2-1b")
+        cfg = arch_cfg(run["arch"], run["cut"], run["dtype"])
         cfg = dataclasses.replace(cfg, n_layers=run["n_layers"] or
-                                  cfg.n_layers, dtype=run["dtype"] or
-                                  cfg.dtype)
+                                  cfg.n_layers)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1710,16 +1721,34 @@ def _pg_train(train, cfg, run):
                          f"and did not raise {expect}")
 
 
+def arch_cfg(arch: str = "llama3.2-1b", cut=None, dtype=None):
+    """``arch``'s config: with ``cut`` "reduced" its reduced(), else
+    ``cut``'s fields replaced ({field: value}, a "moe" dict replacing
+    fields of its MoE config); ``dtype`` None keeps the arch's."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if cut == "reduced":
+        cfg = cfg.reduced()
+    elif cut:
+        cut = dict(cut)
+        if "moe" in cut:
+            cut["moe"] = dataclasses.replace(cfg.moe, **cut["moe"])
+        cfg = dataclasses.replace(cfg, **cut)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
 def pg_spec(name: str, flags, steps: int = 0, n_layers=N_LAYERS,
             stop_after=None, expect_error=None, kind: str = "train",
-            dtype=None):
+            dtype=None, arch: str = "llama3.2-1b", cut=None):
     """One run of a process launch: a train run of ``steps`` steps with
     the process runs' shared flags (2 data shards, batch 8, seq 128, 2
     warm-up steps) and ``flags`` after them; a serve run with ``flags``
-    alone.  ``n_layers`` None: full depth; ``dtype`` None: the arch's."""
+    alone.  The model: ``arch_cfg(arch, cut, dtype)`` at ``n_layers``
+    (None: the config's; ``dtype`` None: the arch's)."""
     return {"name": name, "kind": kind, "n_layers": n_layers,
             "dtype": dtype, "stop_after": stop_after,
-            "expect_error": expect_error, "steps": steps, "flags": flags}
+            "expect_error": expect_error, "steps": steps, "flags": flags,
+            "arch": arch, "cut": cut}
 
 
 def pg_launch(label: str, specs, K: int):
@@ -1923,6 +1952,26 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
         if "tp" in parts and name not in runs:
             runs[name] = train_phase(dev, name, flags + pg_report_flags(
                 name), steps, cfg=_f32_llama())
+    # the other block kinds' twins: lgc_rar emulated at K = 2, and the
+    # auto step's whole-batch loss as one node (the MoE layers' dispatch
+    # groups, aux loss and the MTP mean are the whole batch's there)
+    for arch, method, cut, reduced in tp_kind_runs() if "tp" in parts \
+            else ():
+        name, flags, steps, expect = (
+            (f"{arch} lgc_rar f32", lgc + TP_KIND_OPT, TP_KIND_LGC_STEPS,
+             (per_step(fused_ef_topk=2, compressed={
+                 "matmul_bias_lrelu": 2 * n_encoder}),))
+            if method == "lgc_rar" else
+            (f"{arch} none f32 one node", [
+                "--compression", "none", "--data-shards", "1"]
+             + TP_KIND_OPT, TP_KIND_AUTO_STEPS, ()))
+        if name not in runs:
+            tally = {"kept": 0, "assigned": 0}
+            with moe_kept(tally):
+                runs[name] = train_phase(dev, name, flags, steps, *expect,
+                                         cfg=arch_cfg(arch, cut, "float32"),
+                                         reduced=reduced)
+            runs[name]["moe_kept"] = tally
 
     ckdir = os.path.join(ROOT, "build", "ckpt_pg")
     path = os.path.join(ckdir, "ckpt.npz")
@@ -1946,6 +1995,14 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
         four += [pg_spec("tp lgc_rar", tp_lgc, 6, dtype="float32"),
                  pg_spec("tp none", tp_none, TP_AUTO_STEPS,
                          dtype="float32")]
+        for arch, method, cut, _ in tp_kind_runs():
+            lgc_run = method == "lgc_rar"
+            four.append(pg_spec(
+                f"tp {arch} {method}",
+                (tp_lgc if lgc_run else tp_none) + TP_KIND_OPT,
+                TP_KIND_LGC_STEPS if lgc_run else TP_KIND_AUTO_STEPS,
+                n_layers=None, dtype="float32", arch=arch, cut=cut))
+        four += tp_serve_specs(TP_SERVE_FOUR)
     gc_cuda()
     got4, launch4 = pg_launch("four", four, 4)
     gc_cuda()
@@ -1961,6 +2018,8 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
     if "tp" in parts:
         tp_train_checks(runs, got, smi, launch4, lgc_step)
         tp_serve_checks(runs, got, smi, launch2, serve_specs)
+        tp_serve_checks(runs, got, smi, launch4,
+                        tp_serve_specs(TP_SERVE_FOUR))
     if "pg" not in parts:
         return
 
@@ -2070,7 +2129,7 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
 # and AdamW turns a rounding-sized difference at a near-zero gradient
 # into a whole step)
 TP_LOSS_REL = 2e-5
-TP_AUTO_STEPS = 4
+TP_AUTO_STEPS = 3
 # tp_serve: llama3.2-1b at full depth in bf16, and the f32 check
 TP_SERVE = (("tp serve B4 P64 G32", ["--model-shards", "2", "--batch", "4",
                                       "--prompt-len", "64", "--gen", "32"],
@@ -2083,37 +2142,161 @@ TP_SERVE = (("tp serve B4 P64 G32", ["--model-shards", "2", "--batch", "4",
                                          "16"], "float32"))
 
 
-def tp_serve_specs():
-    return [pg_spec(name, flags, n_layers=None, kind="serve", dtype=dtype)
-            for name, flags, dtype in TP_SERVE]
+# the other block kinds with model shards: (arch, lgc_rar's cut, the
+# auto step's cut), trained in f32 on the (data 2, model 2) mesh from
+# four processes on the one card.  mamba2-130m at full depth and
+# published widths.  deepseek-v3-671b's auto step at its emulated runs'
+# cut (1 layer, 4 of 256 experts, top-2, vocab 8192, the published
+# capacity_factor 1.25, so the capacity drops tokens: 1.03B parameters,
+# a quarter of them and of their gradient and momentum a rank under TP
+# and FSDP); its lgc_rar at reduced(): at that cut (n_local 517M a model
+# shard) it ran out of the card, K1 writing new u and v beside the old
+# (a rank reached 26.0 GiB allocated, the four 79.0 GiB in use).
+# llama-3.2-vision-90b at reduced() for both: one superblock at
+# published widths is 6.37B parameters, 76.4 GB in f32 for the params,
+# their gradient and momentum alone, which neither the four ranks nor
+# the one-node twin fit on the card.  lgc_rar through its three phases
+# (2 warm-up, 2 top-k + AE, 1 compressed step), the auto step 2 steps,
+# both with momentum SGD, as the CPU gates run them (linear in the
+# gradient: AdamW turns a rounding-sized difference at a near-zero
+# gradient into a whole step), its state one tree
+TP_KIND_OPT = ["--optimizer", "sgd_momentum"]
+DEEPSEEK_TP_AUTO_CUT = {"n_layers": 1, "vocab_size": DEEPSEEK_TRAIN_VOCAB,
+                        "moe": {"num_experts": DEEPSEEK_TRAIN_EXPERTS[0],
+                                "top_k": DEEPSEEK_TRAIN_EXPERTS[1]}}
+TP_KINDS = (
+    ("mamba2-130m", None, None),
+    ("deepseek-v3-671b", "reduced", DEEPSEEK_TP_AUTO_CUT),
+    ("llama-3.2-vision-90b", "reduced", "reduced"),
+)
+
+
+@contextlib.contextmanager
+def moe_kept(tally):
+    """While in place, every MoE layer's dispatch (``layers.moe_dispatch``)
+    adds to ``tally`` the expert slots it kept and the token-expert
+    assignments it was given: fewer kept than assigned is tokens
+    dropped at capacity."""
+    from repro_torch.models import layers as L
+    inner = L.moe_dispatch
+
+    def dispatch(gates, mo, dropless=False, batch=None):
+        gsel, rows = inner(gates, mo, dropless, batch)
+        tally["kept"] += int((gsel > 0).sum())
+        tally["assigned"] += int((gates > 0).sum())
+        return gsel, rows
+    L.moe_dispatch = dispatch
+    try:
+        yield tally
+    finally:
+        L.moe_dispatch = inner
+
+
+def tp_kind_runs():
+    """Each (arch, method, cut, the cut's names) of TP_KINDS: lgc_rar
+    and the auto step (``none``)."""
+    for arch, lgc_cut, auto_cut in TP_KINDS:
+        for method, cut in (("lgc_rar", lgc_cut), ("none", auto_cut)):
+            names = ["reduced()"] if cut == "reduced" else sorted(
+                k for k in (cut or {}) if k != "moe") + sorted(
+                (cut or {}).get("moe", {}))
+            yield arch, method, cut, names
+TP_KIND_LGC_STEPS = 5
+TP_KIND_AUTO_STEPS = 2
+# and served bf16 with the heads over 2 ranks at B4 P64 G32 (published
+# widths: mamba2-130m at full depth, deepseek at 1 layer with all 256
+# experts, 128 a rank, jamba at one superblock, vision at 2 superblocks,
+# its gates at their initial 0); in f32 against one process (G16):
+# deepseek at 1 layer and DEEPSEEK_F32_EXPERTS experts, mamba2-130m at
+# full depth (the N-split decode, the conv's channel blocks), jamba at
+# one superblock with JAMBA_F32_EXPERTS of its 16 experts (4.81B
+# parameters, 19.2 GB in f32 for the one process: Mamba2, attention and
+# the experts over model in one stack); then in the
+# four-rank launch deepseek at B1 P4096 G8 on (data 2, model 2): the
+# latent cache's slots over data and its latent over model, at
+# DEEPSEEK_F32_EXPERTS experts (bf16; 2 ranks of all 256 at data 2
+# would each gather the 50 GB layer whole on use)
+_B4 = ["--model-shards", "2", "--batch", "4", "--prompt-len", "64"]
+JAMBA_F32_EXPERTS = 4
+TP_SERVE_KINDS = (
+    ("tp serve mamba2-130m B4 P64 G32", _B4 + ["--gen", "32"], None,
+     "mamba2-130m", None),
+    ("tp serve deepseek-v3-671b B4 P64 G32", _B4 + ["--gen", "32"], None,
+     "deepseek-v3-671b", {"n_layers": DEEPSEEK_SERVE_LAYERS}),
+    ("tp serve jamba-v0.1-52b B4 P64 G32", _B4 + ["--gen", "32"], None,
+     "jamba-v0.1-52b", {"n_layers": 8}),
+    ("tp serve llama-3.2-vision-90b B4 P64 G32", _B4 + ["--gen", "32"], None,
+     "llama-3.2-vision-90b", {"n_layers": VISION_SERVE_LAYERS}),
+    ("tp serve deepseek-v3-671b f32 B4 P64 G16", _B4 + ["--gen", "16"],
+     "float32", "deepseek-v3-671b",
+     {"n_layers": 1, "moe": {"num_experts": DEEPSEEK_F32_EXPERTS}}),
+    ("tp serve mamba2-130m f32 B4 P64 G16", _B4 + ["--gen", "16"],
+     "float32", "mamba2-130m", None),
+    ("tp serve jamba-v0.1-52b f32 B4 P64 G16", _B4 + ["--gen", "16"],
+     "float32", "jamba-v0.1-52b",
+     {"n_layers": 8, "moe": {"num_experts": JAMBA_F32_EXPERTS}}),
+)
+TP_SERVE_FOUR = (
+    ("tp serve deepseek-v3-671b B1 P4096 G8", [
+        "--data-shards", "2", "--model-shards", "2", "--batch", "1",
+        "--prompt-len", "4096", "--gen", "8"], None, "deepseek-v3-671b",
+     {"n_layers": 1, "moe": {"num_experts": DEEPSEEK_F32_EXPERTS}}),
+)
+
+
+def tp_serve_specs(table=None):
+    """The serving runs of ``table`` (TP_SERVE and TP_SERVE_KINDS when
+    None): (name, flags, dtype[, arch, cut])."""
+    rows = TP_SERVE + TP_SERVE_KINDS if table is None else table
+    return [pg_spec(row[0], row[1], n_layers=None, kind="serve",
+                    dtype=row[2], **dict(zip(("arch", "cut"), row[3:])))
+            for row in rows]
 
 
 def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
     """tp_train: the lgc_rar and auto (``none``) runs with model shards,
-    each rank against the emulated twin's losses (TP_LOSS_REL), its held
-    bytes against the dry run's per-device prediction for host_mesh(2, 2)
-    to the byte, K1 and K3 launched on every rank of lgc_rar."""
-    from repro_torch.configs.base import CompressionConfig, InputShape
+    each rank against its twin's losses (TP_LOSS_REL: llama's emulated
+    K = 2 twins; the other kinds' lgc_rar against theirs, their auto step
+    against the one-node run on the whole batch), its held bytes against
+    the dry run's per-device prediction for host_mesh(2, 2) to the byte,
+    K1 and K3 launched on every rank of lgc_rar in the right phases, its
+    per-op rows the per-shard layout's plan."""
+    from repro_torch.configs.base import (CompressionConfig, InputShape,
+                                          TrainConfig)
     from repro_torch.dist import plan as XP
-    from repro_torch.launch.dryrun import per_device_bytes
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.dryrun import local_bytes, per_device_bytes
+    from repro_torch.launch.input_specs import params_specs
     from repro_torch.launch.mesh import host_mesh
     from repro_torch.launch.steps import lgc_state_specs
     from repro_torch.models.model import build_model
-    model = build_model(_f32_llama())
+    from repro_torch.optim.optimizers import build_optimizer
     shape = InputShape("tp_train", 128, 8, "train")
-    # the rows a node of one model shard's column moves: the per-shard
-    # layout's plan
+    mesh = host_mesh(2, 2)
     cc = CompressionConfig(method="lgc_rar")
-    shard = lgc_state_specs(model, cc, host_mesh(2, 2)).compressor.layout
-    priced = {phase: XP.wire_terms_by_op(XP.build_plan(cc, shard, 2,
-                                                       phase=phase))
-              for phase in ("warmup", "topk_ae", "compressed")}
-    for name, twin_name, method in (("tp lgc_rar", "lgc_rar f32",
-                                     "lgc_rar"),
-                                    ("tp none", "none f32", "none")):
+    table = [("tp lgc_rar", "lgc_rar f32", "lgc_rar", _f32_llama(),
+              ["n_layers"], "adamw"),
+             ("tp none", "none f32", "none", _f32_llama(), ["n_layers"],
+              "adamw")]
+    for arch, method, cut, reduced in tp_kind_runs():
+        table.append((f"tp {arch} {method}", f"{arch} lgc_rar f32"
+                      if method == "lgc_rar" else f"{arch} none f32 one node",
+                      method, arch_cfg(arch, cut, "float32"), reduced,
+                      TP_KIND_OPT[1]))
+    for name, twin_name, method, cfg, reduced, opt in table:
+        model = build_model(cfg)
         recs, twin = got[name], runs[twin_name]
-        want, _ = per_device_bytes(model, shape, host_mesh(2, 2),
-                                   compression=method, fsdp="on")
+        want, _ = per_device_bytes(model, shape, mesh, compression=method,
+                                   fsdp="on")
+        if opt != "adamw":
+            # the dry run prices AdamW; another optimizer's state tree by
+            # the same rules
+            o_shapes = build_optimizer(TrainConfig(optimizer=opt)).init(
+                params_specs(model))
+            fsdp = ("data",) if method == "none" else ()
+            want["optimizer"] = local_bytes(o_shapes, SH.param_pspecs(
+                o_shapes, model_size=2, fsdp_axes=fsdp,
+                fsdp_size=2 if fsdp else 1), mesh.axis_sizes)
         losses = [[h["loss"] for h in rec["history"]] for rec in recs]
         worst = max(abs(a - b) / abs(b) for ls in losses
                     for a, b in zip(ls, twin["losses"]))
@@ -2123,11 +2306,14 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
             for h in rec["history"][1:]:
                 steady[r].setdefault(h["phase"], []).append(h["ms"])
         emit("tp_train", run=name, twin=twin_name, card=smi,
-             backend=PG_BACKEND, mesh={"data": 2, "model": 2},
-             n_layers=N_LAYERS, dtype="float32", seq=128, batch=8,
-             reduced=["n_layers"], launch=launch, losses=losses,
-             twin_losses=twin["losses"], worst_rel=worst,
-             tol_rel=TP_LOSS_REL, held=held,
+             backend=PG_BACKEND, mesh={"data": 2, "model": 2}, optimizer=opt,
+             arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+             dtype="float32", seq=128, batch=8, reduced=reduced,
+             launch=launch, losses=losses, twin_losses=twin["losses"],
+             mtp_losses=[[h.get("mtp_loss") for h in rec["history"]]
+                         for rec in recs] if cfg.mtp_depth else None,
+             twin_moe_kept=twin.get("moe_kept") if cfg.moe else None,
+             worst_rel=worst, tol_rel=TP_LOSS_REL, held=held,
              predicted={k: want[k] for k in ("params", "optimizer",
                                              "compressor")},
              step_ms=steady, twin_step_ms=twin["step_ms"],
@@ -2143,6 +2329,12 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
                 raise AssertionError(f"{name} rank {r} holds {h}, the dry "
                                      f"run predicts {want}")
         if method == "lgc_rar":
+            # the rows a node of one model shard's column moves: the
+            # per-shard layout's plan
+            shard = lgc_state_specs(model, cc, mesh).compressor.layout
+            priced = {phase: XP.wire_terms_by_op(XP.build_plan(
+                cc, shard, 2, phase=phase))
+                for phase in ("warmup", "topk_ae", "compressed")}
             for rec in recs:
                 lgc_step(rec["launches"],
                          [h["phase"] for h in rec["history"]])
@@ -2156,9 +2348,9 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
 
 def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:
     """tp_serve: each serving run's greedy tokens equal on every rank;
-    the f32 run's equal to one process's on this card; prefill ms, median
-    decode ms, tokens/s and peak GiB a rank."""
-    from repro_torch.configs import get_arch
+    an f32 run's equal to one process's on this card (the same seeded
+    weights); prefill ms, median decode ms, tokens/s and peak GiB a
+    rank."""
     from repro_torch.launch import serve
     for spec in specs:
         recs = got[spec["name"]]
@@ -2166,21 +2358,23 @@ def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:
         if any(rec["tokens"] != toks for rec in recs):
             raise AssertionError(f"{spec['name']}: the ranks' tokens differ")
         one = None
+        cfg = arch_cfg(spec["arch"], spec["cut"], spec["dtype"])
         if spec["dtype"] == "float32":
             # one process on this card, the same weights (seed 0)
             gc_cuda()
-            cfg = dataclasses.replace(get_arch("llama3.2-1b"),
-                                      dtype="float32")
+            flags = spec["flags"]
             one = serve.run(cfg, serve.parse_args(
-                ["--batch", "4", "--prompt-len", "64", "--gen", "16"])
-                )["tokens"].tolist()
+                ["--batch", "4", "--prompt-len", "64", "--gen",
+                 flags[flags.index("--gen") + 1]]))["tokens"].tolist()
             gc_cuda()
             if one != toks:
                 raise AssertionError(f"{spec['name']}: tokens {toks} != one "
                                      f"process's {one}")
         B = len(toks)
         emit("tp_serve", run=spec["name"], card=smi, backend=PG_BACKEND,
-             dtype=spec["dtype"] or "bfloat16", launch=launch,
+             arch=cfg.name, n_layers=cfg.n_layers,
+             dtype=spec["dtype"] or cfg.dtype, launch=launch,
+             ranks=len(recs),
              prefill_ms=[rec["prefill_ms"] for rec in recs],
              decode_ms_median=[sorted(rec["step_ms"])[len(rec["step_ms"])
                                                       // 2] for rec in recs],

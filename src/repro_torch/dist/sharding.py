@@ -185,19 +185,23 @@ def shard_tree(full: Any, specs: Dict[str, Spec], coords: Dict[str, int],
     over axes (a0, a1, ...) is cut into their product of blocks, block
     i_a0·size_a1·... + i_a1 + ... (the first axis major, as a
     ``PartitionSpec`` lays them); a dim whose entry is None stays whole."""
-    out = []
-    for path, leaf in tree_leaves_with_path(full):
-        x = leaf
-        for d, entry in enumerate(specs[keystr_path(path)]):
-            idx, n = 0, 1
-            for a in _axes(entry):
-                idx, n = idx * sizes.get(a, 1) + coords.get(a, 0), \
-                    n * sizes.get(a, 1)
-            if n > 1:
-                w = x.shape[d] // n
-                x = x.narrow(d, idx * w, w)
-        out.append(x)
-    return tree_unflatten(full, out)
+    return tree_unflatten(full, [
+        block_of(leaf, specs[keystr_path(path)], coords, sizes)
+        for path, leaf in tree_leaves_with_path(full)])
+
+
+def block_of(x, spec: Spec, coords: Dict[str, int], sizes: Dict[str, int]):
+    """The block of one leaf ``x`` that the device at ``coords`` holds
+    under ``spec`` (a view; see :func:`shard_tree`)."""
+    for d, entry in enumerate(spec):
+        idx, n = 0, 1
+        for a in _axes(entry):
+            idx, n = idx * sizes.get(a, 1) + coords.get(a, 0), \
+                n * sizes.get(a, 1)
+        if n > 1:
+            w = x.shape[d] // n
+            x = x.narrow(d, idx * w, w)
+    return x
 
 
 def gather_tree(local: Any, specs: Dict[str, Spec], groups: Dict[str, Any]

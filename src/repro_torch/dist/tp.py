@@ -18,12 +18,23 @@ The autograd functions, each on a group:
 - :func:`gather_dim` FSDP's gather on use: forward the all-gather of a
   dim, backward the reduce-scatter (sum) of its gradient, so a
   data-sharded leaf's gradient is summed over the group;
+- :func:`gather_from` after a column-parallel matmul whose gathered
+  output every member then computes on identically (a router's logits,
+  a latent before its norm, a Mamba2 block's ``in_proj``): forward the
+  all-gather of a dim, backward this member's block of the gradient,
+  which is whole on every member (a reduce-scatter would count it
+  group-size times);
+- :func:`sum_over` forward the all-reduce (sum), backward the
+  all-reduce (sum): a sum every member reads the same way (the MoE
+  aux's per-expert sums over the batch), each member's loss holding
+  its share;
 - :func:`all_reduce_max` (no gradient), the vocab-parallel softmax's max.
 
 :class:`Shards` is what a sharded forward of ``models.model.Model``
 reads: the model group, the data group of FSDP's gather on use with the
-param specs that say which dims it gathers, and the data group of a
-decode cache split along the sequence.
+param specs that say which dims it gathers, the data group of a decode
+cache split along the sequence, and the group over which one loss's
+batch is split.
 """
 from __future__ import annotations
 
@@ -134,6 +145,30 @@ class _Gather(torch.autograd.Function):
         return ctx.group.reduce_scatter(grad, ctx.dim), None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w = ctx.width
+        return grad.narrow(ctx.dim, ctx.group.index * w, w).contiguous(), \
+            None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad), None
+
+
 def _active(group: Optional[Group]) -> bool:
     return group is not None and group.size > 1
 
@@ -151,6 +186,15 @@ def gather_dim(x: torch.Tensor, group: Optional[Group], dim: int
     return _Gather.apply(x, group, dim) if _active(group) else x
 
 
+def gather_from(x: torch.Tensor, group: Optional[Group], dim: int
+                ) -> torch.Tensor:
+    return _GatherFrom.apply(x, group, dim) if _active(group) else x
+
+
+def sum_over(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    return _SumOver.apply(x, group) if _active(group) else x
+
+
 def all_reduce_max(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     x = x.detach()
     return group.all_reduce(x, dist.ReduceOp.MAX) if _active(group) else x
@@ -159,15 +203,22 @@ def all_reduce_max(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
 @dataclass(eq=False)
 class Shards:
     """A sharded forward's collectives.  ``model``: the group over which
-    the heads, the FFN's hidden dim and the vocabulary are split (TP);
-    ``fsdp``: the data group that gathers every dim whose spec in
-    ``specs`` ({path: spec} of the params the forward receives) names
-    ``"data"``; ``seq``: the data group over which a decode cache is
-    split along the sequence (rank i holding slots [i·S/n, (i+1)·S/n))."""
+    the heads, the FFN's hidden dim, the experts and the vocabulary are
+    split (TP); ``fsdp``: the data group that gathers every dim whose
+    spec in ``specs`` ({path: spec} of the params the forward receives)
+    names ``"data"``; ``seq``: the data group over which a decode cache
+    is split along the sequence (rank i holding slots [i·S/n,
+    (i+1)·S/n)), or over its other dim 2 (the encoder tokens of a cross
+    cache, a Mamba2 state's heads); ``batch``: the dp group over which
+    the batch of one loss is split, member i holding its i-th block of
+    rows (the auto step, serving with the batch over data): MoE's
+    dispatch groups, its aux loss's means and the token counts are the
+    whole batch's."""
     model: Optional[Group] = None
     fsdp: Optional[Group] = None
     specs: Dict[str, tuple] = field(default_factory=dict)
     seq: Optional[Group] = None
+    batch: Optional[Group] = None
 
     @property
     def mp(self) -> int:
@@ -182,6 +233,14 @@ class Shards:
 
     def reduce(self, x):
         return reduce_from(x, self.model)
+
+    def gather(self, x, dim: int = -1):
+        return gather_from(x, self.model, dim % x.dim())
+
+    @property
+    def nb(self) -> int:
+        """The members the loss's batch is split over."""
+        return self.batch.size if _active(self.batch) else 1
 
     def _data_dims(self, path: str):
         return dims_over(self.specs.get(path, ()), "data")

@@ -52,8 +52,9 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.dist.tp import Group
 from repro_torch.launch.mesh import init_process_mesh, under_torchrun
-from repro_torch.launch.steps import (held_bytes, make_decode_step,
-                                      make_prefill_step, shard_params)
+from repro_torch.launch.steps import (held_bytes, init_held,
+                                      make_decode_step, make_prefill_step,
+                                      shard_params)
 from repro_torch.models.model import build_model
 from repro_torch.utils import disable_tf32, resolve_device
 
@@ -94,7 +95,9 @@ def run(cfg: ModelConfig, args, params=None) -> Dict[str, Any]:
     "params"; "logits": the last decode step's (B, 1, V) f32 numpy
     (prefill's when ``--gen`` is 1); under torchrun "held": this
     process's parameter and cache bytes, and "peak_gib"}.
-    ``params`` (whole, on the run's device) replaces the seeded init."""
+    ``params`` (whole, on the run's device) replaces the seeded init;
+    under torchrun the processes draw the seeded init in turn, each
+    keeping its block (``launch.steps.init_held``)."""
     shards = args.data_shards * args.model_shards
     if not under_torchrun():
         if args.dist_backend:
@@ -118,7 +121,7 @@ def run(cfg: ModelConfig, args, params=None) -> Dict[str, Any]:
 def _serve(cfg, args, params, device, grid) -> Dict[str, Any]:
     disable_tf32()
     model = build_model(cfg)
-    if params is None:
+    if params is None and grid is None:
         params = model.init(torch.Generator(device=device).manual_seed(
             args.seed), device)
     total = args.prompt_len + args.gen
@@ -128,7 +131,8 @@ def _serve(cfg, args, params, device, grid) -> Dict[str, Any]:
         shape = InputShape("serve_decode", total, args.batch, "decode")
         prefill, lay = make_prefill_step(model, grid, shape)
         decode, _ = make_decode_step(model, grid, shape)
-        params = shard_params(params, lay.pspecs, grid)
+        params = init_held(model, args.seed, device, lay.pspecs, grid) \
+            if params is None else shard_params(params, lay.pspecs, grid)
         world = Group(range(grid.spec.size), None, device)
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab_size,

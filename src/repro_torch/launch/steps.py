@@ -240,6 +240,39 @@ def shard_params(full, specs: Dict[str, tuple], grid):
         full, specs, grid.coords, grid.spec.axis_sizes))
 
 
+def init_held(model: Model, seed: int, device, specs: Dict[str, tuple],
+              grid):
+    """This process's block of ``model.init`` from a generator seeded with
+    ``seed`` on ``device``, the launch's processes drawing one after
+    another (a barrier over the world between turns), each replacing
+    every whole leaf by its block as it goes: a card that the processes
+    share holds their blocks and one whole model at a time, not one whole
+    model a process (deepseek-v3's one layer of 256 experts is 50 GB in
+    bf16)."""
+    import torch.distributed as dist
+
+    def cut(tree, prefix):
+        for key in list(tree):
+            if isinstance(tree[key], dict):
+                cut(tree[key], f"{prefix}{key}/")
+            else:
+                whole, tree[key] = tree[key], None
+                tree[key] = SH.block_of(whole, specs[prefix + key],
+                                        grid.coords,
+                                        grid.spec.axis_sizes).clone()
+                del whole
+    held = None
+    for r in range(dist.get_world_size()):
+        if r == grid.rank:
+            held = model.init(torch.Generator(device=device).manual_seed(
+                seed), device)
+            cut(held, "")
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return held
+
+
 def held_bytes(tree) -> int:
     """The bytes of the tensors of ``tree`` (what a process holds)."""
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
@@ -259,8 +292,10 @@ class AutoTrainStep:
     heads, FFN and vocabulary over ``model``; the gather's backward
     reduce-scatters the gradient over ``data``, a leaf no dp axis splits
     has its gradient summed over the dp column, and every gradient is
-    summed over ``pod``.  The loss is the global batch's mean over its
-    valid tokens: this process's sum over the all-reduced count."""
+    summed over ``pod``.  The loss is the global batch's (``Model.loss``
+    with the dp column as ``tp.batch``): the mean over its valid tokens
+    (and the MTP head's), the MoE layers' dispatch groups and aux loss
+    the whole batch's, each process's share summed over dp."""
     model: Model
     optimizer: Optimizer
     grid: Any
@@ -288,27 +323,37 @@ class AutoTrainStep:
     def grads(self, params, batch: Dict[str, torch.Tensor]):
         """(loss, gradient tree): the global batch's loss and this
         process's block of its gradient."""
+        metrics, grads = self.grads_and_metrics(params, batch)
+        return metrics["loss"], grads
+
+    def grads_and_metrics(self, params, batch: Dict[str, torch.Tensor]):
+        """(metrics, gradient tree): the global batch's metrics (loss,
+        xent, tokens, aux_loss, [mtp_loss]: the sums of every dp
+        member's shares, ``Model.loss`` under ``tp.batch``) and this
+        process's block of the gradient."""
         grid = self.grid
         shard = self.rows(batch)
-        n_tok = grid.dp.all_reduce((shard["labels"] >= 0).sum().float())
         paths = [keystr_path(p) for p, _ in tree_leaves_with_path(params)]
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, _ = self.model.loss(tree_unflatten(params, leaves), shard,
-                                      n_tokens=n_tok)
+            loss, metrics = self.model.loss(tree_unflatten(params, leaves),
+                                            shard)
             grads = torch.autograd.grad(loss, leaves)
         out = [grid.pod.all_reduce(g)
                if SH.dims_over(self.pspecs[path], "data")
                else grid.dp.all_reduce(g) for path, g in zip(paths, grads)]
-        return grid.dp.all_reduce(loss.detach()), tree_unflatten(params, out)
+        keys = sorted(metrics)
+        summed = grid.dp.all_reduce(torch.stack(
+            [metrics[k].detach().float().reshape(()) for k in keys]))
+        return dict(zip(keys, summed.unbind())), tree_unflatten(params, out)
 
     @torch.no_grad()
     def step(self, params, opt_state, batch, step: int):
-        loss, grads = self.grads(params, batch)
+        metrics, grads = self.grads_and_metrics(params, batch)
         params, opt_state = self.optimizer.update(grads, opt_state, params,
                                                   step)
-        return params, opt_state, {"loss": loss}
+        return params, opt_state, metrics
 
 
 def make_auto_train_step(model: Model, tc: TrainConfig, grid
@@ -318,7 +363,8 @@ def make_auto_train_step(model: Model, tc: TrainConfig, grid
     trainer builds it; the optimizer state takes its params' specs."""
     _check_clip(tc)
     pspecs = auto_train_pspecs(model, tc, grid.spec)[0]
-    tp = Shards(model=grid.model, fsdp=grid.data, specs=pspecs)
+    tp = Shards(model=grid.model, fsdp=grid.data, specs=pspecs,
+                batch=grid.dp)
     return AutoTrainStep(replace(model, tp=tp), build_optimizer(tc), grid,
                          pspecs)
 
@@ -348,13 +394,16 @@ def _serve_layout(model: Model, grid, shape: InputShape) -> ServeLayout:
     spec = grid.spec
     pspecs = serve_pspecs(model, spec)
     cache = model.init_cache(shape.global_batch, shape.seq_len, "meta")
-    cspecs = serve_cache_pspecs(cache, spec)
-    kv = next(v for k, v in cspecs.items() if k.endswith("/k"))
-    rows, seq = None, None
-    if kv[1] is not None:
+    # each leaf's split: dim 1 (a state's batch; a position ring's slots
+    # are dim 1 of a 2-d leaf) over dp, or dim 2 over data
+    cspecs = [sp for sp in serve_cache_pspecs(cache, spec).values()
+              if len(sp) >= 3]
+    rows, seq, batch = None, None, None
+    if any(sp[1] is not None for sp in cspecs):
         B, K, d = shape.global_batch, grid.pm.K, grid.pm.node
         rows = slice(d * B // K, (d + 1) * B // K)
-    elif kv[2] == "data":
+        batch = grid.dp
+    elif any(sp[2] == "data" for sp in cspecs):
         if model.cfg.sliding_window or spec.axis_sizes.get("pod", 1) > 1:
             raise NotImplementedError(
                 "a cache split along the sequence under a sliding window "
@@ -362,7 +411,7 @@ def _serve_layout(model: Model, grid, shape: InputShape) -> ServeLayout:
         seq = grid.data
     fsdp = any(SH.dims_over(sp, "data") for sp in pspecs.values())
     tp = Shards(model=grid.model, fsdp=grid.data if fsdp else None,
-                specs=pspecs, seq=seq)
+                specs=pspecs, seq=seq, batch=batch)
     return ServeLayout(replace(model, tp=tp), grid, pspecs, rows)
 
 

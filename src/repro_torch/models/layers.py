@@ -280,30 +280,43 @@ def init_cross_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
     }
 
 
-def cross_attention_kv(p, cfg: ModelConfig, enc):
+def cross_attention_kv(p, cfg: ModelConfig, enc, tp=None):
     """enc: (B, T, encoder_dim) -> k, v (B, T, KH, hd), once a prompt, in
     the promoted dtype of enc and the weights: f32 for the f32
-    embeddings of the data stream and of serving, as in the reference."""
+    embeddings of the data stream and of serving, as in the reference.
+    Under tensor parallelism ``wk``, ``wv`` are column shards of whole
+    kv heads: k, v hold this shard's KH/mp heads."""
     B, T, _ = enc.shape
-    k = _promoted_linear(p["wk"], enc).view(B, T, cfg.n_kv_heads,
-                                            cfg.head_dim)
-    v = _promoted_linear(p["wv"], enc).view(B, T, cfg.n_kv_heads,
-                                            cfg.head_dim)
-    return k, v
+    if tp is not None:
+        enc = tp.copy(enc)
+    hd = cfg.head_dim
+    k = _promoted_linear(p["wk"], enc)
+    v = _promoted_linear(p["wv"], enc)
+    return k.view(B, T, -1, hd), v.view(B, T, -1, hd)
 
 
-def cross_attention_fwd(p, cfg: ModelConfig, x, enc_kv):
+def cross_attention_fwd(p, cfg: ModelConfig, x, enc_kv, tp=None, seq=None):
     """Pre-norm cross-attention with a tanh gate and residual: every
     query sees every encoder token (non-causal flash; a T past 1024 that
     the reference's rule would cut into 1-key chunks pads instead, the
-    padded keys masked by index).  The output is in x's dtype."""
+    padded keys masked by index).  The output is in x's dtype.  ``tp``:
+    ``wq`` a column shard of whole query heads meeting their own kv
+    heads in ``enc_kv`` (GQA's contiguous grouping), ``wo`` a row shard;
+    ``seq``: a decode step's cached k, v hold this member's block of the
+    encoder tokens, the partial softmaxes combined over that group."""
     B, S, _ = x.shape
     k, v = enc_kv
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    q = linear(p["wq"], h).view(B, S, cfg.n_heads, cfg.head_dim)
-    o = flash.flash_attention(q, k, v, False, 0)
+    if tp is not None:
+        h = tp.copy(h)
+    q = linear(p["wq"], h).view(B, S, -1, cfg.head_dim)
+    if seq is None:
+        o = flash.flash_attention(q, k, v, False, 0)
+    else:
+        o = decode_attention(q, k, v, kv_positions=torch.zeros(
+            k.shape[1], dtype=torch.int32, device=x.device), pos=0, seq=seq)
     gate = torch.tanh(p["gate"].float()).to(x.dtype)
-    return x + gate * linear(p["wo"], o.reshape(B, S, -1))
+    return x + gate * _row(p["wo"], o.reshape(B, S, -1), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -332,19 +345,32 @@ def init_mla(gen, cfg: ModelConfig, dtype, device, lead=()):
     }
 
 
-def _mla_qkv(p, cfg: ModelConfig, h, positions):
+def _mla_qkv(p, cfg: ModelConfig, h, positions, tp=None):
     """h: (B, S, D), normed.  Returns q_nope (B, S, H, nope), q_rope (B,
     S, H, rope) roped, the latent c_kv (B, S, r) after kv_norm and
-    k_rope (B, S, 1, rope) roped."""
+    k_rope (B, S, 1, rope) roped.  Under tensor parallelism ``wq_a`` and
+    ``wkv_a`` are column shards of their (not head-aligned) latent dims,
+    gathered before the norms and the rope split (every shard then holds
+    the whole c_kv and k_rope), and ``wq_b`` a column shard of whole
+    heads: q holds this shard's H/mp heads."""
     m = cfg.mla
     B, S, _ = h.shape
-    q = linear(p["wq_b"], rmsnorm(p["q_norm"], linear(p["wq_a"], h),
-                                  cfg.rms_norm_eps))
-    q = q.view(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if tp is not None:
+        h = tp.copy(h)
+    qa = linear(p["wq_a"], h)
+    if qa.shape[-1] != m.q_lora_rank:
+        qa = tp.gather(qa)
+    qa = rmsnorm(p["q_norm"], qa, cfg.rms_norm_eps)
+    if tp is not None:
+        qa = tp.copy(qa)
+    q = linear(p["wq_b"], qa)
+    q = q.view(B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = linear(p["wkv_a"], h).split(
-        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    kv_a = linear(p["wkv_a"], h)
+    if kv_a.shape[-1] != m.kv_lora_rank + m.qk_rope_head_dim:
+        kv_a = tp.gather(kv_a)
+    c_kv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_kv = rmsnorm(p["kv_norm"], c_kv, cfg.rms_norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
@@ -352,32 +378,52 @@ def _mla_qkv(p, cfg: ModelConfig, h, positions):
 
 def _mla_expand_kv(p, cfg: ModelConfig, c_kv, k_rope):
     """The latent expanded to per-head k (B, S, H, nope + rope; the rope
-    key shared by every head) and v (B, S, H, v_head_dim)."""
+    key shared by every head) and v (B, S, H, v_head_dim); H is
+    ``wkv_b``'s heads (a shard's under tensor parallelism)."""
     m = cfg.mla
     B, S, _ = c_kv.shape
-    H = cfg.n_heads
-    kv = linear(p["wkv_b"], c_kv).view(B, S, H,
+    kv = linear(p["wkv_b"], c_kv).view(B, S, -1,
                                        m.qk_nope_head_dim + m.v_head_dim)
+    H = kv.shape[2]
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)], -1)
     return k, v.contiguous()
 
 
-def mla_fwd(p, cfg: ModelConfig, x, positions):
+def mla_fwd(p, cfg: ModelConfig, x, positions, tp=None):
     """Latent attention with residual, for training and prefill, in the
     expanded form: causal flash over q, k of width nope + rope and v of
     width v_head_dim.  Returns (x + attention, (c_kv (B, S, r), k_rope
-    (B, S, rope))): what prefill keeps as the cache."""
+    (B, S, rope))): what prefill keeps as the cache.  ``tp``: each shard
+    attends with its heads (``_mla_qkv``; ``wkv_b`` a column shard of
+    whole heads, the gathered latent and rope key through ``copy``
+    first) and ``wo`` is a row shard; the returned latent is whole."""
     B, S, _ = x.shape
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, positions)
-    k, v = _mla_expand_kv(p, cfg, c_kv, k_rope)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, positions, tp)
+    if tp is not None:
+        k, v = _mla_expand_kv(p, cfg, tp.copy(c_kv), tp.copy(k_rope))
+    else:
+        k, v = _mla_expand_kv(p, cfg, c_kv, k_rope)
     q = torch.cat([q_nope, q_rope], -1)
     o = flash.flash_attention(q, k, v, True, 0)
-    return x + linear(p["wo"], o.reshape(B, S, -1)), (c_kv, k_rope[:, :, 0])
+    return x + _row(p["wo"], o.reshape(B, S, -1), tp), \
+        (c_kv, k_rope[:, :, 0])
 
 
-def mla_decode(p, cfg: ModelConfig, x, cache, pos: int):
+def _slot(S: int, pos: int, seq):
+    """The cache slot of position ``pos`` in this member's S slots (of
+    S·n split along the sequence over ``seq``; -1 when another member
+    holds it); raises past the cache."""
+    n, i = (seq.size, seq.index) if seq is not None else (1, 0)
+    if not 0 <= pos < S * n:
+        raise IndexError(f"decode position {pos} is past the cache's "
+                         f"{S * n} slots")
+    slot = pos - i * S
+    return slot if 0 <= slot < S else -1
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None, seq=None):
     """One token against the latent cache, in the absorbed form (the
     reference's): q_nope is lifted into the latent space by wkv_b's key
     half (in the model dtype), the scores are two products with f32
@@ -387,33 +433,66 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos: int):
     the model dtype before wkv_b's value half.  Equal to the expanded
     form up to rounding.  x: (B, 1, D); cache: {"c_kv": (B, S, r),
     "k_rope": (B, S, rope), "pos": (S,) int32}, written at slot ``pos``
-    IN PLACE.  Returns (x + attention, cache)."""
+    IN PLACE.  Returns (x + attention, cache).
+
+    ``tp``: the cache holds this shard's block of the latent and of the
+    rope key (the reference's rule splits their last dim over
+    ``model``), ``wkv_b`` this shard's heads.  The lifted q_lat and
+    q_rope are gathered over the heads, each shard's scores over its
+    latent block are summed over ``model``, and the latent output's
+    blocks gathered before this shard's heads take wkv_b's value half.
+    ``seq``: the cache holds this member's slots along the sequence, the
+    partial softmaxes combined over that group (as ``decode_attention``
+    does)."""
     m = cfg.mla
-    B, H = x.shape[0], cfg.n_heads
+    B = x.shape[0]
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope, c_new, k_rope_new = _mla_qkv(p, cfg, h, posv)
-    S = cache["c_kv"].shape[1]
-    if not 0 <= pos < S:
-        raise IndexError(f"decode position {pos} is past the cache's "
-                         f"{S} slots")
-    cache["c_kv"][:, pos].copy_(c_new[:, 0])
-    cache["k_rope"][:, pos].copy_(k_rope_new[:, 0, 0])
-    cache["pos"][pos:pos + 1].fill_(pos)
-    wkv_b = p["wkv_b"]["w"].view(m.kv_lora_rank, H,
+    q_nope, q_rope, c_new, k_rope_new = _mla_qkv(p, cfg, h, posv, tp)
+    r, e = cache["c_kv"].shape[-1], cache["k_rope"].shape[-1]
+    if r != m.kv_lora_rank:
+        c_new = c_new.narrow(-1, tp.m * r, r)
+    if e != m.qk_rope_head_dim:
+        k_rope_new = k_rope_new.narrow(-1, tp.m * e, e)
+    slot = _slot(cache["c_kv"].shape[1], pos, seq)
+    if slot >= 0:
+        cache["c_kv"][:, slot].copy_(c_new[:, 0])
+        cache["k_rope"][:, slot].copy_(k_rope_new[:, 0, 0])
+        cache["pos"][slot:slot + 1].fill_(pos)
+    wkv_b = p["wkv_b"]["w"].view(m.kv_lora_rank, -1,
                                  m.qk_nope_head_dim + m.v_head_dim)
+    Hl = wkv_b.shape[1]
     wk_b, wv_b = wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk_b)       # (B, 1, H, r)
+    split = Hl != cfg.n_heads
+    if split:
+        q_lat = tp.model.all_gather(q_lat, 2)
+        q_rope = tp.model.all_gather(q_rope, 2)
+    if r != m.kv_lora_rank:
+        q_lat = q_lat.narrow(-1, tp.m * r, r)
+    if e != m.qk_rope_head_dim:
+        q_rope = q_rope.narrow(-1, tp.m * e, e)
     c_kv = cache["c_kv"].float()
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     s = (torch.einsum("bqhr,bkr->bhk", q_lat.float(), c_kv)
          + torch.einsum("bqhe,bke->bhk", q_rope.float(),
-                        cache["k_rope"].float())) * scale
-    valid = cache["pos"] <= pos
-    pattn = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
-    o_lat = torch.einsum("bhk,bkr->bhr", pattn, c_kv)
+                        cache["k_rope"].float()))
+    if r != m.kv_lora_rank or e != m.qk_rope_head_dim:
+        s = tp.model.all_reduce(s)
+    s = (s * scale).masked_fill(~(cache["pos"] <= pos), float("-inf"))
+    if seq is None:
+        o_lat = torch.einsum("bhk,bkr->bhr", torch.softmax(s, dim=-1), c_kv)
+    else:
+        mx = TP.all_reduce_max(s.amax(-1, keepdim=True), seq)
+        ex = torch.exp(s - mx)
+        o_lat = seq.all_reduce(torch.einsum("bhk,bkr->bhr", ex, c_kv)) \
+            / seq.all_reduce(ex.sum(-1, keepdim=True))
+    if r != m.kv_lora_rank:
+        o_lat = tp.model.all_gather(o_lat, -1)                # (B, H, r)
+    if split:
+        o_lat = o_lat.narrow(1, tp.m * Hl, Hl)
     o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), wv_b)
-    return x + linear(p["wo"], o.reshape(B, 1, -1)), cache
+    return x + _row(p["wo"], o.reshape(B, 1, -1), tp), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
@@ -441,15 +520,16 @@ def init_swiglu(gen, d_model, d_ff, dtype, device, lead=()):
     }
 
 
-def swiglu_fwd(p, x, eps=1e-5, residual=True, tp=None):
+def swiglu_fwd(p, x, eps=1e-5, residual=True, tp=None, reduce=True):
     """Pre-norm SwiGLU.  Under tensor parallelism (``tp``) ``w_gate`` and
     ``w_up`` are column shards and ``w_down`` a row shard; its products
-    are summed over the model group before the residual is added."""
+    are summed over the model group before the residual is added (left
+    as this shard's part when not ``reduce``)."""
     h = rmsnorm(p["norm"], x, eps)
     if tp is not None:
         h = tp.copy(h)
         y = _row(p["w_down"], F.silu(_col(p["w_gate"], h, tp))
-                 * _col(p["w_up"], h, tp), tp)
+                 * _col(p["w_up"], h, tp), tp if reduce else None)
         return x + y if residual else y
     y = linear(p["w_down"],
                F.silu(linear(p["w_gate"], h)) * linear(p["w_up"], h))
@@ -499,65 +579,167 @@ def topk_lowest_first(x: torch.Tensor, k: int):
     return x.gather(-1, sel), sel
 
 
-def moe_route(probs, mo, dropless: bool = False):
-    """The router's choice and the experts' capacity selection.  probs:
-    (T, E) f32.  Each token's top-K experts by prob, their probs
-    normalised into gates (T, E), zero elsewhere; then per dispatch group
-    each expert's top-C tokens by gate.  Returns (gates, gsel (G, E, C),
-    tok_idx (G, E, C) group-local); a slot with gsel = 0 holds no token."""
-    T, E = probs.shape
-    K = mo.top_k
-    topk_p, topk_i = topk_lowest_first(probs, K)              # (T, K)
-    topk_p = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
-    gates = torch.zeros((T, E), dtype=torch.float32,
-                        device=probs.device).scatter(1, topk_i, topk_p)
+def moe_group_size(T: int, E: int, dropless: bool = False) -> int:
+    """Tokens a dispatch group, the reference's rule over T tokens: T /
+    MOE_DISPATCH_GROUPS, or T (one group) when ``dropless``, when T % G
+    or when T // G < E."""
     G = MOE_DISPATCH_GROUPS
     if dropless or T % G or T // G < E:
         G = 1
-    Tg = T // G
-    C = Tg if dropless else min(max(1, int(Tg * K / E * mo.capacity_factor)),
-                                Tg)
-    gsel, tok_idx = topk_lowest_first(
-        gates.view(G, Tg, E).transpose(1, 2), C)              # (G, E, C)
-    return gates, gsel, tok_idx
+    return T // G
 
 
-def moe_fwd(p, cfg: ModelConfig, x, dropless: bool = False):
+def moe_capacity(Tg: int, mo, dropless: bool = False) -> int:
+    """Each expert's slots a group: Tg·K/E·cf (Python floats), at least
+    1 and at most Tg; Tg when ``dropless``."""
+    if dropless:
+        return Tg
+    return min(max(1, int(Tg * mo.top_k / mo.num_experts
+                          * mo.capacity_factor)), Tg)
+
+
+def moe_gates(probs, K: int):
+    """Each token's top-K experts by prob, their probs normalised into
+    gates (T, E) f32, zero elsewhere."""
+    T, E = probs.shape
+    topk_p, topk_i = topk_lowest_first(probs, K)              # (T, K)
+    topk_p = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
+    return torch.zeros((T, E), dtype=torch.float32,
+                       device=probs.device).scatter(1, topk_i, topk_p)
+
+
+def moe_route(probs, mo, dropless: bool = False):
+    """The router's choice and the experts' capacity selection over one
+    process's T tokens, as ``moe_fwd`` runs them: :func:`moe_gates`, then
+    :func:`moe_dispatch`.  probs: (T, E) f32.  Returns (gates, gsel (G, E,
+    C), tok_idx (G, E, C) group-local); a slot with gsel = 0 holds no
+    token."""
+    gates = moe_gates(probs, mo.top_k)
+    gsel, rows = moe_dispatch(gates, mo, dropless)
+    Tg = probs.shape[0] // gsel.shape[0]
+    return gates, gsel, rows - torch.arange(
+        gsel.shape[0], device=rows.device)[:, None, None] * Tg
+
+
+def moe_dispatch(gates, mo, dropless: bool = False, batch=None):
+    """Each expert's top-C tokens per dispatch group of the whole batch.
+    gates: (T, E_l) f32, some experts' columns of this member's T tokens;
+    ``batch`` (a ``dist.tp.Group`` of n members, member i holding the
+    whole batch's tokens [i·T, (i+1)·T)) or None (n = 1).  The groups are
+    the reference's over the n·T tokens (:func:`moe_group_size`, with
+    cfg's E): when whole groups lie in this member, it selects in them
+    alone; else (a group spans members) on the gathered gates, keeping
+    the slots of its own tokens.  ``dropless`` selects locally: the one
+    group keeps every token, so this member's tokens are its own group's.
+    Returns (gsel (G, E_l, C), rows (G, E_l, C)): the gate of each slot
+    (0 = no token of this member) and its token's row in this member's
+    T."""
+    T, El = gates.shape
+    n = batch.size if batch is not None and not dropless else 1
+    Tg = moe_group_size(T * n, mo.num_experts, dropless)
+    C = moe_capacity(Tg, mo, dropless)
+    if T % Tg == 0:
+        G = T // Tg
+        gsel, idx = topk_lowest_first(gates.view(G, Tg, El).transpose(1, 2),
+                                      C)                      # (G, E_l, C)
+        return gsel, idx + torch.arange(G, device=gates.device)[
+            :, None, None] * Tg
+    G = T * n // Tg
+    _, idx = topk_lowest_first(batch.all_gather(gates.detach(), 0).view(
+        G, Tg, El).transpose(1, 2), C)
+    glob = idx + torch.arange(G, device=gates.device)[:, None, None] * Tg
+    lo = batch.index * T
+    mine = (glob >= lo) & (glob < lo + T)
+    rows = (glob - lo).clamp(0, T - 1)
+    gsel = gates.t().gather(1, rows.transpose(0, 1).reshape(El, -1))
+    gsel = gsel.view(El, G, C).transpose(0, 1)
+    return torch.where(mine, gsel, 0.0), rows
+
+
+def moe_fwd(p, cfg: ModelConfig, x, dropless: bool = False, tp=None,
+            whole_aux: bool = True):
     """Token-choice top-k routing with grouped per-expert capacity (the
     reference's ``moe_fwd``): tokens split into G dispatch groups, each
     expert takes its top-C tokens per group by gate, C = Tg·K/E·cf
     (Python floats).  G = 1 when ``dropless`` (then C = Tg: no token is
     dropped), when T % G or when T // G < E.  Returns (x + out, the
-    router's load-balance aux loss)."""
+    router's load-balance aux loss).
+
+    ``tp`` (a ``dist.tp.Shards``): with ``tp.batch`` the batch is split
+    over that group and the groups and the aux loss's means are the
+    whole batch's (:func:`moe_dispatch`; the per-expert sums all-reduced,
+    the aux the same on every member; with ``whole_aux`` False, for a
+    caller that throws the aux away, its means are this member's and its
+    all-reduces are saved); with the experts split over
+    ``tp.model`` (expert parallelism: the router's columns and the
+    expert stacks hold this shard's E/mp experts) the router's logits
+    are gathered (every shard routes every token alike), each shard
+    runs its own experts' capacity selection and scatter-add, and their
+    outputs are summed over the model group with the shared and dense
+    residual SwiGLUs' row-parallel parts, in one all-reduce."""
     mo = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = mo.num_experts, mo.top_k
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps).reshape(T, D)
+    batch = tp.batch if tp is not None and tp.nb > 1 else None
+    ep = tp if tp is not None and tp.mp > 1 \
+        and p["w_gate"].shape[-3] != E else None
+    hc = h if ep is None else ep.copy(h)
 
-    probs = torch.softmax(linear(p["router"], h.float()), dim=-1)  # (T, E)
-    gates, gsel, tok_idx = moe_route(probs, mo, dropless)
-    G, _, C = gsel.shape
-    Tg = T // G
+    logits = linear(p["router"], hc.float())
+    if ep is not None:
+        logits = ep.gather(logits)
+    probs = torch.softmax(logits, dim=-1)                     # (T, E)
+    gates = moe_gates(probs, K)
+    mine = gates
+    if ep is not None:
+        El = p["w_gate"].shape[-3]
+        # the whole gates through copy: each shard's expert columns get
+        # their gradient there alone, summed whole on every shard
+        mine = ep.copy(gates).narrow(1, ep.m * El, El)
+    gsel, rows = moe_dispatch(mine, mo, dropless, batch)
+    G, El, C = gsel.shape
     valid = gsel > 0.0
-    rows = (tok_idx + torch.arange(G, device=x.device)[:, None, None] * Tg
-            ).transpose(0, 1).reshape(E, G * C)               # (E, G·C)
-    xe = h[rows]                                              # (E, G·C, D)
+    rows = rows.transpose(0, 1).reshape(El, G * C)            # (E, G·C)
+    xe = hc[rows]                                             # (E, G·C, D)
     act = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     yo = torch.bmm(act, p["w_down"])                          # (E, G·C, D)
-    w = (gsel * valid).to(yo.dtype).transpose(0, 1).reshape(E, G * C, 1)
+    w = (gsel * valid).to(yo.dtype).transpose(0, 1).reshape(El, G * C, 1)
     out = torch.zeros((T, D), dtype=yo.dtype, device=x.device).index_add(
-        0, rows.reshape(-1), (yo * w).reshape(E * G * C, D))
+        0, rows.reshape(-1), (yo * w).reshape(El * G * C, D))
 
     # load-balance aux loss (Switch-style), in the reference's order
-    me = probs.mean(0)                                        # (E,)
-    ce = (gates > 0).float().mean(0) * E / K
+    if batch is None or not whole_aux:
+        me = probs.mean(0)                                    # (E,)
+        ce = (gates > 0).float().mean(0) * E / K
+    else:
+        n_all = T * batch.size
+        me = TP.sum_over(probs.sum(0), batch) / n_all
+        ce = batch.all_reduce((gates > 0).float().sum(0)) / n_all * E / K
     aux = mo.aux_loss_coef * E * torch.sum(me * ce) / E
 
-    if "shared" in p:
-        out = out + swiglu_fwd(p["shared"], h, cfg.rms_norm_eps,
-                               residual=False)
-    if "dense_residual" in p:
-        out = out + swiglu_fwd(p["dense_residual"], h, cfg.rms_norm_eps,
-                               residual=False)
+    # the shared experts and arctic's dense residual: a column-split one's
+    # row-parallel part joins the experts' parts in their one all-reduce
+    # (its own when the experts are whole), a whole one is added after
+    tpm = tp if tp is not None and tp.mp > 1 else None
+    widths = {"shared": mo.d_ff_expert * mo.num_shared_experts,
+              "dense_residual": mo.dense_residual_d_ff}
+    late = []
+    for name in ("shared", "dense_residual"):
+        if name not in p:
+            continue
+        split = tpm is not None and \
+            p[name]["w_gate"]["w"].shape[-1] != widths[name]
+        y = swiglu_fwd(p[name], h, cfg.rms_norm_eps, residual=False,
+                       tp=tpm if split else None,
+                       reduce=ep is None)
+        if ep is not None and not split:
+            late.append(y)
+        else:
+            out = out + y
+    if ep is not None:
+        out = ep.reduce(out)
+    for y in late:
+        out = out + y
     return x + out.reshape(B, S, D).to(x.dtype), aux

@@ -164,12 +164,25 @@ def ssd_final_state(x, dt, A, B):
     return torch.einsum("bsn,bshp->bhnp", B.to(f), x.to(f) * w[..., None])
 
 
-def _mixer_inputs(p, cfg: ModelConfig, x, conv_state=None):
+def _in_proj(p, cfg: ModelConfig, x, tp=None):
+    """norm -> in_proj: (z, xBC, dt).  Under tensor parallelism
+    ``in_proj`` is a column shard of its flat (not head-aligned) output,
+    gathered (every shard then holds the whole z, xBC and dt)."""
+    s, d_inner, H = _dims(cfg)
+    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
+    if tp is not None:
+        h = tp.copy(h)
+    zxbcdt = linear(p["in_proj"], h)
+    if zxbcdt.shape[-1] != 2 * d_inner + 2 * s.d_state + H:
+        zxbcdt = tp.gather(zxbcdt)
+    return _split_in_proj(cfg, zxbcdt)
+
+
+def _mixer_inputs(p, cfg: ModelConfig, x, conv_state=None, tp=None):
     """norm -> in_proj -> conv: (z, xs, B, C, dt f32, A, conv state)."""
     s, d_inner, H = _dims(cfg)
     N = s.d_state
-    h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    z, xBC, dt = _split_in_proj(cfg, linear(p["in_proj"], h))
+    z, xBC, dt = _in_proj(p, cfg, x, tp)
     xBC, conv = _causal_conv(p["conv_w"], p["conv_b"], xBC, conv_state)
     xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
     dt = softplus(dt.float() + p["dt_bias"])
@@ -177,48 +190,116 @@ def _mixer_inputs(p, cfg: ModelConfig, x, conv_state=None):
     return z, xs, B, C, dt, A, conv
 
 
-def _mixer_out(p, cfg: ModelConfig, x, y, z):
-    """Gate, output norm, out_proj, residual.  y: (b, S, d_inner)."""
+def _mixer_out(p, cfg: ModelConfig, x, y, z, tp=None):
+    """Gate, output norm, out_proj, residual.  y: (b, S, d_inner).  Under
+    tensor parallelism ``out_proj`` is a row shard of whole heads: this
+    shard's heads' channels of the normed y (through ``copy``), the
+    products summed over ``model``."""
     y = y * F.silu(z)
     y = rmsnorm(p["out_norm"], y, cfg.rms_norm_eps)
+    w = p["out_proj"]["w"]
+    if w.shape[-2] != y.shape[-1]:
+        y = tp.copy(y).narrow(-1, tp.m * w.shape[-2], w.shape[-2])
+        return x + tp.reduce(y @ w)
     return x + linear(p["out_proj"], y)
 
 
-def mamba_fwd(p, cfg: ModelConfig, x, with_state: bool = False):
+def _heads_split(p, cfg: ModelConfig, tp) -> bool:
+    """Whether this block splits its heads over ``model`` (its
+    ``out_proj`` is a row shard)."""
+    return tp is not None and p["out_proj"]["w"].shape[-2] != _dims(cfg)[1]
+
+
+def mamba_fwd(p, cfg: ModelConfig, x, with_state: bool = False, tp=None):
     """Training/prefill forward.  x: (B, S, D) -> x + the block.  With
     ``with_state`` also the decode cache after the last row: {"conv": the
     last d_conv - 1 pre-activation conv inputs, zero-padded in front for
-    a prompt shorter than that; "ssm": the state}."""
+    a prompt shorter than that; "ssm": the state}.
+
+    ``tp`` (a ``dist.tp.Shards``): the gathered ``in_proj`` output and
+    the conv are whole on every shard; the chunked scan runs on this
+    shard's H/mp heads (x, dt, A and D through ``copy``, B and C whole:
+    each shard's gradients there are its heads' part, summed over
+    ``model``), its y gathered over the heads for the output norm over
+    the whole d_inner, and ``out_proj`` takes this shard's heads.  The
+    state returned is whole (its heads gathered)."""
     s, d_inner, H = _dims(cfg)
     b, S, _ = x.shape
-    z, xs, B, C, dt, A, conv = _mixer_inputs(p, cfg, x)
-    xh = xs.reshape(b, S, H, s.head_dim)
-    y = ssd_chunked(xh, dt, A, B, C, p["D"], s.chunk_size)
-    out = _mixer_out(p, cfg, x, y.reshape(b, S, d_inner), z)
+    P = s.head_dim
+    z, xs, B, C, dt, A, conv = _mixer_inputs(p, cfg, x, tp=tp)
+    xh = xs.reshape(b, S, H, P)
+    Dk = p["D"]
+    if _heads_split(p, cfg, tp):
+        Hl = H // tp.mp
+        lo = tp.m * Hl
+        xh = tp.copy(xh).narrow(2, lo, Hl)
+        dt = tp.copy(dt).narrow(2, lo, Hl)
+        A = tp.copy(A).narrow(0, lo, Hl)
+        Dk = tp.copy(Dk).narrow(0, lo, Hl)
+        B, C = tp.copy(B), tp.copy(C)
+        y = tp.gather(ssd_chunked(xh, dt, A, B, C, Dk, s.chunk_size), 2)
+    else:
+        y = ssd_chunked(xh, dt, A, B, C, Dk, s.chunk_size)
+    out = _mixer_out(p, cfg, x, y.reshape(b, S, d_inner), z, tp)
     if not with_state:
         return out
-    return out, {"conv": conv, "ssm": ssd_final_state(xh, dt, A, B)}
+    ssm = ssd_final_state(xh, dt, A, B)
+    if ssm.shape[1] != H:
+        ssm = tp.model.all_gather(ssm, 1)
+    return out, {"conv": conv, "ssm": ssm}
 
 
-def mamba_decode(p, cfg: ModelConfig, x, cache):
+def mamba_decode(p, cfg: ModelConfig, x, cache, tp=None, seq=None):
     """One token's recurrent update, O(1) in the sequence length.  x: (B,
     1, D); cache: {"conv": (B, K-1, conv_dim), "ssm": (B, H, N, P) f32},
-    written IN PLACE.  Returns (x + the block, cache)."""
+    written IN PLACE.  Returns (x + the block, cache).
+
+    ``tp``: the cache holds this shard's block of the conv channels and
+    of the state's N (the reference's rule puts ``model`` on the last
+    dim of conv and on N of ssm): the conv runs on the channel block, its
+    output gathered; the recurrence updates this shard's N slice, y's
+    partial sums over N all-reduced over ``model``.  ``seq``: the state
+    holds this member's block of the heads (the reference's rule at
+    batch 1), its y gathered over that group."""
     s, d_inner, H = _dims(cfg)
-    P = s.head_dim
+    P, N = s.head_dim, s.d_state
     b = x.shape[0]
-    z, xs, B, C, dt, A, conv = _mixer_inputs(p, cfg, x, cache["conv"])
-    dA = torch.exp(dt[:, 0] * A)                                # (B, H)
-    xh = xs.reshape(b, H, P).float()
-    dBx = torch.einsum("bn,bhp->bhnp", B[:, 0].float(),
-                       xh * dt[:, 0, :, None])
+    z, xBC, dt = _in_proj(p, cfg, x, tp)
+    if cache["conv"].shape[1] != s.d_conv - 1:
+        raise NotImplementedError("a conv state split along its d_conv - 1 "
+                                  "rows is not ported")
+    cw = cache["conv"].shape[-1]
+    if cw != xBC.shape[-1]:
+        lo = tp.m * cw
+        out, conv = _causal_conv(p["conv_w"].narrow(-1, lo, cw),
+                                 p["conv_b"].narrow(-1, lo, cw),
+                                 xBC.narrow(-1, lo, cw), cache["conv"])
+        xBC = tp.model.all_gather(out, -1)
+    else:
+        xBC, conv = _causal_conv(p["conv_w"], p["conv_b"], xBC,
+                                 cache["conv"])
+    xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    Hl, Nl = cache["ssm"].shape[1:3]
+    h0 = seq.index * Hl if Hl != H else 0
+    n0 = tp.m * Nl if Nl != N else 0
+    dtl = dt[:, 0, h0:h0 + Hl]
+    dA = torch.exp(dtl * A[h0:h0 + Hl])                         # (B, H)
+    xh = xs.reshape(b, H, P)[:, h0:h0 + Hl].float()
+    dBx = torch.einsum("bn,bhp->bhnp", B[:, 0, n0:n0 + Nl].float(),
+                       xh * dtl[..., None])
     ssm = cache["ssm"] * dA[..., None, None] + dBx              # (B,H,N,P)
-    y = torch.einsum("bn,bhnp->bhp", C[:, 0].float(), ssm)
-    y = y + xh * p["D"][None, :, None]
+    y = torch.einsum("bn,bhnp->bhp", C[:, 0, n0:n0 + Nl].float(), ssm)
+    if Nl != N:
+        y = tp.model.all_reduce(y)
+    y = y + xh * p["D"][None, h0:h0 + Hl, None]
+    if Hl != H:
+        y = seq.all_gather(y, 1)
     cache["conv"].copy_(conv)
     cache["ssm"].copy_(ssm)
     return _mixer_out(p, cfg, x, y.reshape(b, 1, d_inner).to(x.dtype),
-                      z), cache
+                      z, tp), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device, lead=()):

@@ -43,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, CROSS, MAMBA, MLA, ModelConfig
+from repro_torch.dist import sharding as SH
 from repro_torch.dist import tp as TP
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -66,10 +67,6 @@ def _moe_at(cfg: ModelConfig, pos: int) -> bool:
 
 def _has_ffn(cfg: ModelConfig) -> bool:
     return cfg.d_ff > 0 or cfg.moe is not None
-
-
-# the ROADMAP item that shards the other block kinds over ``model``
-TP_ITEM = "ROADMAP.md Queue 1 item 5"
 
 
 @dataclass(frozen=True)
@@ -106,23 +103,27 @@ class Model:
         return self.tp.mp if self.tp is not None else 1
 
     def _check_tp(self):
-        """Tensor parallelism covers the dense decoder: attention and
-        SwiGLU, whole heads on every shard."""
+        """Tensor parallelism splits whole heads: attention's query and kv
+        heads, latent attention's heads, cross-attention's query and kv
+        heads, and Mamba2's H = d_inner / head_dim when its out_proj's
+        rows split (the scan runs on a shard's heads)."""
         cfg, mp = self.cfg, self.mp
-        kinds = [k for k, on in (
-            ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-            ("Mamba2", MAMBA in cfg.block_pattern),
-            ("cross-attention", CROSS in cfg.block_pattern),
-            ("MTP", cfg.mtp_depth > 0)) if on]
-        if kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(kinds)} under --model-shards "
-                f"{mp} is not ported ({TP_ITEM}); the dense decoder is")
-        if cfg.n_heads % mp or cfg.n_kv_heads % mp:
+        heads = []
+        if CROSS in cfg.block_pattern or (ATTN in cfg.block_pattern
+                                          and cfg.mla is None):
+            heads += [("query", cfg.n_heads), ("kv", cfg.n_kv_heads)]
+        elif cfg.mla is not None:
+            heads.append(("latent attention", cfg.n_heads))
+        if MAMBA in cfg.block_pattern:
+            s, d_inner, H = M._dims(cfg)
+            if d_inner % mp == 0:
+                heads.append(("Mamba2", H))
+        bad = [f"{n} {what}" for what, n in heads if n % mp]
+        if bad:
             raise ValueError(
-                f"{cfg.name}: --model-shards {mp} splits a head ({cfg.n_heads}"
-                f" query, {cfg.n_kv_heads} kv heads): the port needs whole "
-                f"heads on each shard (ROADMAP.md Queue 3)")
+                f"{cfg.name}: --model-shards {mp} splits a head ("
+                f"{', '.join(bad)} heads): the port needs whole heads on "
+                f"each shard (ROADMAP.md Queue 3)")
 
     def _tpm(self):
         """The Shards when the heads are split over ``model``, else None."""
@@ -218,23 +219,28 @@ class Model:
 
     def _mixer(self, p, kind: str, h, positions, enc):
         """One position's mixer, for training (and the MTP block)."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self._tpm()
         if kind == ATTN:
             if cfg.mla is not None:
-                return L.mla_fwd(p, cfg, h, positions)[0]
-            return L.attention_fwd(p, cfg, h, positions, self._tpm())[0]
+                return L.mla_fwd(p, cfg, h, positions, tp)[0]
+            return L.attention_fwd(p, cfg, h, positions, tp)[0]
         if kind == MAMBA:
-            return M.mamba_fwd(p, cfg, h)
+            return M.mamba_fwd(p, cfg, h, tp=tp)
         return L.cross_attention_fwd(p, cfg, h,
-                                     L.cross_attention_kv(p, cfg, enc))
+                                     L.cross_attention_kv(p, cfg, enc, tp),
+                                     tp)
 
     def _ffn(self, p, pos: int, h, aux=None, dropless: bool = False):
         """Position ``pos``'s FFN, if it has one; a MoE layer's aux loss
-        is added to ``aux`` (when given)."""
+        is added to ``aux`` (when given; else it is left this member's,
+        its collectives under ``tp.batch`` saved).  A MoE layer reads the
+        whole Shards: its experts over ``model``, its batch over
+        ``batch``."""
         if "ffn" not in p:
             return h, aux
         if _moe_at(self.cfg, pos):
-            h, a = L.moe_fwd(p["ffn"], self.cfg, h, dropless=dropless)
+            h, a = L.moe_fwd(p["ffn"], self.cfg, h, dropless=dropless,
+                             tp=self.tp, whole_aux=aux is not None)
             return h, (None if aux is None else aux + a)
         return L.swiglu_fwd(p["ffn"], h, self.cfg.rms_norm_eps,
                             tp=self._ffn_tp(p["ffn"])), aux
@@ -276,8 +282,10 @@ class Model:
                 h, aux = self._block_fn(params, i, h, aux, positions, enc)
         return h, aux
 
-    def loss(self, params, batch, remat: Optional[bool] = None,
-             n_tokens=None):
+    def _nb(self) -> int:
+        return self.tp.nb if self.tp is not None else 1
+
+    def loss(self, params, batch, remat: Optional[bool] = None):
         """batch: {"tokens": (B, S), "labels": (B, S) (-1 = pad),
         ["encoder_embeds": (B, T, encoder_dim)]} on the params' device.
         ``remat`` None or True recomputes each block and each
@@ -285,10 +293,15 @@ class Model:
         the same operations on the same inputs, so the same values (bit
         for bit where the embedding's backward sums in a fixed order).
         The loss is (the mean cross-entropy + 0.3 x the MTP loss) + the
-        MoE layers' aux, in the reference's order.  ``n_tokens``: the
-        count the cross-entropy's sum is divided by (the global batch's
-        valid tokens, when this process holds a part of the batch), else
-        this batch's.  Returns (loss, metrics)."""
+        MoE layers' aux, in the reference's order.  Returns (loss,
+        metrics).
+
+        With ``tp.batch`` (n members, each holding a block of the batch's
+        rows) the loss is this member's share of the whole batch's: its
+        cross-entropy sums over the whole batch's valid tokens (and the
+        MTP head's), and 1/n of the aux, which the MoE layers compute
+        from the whole batch; so the members' losses, metrics and
+        gradients sum to the whole batch's."""
         cfg = self.cfg
         remat = True if remat is None else remat
         tokens, labels = batch["tokens"], batch["labels"]
@@ -296,8 +309,9 @@ class Model:
                              remat=remat)
         h = L.rmsnorm(self._sub(params, "final_norm"), h, cfg.rms_norm_eps)
         xent, n_tok = self._xent(h, self._lm_head_w(params), labels, remat)
-        loss = xent / torch.clamp(n_tok if n_tokens is None else n_tokens,
-                                  min=1.0)
+        loss = xent / torch.clamp(self._count(n_tok), min=1.0)
+        if self._nb() > 1:
+            aux = aux / self._nb()
         metrics = {"xent": loss, "aux_loss": aux, "tokens": n_tok}
         if cfg.mtp_depth > 0:
             mtp = self._mtp_loss(params, h, tokens, labels, remat)
@@ -306,6 +320,12 @@ class Model:
         loss = loss + aux
         metrics["loss"] = loss
         return loss, metrics
+
+    def _count(self, n_tok):
+        """The valid tokens of the whole batch (``tp.batch``'s sum)."""
+        if self._nb() == 1:
+            return n_tok
+        return self.tp.batch.all_reduce(n_tok.detach())
 
     def _mtp_loss(self, params, h, tokens, labels, remat: bool):
         """The multi-token prediction head (depth 1): from h after the
@@ -317,14 +337,20 @@ class Model:
         (flash's ``_chunks`` to 1-row query chunks past 512 rows, the
         cross-entropy's halving to 1-row chunks); ``flash.chunk_plan``
         and ``xent_chunk_plan`` pad instead, with the same values up to
-        the order of f32 sums."""
-        cfg = self.cfg
+        the order of f32 sums.  Under tensor parallelism ``proj`` is a
+        column shard, its output gathered, the next token's embedding is
+        the vocab-parallel one and the block runs sharded."""
+        cfg, tp = self.cfg, self._tpm()
         p = self._sub(params, "mtp")
         e_next = self._embed(params, tokens[:, 1:])
         hh = torch.cat([L.rmsnorm(p["norm_h"], h[:, :-1], cfg.rms_norm_eps),
                         L.rmsnorm(p["norm_e"], e_next, cfg.rms_norm_eps)],
                        dim=-1)
+        if tp is not None:
+            hh = tp.copy(hh)
         hm = L.linear(p["proj"], hh)
+        if hm.shape[-1] != cfg.d_model:
+            hm = tp.gather(hm)
         positions = torch.arange(tokens.shape[1] - 1, device=tokens.device)
         hm = self._mixer(p["block"]["mixer"], cfg.block_pattern[0], hm,
                          positions, None)
@@ -332,7 +358,7 @@ class Model:
         hm = L.rmsnorm(self._sub(params, "final_norm"), hm, cfg.rms_norm_eps)
         xent, n_tok = self._xent(hm, self._lm_head_w(params), labels[:, 1:],
                                  remat)
-        return xent / torch.clamp(n_tok, min=1.0)
+        return xent / torch.clamp(self._count(n_tok), min=1.0)
 
     def _xent(self, h, w, labels, remat: bool):
         """(sum of xent, valid tokens); over a vocab-sharded head, the
@@ -349,17 +375,44 @@ class Model:
 
     # -- inference ------------------------------------------------------------
 
-    def _seq_parts(self) -> int:
-        return self.tp.seq.size if self.tp is not None \
-            and self.tp.seq is not None else 1
+    def _seq(self):
+        return self.tp.seq if self.tp is not None else None
 
     def init_cache(self, batch: int, seq_len: int, device="cpu"):
         """An empty cache for ``seq_len`` positions (the window under a
         sliding window), per pattern position, stacked over the blocks.
         A cross position's k, v are f32 (see the module docstring).
-        Sharded, an attention cache holds this shard's kv heads and, split
-        along the sequence, its part of the positions."""
+        Sharded, each leaf is this process's block under the reference's
+        cache rule (``dist.sharding.cache_pspecs``): dim 3 over ``model``
+        where it divides (attention's and cross-attention's kv heads, the
+        latent's and the rope key's last dim, Mamba2's conv channels and
+        its state's N); split along the sequence (``tp.seq``), dim 2 over
+        it where it divides (the slots, the encoder tokens, the state's
+        heads) and a position ring's slots."""
         cfg, dtype = self.cfg, _dtype(self.cfg)
+        seq = self._seq()
+        if self.mp == 1 and seq is None:
+            return self._cache_tree(batch, seq_len, dtype, device)
+        full = self._cache_tree(batch, seq_len, dtype, "meta")
+        n = seq.size if seq is not None else 1
+        specs = SH.cache_pspecs(
+            full, dp_axes=("data",) if seq is not None else (), dp_size=n,
+            model_size=self.mp, seq_shard_axis="data" if seq else None)
+        sizes = {"data": n, "model": self.mp}
+        leaves = []
+        for path, x in tree_leaves_with_path(full):
+            key = keystr_path(path)
+            shape = SH.local_shape(tuple(x.shape), specs[key], sizes)
+            if key.endswith("/pos"):
+                leaves.append(torch.full(shape, L.INT32_MAX, dtype=x.dtype,
+                                         device=device))
+            else:
+                leaves.append(torch.zeros(shape, dtype=x.dtype,
+                                          device=device))
+        return tree_unflatten(full, leaves)
+
+    def _cache_tree(self, batch: int, seq_len: int, dtype, device):
+        cfg = self.cfg
         lead = (cfg.n_blocks,)
 
         def one_position(kind):
@@ -367,9 +420,8 @@ class Model:
                 if cfg.mla is not None:
                     return L.init_mla_cache(cfg, batch, seq_len, dtype,
                                             device, lead)
-                return L.init_attention_cache(
-                    cfg, batch, seq_len // self._seq_parts(), dtype, device,
-                    lead, cfg.n_kv_heads // self.mp)
+                return L.init_attention_cache(cfg, batch, seq_len, dtype,
+                                              device, lead)
             if kind == MAMBA:
                 return M.init_mamba_cache(cfg, batch, dtype, device, lead)
             shape = lead + (batch, cfg.num_encoder_tokens, cfg.n_kv_heads,
@@ -381,6 +433,18 @@ class Model:
         return {f"p{i}": one_position(kind)
                 for i, kind in enumerate(cfg.block_pattern)}
 
+    def _held(self, full, like):
+        """The block of ``full`` (one superblock's leaf, whole) that this
+        process's cache leaf ``like`` holds: dim 1 (the slots, encoder
+        tokens or state heads) split along the sequence group, dim 2 (the
+        kv heads, latent, rope key, conv channels or N) over ``model``."""
+        seq = self._seq()
+        for d, idx in ((1, seq.index if seq is not None else 0),
+                       (2, self.tp.m if self.tp is not None else 0)):
+            if full.dim() > d and full.shape[d] != like.shape[d]:
+                full = full.narrow(d, idx * like.shape[d], like.shape[d])
+        return full
+
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: Optional[int] = None):
         """Process a whole prompt (no gradient, no remat; MoE with its
@@ -390,28 +454,29 @@ class Model:
         logits (B, 1, V) f32, the filled cache: under a sliding window, a
         prompt longer than the window keeps its last ``window`` positions
         in ring order, slot = pos % window; a Mamba2 position keeps its
-        conv and SSM state, a cross position the encoder tokens' k, v)."""
-        cfg = self.cfg
+        conv and SSM state, a cross position the encoder tokens' k, v).
+        Sharded, every process computes the whole prompt of its rows and
+        keeps its block of the cache (``init_cache``)."""
+        cfg, tp = self.cfg, self._tpm()
         tokens = batch["tokens"]
         enc = batch.get("encoder_embeds")
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
         cache = self.init_cache(B, cache_len or S, tokens.device)
-        seq = self.tp.seq if self.tp is not None else None
+        seq = self._seq()
         h = self._embed(params, tokens)
         for i in range(cfg.n_blocks):
             blk = self._block(params, i)
             for pos, kind in enumerate(cfg.block_pattern):
                 p, c = blk[f"p{pos}"], cache[f"p{pos}"]
-                if kind == ATTN and cfg.mla is not None:
-                    h, (c_kv, k_rope) = L.mla_fwd(p["mixer"], cfg, h,
-                                                  positions)
-                    c["c_kv"][i][:, :S] = c_kv
-                    c["k_rope"][i][:, :S] = k_rope
-                    c["pos"][i, :S] = positions.to(torch.int32)
-                elif kind == ATTN:
-                    h, (k, v) = L.attention_fwd(p["mixer"], cfg, h,
-                                                positions, self._tpm())
+                if kind == ATTN:
+                    if cfg.mla is not None:
+                        h, kv = L.mla_fwd(p["mixer"], cfg, h, positions, tp)
+                        names = ("c_kv", "k_rope")
+                    else:
+                        h, kv = L.attention_fwd(p["mixer"], cfg, h,
+                                                positions, tp)
+                        names = ("k", "v")
                     n_slots = c["pos"].shape[1]
                     if seq is None:
                         keep = torch.arange(max(0, S - n_slots), S,
@@ -423,18 +488,24 @@ class Model:
                         keep = torch.arange(lo, max(lo, min(S, lo + n_slots)),
                                             device=tokens.device)
                         slots = keep - lo
-                    c["k"][i][:, slots] = k[:, keep]
-                    c["v"][i][:, slots] = v[:, keep]
+                    for name, x in zip(names, kv):
+                        dst = c[name][i]
+                        if x.shape[-1] != dst.shape[-1]:
+                            # the latent's or rope key's model block
+                            x = x.narrow(-1, tp.m * dst.shape[-1],
+                                         dst.shape[-1])
+                        dst[:, slots] = x[:, keep]
                     c["pos"][i, slots] = keep.to(torch.int32)
                 elif kind == MAMBA:
-                    h, st = M.mamba_fwd(p["mixer"], cfg, h, with_state=True)
-                    c["conv"][i].copy_(st["conv"])
-                    c["ssm"][i].copy_(st["ssm"])
+                    h, st = M.mamba_fwd(p["mixer"], cfg, h, with_state=True,
+                                        tp=tp)
+                    for name in ("conv", "ssm"):
+                        c[name][i].copy_(self._held(st[name], c[name][i]))
                 else:
-                    k, v = L.cross_attention_kv(p["mixer"], cfg, enc)
-                    h = L.cross_attention_fwd(p["mixer"], cfg, h, (k, v))
-                    c["k"][i].copy_(k)
-                    c["v"][i].copy_(v)
+                    k, v = L.cross_attention_kv(p["mixer"], cfg, enc, tp)
+                    h = L.cross_attention_fwd(p["mixer"], cfg, h, (k, v), tp)
+                    c["k"][i].copy_(self._held(k, c["k"][i]))
+                    c["v"][i].copy_(self._held(v, c["v"][i]))
                 h, _ = self._ffn(p, pos, h)
         h = L.rmsnorm(self._sub(params, "final_norm"), h[:, -1:],
                       cfg.rms_norm_eps)
@@ -448,8 +519,8 @@ class Model:
         (Mamba2) into the cache in place; a cross position reads its
         cached k, v.  Returns (logits (B, 1, V) f32, the cache).  MoE
         runs dropless: few tokens a step, so capacity would drop them."""
-        cfg = self.cfg
-        seq = self.tp.seq if self.tp is not None else None
+        cfg, tp = self.cfg, self._tpm()
+        seq = self._seq()
         h = self._embed(params, tokens)
         for i in range(cfg.n_blocks):
             blk = self._block(params, i)
@@ -457,15 +528,19 @@ class Model:
                 p = blk[f"p{j}"]
                 c = {key: x[i] for key, x in cache[f"p{j}"].items()}  # views
                 if kind == ATTN and cfg.mla is not None:
-                    h, _ = L.mla_decode(p["mixer"], cfg, h, c, pos)
+                    h, _ = L.mla_decode(p["mixer"], cfg, h, c, pos, tp, seq)
                 elif kind == ATTN:
                     h, _ = L.attention_decode(p["mixer"], cfg, h, c, pos,
-                                              self._tpm(), seq)
+                                              tp, seq)
                 elif kind == MAMBA:
-                    h, _ = M.mamba_decode(p["mixer"], cfg, h, c)
+                    h, _ = M.mamba_decode(p["mixer"], cfg, h, c, tp,
+                                          seq if c["ssm"].shape[1]
+                                          != M._dims(cfg)[2] else None)
                 else:
-                    h = L.cross_attention_fwd(p["mixer"], cfg, h,
-                                              (c["k"], c["v"]))
+                    h = L.cross_attention_fwd(
+                        p["mixer"], cfg, h, (c["k"], c["v"]), tp,
+                        seq if c["k"].shape[1] != cfg.num_encoder_tokens
+                        else None)
                 h, _ = self._ffn(p, j, h, dropless=True)
         h = L.rmsnorm(self._sub(params, "final_norm"), h, cfg.rms_norm_eps)
         return self._logits(h, self._lm_head_w(params)), cache

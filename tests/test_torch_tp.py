@@ -30,7 +30,8 @@ at batch 4 on (2, 2) and at batch 1 on (data 2)):
 
 Without a launch: ``shard_tree`` and ``gather_tree`` inverse (threads
 standing in for the processes), the GQA grouping under a shard of the
-heads, and what is refused.
+heads, the other block kinds' blocks under 2 model shards (their
+sharded runs are tests/test_torch_tp_kinds.py's), and what is refused.
 """
 import ast
 import json
@@ -386,11 +387,33 @@ def test_model_shards_outside_torchrun_raises(entry):
 @pytest.mark.parametrize("arch", ["arctic-480b", "mamba2-130m",
                                   "deepseek-v3-671b",
                                   "llama-3.2-vision-90b"])
-def test_unsharded_block_kinds_raise_under_tp(arch):
-    """MoE, Mamba2, MLA (with MTP) and cross-attention are not split over
-    ``model`` yet: no quiet unsharded compute."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Model(get_arch(arch).reduced(), Shards(model=_Stub(2)))
+def test_other_block_kinds_hold_the_dry_runs_blocks(arch):
+    """MoE, Mamba2, MLA (with MTP) and cross-attention under 2 model
+    shards: the model builds, and its params drawn on the meta device and
+    cut by the LGC step's specs are each shard's block of the dry run's
+    placement (``lgc_state_specs``' per-shard template, whose bytes
+    ``launch.dryrun`` prices), every leaf the spec splits halved."""
+    cfg = get_arch(arch).reduced()
+    model = Model(cfg, Shards(model=_Stub(2)))
+    full = model.init(torch.Generator(), "meta")
+    st = steps.lgc_state_specs(build_model(cfg),
+                               CompressionConfig(method="lgc_rar"),
+                               host_mesh(1, 2))
+    want, _ = dryrun.per_device_bytes(
+        build_model(cfg), InputShape("t", 32, 2, "train"), host_mesh(1, 2),
+        compression="lgc_rar")
+    held = 0
+    for m in range(2):
+        local = SH.shard_tree(full, st.params, {"model": m}, {"model": 2})
+        for (path, x), t, w in zip(tree_leaves_with_path(local),
+                                   tree_leaves(st.template),
+                                   tree_leaves(full)):
+            assert x.shape == t.shape, (keystr_path(path), x.shape)
+            split = "model" in st.params[keystr_path(path)]
+            assert x.numel() * (2 if split else 1) == w.numel()
+        held = sum(x.numel() * x.element_size() for x in tree_leaves(local))
+        assert held == want["params"], (m, held, want)
+    assert any("model" in sp for sp in st.params.values())
 
 
 def test_a_mesh_that_splits_a_head_raises():
