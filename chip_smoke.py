@@ -213,7 +213,16 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               against its emulated K = 2 twin in f32 (losses within
               TP_LOSS_REL), each rank's held parameter, optimizer and
               u/v/AE bytes the dry run's prediction for host_mesh(2, 2)
-              to the byte; steady step ms and peak GiB a rank.  The
+              to the byte; steady step ms and peak GiB a rank.  Each of
+              the two again with its rank files under build/ (a
+              checkpoint after step 3, lgc_rar's last top-k + AE step, and
+              after the auto step's step 1), stopped there, then resumed
+              from them (tp_resume): every rank's losses, the digest of
+              its whole params + AE and of its own train state (params
+              and optimizer blocks, u, v, AE) bit for bit the
+              uninterrupted run's, K1 1 and K3 5 a rank a resumed
+              compressed step; each rank's file bytes (then deleted),
+              save and load seconds.  The
               other block kinds (TP_KINDS) with momentum SGD, the same
               gates, the auto step against the one-node run on the
               whole batch: mamba2-130m at full depth and widths,
@@ -1690,10 +1699,29 @@ def pg_rank(spec_path: str) -> None:
         else:
             out = _pg_train(train, cfg, run)
             if out is None:
+                # ran to its end: run() wrote its record
+                drop_rank_file(run, rank)
                 continue
         out.update(rank=rank, launches=dict(LAUNCHES))
         with open(os.path.join(run["report"], f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
+
+
+def drop_rank_file(run, rank: int) -> None:
+    """A run with ``drop_checkpoint`` (a checkpoint path): this rank's file
+    of it, its bytes added to the rank's record, then deleted, so a
+    launch holds one run's files at a time."""
+    if not run.get("drop_checkpoint"):
+        return
+    from repro_torch.checkpoint import rank_path
+    f = rank_path(run["drop_checkpoint"], rank)
+    record = os.path.join(run["report"], f"rank{rank}.json")
+    with open(record) as fh:
+        rec = json.load(fh)
+    rec["file_bytes"] = os.path.getsize(f)
+    os.remove(f)
+    with open(record, "w") as fh:
+        json.dump(rec, fh)
 
 
 def _pg_train(train, cfg, run):
@@ -1739,16 +1767,19 @@ def arch_cfg(arch: str = "llama3.2-1b", cut=None, dtype=None):
 
 def pg_spec(name: str, flags, steps: int = 0, n_layers=N_LAYERS,
             stop_after=None, expect_error=None, kind: str = "train",
-            dtype=None, arch: str = "llama3.2-1b", cut=None):
+            dtype=None, arch: str = "llama3.2-1b", cut=None,
+            drop_checkpoint=None):
     """One run of a process launch: a train run of ``steps`` steps with
     the process runs' shared flags (2 data shards, batch 8, seq 128, 2
     warm-up steps) and ``flags`` after them; a serve run with ``flags``
     alone.  The model: ``arch_cfg(arch, cut, dtype)`` at ``n_layers``
-    (None: the config's; ``dtype`` None: the arch's)."""
+    (None: the config's; ``dtype`` None: the arch's).  A train run with
+    ``drop_checkpoint`` deletes its rank's file of that checkpoint once
+    it has run (``drop_rank_file``)."""
     return {"name": name, "kind": kind, "n_layers": n_layers,
             "dtype": dtype, "stop_after": stop_after,
             "expect_error": expect_error, "steps": steps, "flags": flags,
-            "arch": arch, "cut": cut}
+            "arch": arch, "cut": cut, "drop_checkpoint": drop_checkpoint}
 
 
 def pg_launch(label: str, specs, K: int):
@@ -1991,10 +2022,25 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
     two += serve_specs
     four = [pg_spec(n, f, s, n_layers=layers)
             for n, _, f, s, K, layers, _ in train_specs if K == 4]
+    tp_ckpt = {name: os.path.join(ROOT, "build", f"ckpt_tp_{name}",
+                                  "ckpt.npz") for name in ("lgc_rar", "none")}
     if "tp" in parts:
         four += [pg_spec("tp lgc_rar", tp_lgc, 6, dtype="float32"),
                  pg_spec("tp none", tp_none, TP_AUTO_STEPS,
                          dtype="float32")]
+        # each stopped after a step with its rank files, then resumed
+        # from them (each rank's file measured and deleted after)
+        for name, flags, steps, stop in (
+                ("lgc_rar", tp_lgc, 6, TP_LGC_STOP),
+                ("none", tp_none, TP_AUTO_STEPS, TP_AUTO_STOP)):
+            four += [
+                pg_spec(f"tp {name} stopped after step {stop}", flags + [
+                    "--checkpoint-dir", os.path.dirname(tp_ckpt[name]),
+                    "--checkpoint-every", str(stop)], steps,
+                    dtype="float32", stop_after=stop),
+                pg_spec(f"tp {name} resumed at step {stop + 1}", flags + [
+                    "--resume", tp_ckpt[name]], steps, dtype="float32",
+                    drop_checkpoint=tp_ckpt[name])]
         for arch, method, cut, _ in tp_kind_runs():
             lgc_run = method == "lgc_rar"
             four.append(pg_spec(
@@ -2004,7 +2050,11 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                 n_layers=None, dtype="float32", arch=arch, cut=cut))
         four += tp_serve_specs(TP_SERVE_FOUR)
     gc_cuda()
-    got4, launch4 = pg_launch("four", four, 4)
+    try:
+        got4, launch4 = pg_launch("four", four, 4)
+    finally:
+        for tp_path in tp_ckpt.values():
+            shutil.rmtree(os.path.dirname(tp_path), ignore_errors=True)
     gc_cuda()
     try:
         nbytes = None
@@ -2017,6 +2067,7 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
     launches = {"two": launch2, "four": launch4}
     if "tp" in parts:
         tp_train_checks(runs, got, smi, launch4, lgc_step)
+        tp_resume_checks(runs, got, smi, launch4, lgc_step)
         tp_serve_checks(runs, got, smi, launch2, serve_specs)
         tp_serve_checks(runs, got, smi, launch4,
                         tp_serve_specs(TP_SERVE_FOUR))
@@ -2130,6 +2181,11 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
 # into a whole step)
 TP_LOSS_REL = 2e-5
 TP_AUTO_STEPS = 3
+# tp_resume: the step after which each run is stopped with its rank files
+# (lgc_rar's last top-k + AE step: the resumed steps are the compressed
+# ones; the auto step's second)
+TP_LGC_STOP = 3
+TP_AUTO_STOP = 1
 # tp_serve: llama3.2-1b at full depth in bf16, and the f32 check
 TP_SERVE = (("tp serve B4 P64 G32", ["--model-shards", "2", "--batch", "4",
                                       "--prompt-len", "64", "--gen", "32"],
@@ -2344,6 +2400,66 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
                                          f"{rec['wire']} != the per-shard "
                                          f"layout's {priced}")
         runs["pg " + name] = {"launches": summed_launches(recs)}
+
+
+def tp_resume_checks(runs, got, smi: str, launch, lgc_step) -> None:
+    """tp_resume: the lgc_rar and auto (``none``) runs with model shards,
+    stopped with their rank files and resumed from them: on every rank
+    the stopped run's losses, the resumed run's later losses, the digest
+    of its whole params + AE and that of its own train state (params and
+    optimizer blocks, u, v, AE) the uninterrupted run's bit for bit; K1
+    and K3 launched on lgc_rar's resumed compressed steps; each rank's
+    file bytes, save and load seconds."""
+    for name, stop in (("lgc_rar", TP_LGC_STOP), ("none", TP_AUTO_STOP)):
+        whole = got[f"tp {name}"]
+        first = got[f"tp {name} stopped after step {stop}"]
+        second = got[f"tp {name} resumed at step {stop + 1}"]
+        for r in range(len(whole)):
+            want = [h["loss"] for h in whole[r]["history"]]
+            losses = ([h["loss"] for h in first[r]["history"]],
+                      [h["loss"] for h in second[r]["history"]])
+            same = (second[r]["digest"], second[r]["state_digest"]) == (
+                whole[r]["digest"], whole[r]["state_digest"])
+            if losses != (want[:stop + 1], want[stop + 1:]) or not same \
+                    or second[r]["resumed"]["layout"] != "rank files":
+                mine = second[r]["state_leaf_digests"]
+                theirs = whole[r]["state_leaf_digests"]
+                raise AssertionError(
+                    f"tp {name} resumed rank {r}: losses {losses} against "
+                    f"the uninterrupted {want}, state leaves differing "
+                    f"{sorted(k for k in theirs if mine.get(k) != theirs[k])}"
+                    f", read from {second[r]['resumed']['layout']}")
+            if name == "lgc_rar":
+                per_step(fused_ef_topk=1)(
+                    first[r]["launches"],
+                    [h["phase"] for h in first[r]["history"]])
+                lgc_step(second[r]["launches"],
+                         [h["phase"] for h in second[r]["history"]])
+                if [h["phase"] for h in second[r]["history"]] != [
+                        "compressed"] * (len(want) - stop - 1):
+                    raise AssertionError(f"tp lgc_rar resumed rank {r}: "
+                                         f"not the compressed steps")
+        runs[f"pg tp {name} stopped"] = {"launches": summed_launches(first)}
+        runs[f"pg tp {name} resumed"] = {"launches": summed_launches(second)}
+        emit("tp_resume", run=name, card=smi, backend=PG_BACKEND,
+             mesh={"data": 2, "model": 2}, dtype="float32",
+             n_layers=N_LAYERS, seq=128, batch=8, reduced=["n_layers"],
+             launch=launch, stopped_after=stop,
+             file_bytes=[rec["file_bytes"] for rec in second],
+             save_s=[rec["history"][stop]["checkpoint_s"] for rec in first],
+             load_s=[rec["resumed"]["seconds"] for rec in second],
+             resumed_at=[rec["resumed"]["step"] for rec in second],
+             step_ms={"stopped": [[h["ms"] for h in rec["history"]]
+                                  for rec in first],
+                      "resumed": [[h["ms"] for h in rec["history"]]
+                                  for rec in second]},
+             peak_gib=[rec["peak_gib"] for rec in second],
+             launches=[rec["launches"] for rec in second],
+             losses={"uninterrupted": [h["loss"] for h in
+                                       whole[0]["history"]],
+                     "resumed": [[h["loss"] for h in rec["history"]]
+                                 for rec in second]},
+             bitwise=True)
 
 
 def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:

@@ -178,13 +178,32 @@ def dims_over(spec: Spec, axis: str) -> Tuple[int, ...]:
     return tuple(d for d, e in enumerate(spec) if axis in _axes(e))
 
 
+def spec_axes(spec: Spec) -> frozenset:
+    """Every axis ``spec`` splits a dim over."""
+    return frozenset(a for e in spec for a in _axes(e))
+
+
+def block_index(spec: Spec, coords: Dict[str, int],
+                sizes: Dict[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """Per dim of ``spec``, (i, n): the device at ``coords`` holds block i
+    of the dim cut into n, i = i_a0·size_a1·... + i_a1 + ... over the
+    dim's axes (a0, a1, ...), the first axis major, as a
+    ``PartitionSpec`` lays them; (0, 1) where the entry is None."""
+    out = []
+    for entry in spec:
+        idx, n = 0, 1
+        for a in _axes(entry):
+            idx, n = idx * sizes.get(a, 1) + coords.get(a, 0), \
+                n * sizes.get(a, 1)
+        out.append((idx, n))
+    return tuple(out)
+
+
 def shard_tree(full: Any, specs: Dict[str, Spec], coords: Dict[str, int],
                sizes: Dict[str, int]) -> Any:
     """The block of every leaf of ``full`` that the device at ``coords``
-    ({axis: index}) holds on a mesh of ``sizes`` under ``specs``: a dim
-    over axes (a0, a1, ...) is cut into their product of blocks, block
-    i_a0·size_a1·... + i_a1 + ... (the first axis major, as a
-    ``PartitionSpec`` lays them); a dim whose entry is None stays whole."""
+    ({axis: index}) holds on a mesh of ``sizes`` under ``specs``
+    (:func:`block_index`); a dim whose entry is None stays whole."""
     return tree_unflatten(full, [
         block_of(leaf, specs[keystr_path(path)], coords, sizes)
         for path, leaf in tree_leaves_with_path(full)])
@@ -193,11 +212,7 @@ def shard_tree(full: Any, specs: Dict[str, Spec], coords: Dict[str, int],
 def block_of(x, spec: Spec, coords: Dict[str, int], sizes: Dict[str, int]):
     """The block of one leaf ``x`` that the device at ``coords`` holds
     under ``spec`` (a view; see :func:`shard_tree`)."""
-    for d, entry in enumerate(spec):
-        idx, n = 0, 1
-        for a in _axes(entry):
-            idx, n = idx * sizes.get(a, 1) + coords.get(a, 0), \
-                n * sizes.get(a, 1)
+    for d, (idx, n) in enumerate(block_index(spec, coords, sizes)):
         if n > 1:
             w = x.shape[d] // n
             x = x.narrow(d, idx * w, w)

@@ -29,7 +29,9 @@ builders run one process a device of the grid, on explicit collectives
 The placement rules of the reference's step builders (``batch_pspecs``,
 ``auto_train_pspecs``, ``lgc_state_specs``, ``serve_pspecs``,
 ``serve_cache_pspecs``, ``decode_token_pspec``) are pure functions of
-the model and a ``launch.mesh.MeshSpec``, at the end of this module.
+the model and a ``launch.mesh.MeshSpec``, at the end of this module;
+``train_state_specs`` places a whole train state by them, key by key as
+the trainer's checkpoint holds it.
 """
 from __future__ import annotations
 
@@ -528,13 +530,41 @@ def lgc_state_specs(model: Model, cc: CompressionConfig, mesh: MeshSpec
             path)], {"model": mp}), dtype=leaf.dtype, device="meta")
         for path, leaf in tree_leaves_with_path(p_shapes)])
     compressor = build_compressor(cc, template, dp)
-    dp_entry = dp_axes if len(dp_axes) > 1 else dp_axes[0]
-    comp = {"u": (dp_entry, "model", None), "v": (dp_entry, "model", None)}
-    if cc.method.startswith("lgc"):
-        comp["ae"] = ()
-        comp["ae_mom"] = ()
+    names = ("u", "v") + (("ae", "ae_mom") if cc.method.startswith("lgc")
+                          else ())
+    comp = {k: comp_state_spec(k, dp_axes) for k in names}
     return LGCStateSpecs(pspecs, ospecs, comp, template, compressor,
                          compressor.layout.n_total, dp, mp)
+
+
+def comp_state_spec(name: str, dp_axes: Sequence[str]) -> tuple:
+    """The spec of the LGC step's ``comp_state[name]``: each (node x model
+    shard)'s own EF rows u, v of the (dp, mp, n_local) arrays, the AE and
+    its momentum replicated."""
+    if name not in ("u", "v"):
+        return ()
+    return (dp_axes[0] if len(dp_axes) == 1 else tuple(dp_axes), "model",
+            None)
+
+
+def train_state_specs(pspecs: Dict[str, tuple], state: Any,
+                      dp_axes: Sequence[str]) -> Dict[str, tuple]:
+    """{checkpoint key: spec} of a train state ``state`` ({"params",
+    "opt_state"[, "comp_state"]}, keyed as the trainer's file): the params
+    under ``pspecs``, each optimizer slot under its parameter's spec, the
+    compressor's state as ``comp_state_spec``, as the reference's step
+    builders place them."""
+    out = {}
+    for path, _ in tree_leaves_with_path(state):
+        key = keystr_path(path)
+        part, rest = key.split("/", 1)
+        if part == "params":
+            out[key] = pspecs[rest]
+        elif part == "opt_state":
+            out[key] = pspecs[rest.split("/", 1)[1]]
+        else:
+            out[key] = comp_state_spec(rest.split("/", 1)[0], dp_axes)
+    return out
 
 
 def serve_pspecs(model: Model, mesh: MeshSpec) -> Dict[str, tuple]:

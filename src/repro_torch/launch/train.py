@@ -25,7 +25,10 @@ fail_fast`` validates every exchange (fail_fast raises
 ``--checkpoint-dir`` with ``--checkpoint-every`` saves the full train
 state (params, optimizer moments and the compressor's state, its EF
 residuals included) and ``--resume`` continues from such a file, bit for
-bit as an uninterrupted run.  Runs on the card unless ``--device cpu``;
+bit as an uninterrupted run.  The emulated run's file is the reference
+trainer's ``ckpt.npz``, u and v as its (dp, mp, n) = (K, 1, n) (the (K,
+n) stacks reshaped at the file boundary), so each package's trainer
+resumes from the other's.  Runs on the card unless ``--device cpu``;
 with no card it raises.  Flags follow ``repro.launch.train``.
 
 Under torchrun each process is one node (``launch.mesh``: ``WORLD_SIZE``
@@ -45,12 +48,6 @@ record.  The chaos wire, every ``--fault-*``, the guards and the checksum
 word run as in the emulated run: each process's fault tally and guard
 records are the emulated step's (node 0's counts, which every process
 receives), and fail_fast raises on every process at the same step.
-Each process checkpoints its own node's part of the state
-(``checkpoint.save_rank_checkpoint``: ``ckpt.rank<r>.npz``, node 0's
-with the replicated rest), and ``--resume <dir>/ckpt.npz`` has each read
-its own file and receive the rest from node 0, bit for bit as an
-uninterrupted run; a torn save makes every process raise
-``CheckpointError``.
 
 ``--model-shards`` M > 1 (under torchrun only: one process holds one
 model shard) makes the world the (pod, data, model) mesh, pod x data x M
@@ -62,9 +59,26 @@ over ``model``).  Under torchrun ``--compression none`` runs the
 reference's auto step at any M, as the reference's trainer does
 (``use_lgc``): TP over ``model``, FSDP over ``data``, DP over ``pod``
 (``make_auto_train_step``); the emulated one-process run keeps its K-node
-``none`` through the LGC step, since one process holds no shards.  A
-model-sharded or auto run refuses ``--checkpoint-dir`` and ``--resume``
-(ROADMAP.md Queue 1 item 6).
+``none`` through the LGC step, since one process holds no shards.
+
+Checkpoints under torchrun are one file a rank (``ckpt.rank<r>.npz``,
+``checkpoint.save_rank_checkpoint``), on any grid: each holds the rank's
+blocks of the gathered file's leaves under their specs
+(``steps.train_state_specs``), written only by the rank at 0 on the dp
+axes a leaf's spec does not split (the data-0 rank of each model column
+its column's params, optimizer and AE; under FSDP every rank its data
+blocks; every rank its own u, v), never deduplicated over ``model``: the
+model shards' copies of a leaf the spec leaves whole (a norm scale)
+differ, each shard compressing its own flat gradient.  ``--resume
+<dir>/ckpt.npz`` reads the rank files when any is there (each rank its
+own, the rest broadcast over dp; bit for bit the uninterrupted run, and
+a torn, missing or foreign file makes every rank raise
+``CheckpointError``), else the gathered file at that path, the
+reference's or the emulated run's (``checkpoint.load_gathered_checkpoint``:
+each rank cuts its blocks; such a file holds one copy of a leaf whole
+over ``model``, so the resume follows the reference's resumed run), and
+refuses both at once.  ``checkpoint.stitch_rank_checkpoints`` joins a
+run's rank files into the gathered file.
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --data-shards 2 --model-shards 2 \
@@ -77,13 +91,14 @@ import json
 import logging
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint import (load_checkpoint, load_rank_checkpoint,
+from repro_torch.checkpoint import (load_checkpoint, load_grid_checkpoint,
                                     save_checkpoint, save_rank_checkpoint)
+from repro_torch.checkpoint.checkpoint import NODE_LEAVES
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import (CompressionConfig, ModelConfig,
                                       TrainConfig)
@@ -92,10 +107,11 @@ from repro_torch.core.rate import rate_report
 from repro_torch.data import synthetic_token_batches
 from repro_torch.dist import chaos
 from repro_torch.kernels import LAUNCHES
-from repro_torch.dist.sharding import gather_tree
-from repro_torch.launch.mesh import init_process_mesh, under_torchrun
+from repro_torch.dist.sharding import gather_tree, param_pspecs
+from repro_torch.launch.mesh import (dp_axes_of, init_process_mesh,
+                                     under_torchrun)
 from repro_torch.launch.steps import (held_bytes, make_auto_train_step,
-                                      make_lgc_train_step)
+                                      make_lgc_train_step, train_state_specs)
 from repro_torch.models.model import build_model
 from repro_torch.utils import (deterministic_convs, disable_tf32,
                                resolve_device)
@@ -196,7 +212,8 @@ def parse_args(argv=None):
                         "the data stream and continues at the saved step, "
                         "bit for bit as an uninterrupted run (under "
                         "torchrun each process reads its own "
-                        "<name>.rank<r>.npz beside it)")
+                        "<name>.rank<r>.npz beside it, or, when there is "
+                        "none, cuts its blocks from the gathered file)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--metrics-out", default="")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -229,22 +246,30 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _state_tree(cc: CompressionConfig, params, opt_state, comp_state):
+def _state_tree(cc: CompressionConfig, params, opt_state, comp_state,
+                lead: Tuple[int, ...]):
     """What a checkpoint holds: the full train state, without the
-    compressor's for ``none`` (the reference's dense trainer has none)."""
+    compressor's for ``none`` (the reference's dense trainer has none),
+    u and v as ``lead + (n,)``: (K, 1) for the emulated (K, n) stacks,
+    the reference's (dp, mp, n); (1, 1) for a rank's (n,) row, its block
+    of that."""
     tree = {"params": params, "opt_state": opt_state}
     if cc.method != "none":
-        tree["comp_state"] = comp_state
+        tree["comp_state"] = {
+            k: x.reshape(lead + x.shape[-1:]) if k in NODE_LEAVES else x
+            for k, x in comp_state.items()}
     return tree
 
 
-def _save(path: str, tree, step: int, mesh) -> None:
-    """The emulated run's one file, or under a process mesh this node's
+def _save(path: str, tree, step: int, grid, specs) -> None:
+    """The emulated run's one file, or under a process grid this rank's
     own (``checkpoint.save_rank_checkpoint``)."""
-    if mesh is None:
+    if grid is None:
         save_checkpoint(path, tree, step)
     else:
-        save_rank_checkpoint(path, tree, step, mesh.Ks, mesh.node)
+        save_rank_checkpoint(path, tree, step, grid.pm.Ks, grid.pm.node,
+                             grid.spec.axis_sizes["model"], grid.pm.shard,
+                             specs)
 
 
 def run(cfg: ModelConfig, args,
@@ -257,8 +282,8 @@ def run(cfg: ModelConfig, args,
     injected faults the step's ``fault_ops``; ``checkpoint_s`` where the
     step saved), "wire": {phase: {op: {kind: bytes}}}, "rate": the
     RateReport, "compressor": the GradientCompressor, "params": the
-    trained parameters, "resumed": {path, step, seconds} or None,
-    "report": this process's ``--report`` record or None}.  Under
+    trained parameters, "resumed": {path, step, layout, seconds} or
+    None, "report": this process's ``--report`` record or None}.  Under
     torchrun the process is one node of the mesh.
     ``on_step(record)`` runs after each step has finished on the device
     and after its checkpoint."""
@@ -330,15 +355,17 @@ def _run(cfg, args, cc, tc, Ks, K, grid, device, on_step):
     model = build_model(cfg)
     auto = grid is not None and cc.method == "none"
     sharded = auto or args.model_shards > 1
-    if sharded and (args.checkpoint_dir or args.resume):
-        raise NotImplementedError(
-            "--checkpoint-dir / --resume of a sharded run (--model-shards "
-            "> 1, or the auto step of --compression none under torchrun) "
-            "is not ported (ROADMAP.md Queue 1 item 6)")
     lts = _Auto(model, tc, grid) if auto else \
         make_lgc_train_step(model, tc, K, device, Ks, mesh, grid)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params, opt_state, comp_state = lts.init(gen)
+    # the checkpoint's u, v: the emulated (K, n) as the reference's (K, 1,
+    # n), a rank's (n,) as its (1, 1, n) block; each key's spec on a grid
+    lead = (K, 1) if grid is None else (1, 1)
+    specs = None if grid is None else train_state_specs(
+        lts.specs or param_pspecs(params),
+        _state_tree(cc, params, opt_state, comp_state, lead),
+        dp_axes_of(grid.spec))
     layout = None if auto else lts.compressor.layout
     if rank0:
         log.info("arch=%s params=%s device=%s nodes=%d mesh=%s%s%s",
@@ -351,18 +378,24 @@ def _run(cfg, args, cc, tc, Ks, K, grid, device, on_step):
     if args.resume:
         # the fresh state is the template: shapes, dtypes and the device
         t0 = time.perf_counter()
-        template = _state_tree(cc, params, opt_state, comp_state)
-        loaded, start = load_checkpoint(args.resume, template) \
-            if mesh is None else \
-            load_rank_checkpoint(args.resume, template, mesh)
+        template = _state_tree(cc, params, opt_state, comp_state, lead)
+        if grid is None:
+            (loaded, start), kind = load_checkpoint(args.resume,
+                                                    template), "gathered"
+        else:
+            loaded, start, kind = load_grid_checkpoint(
+                args.resume, template, grid, specs)
         del template
         params, opt_state = loaded["params"], loaded["opt_state"]
-        comp_state = loaded.get("comp_state", comp_state)
+        if "comp_state" in loaded:
+            comp_state = {k: x.reshape(comp_state[k].shape)
+                          if k in NODE_LEAVES else x
+                          for k, x in loaded["comp_state"].items()}
         del loaded
-        resumed = {"path": args.resume, "step": start,
+        resumed = {"path": args.resume, "step": start, "layout": kind,
                    "seconds": time.perf_counter() - t0}
-        log.info("resumed the full train state from %s at step %d",
-                 args.resume, start)
+        log.info("resumed the full train state from %s (%s) at step %d",
+                 args.resume, kind, start)
     report = None if auto else rate_report(cc, layout, K)
     if rank0 and not auto:
         log.info("compression=%s CR(avg)=%.1fx bytes/node=%.0f", cc.method,
@@ -421,14 +454,14 @@ def _run(cfg, args, cc, tc, Ks, K, grid, device, on_step):
                 and step and step % args.checkpoint_every == 0:
             # step + 1: the next step to run on resume
             t0 = time.perf_counter()
-            _save(ckpt, _state_tree(cc, params, opt_state, comp_state),
-                  step + 1, mesh)
+            _save(ckpt, _state_tree(cc, params, opt_state, comp_state,
+                                    lead), step + 1, grid, specs)
             rec["checkpoint_s"] = time.perf_counter() - t0
         if on_step is not None:
             on_step(rec)
     if args.checkpoint_dir:
-        _save(ckpt, _state_tree(cc, params, opt_state, comp_state),
-              args.steps, mesh)
+        _save(ckpt, _state_tree(cc, params, opt_state, comp_state, lead),
+              args.steps, grid, specs)
     if args.metrics_out and rank0:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=1)
@@ -440,8 +473,12 @@ def _run(cfg, args, cc, tc, Ks, K, grid, device, on_step):
         full = gather_tree(params, lts.specs, grid.groups())
     record = None
     if args.report:
+        # sharded, each rank's own blocks of the whole state too: a model
+        # shard's copy of a leaf whole over ``model`` is its own
+        state = _state_tree(cc, params, opt_state, comp_state, lead) \
+            if sharded else None
         record = _report(args, grid, device, history, wire, sent, full,
-                         comp_state, resumed, held)
+                         comp_state, resumed, held, state)
     return {"history": history, "wire": wire, "rate": report,
             "compressor": None if auto else lts.compressor,
             "params": params, "full_params": full, "opt_state": opt_state,
@@ -450,16 +487,23 @@ def _run(cfg, args, cc, tc, Ks, K, grid, device, on_step):
 
 
 def _report(args, grid, device, history, wire, sent, params, comp_state,
-            resumed, held):
-    """This process's record, written to ``args.report``/rank<r>.json."""
+            resumed, held, state=None):
+    """This process's record, written to ``args.report``/rank<r>.json:
+    with ``state``, the digest of this rank's own train state (params
+    and optimizer blocks, u, v, AE) beside that of the whole params and
+    AE."""
     rank = 0 if grid is None else grid.rank
     digest, leaves = tree_digest({"params": params, **{
         k: comp_state[k] for k in ("ae", "ae_mom") if k in comp_state}})
+    state_digest, state_leaves = tree_digest(state) if state is not None \
+        else (None, None)
     record = {
         "rank": rank, "mesh": None if grid is None else list(grid.pm.Ks),
         "model_shards": args.model_shards,
         "history": history, "wire": wire, "sent": sent or None,
-        "digest": digest, "leaf_digests": leaves, "held": held,
+        "digest": digest, "leaf_digests": leaves,
+        "state_digest": state_digest, "state_leaf_digests": state_leaves,
+        "held": held,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30
         if device.type == "cuda" else None,
         "launches": dict(LAUNCHES), "resumed": resumed}

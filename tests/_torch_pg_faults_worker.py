@@ -10,7 +10,9 @@ processes, each joining its own process group, as PLAN.json lists them:
   exception, whose line ("<Error>: message") goes to DIR/rank<r>.json;
 - ``{"tear": CKPT, "into": DIR, "rank": R, "step": S}``: each rank copies
   its own rank file of CKPT into DIR, and rank R marks its copy as saved
-  at step S, a torn save.
+  at step S, a torn save;
+- ``{"stitch": CKPT}``: rank 0 joins the rank files of CKPT into the
+  gathered file CKPT beside them.
 
 ``{store}`` in an argv is STORE with the run's index appended.
 
@@ -25,7 +27,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import rank_path
+from repro_torch.checkpoint import rank_path, stitch_rank_checkpoints
 from repro_torch.configs import get_arch
 from repro_torch.launch import train
 
@@ -85,6 +87,9 @@ def main(plan, store):
     for i, spec in enumerate(specs):
         if "tear" in spec:
             tear(spec, rank)
+        elif "stitch" in spec:
+            if rank == 0:
+                stitch_rank_checkpoints(spec["stitch"], spec["stitch"])
         else:
             run(spec, rank, f"{store}.{i}")
 

@@ -12,11 +12,14 @@ with a suffix) and leaving it:
 - ``lgc``: lgc_rar on (2, 2) for each arch, 3 steps (one a phase), but
   jamba's first step alone;
 - ``resume``: jamba's lgc_rar steps 1 and 2, each alone from the
-  reference's state before it (its checkpoints INIT/<arch>.s<i>/ckpt.npz
-  after i steps, waited for as INIT/<arch>.s<i>.done): over three steps
-  one f32 near-tie that crosses a selection threshold would change every
-  later gradient (jamba's Mamba2 gradients lie up to 3.1e-5 of their
-  largest entry from f64's), so each step is held from the same state;
+  reference's state before it: the trainer's own ``--resume`` of the
+  reference's gathered checkpoints INIT/<arch>.s<i>/ckpt.npz after i
+  steps (waited for as INIT/<arch>.s<i>.done), each rank cutting its
+  blocks from the file (``checkpoint.load_gathered_checkpoint``): over
+  three steps one f32 near-tie that crosses a selection threshold would
+  change every later gradient (jamba's Mamba2 gradients lie up to 3.1e-5
+  of their largest entry from f64's), so each step is held from the same
+  state;
 - ``serve``: greedy serving of each arch at batch 4 (the batch over
   data, the heads over model) and batch 1 (the cache split over data),
   vision also at batch 4 with its gates at 0.5, mamba2-130m at batch 4.
@@ -42,9 +45,7 @@ from repro_torch.data import synthetic_token_batches
 from repro_torch.launch import serve, steps, train
 from repro_torch.launch.mesh import init_process_mesh
 from repro_torch.models.model import build_model
-from repro_torch.utils.tree import (keystr_path, tree_leaves,
-                                    tree_leaves_with_path, tree_map,
-                                    tree_unflatten)
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 ARCHS = ("jamba-v0.1-52b", "deepseek-v3-671b", "llama-3.2-vision-90b")
 REPAIR = "deepseek-v3-671b"
@@ -78,7 +79,6 @@ SERVES = [(f"{a} {b}", a, flags, None) for a in ARCHS
 
 
 LGC_INIT = steps.LGCTrainStep.init
-LGC_STEP = steps.LGCTrainStep.step
 
 
 def start_from(full, ae_leaves):
@@ -97,49 +97,6 @@ def start_from(full, ae_leaves):
         return params, self.optimizer.init(params), comp
     steps.LGCTrainStep.init = lgc
     steps.AutoTrainStep.init = lambda self, gen: self.init_from(full)
-
-
-def _filled(tree, ckpt, prefix):
-    return tree_unflatten(tree, [
-        torch.from_numpy(ckpt[prefix + keystr_path(path)])
-        for path, _ in tree_leaves_with_path(tree)])
-
-
-def resume_from(path):
-    """The LGC step builder's init takes the reference's saved state at
-    ``path`` (its params and momentum, cut to this process's block;
-    comp_state's u and v [d, m]; the AE and its momentum), and its steps
-    before the saved one return the state as it is (no wire, loss 0), so
-    the trainer's loop runs the saved step on its batch of the stream.
-    Returns the saved step."""
-    with np.load(path) as z:
-        ckpt = {k: z[k] for k in z.files}
-    start = int(ckpt["__step__"])
-
-    def init(self, gen):
-        _, _, comp = LGC_INIT(self, gen)
-        whole = self.model.init(torch.Generator(), "meta")
-        params = steps.shard_params(_filled(whole, ckpt, "params/"),
-                                    self.specs, self.grid)
-        opt = {"m": steps.shard_params(_filled(whole, ckpt, "opt_state/m/"),
-                                       self.specs, self.grid)}
-        d, m = self.grid.coords["data"], self.grid.coords["model"]
-        comp.update(u=torch.from_numpy(ckpt["comp_state/u"][d, m]),
-                    v=torch.from_numpy(ckpt["comp_state/v"][d, m]),
-                    ae=_filled(comp["ae"], ckpt, "comp_state/ae/"),
-                    ae_mom=_filled(comp["ae_mom"], ckpt,
-                                   "comp_state/ae_mom/"))
-        return params, opt, comp
-
-    def step(self, params, opt_state, comp_state, batch, step, phase):
-        if step < start:
-            return params, opt_state, comp_state, {"loss": torch.zeros(()),
-                                                   "wire": {}}
-        return LGC_STEP(self, params, opt_state, comp_state, batch, step,
-                        phase)
-    steps.LGCTrainStep.init = init
-    steps.LGCTrainStep.step = step
-    return start
 
 
 def wait_for(path, timeout=400.0):
@@ -231,25 +188,28 @@ def main(init, out, store, *parts):
             params=full)
         rec[name] = {"tokens": res["tokens"].tolist(), "held": res["held"]}
         arrays[f"{name}/logits"] = res["logits"]
+    steps.LGCTrainStep.init = LGC_INIT
     for saved in (1, 2) if "resume" in parts else ():
         stem = os.path.join(init, f"{RESUME}.s{saved}")
         wait_for(stem + ".done")
-        start = resume_from(os.path.join(stem, "ckpt.npz"))
         res = train.run(get_arch(RESUME).reduced(), train.parse_args(
             LGC + PORT_LGC + PORT + [
-                "--steps", str(start + 1), "--arch", RESUME, "--dist-init",
-                f"{store}.{RESUME}.s{start}", "--report",
-                os.path.join(out, f"{RESUME}.s{start}")]))
+                "--steps", str(saved + 1), "--arch", RESUME, "--resume",
+                os.path.join(stem, "ckpt.npz"), "--dist-init",
+                f"{store}.{RESUME}.s{saved}", "--report",
+                os.path.join(out, f"{RESUME}.s{saved}")]))
+        start = res["resumed"]["step"]
+        assert (start, res["resumed"]["layout"]) == (saved, "gathered"), \
+            res["resumed"]
         key = f"{RESUME} step {start}"
-        phase = res["history"][start]["phase"]
-        rec[key] = {"history": res["history"][start:], "held": res["held"],
+        phase = res["history"][0]["phase"]
+        rec[key] = {"history": res["history"], "held": res["held"],
                     "wire": {phase: res["wire"][phase]}}
         arrays[f"{key}/u"] = res["comp_state"]["u"].numpy()
         arrays[f"{key}/v"] = res["comp_state"]["v"].numpy()
         if rank == 0:
             arrays.update({f"{key}/lgc_p{i}": x.numpy() for i, x in
                            enumerate(tree_leaves(res["full_params"]))})
-    steps.LGCTrainStep.init, steps.LGCTrainStep.step = LGC_INIT, LGC_STEP
     os.makedirs(out, exist_ok=True)
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:

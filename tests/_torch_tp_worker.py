@@ -6,7 +6,11 @@ reference's initial weights and AE, one process set through every path:
   (each process's block), and ``gather_tree`` of ``shard_tree`` on the
   2 x 2 and 1 x 4 meshes;
 - (i) the trainer's auto step (``--compression none``), 3 steps;
-- (ii) lgc_rar through its three phases, 4 steps;
+- (ii) lgc_rar through its three phases, 4 steps, saving its rank files
+  at its end (OUT/lgc_final);
+- each of (i) and (ii) again with ``--checkpoint-dir`` (OUT/<name>_ckpt),
+  stopped after step 1 (lgc_rar's first sparsified step) by ``run()``'s
+  ``on_step``, then resumed from its rank files at step 2;
 - (iii) serving at batch 4: prefill and 3 decode steps, the batch over
   ``data``; once more with the weights also sharded over ``data``
   (``SERVE_FSDP_BYTES`` forced to 0);
@@ -134,6 +138,43 @@ def first_grads(cfg, full, store, rank):
         dist.destroy_process_group()
 
 
+class Stop(Exception):
+    pass
+
+
+def digests(res):
+    """This rank's own final train state's digest and its leaves'."""
+    return {k: res["report"][k]
+            for k in ("state_digest", "state_leaf_digests")}
+
+
+def stop_and_resume(cfg, name, flags, out, store):
+    """``flags``' run with a checkpoint after every step, stopped after
+    step 1; then the run resumed from its rank files: their records."""
+    ckpt = ["--checkpoint-dir", os.path.join(out, f"{name}_ckpt"),
+            "--checkpoint-every", "1"]
+    steps = []
+
+    def on_step(h):
+        steps.append(h)
+        if h["step"] == 1:
+            raise Stop
+    try:
+        train.run(cfg, train.parse_args(
+            flags + PORT + ckpt + ["--dist-init", f"{store}.{name}.stop"]),
+            on_step=on_step)
+        raise AssertionError(f"{name}: the run was not stopped")
+    except Stop:
+        pass
+    res = train.run(cfg, train.parse_args(flags + PORT + [
+        "--resume", os.path.join(out, f"{name}_ckpt", "ckpt.npz"),
+        "--dist-init", f"{store}.{name}.resume", "--report",
+        os.path.join(out, f"{name}_resumed")]))
+    return {f"{name} stopped": {"history": steps},
+            f"{name} resumed": {"history": res["history"],
+                                "resumed": res["resumed"], **digests(res)}}
+
+
 def main(init, out, store):
     torch.set_num_threads(1)
     rank = int(os.environ["RANK"])
@@ -144,17 +185,20 @@ def main(init, out, store):
     arrays, same = first_grads(cfg, full, store + ".grad", rank)
     rec = {"gather_inverse": same}
     for name, flags in (("auto", AUTO), ("lgc", LGC + PORT_LGC)):
+        final = ["--checkpoint-dir", os.path.join(out, "lgc_final")] \
+            if name == "lgc" else []
         res = train.run(cfg, train.parse_args(
-            flags + PORT + ["--dist-init", f"{store}.{name}", "--report",
-                            os.path.join(out, name)]))
+            flags + PORT + final + ["--dist-init", f"{store}.{name}",
+                                    "--report", os.path.join(out, name)]))
         rec[name] = {"history": res["history"], "wire": res["wire"],
-                     "held": res["held"]}
+                     "held": res["held"], **digests(res)}
         if rank == 0:
             arrays.update({f"{name}_p{i}": x.numpy() for i, x in
                            enumerate(tree_leaves(res["full_params"]))})
         if name == "lgc":
             arrays["u"] = res["comp_state"]["u"].numpy()
             arrays["v"] = res["comp_state"]["v"].numpy()
+        rec.update(stop_and_resume(cfg, name, flags, out, store))
     for name, flags in PORT_SERVE.items():
         if name == "b4_fsdp":
             steps.SERVE_FSDP_BYTES = 0

@@ -10,8 +10,10 @@ reference):
   with bit flips, NaNs and an inf on ``topk`` and node 2's contribution
   dropped, 5 steps with a checkpoint every 2, stopped after step 2 on
   every rank (through ``run()``'s ``on_step``): each step's loss and guard record (guard_ok, fault,
-  faults, fault_ops) are the twin's, and the 4 rank files stitched (u, v
-  stacked, the rest node 0's) are the twin's file of step 3 key by key.
+  faults, fault_ops) are the twin's, and the 4 rank files stitched
+  (``checkpoint.stitch_rank_checkpoints``: u, v's (1, 1, n) blocks into
+  the (K, 1, n) arrays, the rest node 0's) are the twin's file of step 3
+  key by key.
   The twin is one uninterrupted emulated 5-step run of the same flags:
   a shorter run is another run, its cosine schedule spanning its own
   steps;
@@ -21,15 +23,19 @@ reference):
   NaN on the encoding, saved at its end: every compressed round skipped,
   as in the twin;
 - a torn save, one of (c)'s two rank files at another step: every rank
-  raises CheckpointError naming the files;
+  raises CheckpointError naming the files; and (c)'s rank files with
+  the gathered file stitched from them beside them: every rank refuses
+  the two layouts at once;
 - (d) K = 2, lgc_rar on ``chaos:mesh --guard fail_fast``: every rank
   raises the twin's WireFaultError, at the same step;
 - the rank files' consistency check itself, in-process: a torn save, a
-  missing or foreign file, another mesh, another node's file.
+  missing or foreign file, another mesh, another node's file; and on a
+  (data 2, model 2) grid a missing model-shard-1 file, a file of another
+  grid and a torn save.
 
 Two launches run them all (tests/_torch_pg_faults_worker.py: the runs
 one after another in the same processes): (a) then (b) at K = 4; (c),
-the torn save and (d) at K = 2.
+the torn save, the two layouts at once and (d) at K = 2.
 """
 import json
 import os
@@ -43,7 +49,8 @@ from _one_thread import one_thread  # noqa: F401  (autouse)
 from _torch_pg import launch, worker
 from repro_torch.checkpoint import (CheckpointError, check_rank_headers,
                                     rank_path, save_checkpoint,
-                                    save_rank_checkpoint)
+                                    save_rank_checkpoint,
+                                    stitch_rank_checkpoints)
 from repro_torch.checkpoint.checkpoint import read_rank_header
 from repro_torch.configs import get_arch
 from repro_torch.dist import chaos as CH
@@ -66,7 +73,7 @@ FAIL = BASE + LGC + ["--compression", "lgc_rar", "--transport",
 # what a step's record must hold equal to the twin's (not its ms)
 KEEP = ("step", "phase", "loss", "guard_ok", "fault", "faults", "fault_ops")
 NODE_KEYS = {"comp_state/u", "comp_state/v"}
-META = {"__step__", "__mesh__", "__node__"}
+META = {"__step__", "__mesh__", "__node__", "__model__", "__specs__"}
 
 
 DIST = ["--dist-backend", "gloo", "--dist-init", "{store}"]
@@ -148,21 +155,20 @@ def test_guarded_chaos_run_and_its_rank_files_match_emulated(guarded):
         h["guard_ok"] == 0 and h["fault_ops"]["topk"] == {
             "bitflip": 2, "nan": 2, "inf": 1, "drop": 1}
         for h in sparsified), sparsified
-    # the rank files stitched: each node's (n,) rows stacked into the
-    # emulated (K, n), the replicated rest node 0's alone
+    # the rank files stitched: each node's (1, 1, n) block of u, v into
+    # the emulated (K, 1, n), the replicated rest node 0's alone
     ckpt = str(tmp / "ckpt" / "ckpt.npz")
     files = [dict(np.load(rank_path(ckpt, r))) for r in range(4)]
     for r, f in enumerate(files):
         assert f["__mesh__"].tolist() == [4] and int(f["__node__"]) == r
-        assert int(f["__step__"]) == 3
+        assert int(f["__step__"]) == 3 and f["__model__"].tolist() == [1, 0]
         if r:
             assert set(f) == NODE_KEYS | META, (r, sorted(f))
-    stitched = {k: v for k, v in files[0].items() if k not in META}
-    for key in NODE_KEYS:
-        stitched[key] = np.stack([f[key] for f in files])
+    stitch_rank_checkpoints(ckpt, str(tmp / "stitched.npz"))
+    with np.load(tmp / "stitched.npz") as z:
+        stitched = {k: z[k] for k in z.files}
     with np.load(tmp / "emu_ckpt" / "ckpt3.npz") as z:
         want = {k: z[k] for k in z.files}
-    want.pop("__step__")
     assert set(stitched) == set(want)
     for key, a in want.items():
         b = stitched[key]
@@ -191,8 +197,9 @@ def test_resumed_process_run_matches_uninterrupted(guarded):
 def skipped(tmp_path_factory):
     """The K = 2 launch: (c) saved at its end; rank 1's file of it torn
     (marked as saved at step 5) and resumed from, which must raise
-    CheckpointError; (d), which must raise WireFaultError.  And (c)'s
-    emulated twin."""
+    CheckpointError; (c)'s files beside the gathered file stitched from
+    them, which must raise CheckpointError; (d), which must raise
+    WireFaultError.  And (c)'s emulated twin."""
     tmp = tmp_path_factory.mktemp("pg_skip")
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -205,6 +212,10 @@ def skipped(tmp_path_factory):
             {"argv": SKIP + ["--resume", str(tmp / "torn" / "ckpt.npz")]
              + DIST, "expect": "CheckpointError",
              "out": str(tmp / "torn_report")},
+            {"stitch": str(tmp / "ckpt" / "ckpt.npz")},
+            {"argv": SKIP + ["--resume", str(tmp / "ckpt" / "ckpt.npz")]
+             + DIST, "expect": "CheckpointError",
+             "out": str(tmp / "both_report")},
             {"argv": FAIL + DIST, "expect": "WireFaultError",
              "out": str(tmp / "fail")}], 2)
         emu = _emulated(SKIP + ["--report", str(tmp / "emu")])
@@ -232,6 +243,19 @@ def test_torn_save_is_refused_on_every_rank(skipped):
     error = errors.pop()
     assert "torn save" in error and "ckpt.rank1.npz at 5" in error \
         and "ckpt.rank0.npz at 3" in error, error
+
+
+def test_rank_files_beside_a_gathered_file_are_refused(skipped):
+    """Rank files and a gathered file at one path: every rank raises the
+    same CheckpointError naming both, and none falls back to either."""
+    tmp, _ = skipped
+    errors = {rec["error"] for rec in _records(tmp, "both_report", 2)}
+    assert len(errors) == 1, errors
+    error = errors.pop()
+    ckpt = str(tmp / "ckpt" / "ckpt.npz")
+    assert error.startswith("CheckpointError: both the gathered checkpoint")
+    assert all(f in error for f in (ckpt, rank_path(ckpt, 0),
+                                    rank_path(ckpt, 1))), error
 
 
 def test_fail_fast_raises_on_every_rank_at_one_step(skipped):
@@ -263,8 +287,16 @@ def _state(seed):
 
 
 def _broken(case, path):
-    """Break node 1's file of ``path`` (two nodes) as ``case`` says."""
-    if case == "torn":
+    """Break node 1's file of ``path`` (two nodes) as ``case`` says; on
+    the (data 2, model 2) grid (``grid_*``) rank 1's, node 0's model
+    shard 1, or rank 3's."""
+    if case == "grid_missing":
+        os.remove(rank_path(path, 1))
+    elif case == "grid_other":
+        save_rank_checkpoint(path, _state(1), 7, (4,), 1)
+    elif case == "grid_torn":
+        save_rank_checkpoint(path, _state(3), 8, (2,), 1, 2, 1)
+    elif case == "torn":
         save_rank_checkpoint(path, _state(1), 9, (2,), 1)
     elif case == "missing":
         os.remove(rank_path(path, 1))
@@ -277,13 +309,27 @@ def _broken(case, path):
 
 
 @pytest.mark.parametrize("case", ["whole", "torn", "missing", "mesh", "node",
-                                  "foreign"])
+                                  "foreign", "grid_missing", "grid_other",
+                                  "grid_torn"])
 def test_rank_file_check(tmp_path, case):
     path = str(tmp_path / "ckpt.npz")
-    for node in range(2):
-        save_rank_checkpoint(path, _state(node), 7, (2,), node)
+    model = 2 if case.startswith("grid") else 1
+    for rank in range(2 * model):
+        save_rank_checkpoint(path, _state(rank), 7, (2,), rank // model,
+                             model, rank % model)
     _broken(case, path)
-    headers = [read_rank_header(path, r) for r in range(2)]
+    headers = [read_rank_header(path, r) for r in range(2 * model)]
+    if model == 2:
+        with pytest.raises(CheckpointError) as ei:
+            check_rank_headers(headers, (2,), 2)
+        msg = str(ei.value)
+        want = {"grid_missing": "ckpt.rank1.npz: missing",
+                "grid_other": "ckpt.rank1.npz: saved on the mesh (4,), not "
+                              "(2,) x model 2",
+                "grid_torn": "ckpt.rank3.npz at 8"}[case]
+        assert want in msg, msg
+        assert case != "grid_torn" or "torn save" in msg, msg
+        return
     if case == "whole":
         assert check_rank_headers(headers, (2,)) == 7
         with np.load(rank_path(path, 1)) as z:

@@ -5,7 +5,9 @@ run's losses bit for bit (the pattern of ``tests/test_resume.py``, on
 ``python -m repro_torch.launch.train --device cpu``); the loader's three
 ``CheckpointError`` messages; and the files of the two packages, read by
 each other: f32 both ways, bf16 one way (the port reads the reference's
-2-byte void entries as bf16 bits; the reference's loader cannot)."""
+2-byte void entries as bf16 bits; the reference's loader cannot); and
+the two trainers' own files, u and v as the reference's (dp, mp, n)
+arrays, each trainer resuming from the other's through its CLI."""
 import json
 import os
 import signal
@@ -22,6 +24,8 @@ from repro.checkpoint import load_checkpoint as ref_load
 from repro.checkpoint import save_checkpoint as ref_save
 from repro_torch.checkpoint import (CheckpointError, load_checkpoint,
                                     save_checkpoint)
+from repro_torch.configs import get_arch
+from repro_torch.launch import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_ARGS = ["--arch", "llama3.2-1b", "--smoke", "--batch", "4",
@@ -184,3 +188,91 @@ def test_bf16_files_read_as_bf16_bits(tmp_path):
         np.testing.assert_array_equal(
             got["params"]["w"].view(torch.int16).numpy(), bits)
         assert torch.equal(got["comp_state"]["u"], torch.from_numpy(u))
+
+
+# the trainers' files across the packages: K = 2, lgc_rar, 3 steps (one a
+# phase), each trainer's file of step 2 (saved after step 1) resumed by
+# the other trainer through its CLI for the compressed step 2
+CROSS = ["--arch", "llama3.2-1b", "--smoke", "--batch", "4", "--seq", "32",
+         "--compression", "lgc_rar", "--optimizer", "sgd_momentum",
+         "--warmup-steps", "1", "--ae-train-steps", "1", "--data-shards", "2",
+         "--steps", "3", "--log-every", "1"]
+REF_CROSS = """
+import json, os, sys, time
+import repro.checkpoint as C
+from repro.launch import train
+flags = json.loads(sys.argv[1])
+save = C.save_checkpoint
+# the file of step 2 alone (the trainer saves after every step)
+C.save_checkpoint = lambda path, tree, step: (
+    save(path, tree, step) if step == 2 else None)
+train.main(flags + ["--metrics-out", "ref.json", "--checkpoint-dir", "ref",
+                    "--checkpoint-every", "1"])
+open("ref.done", "w").close()
+t0 = time.time()
+while not os.path.exists("port.done"):
+    assert time.time() - t0 < 300, "no port file"
+    time.sleep(0.1)
+train.main(flags + ["--resume", "port/ckpt.npz", "--metrics-out",
+                    "ref_resumed.json"])
+"""
+
+
+def _wait_for(path, proc, log, timeout=300.0):
+    t0 = time.time()
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.time() - t0 > timeout:
+            raise AssertionError(f"no {path}:\n"
+                                 + open(log).read()[-3000:])
+        time.sleep(0.1)
+
+
+def test_trainer_files_cross_between_packages(tmp_path):
+    """The emulated trainer's file holds u, v as (K, 1, n), the
+    reference trainer's (dp, mp, n_local); each trainer resumes from the
+    other's file of step 2, and its compressed step 2's loss is within
+    1e-5 of the other's uninterrupted run."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)        # the CLI asks for its devices
+    log = str(tmp_path / "ref.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", REF_CROSS, json.dumps(CROSS)],
+            cwd=str(tmp_path), env=env, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        cfg = get_arch("llama3.2-1b").reduced()
+        port = str(tmp_path / "port")
+
+        def keep(rec):
+            if rec["step"] == 1:
+                os.makedirs(port)
+                os.replace(str(tmp_path / "run" / "ckpt.npz"),
+                           os.path.join(port, "ckpt.npz"))
+                open(str(tmp_path / "port.done"), "w").close()
+        whole = train.run(cfg, train.parse_args(CROSS + [
+            "--device", "cpu", "--checkpoint-dir", str(tmp_path / "run"),
+            "--checkpoint-every", "1"]), on_step=keep)["history"]
+        with np.load(os.path.join(port, "ckpt.npz")) as z:
+            assert int(z["__step__"]) == 2
+            assert z["comp_state/u"].shape == z["comp_state/v"].shape \
+                == (2, 1, z["comp_state/u"].shape[-1])
+        _wait_for(str(tmp_path / "ref.done"), proc, log)
+        resumed = train.run(cfg, train.parse_args(CROSS + [
+            "--device", "cpu", "--resume",
+            str(tmp_path / "ref" / "ckpt.npz")]))
+        assert resumed["resumed"]["step"] == 2
+        assert proc.wait(timeout=300) == 0, open(log).read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    ref = json.load(open(tmp_path / "ref.json"))
+    ref_resumed = json.load(open(tmp_path / "ref_resumed.json"))
+    assert [h["phase"] for h in whole] == ["warmup", "topk_ae", "compressed"]
+    assert [h["step"] for h in resumed["history"]] == [2]
+    assert [h["step"] for h in ref_resumed] == [2]
+    # the port from the reference's file; the reference from the port's
+    np.testing.assert_allclose(resumed["history"][0]["loss"], ref[2]["loss"],
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ref_resumed[0]["loss"], whole[2]["loss"],
+                               rtol=0, atol=1e-5)

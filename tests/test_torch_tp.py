@@ -26,7 +26,18 @@ at batch 4 on (2, 2) and at batch 1 on (data 2)):
 - each process's held bytes equal to ``launch.dryrun``'s prediction for
   the mesh, but for one difference it names: at batch 4 the reference's
   rule splits the (n_blocks, S) position ring's S over data (it reads
-  dim 1 as the batch), while every process here holds the whole ring.
+  dim 1 as the batch), while every process here holds the whole ring;
+- checkpoints of the sharded runs, one file a rank: the auto step and
+  lgc_rar stopped after step 1 and resumed from their rank files, each
+  rank's losses and final state (params and optimizer blocks, u, v, AE)
+  bit for bit the uninterrupted run's, each file holding what its rank
+  writes; lgc_rar's own rank files stitched into the reference's
+  gathered layout hold its keys, shapes and dtypes, the values within
+  2e-5 of the reference's file, and model shard 1's copy of a leaf whole
+  over ``model`` is not model shard 0's;
+- the reference's own files (the auto step's and lgc_rar's) cut into
+  each rank's blocks (``load_gathered_checkpoint``), saved as rank files
+  and stitched: the file again, key by key, bit for bit.
 
 Without a launch: ``shard_tree`` and ``gather_tree`` inverse (threads
 standing in for the processes), the GQA grouping under a shard of the
@@ -50,6 +61,10 @@ import _torch_tp_worker as W
 from _one_thread import one_thread  # noqa: F401  (autouse)
 from _torch_pg import REPO, launch, worker
 from _torch_train_common import close, reference_hier_init
+from repro_torch.checkpoint import (load_gathered_checkpoint, rank_path,
+                                    save_rank_checkpoint,
+                                    stitch_rank_checkpoints)
+from repro_torch.checkpoint.checkpoint import writes
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import (CompressionConfig, InputShape,
                                       TrainConfig)
@@ -138,7 +153,8 @@ def runs(tmp_path_factory):
     wire = {m.group(1): ast.literal_eval(m.group(2)) for m in re.finditer(
         r"phase=(\w+) wire bytes/node/step: (\{.*\})",
         (tmp / "train.log").read_text())}
-    ref = {"wire": wire, "serve": json.loads((tmp / "serve.json").read_text())}
+    ref = {"wire": wire, "dir": tmp,
+           "serve": json.loads((tmp / "serve.json").read_text())}
     for name in ("auto", "lgc"):
         ref[name] = [h["loss"] for h in json.loads(
             (tmp / f"{name}.json").read_text())]
@@ -281,6 +297,140 @@ def test_serving_matches_reference_and_one_device(runs, monkeypatch):
             extra = ring // 2 if B > 1 else 0
             assert held["cache"] == want["cache"] + extra, (r, name, held)
             assert held["params"] == want["params"], (r, name, held)
+
+
+def _nested(flat):
+    """{"a/b": x} -> {"a": {"b": x}}: a file's entries as the tree it was
+    saved from (its keys again under ``keystr_path``)."""
+    out = {}
+    for key, x in flat.items():
+        *head, last = key.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return out
+
+
+def _state_specs(name, tree):
+    """{file key: spec} of the trainer's state ``tree`` on MESH."""
+    model = build_model(CFG)
+    pspecs = steps.auto_train_pspecs(model, _tc("none"), MESH)[0] \
+        if name == "auto" else steps.lgc_state_specs(
+            model, CompressionConfig(method="lgc_rar"), MESH).params
+    return steps.train_state_specs(pspecs, tree, ("data",))
+
+
+@pytest.mark.parametrize("name", ["auto", "lgc"])
+def test_sharded_resume_is_bit_for_bit(runs, name):
+    """Stopped after step 1 and resumed from the rank files: every rank's
+    later losses and its own final params, optimizer state, u, v and AE
+    are the uninterrupted run's, bit for bit; each rank's file holds the
+    leaves it writes (0 on the dp axes a spec leaves whole) and the
+    header."""
+    ranks, ref = runs
+    path = str(ref["dir"] / "out" / f"{name}_ckpt" / "ckpt.npz")
+    for r, rec in enumerate(ranks):
+        whole, resumed = rec[name], rec[f"{name} resumed"]
+        assert [h["step"] for h in rec[f"{name} stopped"]["history"]] == [
+            0, 1], r
+        assert resumed["resumed"]["step"] == 2, r
+        assert resumed["resumed"]["layout"] == "rank files", r
+        assert [(h["step"], h["loss"]) for h in resumed["history"]] == [
+            (h["step"], h["loss"]) for h in whole["history"][2:]], r
+        assert resumed["state_leaf_digests"] == whole["state_leaf_digests"]
+        assert resumed["state_digest"] == whole["state_digest"], r
+        if name == "lgc":
+            assert [h["phase"] for h in resumed["history"]] == [
+                "compressed", "compressed"], r
+        with np.load(rank_path(path, r)) as z:
+            specs = {k: tuple(tuple(e) if isinstance(e, list) else e
+                              for e in sp) for k, sp in json.loads(
+                                  str(z["__specs__"])).items()}
+            assert set(z.files) == {k for k, sp in specs.items()
+                                    if writes(sp, COORDS[r])} | {
+                "__step__", "__mesh__", "__node__", "__model__",
+                "__specs__"}, r
+            assert int(z["__step__"]) == 2 and z["__model__"].tolist() == [
+                2, COORDS[r]["model"]], r
+        assert specs == _state_specs(name, _nested(dict.fromkeys(specs, 0))), r
+
+
+@pytest.mark.parametrize("name", ["auto", "lgc"])
+def test_gathered_file_round_trip(runs, name, tmp_path):
+    """The reference trainer's file: each of the four ranks' blocks as
+    ``load_gathered_checkpoint`` cuts them are ``shard_tree``'s (u, v
+    its [d, m] row), and the four saved as rank files and stitched are
+    the file again, key by key, bit for bit."""
+    _, ref = runs
+    path = str(ref["dir"] / name / "ckpt.npz")
+    arrays = ref[f"{name}_ckpt"]
+    step = int(arrays["__step__"])
+    whole = _nested({k: torch.from_numpy(x) for k, x in arrays.items()
+                     if k != "__step__"})
+    specs = _state_specs(name, whole)
+    out = str(tmp_path / "ckpt.npz")
+    for r, c in enumerate(COORDS):
+        want = SH.shard_tree(whole, specs, c, MESH.axis_sizes)
+        got, got_step = load_gathered_checkpoint(path, want, specs, c,
+                                                 MESH.axis_sizes)
+        assert got_step == step
+        for (p, a), b in zip(tree_leaves_with_path(got), tree_leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (
+                r, keystr_path(p))
+        if name == "lgc":
+            for key in ("u", "v"):
+                assert torch.equal(got["comp_state"][key][0, 0],
+                                   torch.from_numpy(arrays[
+                                       f"comp_state/{key}"][c["data"],
+                                                            c["model"]]))
+        save_rank_checkpoint(out, got, step, (2,), c["data"], 2, c["model"],
+                             specs)
+    stitch_rank_checkpoints(out, str(tmp_path / "stitched.npz"))
+    with np.load(tmp_path / "stitched.npz") as z:
+        assert set(z.files) == set(arrays)
+        for key, x in arrays.items():
+            y = z[key]
+            assert (x.dtype, x.shape) == (y.dtype, y.shape), key
+            assert x.tobytes() == y.tobytes(), key
+
+
+def test_port_rank_files_stitch_to_reference(runs, tmp_path):
+    """lgc_rar's rank files at its end, stitched: the reference's file's
+    keys, shapes and dtypes, every value within 2e-5 of the largest of
+    the reference's: of its own array for the params, the optimizer state,
+    u and v (the gate of the u, v and params above), of the AE's largest
+    entry for the AE, and for the AE's momentum of the step it makes on
+    the AE (ae_lr times it): the encoder biases' entries of the last AE
+    gradient are sums over every position that cancel far below their
+    terms, and f32's order leaves them up to 0.41 of their own largest
+    apart.  And the finding the rank files keep: model shard 1's copy of
+    a leaf whole over ``model`` differs from model shard 0's."""
+    _, ref = runs
+    path = str(ref["dir"] / "out" / "lgc_final" / "ckpt.npz")
+    stitch_rank_checkpoints(path, str(tmp_path / "stitched.npz"))
+    theirs = ref["lgc_ckpt"]
+    with np.load(tmp_path / "stitched.npz") as z:
+        ours = {k: z[k] for k in z.files}
+    assert set(ours) == set(theirs)
+    assert int(ours["__step__"]) == int(theirs["__step__"]) == 4
+    ae = max(float(np.abs(x).max()) for k, x in theirs.items()
+             if k.startswith("comp_state/ae/"))
+    for key, x in theirs.items():
+        assert (x.dtype, x.shape) == (ours[key].dtype, ours[key].shape), key
+        scale = ae if key.startswith("comp_state/ae/") else \
+            ae / CompressionConfig().ae_lr \
+            if key.startswith("comp_state/ae_mom/") else \
+            max(float(np.abs(x).max()), 1e-30)
+        np.testing.assert_allclose(ours[key], x, rtol=0, atol=2e-5 * scale,
+                                   err_msg=key)
+    specs = _state_specs("lgc", _nested(
+        {k: 0 for k in theirs if k != "__step__"}))
+    with np.load(rank_path(path, 0)) as m0, np.load(rank_path(path, 1)) as m1:
+        whole = [k for k, sp in specs.items() if k.startswith("params/")
+                 and "model" not in SH.spec_axes(sp)]
+        differ = [k for k in whole if not np.array_equal(m0[k], m1[k])]
+    assert whole and differ, whole
 
 
 class _Threads:

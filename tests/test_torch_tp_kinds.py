@@ -37,7 +37,8 @@ MTP loss, every gradient, prefill and decode at ``reduced()``):
   in one run that moved a few values across the top-k threshold (2 to 8
   entries a rank), and a different selection changes every later
   gradient.  So jamba's steps run each alone from the reference's state
-  before it (its checkpoints after 1 and 2 steps; the first step from
+  before it (the trainer's ``--resume`` of its gathered checkpoints
+  after 1 and 2 steps, each rank cutting its blocks; the first step from
   the initial state), each held as above at 5e-5 with no entry exempt
   (measured: u, v within 2.4e-5, params 2.1e-5, the cleared entries
   equal);
