@@ -204,7 +204,7 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               uninterrupted pg_train lgc_rar mesh run's; each rank's
               file bytes, save and load seconds; the files are deleted
  11c. tp_train --model-shards 2 on the (data 2, model 2) mesh, 4 ranks,
-              llama3.2-1b at published widths cut to 4 layers, f32,
+              llama3.2-1b at published widths cut to 2 layers, f32,
               batch 8, seq 128: lgc_rar (fused sweep, kernel encoder)
               through its three phases, each rank compressing its model
               shard's block of its node's gradient (K1 and K3 on every
@@ -229,7 +229,7 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               deepseek-v3-671b's auto step at 1 layer, 4 experts,
               top-2, vocab 8192 (its capacity drops tokens) and its
               lgc_rar at reduced(), llama-3.2-vision-90b at reduced()
-     tp_serve llama3.2-1b at full depth, bf16, under torchrun: the heads
+     tp_serve llama3.2-1b at 4 layers, bf16, under torchrun: the heads
               over 2 ranks at B4 P64 G32, the cache's sequence over 2
               ranks at B1 P4096 G8; then f32 at B4 P64 G16 over 2 model
               shards, whose greedy tokens must equal one process's on
@@ -240,7 +240,16 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               jamba-v0.1-52b (one superblock), llama-3.2-vision-90b (2
               superblocks); in f32 against one process: deepseek (1
               layer, 32 experts), mamba2-130m, jamba (one superblock, 4
-              experts); deepseek at B1 P4096 G8 on (data 2, model 2)
+              experts); deepseek at B1 P4096 G8 on (data 2, model 2).
+              The model axis cutting a head (TP_SERVE_HEADS, the same
+              launch): on (data 1, model 4) qwen2-1.5b at published
+              widths cut to 2 layers (half a kv head a shard) trains in
+              f32, lgc_rar (K1 and K3 on every rank) and the auto step
+              against their one-node f32 twins (the gates of 11c), and
+              serves B4 P64 G32 in bf16 and in f32 (tokens one
+              process's); phi3-medium-14b (2.5 kv heads a shard) serves
+              bf16 at 2 layers; each rank's held params and cache the
+              dry run's for host_mesh(1, 4)
  12. convnet5 the paper's ConvNet5 at its full widths (config(): channels
               32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
               of 8 images, through launch.steps.sim_sgd_step (the
@@ -471,8 +480,13 @@ DEEPSEEK_TRAIN_VOCAB = 8192
 VISION_SERVE_LAYERS = 10
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t": time.perf_counter() - T0}), flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1682,6 +1696,7 @@ def pg_rank(spec_path: str) -> None:
         spec = json.load(f)
     rank = int(os.environ["RANK"])
     for run in spec["runs"]:
+        t0 = time.perf_counter()
         cfg = arch_cfg(run["arch"], run["cut"], run["dtype"])
         cfg = dataclasses.replace(cfg, n_layers=run["n_layers"] or
                                   cfg.n_layers)
@@ -1700,26 +1715,28 @@ def pg_rank(spec_path: str) -> None:
             out = _pg_train(train, cfg, run)
             if out is None:
                 # ran to its end: run() wrote its record
-                drop_rank_file(run, rank)
+                drop_rank_file(run, rank, run_s=time.perf_counter() - t0)
                 continue
-        out.update(rank=rank, launches=dict(LAUNCHES))
+        out.update(rank=rank, launches=dict(LAUNCHES),
+                   run_s=time.perf_counter() - t0)
         with open(os.path.join(run["report"], f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
 
 
-def drop_rank_file(run, rank: int) -> None:
-    """A run with ``drop_checkpoint`` (a checkpoint path): this rank's file
-    of it, its bytes added to the rank's record, then deleted, so a
+def drop_rank_file(run, rank: int, run_s: float) -> None:
+    """The record run() wrote for this rank gains the run's seconds
+    (``run_s``); a run with ``drop_checkpoint`` (a checkpoint path): this
+    rank's file of it, its bytes added to the record, then deleted, so a
     launch holds one run's files at a time."""
-    if not run.get("drop_checkpoint"):
-        return
-    from repro_torch.checkpoint import rank_path
-    f = rank_path(run["drop_checkpoint"], rank)
     record = os.path.join(run["report"], f"rank{rank}.json")
     with open(record) as fh:
         rec = json.load(fh)
-    rec["file_bytes"] = os.path.getsize(f)
-    os.remove(f)
+    rec["run_s"] = run_s
+    if run.get("drop_checkpoint"):
+        from repro_torch.checkpoint import rank_path
+        f = rank_path(run["drop_checkpoint"], rank)
+        rec["file_bytes"] = os.path.getsize(f)
+        os.remove(f)
     with open(record, "w") as fh:
         json.dump(rec, fh)
 
@@ -1856,6 +1873,10 @@ def pg_launch(label: str, specs, K: int):
                                      f"raise {run['expect_error']}: "
                                      f"{rec.get('error')}")
         out[run["name"]] = recs
+    # each run's seconds (its slowest rank's), set-up included
+    emit("pg_launch", label=label, ranks=K, launch_s=seconds,
+         run_s={name: max(rec["run_s"] for rec in recs)
+                for name, recs in out.items()})
     return out, {"launch_s": seconds, "runs_in_launch": len(runs),
                  "card_mib_used_before": float(used[0]) if used else None}
 
@@ -1982,7 +2003,7 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                                 TP_AUTO_STEPS)):
         if "tp" in parts and name not in runs:
             runs[name] = train_phase(dev, name, flags + pg_report_flags(
-                name), steps, cfg=_f32_llama())
+                name), steps, cfg=_f32_llama(TP_LAYERS))
     # the other block kinds' twins: lgc_rar emulated at K = 2, and the
     # auto step's whole-batch loss as one node (the MoE layers' dispatch
     # groups, aux loss and the MTP mean are the whole batch's there)
@@ -2003,6 +2024,17 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                                          cfg=arch_cfg(arch, cut, "float32"),
                                          reduced=reduced)
             runs[name]["moe_kept"] = tally
+
+    # the head-cutting runs' twins: one node, the whole batch
+    for method, flags, steps, expect in (
+            ("lgc_rar", lgc, TP_KIND_LGC_STEPS, (lgc_step,)),
+            ("none", ["--compression", "none"], TP_KIND_AUTO_STEPS, ())):
+        name = f"qwen2-1.5b {method} f32 one node"
+        if "tp" in parts and name not in runs:
+            runs[name] = train_phase(
+                dev, name, flags + TP_KIND_OPT + ["--data-shards", "1"],
+                steps, *expect, cfg=arch_cfg("qwen2-1.5b", TP_HEADS_CUT,
+                                             "float32"))
 
     ckdir = os.path.join(ROOT, "build", "ckpt_pg")
     path = os.path.join(ckdir, "ckpt.npz")
@@ -2025,9 +2057,10 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
     tp_ckpt = {name: os.path.join(ROOT, "build", f"ckpt_tp_{name}",
                                   "ckpt.npz") for name in ("lgc_rar", "none")}
     if "tp" in parts:
-        four += [pg_spec("tp lgc_rar", tp_lgc, 6, dtype="float32"),
+        four += [pg_spec("tp lgc_rar", tp_lgc, 6, n_layers=TP_LAYERS,
+                         dtype="float32"),
                  pg_spec("tp none", tp_none, TP_AUTO_STEPS,
-                         dtype="float32")]
+                         n_layers=TP_LAYERS, dtype="float32")]
         # each stopped after a step with its rank files, then resumed
         # from them (each rank's file measured and deleted after)
         for name, flags, steps, stop in (
@@ -2037,10 +2070,10 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                 pg_spec(f"tp {name} stopped after step {stop}", flags + [
                     "--checkpoint-dir", os.path.dirname(tp_ckpt[name]),
                     "--checkpoint-every", str(stop)], steps,
-                    dtype="float32", stop_after=stop),
+                    n_layers=TP_LAYERS, dtype="float32", stop_after=stop),
                 pg_spec(f"tp {name} resumed at step {stop + 1}", flags + [
-                    "--resume", tp_ckpt[name]], steps, dtype="float32",
-                    drop_checkpoint=tp_ckpt[name])]
+                    "--resume", tp_ckpt[name]], steps, n_layers=TP_LAYERS,
+                    dtype="float32", drop_checkpoint=tp_ckpt[name])]
         for arch, method, cut, _ in tp_kind_runs():
             lgc_run = method == "lgc_rar"
             four.append(pg_spec(
@@ -2049,6 +2082,14 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                 TP_KIND_LGC_STEPS if lgc_run else TP_KIND_AUTO_STEPS,
                 n_layers=None, dtype="float32", arch=arch, cut=cut))
         four += tp_serve_specs(TP_SERVE_FOUR)
+        for method, flags, steps in (
+                ("lgc_rar", tp_lgc, TP_KIND_LGC_STEPS),
+                ("none", tp_none, TP_KIND_AUTO_STEPS)):
+            four.append(pg_spec(
+                f"tp qwen2-1.5b {method} heads",
+                flags + _HEADS + TP_KIND_OPT, steps, n_layers=None,
+                dtype="float32", arch="qwen2-1.5b", cut=TP_HEADS_CUT))
+        four += tp_serve_specs(TP_SERVE_HEADS)
     gc_cuda()
     try:
         got4, launch4 = pg_launch("four", four, 4)
@@ -2071,6 +2112,8 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
         tp_serve_checks(runs, got, smi, launch2, serve_specs)
         tp_serve_checks(runs, got, smi, launch4,
                         tp_serve_specs(TP_SERVE_FOUR))
+        tp_serve_checks(runs, got, smi, launch4,
+                        tp_serve_specs(TP_SERVE_HEADS), TP_HEADS_MESH)
     if "pg" not in parts:
         return
 
@@ -2174,28 +2217,33 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
          bitwise=True)
 
 
-# tp_train: llama3.2-1b at N_LAYERS in f32 on the (data 2, model 2) mesh,
-# each run against its emulated K = 2 twin of the same flags: losses
+# tp_train: llama3.2-1b at TP_LAYERS in f32 on the (data 2, model 2) mesh
+# (4 layers until the head-cutting runs took their time), each run
+# against its emulated K = 2 twin of the same flags: losses
 # within TP_LOSS_REL of the twin's (TP sums each matmul in another order,
 # and AdamW turns a rounding-sized difference at a near-zero gradient
 # into a whole step)
 TP_LOSS_REL = 2e-5
+TP_LAYERS = 2
 TP_AUTO_STEPS = 3
 # tp_resume: the step after which each run is stopped with its rank files
 # (lgc_rar's last top-k + AE step: the resumed steps are the compressed
 # ones; the auto step's second)
 TP_LGC_STOP = 3
 TP_AUTO_STOP = 1
-# tp_serve: llama3.2-1b at full depth in bf16, and the f32 check
+# tp_serve: llama3.2-1b at TP_SERVE_LAYERS (16, its full depth, until
+# the head-cutting runs took their time) in bf16, and the f32 check
+TP_SERVE_LAYERS = 4
+_LLAMA_TP_SERVE = ("llama3.2-1b", {"n_layers": TP_SERVE_LAYERS})
 TP_SERVE = (("tp serve B4 P64 G32", ["--model-shards", "2", "--batch", "4",
                                       "--prompt-len", "64", "--gen", "32"],
-             None),
+             None) + _LLAMA_TP_SERVE,
             ("tp serve B1 P4096 seq", ["--data-shards", "2", "--batch", "1",
                                        "--prompt-len", "4096", "--gen", "8"],
-             None),
+             None) + _LLAMA_TP_SERVE,
             ("tp serve f32 B4 P64 G16", ["--model-shards", "2", "--batch",
                                          "4", "--prompt-len", "64", "--gen",
-                                         "16"], "float32"))
+                                         "16"], "float32") + _LLAMA_TP_SERVE)
 
 
 # the other block kinds with model shards: (arch, lgc_rar's cut, the
@@ -2298,6 +2346,28 @@ TP_SERVE_FOUR = (
         "--prompt-len", "4096", "--gen", "8"], None, "deepseek-v3-671b",
      {"n_layers": 1, "moe": {"num_experts": DEEPSEEK_F32_EXPERTS}}),
 )
+# the model axis cutting a head, in the four-rank launch on (data 1,
+# model 4), published widths cut to TP_HEADS_LAYERS layers: qwen2-1.5b
+# (12 query heads of 128, 3 a shard; 2 kv heads, half of one a shard)
+# trained in f32, lgc_rar and the auto step with momentum SGD against
+# their one-node f32 twins, and served at B4 P64 G32 in bf16 (the ranks
+# agreeing) and in f32 (the tokens one process's: bf16's TP sums round
+# in another order, which can flip a greedy near-tie); phi3-medium-14b
+# (40 query heads, 10 a shard; 10 kv heads, 2.5 a shard) served bf16.
+# Each rank's held bytes the dry run's for host_mesh(1, 4)
+TP_HEADS_LAYERS = 2
+TP_HEADS_CUT = {"n_layers": TP_HEADS_LAYERS}
+TP_HEADS_MESH = (1, 4)
+_HEADS = ["--data-shards", "1", "--model-shards", "4"]
+_B4_HEADS = _HEADS + ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
+TP_SERVE_HEADS = (
+    ("tp serve qwen2-1.5b heads B4 P64 G32", _B4_HEADS, None, "qwen2-1.5b",
+     TP_HEADS_CUT),
+    ("tp serve qwen2-1.5b heads f32 B4 P64 G32", _B4_HEADS, "float32",
+     "qwen2-1.5b", TP_HEADS_CUT),
+    ("tp serve phi3-medium-14b heads B4 P64 G32", _B4_HEADS, None,
+     "phi3-medium-14b", TP_HEADS_CUT),
+)
 
 
 def tp_serve_specs(table=None):
@@ -2316,7 +2386,8 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
     against the one-node run on the whole batch), its held bytes against
     the dry run's per-device prediction for host_mesh(2, 2) to the byte,
     K1 and K3 launched on every rank of lgc_rar in the right phases, its
-    per-op rows the per-shard layout's plan."""
+    per-op rows the per-shard layout's plan.  The head-cutting runs on
+    (data 1, model 4) the same way, against their one-node twins."""
     from repro_torch.configs.base import (CompressionConfig, InputShape,
                                           TrainConfig)
     from repro_torch.dist import plan as XP
@@ -2328,18 +2399,23 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizers import build_optimizer
     shape = InputShape("tp_train", 128, 8, "train")
-    mesh = host_mesh(2, 2)
     cc = CompressionConfig(method="lgc_rar")
-    table = [("tp lgc_rar", "lgc_rar f32", "lgc_rar", _f32_llama(),
-              ["n_layers"], "adamw"),
-             ("tp none", "none f32", "none", _f32_llama(), ["n_layers"],
-              "adamw")]
+    table = [("tp lgc_rar", "lgc_rar f32", "lgc_rar", _f32_llama(TP_LAYERS),
+              ["n_layers"], "adamw", (2, 2)),
+             ("tp none", "none f32", "none", _f32_llama(TP_LAYERS),
+              ["n_layers"], "adamw", (2, 2))]
     for arch, method, cut, reduced in tp_kind_runs():
         table.append((f"tp {arch} {method}", f"{arch} lgc_rar f32"
                       if method == "lgc_rar" else f"{arch} none f32 one node",
                       method, arch_cfg(arch, cut, "float32"), reduced,
-                      TP_KIND_OPT[1]))
-    for name, twin_name, method, cfg, reduced, opt in table:
+                      TP_KIND_OPT[1], (2, 2)))
+    for method in ("lgc_rar", "none"):
+        table.append((f"tp qwen2-1.5b {method} heads",
+                      f"qwen2-1.5b {method} f32 one node", method,
+                      arch_cfg("qwen2-1.5b", TP_HEADS_CUT, "float32"),
+                      ["n_layers"], TP_KIND_OPT[1], TP_HEADS_MESH))
+    for name, twin_name, method, cfg, reduced, opt, (data, mp) in table:
+        mesh = host_mesh(data, mp)
         model = build_model(cfg)
         recs, twin = got[name], runs[twin_name]
         want, _ = per_device_bytes(model, shape, mesh, compression=method,
@@ -2349,10 +2425,10 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
             # the same rules
             o_shapes = build_optimizer(TrainConfig(optimizer=opt)).init(
                 params_specs(model))
-            fsdp = ("data",) if method == "none" else ()
+            fsdp = ("data",) if method == "none" and data > 1 else ()
             want["optimizer"] = local_bytes(o_shapes, SH.param_pspecs(
-                o_shapes, model_size=2, fsdp_axes=fsdp,
-                fsdp_size=2 if fsdp else 1), mesh.axis_sizes)
+                o_shapes, model_size=mp, fsdp_axes=fsdp,
+                fsdp_size=data if fsdp else 1), mesh.axis_sizes)
         losses = [[h["loss"] for h in rec["history"]] for rec in recs]
         worst = max(abs(a - b) / abs(b) for ls in losses
                     for a, b in zip(ls, twin["losses"]))
@@ -2362,7 +2438,8 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
             for h in rec["history"][1:]:
                 steady[r].setdefault(h["phase"], []).append(h["ms"])
         emit("tp_train", run=name, twin=twin_name, card=smi,
-             backend=PG_BACKEND, mesh={"data": 2, "model": 2}, optimizer=opt,
+             backend=PG_BACKEND, mesh={"data": data, "model": mp},
+             optimizer=opt,
              arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
              dtype="float32", seq=128, batch=8, reduced=reduced,
              launch=launch, losses=losses, twin_losses=twin["losses"],
@@ -2389,7 +2466,7 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
             # per-shard layout's plan
             shard = lgc_state_specs(model, cc, mesh).compressor.layout
             priced = {phase: XP.wire_terms_by_op(XP.build_plan(
-                cc, shard, 2, phase=phase))
+                cc, shard, data, phase=phase))
                 for phase in ("warmup", "topk_ae", "compressed")}
             for rec in recs:
                 lgc_step(rec["launches"],
@@ -2443,7 +2520,7 @@ def tp_resume_checks(runs, got, smi: str, launch, lgc_step) -> None:
         runs[f"pg tp {name} resumed"] = {"launches": summed_launches(second)}
         emit("tp_resume", run=name, card=smi, backend=PG_BACKEND,
              mesh={"data": 2, "model": 2}, dtype="float32",
-             n_layers=N_LAYERS, seq=128, batch=8, reduced=["n_layers"],
+             n_layers=TP_LAYERS, seq=128, batch=8, reduced=["n_layers"],
              launch=launch, stopped_after=stop,
              file_bytes=[rec["file_bytes"] for rec in second],
              save_s=[rec["history"][stop]["checkpoint_s"] for rec in first],
@@ -2462,12 +2539,17 @@ def tp_resume_checks(runs, got, smi: str, launch, lgc_step) -> None:
              bitwise=True)
 
 
-def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:
+def tp_serve_checks(runs, got, smi: str, launch, specs, mesh=None) -> None:
     """tp_serve: each serving run's greedy tokens equal on every rank;
     an f32 run's equal to one process's on this card (the same seeded
     weights); prefill ms, median decode ms, tokens/s and peak GiB a
-    rank."""
+    rank.  With ``mesh`` ((data, model), data 1) each rank's held params
+    and cache bytes the dry run's for it."""
+    from repro_torch.configs.base import InputShape
     from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import per_device_bytes
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models.model import build_model
     for spec in specs:
         recs = got[spec["name"]]
         toks = recs[0]["tokens"]
@@ -2487,6 +2569,19 @@ def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:
                 raise AssertionError(f"{spec['name']}: tokens {toks} != one "
                                      f"process's {one}")
         B = len(toks)
+        want = None
+        if mesh is not None:
+            flags = spec["flags"]
+            total = int(flags[flags.index("--prompt-len") + 1]) + int(
+                flags[flags.index("--gen") + 1])
+            want, _ = per_device_bytes(build_model(cfg), InputShape(
+                "tp_serve", total, B, "decode"), host_mesh(*mesh))
+            want = {k: want[k] for k in ("params", "cache")}
+            for r, rec in enumerate(recs):
+                if rec["held"] != want:
+                    raise AssertionError(f"{spec['name']} rank {r} holds "
+                                         f"{rec['held']}, the dry run "
+                                         f"predicts {want}")
         emit("tp_serve", run=spec["name"], card=smi, backend=PG_BACKEND,
              arch=cfg.name, n_layers=cfg.n_layers,
              dtype=spec["dtype"] or cfg.dtype, launch=launch,
@@ -2497,7 +2592,9 @@ def tp_serve_checks(runs, got, smi: str, launch, specs) -> None:
              tokens_per_s=[B * len(rec["step_ms"]) / rec["decode_s"]
                            for rec in recs],
              peak_gib=[rec["peak_gib"] for rec in recs],
-             held=[rec["held"] for rec in recs],
+             held=[rec["held"] for rec in recs], predicted=want,
+             mesh=None if mesh is None else dict(zip(("data", "model"),
+                                                     mesh)),
              tokens_equal_one_process=None if one is None else True,
              tokens=toks[0][:8])
 

@@ -15,9 +15,11 @@ The autograd functions, each on a group:
   backward the all-reduce (sum) of the gradient over the group;
 - :func:`reduce_from` after a row-parallel matmul: forward the
   all-reduce (sum), backward identity;
-- :func:`gather_dim` FSDP's gather on use: forward the all-gather of a
-  dim, backward the reduce-scatter (sum) of its gradient, so a
-  data-sharded leaf's gradient is summed over the group;
+- :func:`gather_dim` FSDP's gather on use, and the blocks of a head
+  that the model shards cut (k, v, the query heads' outputs), which each
+  member then reads its own part of: forward the all-gather of a dim,
+  backward the reduce-scatter (sum) of its gradient, so the members'
+  parts are summed;
 - :func:`gather_from` after a column-parallel matmul whose gathered
   output every member then computes on identically (a router's logits,
   a latent before its norm, a Mamba2 block's ``in_proj``): forward the

@@ -51,7 +51,9 @@ receives), and fail_fast raises on every process at the same step.
 
 ``--model-shards`` M > 1 (under torchrun only: one process holds one
 model shard) makes the world the (pod, data, model) mesh, pod x data x M
-processes.  With a compression method each process compresses its model
+processes; M is any size the reference's rules take, also one whose
+shards cut a head (``models.model.Model._check_tp`` names the one
+exception).  With a compression method each process compresses its model
 shard's block of its node's gradient over its shard's dp column
 (``launch.steps.make_lgc_train_step`` with a grid: tensor parallelism
 over ``model``, the per-model-shard layout, the AE's gradients averaged

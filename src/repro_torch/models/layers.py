@@ -138,27 +138,145 @@ def _row(p, x, tp=None):
     return y
 
 
+def split_heads(n_heads: int, tp) -> bool:
+    """Whether ``n_heads`` heads do not divide over ``tp``'s model group,
+    so a shard's column block of their (heads x head_dim) projection cuts
+    a head (or, where the columns do not divide either, the projection
+    is replicated): the reference's rules split the flattened columns
+    however the model axis divides them."""
+    return tp is not None and tp.mp > 1 and n_heads % tp.mp != 0
+
+
+def head_slots(n_heads: int, tp):
+    """This shard's heads: the same c = ceil(n_heads / mp) slots on every
+    shard (an all-gather takes equal blocks), shard m's from head m·c, a
+    slot past the last head repeating it (its output is computed and
+    dropped); shard m's H/mp heads where they divide.  Returns the
+    slots' head indices; with H < mp shards past the heads hold only
+    repeats."""
+    c = -(-n_heads // tp.mp)
+    return [min(tp.m * c + j, n_heads - 1) for j in range(c)]
+
+
+def _take(x, idx: Sequence[int], dim: int):
+    """``x``'s entries ``idx`` of ``dim``: a narrow where they are a run."""
+    if list(idx) == list(range(idx[0], idx[0] + len(idx))):
+        return x.narrow(dim, idx[0], len(idx))
+    return x.index_select(dim, torch.tensor(idx, device=x.device))
+
+
+def _kv_heads_of(idx: Sequence[int], n_heads: int, n_kv: int):
+    """The kv heads that query heads ``idx`` read (GQA: head j reads kv
+    head j // (H / KH)): a run of whole groups keeps the grouping (each
+    kv head once); any other set reads one kv head a query head (the kv
+    heads repeated, MHA's layout)."""
+    g = n_heads // n_kv
+    lo, c = idx[0], len(idx)
+    if list(idx) == list(range(lo, lo + c)) and lo % g == 0 and c % g == 0:
+        return list(range(lo // g, (lo + c) // g))
+    return [j // g for j in idx]
+
+
+def _col_full(p, h, tp, width: int, mm=None):
+    """All ``width`` columns of a column-parallel linear, on every shard
+    (``h`` already through ``tp.copy``): a column shard's block gathered
+    over ``model`` (``gather_dim``: each shard then reads its own heads of
+    it, so the backward's reduce-scatter sums the shards' parts), or a
+    weight the rules replicate (its columns do not divide) through
+    ``copy``, so that its gradient, each shard's part, is summed over the
+    group.  ``mm`` (default ``h @ w``, the bias added) multiplies."""
+    w = p["w"]
+    if w.shape[-1] != width:
+        y = _col(p, h, tp) if mm is None else mm(h, w)
+        return TP.gather_dim(y, tp.model, y.dim() - 1)
+    w = tp.copy(w)
+    y = h @ w if mm is None else mm(h, w)
+    if "b" in p:
+        y = y + tp.copy(p["b"])
+    return y
+
+
+def _heads_out(p, o, tp, n_heads: int):
+    """The row-parallel output projection of this shard's query-head
+    slots ``o`` (B, S, c, hd) when the heads are split mid-head: the slots
+    gathered over ``model`` (``gather_dim``; the repeats past the last
+    head dropped) to the flattened (heads x head_dim) layout, this
+    shard's row block of ``wo`` applied (an even cut of a replicated
+    ``wo``, through ``copy``) and the partial products summed."""
+    B, S, _, hd = o.shape
+    R = n_heads * hd
+    full = TP.gather_dim(o, tp.model, 2)[:, :, :n_heads].reshape(B, S, R)
+    w = p["w"]
+    if w.shape[-2] != R:
+        y = full.narrow(-1, tp.m * w.shape[-2], w.shape[-2]) @ w
+    else:
+        lo, hi = tp.m * R // tp.mp, (tp.m + 1) * R // tp.mp
+        y = full[..., lo:hi] @ tp.copy(w)[lo:hi]
+    y = tp.reduce(y)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _queries(p, cfg: ModelConfig, h, tp):
+    """(q (B, S, c, hd), its heads): this shard's query heads, a column
+    shard's own when the heads divide (or no ``tp``), else the slots of
+    :func:`head_slots` out of the whole projection."""
+    B, S, _ = h.shape
+    hd, H = cfg.head_dim, cfg.n_heads
+    if not split_heads(H, tp):
+        q = _col(p["wq"], h, tp).view(B, S, -1, hd)
+        lo = tp.m * q.shape[2] if tp is not None else 0
+        return q, list(range(lo, lo + q.shape[2]))
+    idx = head_slots(H, tp)
+    q = _col_full(p["wq"], h, tp, H * hd).view(B, S, H, hd)
+    return _take(q, idx, 2), idx
+
+
 def attention_fwd(p, cfg: ModelConfig, x, positions, tp=None):
     """Pre-norm self-attention with residual, for training and prefill.
     x: (B, S, D).  Returns (x + attention, (k, v)): the roped keys and the
-    values, (B, S, KH, hd) each, which prefill keeps as the cache.  Under
-    tensor parallelism (``tp``, a ``dist.tp.Shards``) ``wq``, ``wk``,
-    ``wv`` are column shards holding whole heads (the head counts are the
-    shards' widths over ``head_dim``: query heads [m·H/mp, (m+1)·H/mp)
-    meet their own kv heads [m·KH/mp, ...), GQA's contiguous grouping) and
-    ``wo`` a row shard, its products summed over the model group."""
+    values, (B, S, KH, hd) each, which prefill keeps as the cache.
+
+    Under tensor parallelism (``tp``, a ``dist.tp.Shards``) ``wq``,
+    ``wk``, ``wv`` are column shards and ``wo`` a row shard, its products
+    summed over the model group.  Where the kv heads divide over the
+    shards, so do the query heads: each shard attends its own whole heads
+    (query heads [m·H/mp, (m+1)·H/mp) meet their kv heads [m·KH/mp, ...),
+    GQA's contiguous grouping), and k, v are this shard's.  Else (a
+    shard's block cuts a kv head) k and v are gathered whole on every
+    shard (:func:`_col_full`) and returned whole, as the reference's cache
+    rule then holds them; the query heads stay the shard's own where they
+    divide, else each shard attends the slots of :func:`head_slots` and
+    the outputs are gathered before ``wo``'s row block
+    (:func:`_heads_out`).  Rope runs on whole heads."""
     B, S, _ = x.shape
-    hd = cfg.head_dim
+    hd, H, KH = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
     if tp is not None:
         h = tp.copy(h)
-    q = _col(p["wq"], h, tp).view(B, S, p["wq"]["w"].shape[-1] // hd, hd)
-    k = _col(p["wk"], h, tp).view(B, S, p["wk"]["w"].shape[-1] // hd, hd)
-    v = _col(p["wv"], h, tp).view(B, S, p["wv"]["w"].shape[-1] // hd, hd)
+    q, idx = _queries(p, cfg, h, tp)
+    if split_heads(KH, tp):
+        k = _col_full(p["wk"], h, tp, KH * hd).view(B, S, KH, hd)
+        v = _col_full(p["wv"], h, tp, KH * hd).view(B, S, KH, hd)
+    else:
+        k = _col(p["wk"], h, tp).view(B, S, -1, hd)
+        v = _col(p["wv"], h, tp).view(B, S, -1, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash.flash_attention(q, k, v, True, cfg.sliding_window)
-    return x + _row(p["wo"], o.reshape(B, S, -1), tp), (k, v)
+    ks, vs = k, v
+    if split_heads(KH, tp):
+        kv = _kv_heads_of(idx, H, KH)
+        ks, vs = _take(k, kv, 2), _take(v, kv, 2)
+    o = flash.flash_attention(q, ks, vs, True, cfg.sliding_window)
+    return x + _attn_out(p["wo"], o, tp, H), (k, v)
+
+
+def _attn_out(p, o, tp, n_heads: int):
+    """``wo`` on this shard's heads' output o (B, S, c, hd)."""
+    if split_heads(n_heads, tp):
+        return _heads_out(p, o, tp, n_heads)
+    return _row(p, o.reshape(o.shape[0], o.shape[1], -1), tp)
 
 
 def decode_attention(q, k_cache, v_cache, *, kv_positions, pos: int,
@@ -198,16 +316,23 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None,
     """x: (B, 1, D); cache: {"k", "v": (B, S, KH, hd), "pos": (S,) int32
     absolute positions}.  The token's k, v and position go into slot
     ``pos`` (``pos % S`` under a sliding window: a ring buffer) IN PLACE.
-    Returns (x + attention, cache).  ``tp``: as in :func:`attention_fwd`
-    (the cache holds this shard's kv heads); ``seq``: the cache is split
-    along the sequence over this group, member i holding slots [i·S,
-    (i+1)·S), and the member holding ``pos`` writes it."""
+    Returns (x + attention, cache).  ``tp``: as in :func:`attention_fwd`:
+    the cache holds this shard's kv heads where they divide over the
+    shards, else all KH of them (the reference's cache rule), the new
+    token's k, v gathered whole into it and this shard's query heads
+    attending the kv heads they read; ``seq``: the cache is split along
+    the sequence over this group, member i holding slots [i·S, (i+1)·S),
+    and the member holding ``pos`` writes it."""
     B = x.shape[0]
-    hd = cfg.head_dim
+    hd, H, KH = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    q = _col(p["wq"], h, tp).view(B, 1, p["wq"]["w"].shape[-1] // hd, hd)
-    k = _col(p["wk"], h, tp).view(B, 1, p["wk"]["w"].shape[-1] // hd, hd)
-    v = _col(p["wv"], h, tp).view(B, 1, p["wv"]["w"].shape[-1] // hd, hd)
+    q, idx = _queries(p, cfg, h, tp)
+    if split_heads(KH, tp):
+        k = _col_full(p["wk"], h, tp, KH * hd).view(B, 1, KH, hd)
+        v = _col_full(p["wv"], h, tp, KH * hd).view(B, 1, KH, hd)
+    else:
+        k = _col(p["wk"], h, tp).view(B, 1, -1, hd)
+        v = _col(p["wv"], h, tp).view(B, 1, -1, hd)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -225,10 +350,13 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None,
         cache["k"][:, slot].copy_(k[:, 0])
         cache["v"][:, slot].copy_(v[:, 0])
         cache["pos"][slot:slot + 1].fill_(pos)     # no host-to-device copy
-    o = decode_attention(q, cache["k"], cache["v"],
-                         kv_positions=cache["pos"], pos=pos,
+    kc, vc = cache["k"], cache["v"]
+    if split_heads(KH, tp):
+        kv = _kv_heads_of(idx, H, KH)
+        kc, vc = _take(kc, kv, 2), _take(vc, kv, 2)
+    o = decode_attention(q, kc, vc, kv_positions=cache["pos"], pos=pos,
                          window=cfg.sliding_window, seq=seq)
-    return x + _row(p["wo"], o.reshape(B, 1, -1), tp), cache
+    return x + _attn_out(p["wo"], o, tp, H), cache
 
 
 INT32_MAX = 2 ** 31 - 1       # a cache slot's position before it is written
@@ -284,14 +412,22 @@ def cross_attention_kv(p, cfg: ModelConfig, enc, tp=None):
     """enc: (B, T, encoder_dim) -> k, v (B, T, KH, hd), once a prompt, in
     the promoted dtype of enc and the weights: f32 for the f32
     embeddings of the data stream and of serving, as in the reference.
-    Under tensor parallelism ``wk``, ``wv`` are column shards of whole
-    kv heads: k, v hold this shard's KH/mp heads."""
+    Under tensor parallelism ``wk``, ``wv`` are column shards: where the
+    kv heads divide over the shards k, v hold this shard's KH/mp heads,
+    else they are gathered whole on every shard (:func:`_col_full`), as
+    the reference's cache rule then holds the cross cache."""
     B, T, _ = enc.shape
     if tp is not None:
         enc = tp.copy(enc)
-    hd = cfg.head_dim
-    k = _promoted_linear(p["wk"], enc)
-    v = _promoted_linear(p["wv"], enc)
+    hd, KH = cfg.head_dim, cfg.n_kv_heads
+    if split_heads(KH, tp):
+        def mm(a, w):
+            return _promoted_linear({"w": w}, a)
+        k = _col_full(p["wk"], enc, tp, KH * hd, mm)
+        v = _col_full(p["wv"], enc, tp, KH * hd, mm)
+    else:
+        k = _promoted_linear(p["wk"], enc)
+        v = _promoted_linear(p["wv"], enc)
     return k.view(B, T, -1, hd), v.view(B, T, -1, hd)
 
 
@@ -300,23 +436,31 @@ def cross_attention_fwd(p, cfg: ModelConfig, x, enc_kv, tp=None, seq=None):
     query sees every encoder token (non-causal flash; a T past 1024 that
     the reference's rule would cut into 1-key chunks pads instead, the
     padded keys masked by index).  The output is in x's dtype.  ``tp``:
-    ``wq`` a column shard of whole query heads meeting their own kv
-    heads in ``enc_kv`` (GQA's contiguous grouping), ``wo`` a row shard;
-    ``seq``: a decode step's cached k, v hold this member's block of the
-    encoder tokens, the partial softmaxes combined over that group."""
+    ``wq`` a column shard and ``wo`` a row shard as in
+    :func:`attention_fwd`: this shard's query heads (its own whole heads,
+    or the slots of :func:`head_slots` where the query heads are split
+    mid-head) read their kv heads in ``enc_kv`` (this shard's whole kv
+    heads, or all of them when :func:`cross_attention_kv` gathered
+    them); ``seq``: a decode step's cached k, v hold this member's block
+    of the encoder tokens, the partial softmaxes combined over that
+    group."""
     B, S, _ = x.shape
+    H, KH = cfg.n_heads, cfg.n_kv_heads
     k, v = enc_kv
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
     if tp is not None:
         h = tp.copy(h)
-    q = linear(p["wq"], h).view(B, S, -1, cfg.head_dim)
+    q, idx = _queries(p, cfg, h, tp)
+    if split_heads(KH, tp):
+        kv = _kv_heads_of(idx, H, KH)
+        k, v = _take(k, kv, 2), _take(v, kv, 2)
     if seq is None:
         o = flash.flash_attention(q, k, v, False, 0)
     else:
         o = decode_attention(q, k, v, kv_positions=torch.zeros(
             k.shape[1], dtype=torch.int32, device=x.device), pos=0, seq=seq)
     gate = torch.tanh(p["gate"].float()).to(x.dtype)
-    return x + gate * _row(p["wo"], o.reshape(B, S, -1), tp)
+    return x + gate * _attn_out(p["wo"], o, tp, H)
 
 
 # ---------------------------------------------------------------------------
@@ -345,6 +489,16 @@ def init_mla(gen, cfg: ModelConfig, dtype, device, lead=()):
     }
 
 
+def _latent(p, h, hc, width: int, tp):
+    """A latent projection every shard then reads alike: a column shard
+    of ``hc`` (``h`` through ``copy``) gathered, or a weight the rules
+    replicate applied to ``h`` itself (its gradient whole on every
+    shard, so not summed again through ``copy``)."""
+    if p["w"].shape[-1] == width:
+        return linear(p, h)
+    return tp.gather(linear(p, hc))
+
+
 def _mla_qkv(p, cfg: ModelConfig, h, positions, tp=None):
     """h: (B, S, D), normed.  Returns q_nope (B, S, H, nope), q_rope (B,
     S, H, rope) roped, the latent c_kv (B, S, r) after kv_norm and
@@ -355,11 +509,8 @@ def _mla_qkv(p, cfg: ModelConfig, h, positions, tp=None):
     heads: q holds this shard's H/mp heads."""
     m = cfg.mla
     B, S, _ = h.shape
-    if tp is not None:
-        h = tp.copy(h)
-    qa = linear(p["wq_a"], h)
-    if qa.shape[-1] != m.q_lora_rank:
-        qa = tp.gather(qa)
+    hc = h if tp is None else tp.copy(h)
+    qa = _latent(p["wq_a"], h, hc, m.q_lora_rank, tp)
     qa = rmsnorm(p["q_norm"], qa, cfg.rms_norm_eps)
     if tp is not None:
         qa = tp.copy(qa)
@@ -367,9 +518,8 @@ def _mla_qkv(p, cfg: ModelConfig, h, positions, tp=None):
     q = q.view(B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv_a = linear(p["wkv_a"], h)
-    if kv_a.shape[-1] != m.kv_lora_rank + m.qk_rope_head_dim:
-        kv_a = tp.gather(kv_a)
+    kv_a = _latent(p["wkv_a"], h, hc, m.kv_lora_rank + m.qk_rope_head_dim,
+                   tp)
     c_kv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_kv = rmsnorm(p["kv_norm"], c_kv, cfg.rms_norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)

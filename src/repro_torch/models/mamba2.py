@@ -27,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.models.layers import (_dense_init, init_linear,
-                                       init_rmsnorm, linear, rmsnorm)
+from repro_torch.models.layers import (_dense_init, _take, head_slots,
+                                       init_linear, init_rmsnorm, linear,
+                                       rmsnorm)
 
 
 def _dims(cfg: ModelConfig):
@@ -167,15 +168,16 @@ def ssd_final_state(x, dt, A, B):
 def _in_proj(p, cfg: ModelConfig, x, tp=None):
     """norm -> in_proj: (z, xBC, dt).  Under tensor parallelism
     ``in_proj`` is a column shard of its flat (not head-aligned) output,
-    gathered (every shard then holds the whole z, xBC and dt)."""
+    gathered (every shard then holds the whole z, xBC and dt, and reads
+    them alike), or, where its columns do not divide over the shards, a
+    replicated weight that every shard applies alike to the normed x
+    (not through ``copy``: its gradient is whole on every shard)."""
     s, d_inner, H = _dims(cfg)
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    if tp is not None:
-        h = tp.copy(h)
-    zxbcdt = linear(p["in_proj"], h)
-    if zxbcdt.shape[-1] != 2 * d_inner + 2 * s.d_state + H:
-        zxbcdt = tp.gather(zxbcdt)
-    return _split_in_proj(cfg, zxbcdt)
+    width = 2 * d_inner + 2 * s.d_state + H
+    if tp is None or p["in_proj"]["w"].shape[-1] == width:
+        return _split_in_proj(cfg, linear(p["in_proj"], h))
+    return _split_in_proj(cfg, tp.gather(linear(p["in_proj"], tp.copy(h))))
 
 
 def _mixer_inputs(p, cfg: ModelConfig, x, conv_state=None, tp=None):
@@ -192,9 +194,10 @@ def _mixer_inputs(p, cfg: ModelConfig, x, conv_state=None, tp=None):
 
 def _mixer_out(p, cfg: ModelConfig, x, y, z, tp=None):
     """Gate, output norm, out_proj, residual.  y: (b, S, d_inner).  Under
-    tensor parallelism ``out_proj`` is a row shard of whole heads: this
-    shard's heads' channels of the normed y (through ``copy``), the
-    products summed over ``model``."""
+    tensor parallelism ``out_proj`` is a row shard of the flattened
+    (heads x head_dim) rows (a head cut where the heads do not divide):
+    this shard's rows of the normed y (through ``copy``), the products
+    summed over ``model``."""
     y = y * F.silu(z)
     y = rmsnorm(p["out_norm"], y, cfg.rms_norm_eps)
     w = p["out_proj"]["w"]
@@ -205,7 +208,7 @@ def _mixer_out(p, cfg: ModelConfig, x, y, z, tp=None):
 
 
 def _heads_split(p, cfg: ModelConfig, tp) -> bool:
-    """Whether this block splits its heads over ``model`` (its
+    """Whether this block splits its scan's heads over ``model`` (its
     ``out_proj`` is a row shard)."""
     return tp is not None and p["out_proj"]["w"].shape[-2] != _dims(cfg)[1]
 
@@ -217,35 +220,39 @@ def mamba_fwd(p, cfg: ModelConfig, x, with_state: bool = False, tp=None):
     a prompt shorter than that; "ssm": the state}.
 
     ``tp`` (a ``dist.tp.Shards``): the gathered ``in_proj`` output and
-    the conv are whole on every shard; the chunked scan runs on this
-    shard's H/mp heads (x, dt, A and D through ``copy``, B and C whole:
-    each shard's gradients there are its heads' part, summed over
-    ``model``), its y gathered over the heads for the output norm over
-    the whole d_inner, and ``out_proj`` takes this shard's heads.  The
-    state returned is whole (its heads gathered)."""
+    the conv are whole on every shard; when ``out_proj``'s rows split,
+    the chunked scan runs on this shard's whole heads
+    (``layers.head_slots``: its H/mp heads, or ceil(H/mp) slots, repeats
+    of the last head past it, where the rows cut a head; x, dt,
+    A and D through ``copy``, B and C whole: each shard's gradients there
+    are its heads' part, summed over ``model``), its y gathered over the
+    heads (the repeated slots dropped) for the output norm over the whole
+    d_inner, and ``out_proj`` takes this shard's rows.  The state returned
+    is whole (its heads gathered)."""
     s, d_inner, H = _dims(cfg)
     b, S, _ = x.shape
     P = s.head_dim
     z, xs, B, C, dt, A, conv = _mixer_inputs(p, cfg, x, tp=tp)
     xh = xs.reshape(b, S, H, P)
     Dk = p["D"]
-    if _heads_split(p, cfg, tp):
-        Hl = H // tp.mp
-        lo = tp.m * Hl
-        xh = tp.copy(xh).narrow(2, lo, Hl)
-        dt = tp.copy(dt).narrow(2, lo, Hl)
-        A = tp.copy(A).narrow(0, lo, Hl)
-        Dk = tp.copy(Dk).narrow(0, lo, Hl)
+    split = _heads_split(p, cfg, tp)
+    if split:
+        idx = head_slots(H, tp)
+        xh = _take(tp.copy(xh), idx, 2)
+        dt = _take(tp.copy(dt), idx, 2)
+        A = _take(tp.copy(A), idx, 0)
+        Dk = _take(tp.copy(Dk), idx, 0)
         B, C = tp.copy(B), tp.copy(C)
-        y = tp.gather(ssd_chunked(xh, dt, A, B, C, Dk, s.chunk_size), 2)
+        y = tp.gather(ssd_chunked(xh, dt, A, B, C, Dk, s.chunk_size),
+                      2)[:, :, :H]
     else:
         y = ssd_chunked(xh, dt, A, B, C, Dk, s.chunk_size)
     out = _mixer_out(p, cfg, x, y.reshape(b, S, d_inner), z, tp)
     if not with_state:
         return out
     ssm = ssd_final_state(xh, dt, A, B)
-    if ssm.shape[1] != H:
-        ssm = tp.model.all_gather(ssm, 1)
+    if split:
+        ssm = tp.model.all_gather(ssm, 1)[:, :H]
     return out, {"conv": conv, "ssm": ssm}
 
 

@@ -103,27 +103,24 @@ class Model:
         return self.tp.mp if self.tp is not None else 1
 
     def _check_tp(self):
-        """Tensor parallelism splits whole heads: attention's query and kv
-        heads, latent attention's heads, cross-attention's query and kv
-        heads, and Mamba2's H = d_inner / head_dim when its out_proj's
-        rows split (the scan runs on a shard's heads)."""
+        """What the port refuses under ``--model-shards``, where the
+        reference runs: latent attention whose heads do not divide over
+        the model shards.  Every other mixer takes any model size the
+        reference's rules take (they split the flattened heads x
+        head_dim columns however the model axis divides them, and
+        replicate a dim it does not divide): attention, cross-attention
+        and Mamba2 gather a head that a shard's block cuts
+        (``layers.attention_fwd``, ``mamba2.mamba_fwd``).  MLA's absorbed
+        decode lifts each shard's whole heads into the latent; deepseek's
+        128 heads divide every model size up to 128, the production
+        meshes' 16 among them."""
         cfg, mp = self.cfg, self.mp
-        heads = []
-        if CROSS in cfg.block_pattern or (ATTN in cfg.block_pattern
-                                          and cfg.mla is None):
-            heads += [("query", cfg.n_heads), ("kv", cfg.n_kv_heads)]
-        elif cfg.mla is not None:
-            heads.append(("latent attention", cfg.n_heads))
-        if MAMBA in cfg.block_pattern:
-            s, d_inner, H = M._dims(cfg)
-            if d_inner % mp == 0:
-                heads.append(("Mamba2", H))
-        bad = [f"{n} {what}" for what, n in heads if n % mp]
-        if bad:
+        if cfg.mla is not None and ATTN in cfg.block_pattern \
+                and cfg.n_heads % mp:
             raise ValueError(
-                f"{cfg.name}: --model-shards {mp} splits a head ("
-                f"{', '.join(bad)} heads): the port needs whole heads on "
-                f"each shard (ROADMAP.md Queue 3)")
+                f"{cfg.name}: --model-shards {mp} splits a latent-attention "
+                f"head ({cfg.n_heads} heads): the port's latent attention "
+                f"needs whole heads on each shard (ROADMAP.md Queue 3)")
 
     def _tpm(self):
         """The Shards when the heads are split over ``model``, else None."""

@@ -5,8 +5,19 @@ equals the reference's ``PartitionSpec`` as a tuple and every
 ``local_shape`` equals the reference's, at model sizes 1, 2, 4 and 16,
 with FSDP off and over ``data`` = 16, and for the caches of the four
 input shapes on both dp layouts, with and without the sequence axis.
-Then the hazards of the rules, each against the reference."""
+Then the hazards of the rules, each against the reference.
+
+And the sweep of ``--model-shards`` on the meta device: each of the ten
+archs at its published widths (one superblock deep), one rank of model
+sizes 2, 4, 8 and 16, whose group hands back shape-right tensors,
+trains (forward and backward), prefills and decodes a step; every held
+leaf (params, gradients, cache) has its ``local_shape`` under the
+reference's spec.  At model 16 nine of the ten archs split a head
+(half a kv head of llama3.2-1b, granite-8b, jamba and vision; qwen2's 12
+query heads; phi3's 10 kv heads; musicgen's 24 heads; arctic's 8 kv
+heads; mamba2-130m's 24 Mamba2 heads)."""
 import functools
+from dataclasses import replace
 
 import jax
 import numpy as np
@@ -24,10 +35,12 @@ from repro.utils.tree import keystr_path as ref_keystr
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_arch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist import sharding as SH
+from repro_torch.dist.tp import Shards
 from repro_torch.launch.input_specs import cache_specs, params_specs
-from repro_torch.models.model import build_model
+from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import build_optimizer
-from repro_torch.utils.tree import keystr_path, tree_leaves_with_path
+from repro_torch.utils.tree import (keystr_path, tree_leaves,
+                                    tree_leaves_with_path, tree_unflatten)
 
 MODEL_SIZES = (1, 2, 4, 16)
 DATA = 16
@@ -184,3 +197,77 @@ def test_entries_and_local_shape_refusal():
         RS.local_shape((24, 64), RS.P(("pod", "data"), None),
                        {"pod": 2, "data": 16})
     np.testing.assert_equal(SH.local_shape((5,), (None,), {}), (5,))
+
+
+class _MetaGroup:
+    """The model group of ``size`` shards seen from shard ``index`` on
+    the meta device: every collective returns a tensor of its shape (a
+    gather repeats this shard's block), so one rank's step runs alone."""
+
+    def __init__(self, size, index):
+        self.size, self.index = size, index
+
+    def all_gather(self, x, dim):
+        return torch.cat([x] * self.size, dim)
+
+    def all_reduce(self, x, op=None):
+        return x.clone()
+
+    def reduce_scatter(self, x, dim):
+        w = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * w, w).contiguous()
+
+
+def _one_superblock(cfg):
+    return replace(cfg, n_layers=len(cfg.block_pattern))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_one_superblock(arch):
+    """The reference's params (eval_shape) of ``arch`` one superblock
+    deep."""
+    rcfg = ref_get_arch(arch)
+    rcfg = replace(rcfg, n_layers=len(rcfg.block_pattern))
+    return jax.eval_shape(RefModel(rcfg).init, jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("mp", (2, 4, 8, 16))
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_model_shards_step_on_the_meta_device(arch, mp):
+    """The last shard of ``mp`` (the one a head's slots run past, where
+    the heads do not divide) trains, prefills and decodes one step at
+    published widths: nothing raises, and the held params, their
+    gradients and the cache have the reference's local shapes."""
+    cfg = _one_superblock(get_arch(arch))
+    m, B, S = mp - 1, 2, 8
+    full = build_model(cfg).init(torch.Generator(), "meta")
+    specs = SH.param_pspecs(full, model_size=mp)
+    sizes = {"model": mp}
+    ref = _ref_specs(RS.param_pspecs(_ref_one_superblock(arch),
+                                     model_size=mp),
+                     _ref_one_superblock(arch))
+    assert {k: s for k, (_, s) in ref.items()} == specs, arch
+    local = SH.shard_tree(full, specs, {"model": m}, sizes)
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(local)]
+    model = Model(cfg, Shards(model=_MetaGroup(mp, m), specs=specs))
+    tokens = torch.empty((B, S), dtype=torch.int64, device="meta")
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.num_encoder_tokens:
+        batch["encoder_embeds"] = torch.empty(
+            (B, cfg.num_encoder_tokens, cfg.encoder_dim), device="meta")
+    loss, _ = model.loss(tree_unflatten(local, leaves), batch, remat=False)
+    grads = torch.autograd.grad(loss, leaves)
+    for (path, x), g in zip(tree_leaves_with_path(full), grads):
+        key = keystr_path(path)
+        want = SH.local_shape(tuple(x.shape), ref[key][1], sizes)
+        assert tuple(g.shape) == want, (arch, mp, key, g.shape)
+    serve = {k: x for k, x in batch.items() if k != "labels"}
+    logits, cache = model.prefill(local, serve, cache_len=S + 1)
+    logits, cache = model.decode_step(local, cache, tokens[:, :1], S)
+    assert tuple(logits.shape) == (B, 1, cfg.vocab_size)
+    whole = build_model(cfg).init_cache(B, S + 1, "meta")
+    cspecs = SH.cache_pspecs(whole, dp_axes=(), dp_size=1, model_size=mp)
+    for (path, x), c in zip(tree_leaves_with_path(whole), tree_leaves(cache)):
+        key = keystr_path(path)
+        assert tuple(c.shape) == SH.local_shape(tuple(x.shape), cspecs[key],
+                                                sizes), (arch, mp, key)

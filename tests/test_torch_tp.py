@@ -42,7 +42,9 @@ at batch 4 on (2, 2) and at batch 1 on (data 2)):
 Without a launch: ``shard_tree`` and ``gather_tree`` inverse (threads
 standing in for the processes), the GQA grouping under a shard of the
 heads, the other block kinds' blocks under 2 model shards (their
-sharded runs are tests/test_torch_tp_kinds.py's), and what is refused.
+sharded runs are tests/test_torch_tp_kinds.py's), what is refused, and
+a mesh that splits a kv head (threads standing in for 8 shards; the
+launches of such meshes are tests/test_torch_tp_heads.py's).
 """
 import ast
 import json
@@ -60,6 +62,7 @@ import torch
 import _torch_tp_worker as W
 from _one_thread import one_thread  # noqa: F401  (autouse)
 from _torch_pg import REPO, launch, worker
+from _torch_tp_threads import shards_and_one_process
 from _torch_train_common import close, reference_hier_init
 from repro_torch.checkpoint import (load_gathered_checkpoint, rank_path,
                                     save_rank_checkpoint,
@@ -567,7 +570,23 @@ def test_other_block_kinds_hold_the_dry_runs_blocks(arch):
 
 
 def test_a_mesh_that_splits_a_head_raises():
-    """8 query and 4 kv heads over 8 shards: half a kv head each (the
-    reference's GSPMD would split the flattened heads x head_dim)."""
-    with pytest.raises(ValueError, match="whole heads"):
-        Model(CFG, Shards(model=_Stub(8)))
+    """Once refused, now run: 8 query and 4 kv heads over 8 shards, half
+    a kv head each, as the reference's GSPMD splits the flattened heads x
+    head_dim.  Threads standing in for the 8 shards: each shard's loss,
+    prefill and decode logits equal one process's within 1e-5, its
+    gradient blocks within 1e-5 of each leaf's largest entry, and its
+    cache holds all 4 kv heads (the reference's cache rule replicates a
+    dim the model axis does not divide)."""
+    g = torch.Generator().manual_seed(0)
+    full = build_model(CFG).init(g)
+    tokens = torch.randint(0, CFG.vocab_size, (2, 16), generator=g)
+    got, want = shards_and_one_process(
+        CFG, 8, full, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+    for m, res in enumerate(got):
+        np.testing.assert_allclose(float(res["loss"]), float(want["loss"]),
+                                   rtol=0, atol=1e-5)
+        for key in ("logits", "step"):
+            close(res[key].numpy(), want[key].numpy(), 1e-5, f"{m} {key}")
+        for a, b in zip(res["grads"], want["grads"][m]):
+            close(a.numpy(), b.numpy(), 1e-5, f"shard {m} gradient")
+        assert res["cache"]["p0"]["k"].shape[3] == CFG.n_kv_heads == 4

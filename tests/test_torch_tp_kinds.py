@@ -54,7 +54,9 @@ MTP loss, every gradient, prefill and decode at ``reduced()``):
 
 Without a launch: the MoE dispatch of one rank's rows with the whole
 batch's groups at a capacity that drops, threads standing in for the
-ranks, against one process; a mesh that splits a head raises.
+ranks, against one process; a mesh that splits a latent-attention head
+raises, and one that splits a cross-attention kv head runs (threads
+standing in for the shards).
 """
 import ast
 import json
@@ -72,6 +74,7 @@ import torch
 import _torch_tp_kinds_worker as W
 from _one_thread import one_thread  # noqa: F401  (autouse)
 from _torch_pg import REPO, launch, worker
+from _torch_tp_threads import shards_and_one_process
 from _torch_train_common import close
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import (CompressionConfig, InputShape,
@@ -426,11 +429,29 @@ class _Stub:
 
 
 def test_a_mesh_that_splits_a_latent_or_cross_head_raises():
-    """deepseek's 8 latent-attention heads and vision's 4 kv heads over 8
-    shards; mamba2's 24 heads (d_inner 1536 / 64) over 16."""
-    for arch, mp in (("deepseek-v3-671b", 16), ("llama-3.2-vision-90b", 8),
-                     ("mamba2-130m", 16)):
-        cfg = get_arch(arch).reduced() if arch != "mamba2-130m" \
-            else get_arch(arch)
-        with pytest.raises(ValueError, match="whole heads"):
-            Model(cfg, Shards(model=_Stub(mp)))
+    """deepseek's 8 latent-attention heads over 16 shards raise (the
+    port's latent attention needs whole heads).  Cross-attention and
+    Mamba2 heads, once refused, now run: vision's 4 kv heads over 8
+    shards (half a kv head each, in self- and cross-attention; threads
+    standing in for the shards, gates at 0.5: loss, prefill and decode
+    logits within 1e-5 of one process's, gradient blocks within 1e-5 of
+    each leaf's largest entry), and mamba2-130m's 24 heads over 16 build
+    (tests/test_torch_sharding.py runs its step at published widths)."""
+    with pytest.raises(ValueError, match="whole heads"):
+        Model(get_arch("deepseek-v3-671b").reduced(), Shards(model=_Stub(16)))
+    Model(get_arch("mamba2-130m"), Shards(model=_Stub(16)))
+    cfg = get_arch("llama-3.2-vision-90b").reduced()
+    g = torch.Generator().manual_seed(0)
+    full = W.set_gates(build_model(cfg).init(g), W.GATE)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1),
+             "encoder_embeds": torch.randn(2, cfg.num_encoder_tokens,
+                                           cfg.encoder_dim, generator=g)}
+    got, want = shards_and_one_process(cfg, 8, full, batch)
+    for m, res in enumerate(got):
+        np.testing.assert_allclose(float(res["loss"]), float(want["loss"]),
+                                   rtol=0, atol=1e-5)
+        for key in ("logits", "step"):
+            close(res[key].numpy(), want[key].numpy(), 1e-5, f"{m} {key}")
+        for a, b in zip(res["grads"], want["grads"][m]):
+            close(a.numpy(), b.numpy(), 1e-5, f"shard {m} gradient")
