@@ -125,9 +125,10 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               4 buckets, whose losses must be equal; then lgc_rar at
               train_4k's sequence length (--seq 4096, batch 8: train_4k's
               256 cut to 4 sequences a node), 6 steps; then lgc_rar (K1
-              and K3 counted per step) on mamba2-130m at full width and
-              depth (24 layers, bf16, the SSM's leaves) at seq 128 and
-              4096, and on arctic-480b at published widths with n_layers
+              and K3 counted per step) on mamba2-130m at full width
+              (bf16, the SSM's leaves) at seq 128 at full depth (24
+              layers) and at seq 4096 at MAMBA_LONG_LAYERS, and on
+              arctic-480b at published widths with n_layers
               cut from 35 to 1 and num_experts from 128 to 4 (the 3-D
               expert stacks; G = 32, C = 10), 6 steps each; then lgc_rar
               on deepseek-v3-671b at published widths (the MLA leaves,
@@ -145,8 +146,8 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               torchrun (this script as each rank, --pg-rank), the K
               processes sharing this card over a gloo process group
               (every message staged through pinned host memory); every
-              process run of 9b, 11b and 11c goes through one of two
-              launches, one of K = 2 ranks and one of 4, each running its
+              process run of 9b, 11b, 11c and 11d goes through one of
+              three launches, of K = 2, 3 and 4 ranks, each running its
               runs one after another in the same processes, and each run
               is held against its emulated twin of the same flags among
               the train runs: lgc_rar on mesh (K = 2), dgc on ring_packed in 4
@@ -175,11 +176,11 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               and leaves each node's u, v its accumulators before the
               clear; (c) lgc_rar on chaos:mesh with --guard fail_fast
               must raise WireFaultError naming the encoding at step 4
- 11. resume   lgc_rar with a checkpoint every 3 steps, stopped after step
-              3, then resumed from the file (the full state: bf16
-              params, AdamW moments, both nodes' u and v, the AE): its
-              losses at steps 4 and 5 must equal the uninterrupted
-              lgc_rar run's bit for bit; the file's bytes and the save
+ 11. resume   lgc_rar at RESUME_LAYERS with a checkpoint every 3 steps,
+              stopped after step 3, then resumed from the file (the full
+              state: bf16 params, AdamW moments, both nodes' u and v, the
+              AE): its losses at steps 4 and 5 must equal the
+              uninterrupted lgc_rar run's at that depth bit for bit; the file's bytes and the save
               and load seconds; the file is deleted
  11b. pg_faults the failure runs one node per process (torchrun of this
               script as each rank, K = 2 ranks sharing the card over
@@ -201,10 +202,10 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               rank script), then resumed under torchrun from the rank
               files (ckpt.rank<r>.npz; node 0's with the replicated
               state): steps 4 and 5 and the final digest the
-              uninterrupted pg_train lgc_rar mesh run's; each rank's
+              uninterrupted run's of 11 at RESUME_LAYERS; each rank's
               file bytes, save and load seconds; the files are deleted
  11c. tp_train --model-shards 2 on the (data 2, model 2) mesh, 4 ranks,
-              llama3.2-1b at published widths cut to 2 layers, f32,
+              llama3.2-1b at published widths cut to TP_LAYERS, f32,
               batch 8, seq 128: lgc_rar (fused sweep, kernel encoder)
               through its three phases, each rank compressing its model
               shard's block of its node's gradient (K1 and K3 on every
@@ -236,20 +237,38 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               this card; every rank's tokens equal; prefill ms, median
               decode ms, tokens/s and peak GiB a rank.  The other kinds
               (TP_SERVE_KINDS) bf16 at B4 P64 G32 at published widths:
-              mamba2-130m, deepseek-v3-671b (1 layer, 256 experts),
+              mamba2-130m (MAMBA_TP_LAYERS), deepseek-v3-671b (1 layer
+              and its MTP block, 256 experts),
               jamba-v0.1-52b (one superblock), llama-3.2-vision-90b (2
               superblocks); in f32 against one process: deepseek (1
               layer, 32 experts), mamba2-130m, jamba (one superblock, 4
               experts); deepseek at B1 P4096 G8 on (data 2, model 2).
               The model axis cutting a head (TP_SERVE_HEADS, the same
               launch): on (data 1, model 4) qwen2-1.5b at published
-              widths cut to 2 layers (half a kv head a shard) trains in
+              widths cut to TP_HEADS_LAYERS (half a kv head a shard) trains in
               f32, lgc_rar (K1 and K3 on every rank) and the auto step
               against their one-node f32 twins (the gates of 11c), and
               serves B4 P64 G32 in bf16 and in f32 (tokens one
               process's); phi3-medium-14b (2.5 kv heads a shard) serves
-              bf16 at 2 layers; each rank's held params and cache the
+              bf16 at TP_HEADS_LAYERS; each rank's held params and cache the
               dry run's for host_mesh(1, 4)
+ 11d. tp3     the layouts of the reference's process grid the port ran
+              last, in a launch of 3 ranks: deepseek-v3-671b at its
+              published attention widths on (data 1, model 3), 42 2/3
+              heads a shard: its auto step (1 layer + MTP, 4 experts,
+              top-2, vocab 8192) and lgc_rar (the same, d_model 1536; K1
+              and K3 on every rank) in f32 against one-node twins
+              (losses within TP3_LOSS_REL, held bytes the dry run's);
+              served 1 layer + MTP with 32 experts: f32 B4 P64 G16
+              (tokens one process's, last logits within TP3_LOGITS_REL),
+              bf16 B4 P64 G32 and G2 (the prefill's tokens one
+              process's, G2's first decode step's logits within
+              SERVE_REL, G32's decode tokens compared); mamba2-130m
+              (MAMBA_TP_LAYERS) B1 P64 G32 on (data 3), the conv state
+              split by rows, and llama3.2-1b (TP_SERVE_LAYERS, f32,
+              window TP3_WINDOW) B1 P256 G64 on (data 3), the ring's
+              slots split, tokens one process's; and in the launch of 4
+              the same llama run on (pod 2, data 2)
  12. convnet5 the paper's ConvNet5 at its full widths (config(): channels
               32-256, 200 classes, 32x32 images, n = 588,008), K = 4 nodes
               of 8 images, through launch.steps.sim_sgd_step (the
@@ -282,11 +301,11 @@ Phases, each printed as one JSON line on stdout (logs go to stderr):
               4096, and one at batch 1, prompt 32768 (prefill_32k's length,
               its batch of 32 cut to 1), then 8 decode steps from its
               cache, the first against a full prefill of length 32769;
-              then qwen2-1.5b (28 layers) as llama3.2-1b (B4 P64 G32, B8
-              P512 G64, three positions each), and granite-8b (36 layers),
-              phi3-medium-14b (40) and musicgen-medium (48) at B4 P64 G16
-              with the check at one position, each at published widths
-              and full depth, bf16, freed before the next; then
+              then qwen2-1.5b as llama3.2-1b (B4 P64 G32, B8 P512 G64,
+              three positions each), and granite-8b, phi3-medium-14b and
+              musicgen-medium at B4 P64 G16 with the check at one
+              position, each at published widths and SERVE_ARCH_LAYERS
+              layers, bf16, freed before the next; then
               mamba2-130m at full depth as llama3.2-1b (B4 P64 G32, B8
               P512 G64, the check held), and a batch-1 prompt of 32768
               with 8 decode steps from its O(1) state against a 32769
@@ -333,6 +352,7 @@ import time
 # CUDA starts, so set before anything touches the card
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -349,6 +369,10 @@ N_LAYERS = 4                       # the only cut: 16 -> 4 layers
 # at 2 layers the four ranks ran out of the card (16.35 GiB allocated
 # each, 76.9 of 79.18 GiB in use)
 PG_HIER_LAYERS = 1
+# the crash-and-resume runs (d), in one process and one node a process,
+# and their uninterrupted run: 1 layer (4 until the three-rank launch
+# took their time; a 1-layer file is 64% of the bytes)
+RESUME_LAYERS = 1
 PG_BACKEND = "gloo"                # the only backend for K ranks on a card
 PG_TIMEOUT_S = 900                 # one torchrun launch
 # lgc_rar ring_hier's peak at K = 4 with the garbage collector off,
@@ -394,8 +418,14 @@ FLASH_REL = 1e-5
 FLASH_PEAK_SEQ = 8192
 # train_4k's sequence length; its batch of 256 cut to 8 (4 a node)
 TRAIN_SEQ = 4096
-# the archs served besides llama3.2-1b, at published widths and full
-# depth, bf16: (batch, prompt, gen, decode-vs-prefill positions) each
+# mamba2-130m's lgc_rar at that length: 6 of its 24 layers (24 until
+# the three-rank launch took their time)
+MAMBA_LONG_LAYERS = 6
+# the archs served besides llama3.2-1b, at published widths and
+# SERVE_ARCH_LAYERS layers (full depth until the three-rank launch took
+# their time), bf16: (batch, prompt, gen, decode-vs-prefill positions)
+# each
+SERVE_ARCH_LAYERS = 4
 SERVE_ARCHS = (("qwen2-1.5b", ((4, 64, 32, 3), (8, 512, 64, 3))),
                ("granite-8b", ((4, 64, 16, 1),)),
                ("phi3-medium-14b", ((4, 64, 16, 1),)),
@@ -1705,7 +1735,11 @@ def pg_rank(spec_path: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         if run["kind"] == "serve":
-            res = serve.run(cfg, serve.parse_args(run["flags"]))
+            args = serve.parse_args(run["flags"])
+            res = serve_on_pods(serve, cfg, args, run["pods"]) \
+                if run.get("pods") else serve.run(cfg, args)
+            np.save(os.path.join(run["report"], f"logits{rank}.npy"),
+                    res["logits"])
             out = {"tokens": res["tokens"].tolist(), "logits_max": float(
                 abs(res["logits"]).max()), **{k: res[k] for k in (
                     "prefill_ms", "step_ms", "decode_s", "held",
@@ -1721,6 +1755,24 @@ def pg_rank(spec_path: str) -> None:
                    run_s=time.perf_counter() - t0)
         with open(os.path.join(run["report"], f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
+
+
+def serve_on_pods(serve, cfg, args, pods: int):
+    """launch.serve's torchrun path on the (pod, data, model) grid of
+    ``pods`` pods: the reference's prefill and decode steps take a
+    multi-pod mesh (its dry run's pod2x16x16), its server's flags have no
+    pod axis, and neither have the port's.  It repeats serve.run's three
+    steps under torchrun (init_process_mesh, _serve, destroying the
+    process group) with the pod axis before data in the mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_mesh
+    grid = init_process_mesh((pods, args.data_shards), args.dist_backend,
+                             args.device, args.dist_init,
+                             model=args.model_shards)
+    try:
+        return serve._serve(cfg, args, None, grid.device, grid)
+    finally:
+        dist.destroy_process_group()
 
 
 def drop_rank_file(run, rank: int, run_s: float) -> None:
@@ -1785,18 +1837,20 @@ def arch_cfg(arch: str = "llama3.2-1b", cut=None, dtype=None):
 def pg_spec(name: str, flags, steps: int = 0, n_layers=N_LAYERS,
             stop_after=None, expect_error=None, kind: str = "train",
             dtype=None, arch: str = "llama3.2-1b", cut=None,
-            drop_checkpoint=None):
+            drop_checkpoint=None, pods=None):
     """One run of a process launch: a train run of ``steps`` steps with
     the process runs' shared flags (2 data shards, batch 8, seq 128, 2
     warm-up steps) and ``flags`` after them; a serve run with ``flags``
     alone.  The model: ``arch_cfg(arch, cut, dtype)`` at ``n_layers``
     (None: the config's; ``dtype`` None: the arch's).  A train run with
     ``drop_checkpoint`` deletes its rank's file of that checkpoint once
-    it has run (``drop_rank_file``)."""
+    it has run (``drop_rank_file``); a serve run with ``pods`` runs on
+    the (pod, data, model) grid of that many pods (``serve_on_pods``)."""
     return {"name": name, "kind": kind, "n_layers": n_layers,
             "dtype": dtype, "stop_after": stop_after,
             "expect_error": expect_error, "steps": steps, "flags": flags,
-            "arch": arch, "cut": cut, "drop_checkpoint": drop_checkpoint}
+            "arch": arch, "cut": cut, "drop_checkpoint": drop_checkpoint,
+            "pods": pods}
 
 
 def pg_launch(label: str, specs, K: int):
@@ -1939,13 +1993,15 @@ def _f32_llama(n_layers=N_LAYERS):
 
 
 def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
-              parts=("pg", "tp")) -> None:
-    """Every process run, in two torchrun launches of this script (one of
-    K = 2 ranks, one of 4), each run held to what it is compared with:
+              parts=("pg", "tp", "tp3")) -> None:
+    """Every process run, in three torchrun launches of this script (of
+    K = 2, 3 and 4 ranks), each run held to what it is compared with:
     ``parts`` "pg", pg_train (the process runs against their emulated
     twins), pg_faults and pg_resume (the failure runs); "tp", tp_train
-    and tp_serve (``--model-shards``).  The twins are ``runs``' (run here
-    when missing)."""
+    and tp_serve (``--model-shards``); "tp3", the three-rank launch's
+    runs and the serving run on (pod 2, data 2) (``tp3_train_runs``,
+    TP3_SERVE_HEADS, TP3_SERVE_SEQ, TP_SERVE_PODS).  The twins are
+    ``runs``' (run here when missing)."""
     import shutil
     from repro_torch.checkpoint import rank_path
     fl, gf = train_flags(), guard_flags()
@@ -2036,6 +2092,21 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                 steps, *expect, cfg=arch_cfg("qwen2-1.5b", TP_HEADS_CUT,
                                              "float32"))
 
+    # the three-rank runs' twins: one node, the whole batch, each at its
+    # run's cut
+    for _, twin, method, _, steps, cut, names in tp3_train_runs() \
+            if "tp3" in parts else ():
+        if twin not in runs:
+            base = lgc if method == "lgc_rar" else ["--compression", "none"]
+            tally = {"kept": 0, "assigned": 0}
+            with moe_kept(tally):
+                runs[twin] = train_phase(
+                    dev, twin, base + TP_KIND_OPT + ["--data-shards", "1"],
+                    steps, *((lgc_step,) if method == "lgc_rar" else ()),
+                    cfg=arch_cfg("deepseek-v3-671b", cut, "float32"),
+                    reduced=names)
+            runs[twin]["moe_kept"] = tally
+
     ckdir = os.path.join(ROOT, "build", "ckpt_pg")
     path = os.path.join(ckdir, "ckpt.npz")
     two = [pg_spec(n, f, s) for n, _, f, s, K, _, _ in train_specs if K == 2]
@@ -2047,9 +2118,9 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
             # (d): stopped after step 3 with its rank files, then resumed
             pg_spec("lgc_rar stopped after step 3", lgc + [
                 "--checkpoint-dir", ckdir, "--checkpoint-every", "3"], 6,
-                stop_after=3),
+                n_layers=RESUME_LAYERS, stop_after=3),
             pg_spec("lgc_rar resumed at step 4", lgc + ["--resume", path],
-                    6)]
+                    6, n_layers=RESUME_LAYERS)]
     serve_specs = tp_serve_specs() if "tp" in parts else []
     two += serve_specs
     four = [pg_spec(n, f, s, n_layers=layers)
@@ -2090,22 +2161,37 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                 flags + _HEADS + TP_KIND_OPT, steps, n_layers=None,
                 dtype="float32", arch="qwen2-1.5b", cut=TP_HEADS_CUT))
         four += tp_serve_specs(TP_SERVE_HEADS)
+    three = []
+    if "tp3" in parts:
+        four += tp_serve_specs(TP_SERVE_PODS)
+        three = [pg_spec(name, flags, steps, n_layers=None, dtype="float32",
+                         arch="deepseek-v3-671b", cut=cut)
+                 for name, _, _, flags, steps, cut, _ in tp3_train_runs()]
+        three += tp_serve_specs(TP3_SERVE_HEADS + TP3_SERVE_SEQ)
+    got, launches = {}, {}
     gc_cuda()
     try:
-        got4, launch4 = pg_launch("four", four, 4)
+        if four:
+            got4, launches["four"] = pg_launch("four", four, 4)
+            got.update(got4)
     finally:
         for tp_path in tp_ckpt.values():
             shutil.rmtree(os.path.dirname(tp_path), ignore_errors=True)
     gc_cuda()
     try:
         nbytes = None
-        got2, launch2 = pg_launch("two", two, 2)
+        if two:
+            got2, launches["two"] = pg_launch("two", two, 2)
+            got.update(got2)
         if "pg" in parts:
             nbytes = [os.path.getsize(rank_path(path, r)) for r in range(2)]
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
-    got = {**got2, **got4}
-    launches = {"two": launch2, "four": launch4}
+    if three:
+        gc_cuda()
+        got3, launches["three"] = pg_launch("three", three, 3)
+        got.update(got3)
+    launch2, launch4 = launches.get("two"), launches.get("four")
     if "tp" in parts:
         tp_train_checks(runs, got, smi, launch4, lgc_step)
         tp_resume_checks(runs, got, smi, launch4, lgc_step)
@@ -2114,6 +2200,21 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                         tp_serve_specs(TP_SERVE_FOUR))
         tp_serve_checks(runs, got, smi, launch4,
                         tp_serve_specs(TP_SERVE_HEADS), TP_HEADS_MESH)
+    if "tp3" in parts:
+        launch3 = launches["three"]
+        tp_train_checks(runs, got, smi, launch3, lgc_step, table=[
+            (name, twin, method, arch_cfg("deepseek-v3-671b", cut,
+                                          "float32"), names,
+             TP_KIND_OPT[1], TP3_MESH)
+            for name, twin, method, _, _, cut, names in tp3_train_runs()],
+            tol=TP3_LOSS_REL)
+        one = {}
+        tp_serve_checks(runs, got, smi, launch3,
+                        tp_serve_specs(TP3_SERVE_HEADS), TP3_MESH, one)
+        tp_serve_checks(runs, got, smi, launch3,
+                        tp_serve_specs(TP3_SERVE_SEQ), TP3_SEQ_MESH, one)
+        tp_serve_checks(runs, got, smi, launch4,
+                        tp_serve_specs(TP_SERVE_PODS), None, one)
     if "pg" not in parts:
         return
 
@@ -2180,8 +2281,10 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
          errors=[rec["error"] for rec in recs], twin_error=want,
          launches=[rec["launches"] for rec in recs])
 
-    # pg_resume: (d) against the uninterrupted pg lgc_rar mesh run
-    whole = runs["pg lgc_rar mesh"]
+    # pg_resume: (d) against the uninterrupted run at its depth (process
+    # runs are bitwise their emulated twins: pg_train)
+    twin = resume_twin(dev, runs, lgc)
+    whole = {"losses": twin["losses"], "digest": twin["report"]["digest"]}
     first = got["lgc_rar stopped after step 3"]
     second = got["lgc_rar resumed at step 4"]
     for r in range(2):
@@ -2199,7 +2302,8 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
                  [h["phase"] for h in second[r]["history"]])
     runs["pg lgc_rar stopped"] = {"launches": summed_launches(first)}
     runs["pg lgc_rar resumed"] = {"launches": summed_launches(second)}
-    emit("pg_resume", card=smi, nodes=2, file_bytes=nbytes,
+    emit("pg_resume", card=smi, nodes=2, n_layers=RESUME_LAYERS,
+         file_bytes=nbytes,
          save_s=[rec["history"][3]["checkpoint_s"] for rec in first],
          load_s=[rec["resumed"]["seconds"] for rec in second],
          resumed_at=[rec["resumed"]["step"] for rec in second],
@@ -2218,13 +2322,14 @@ def pg_phases(dev, runs, smi: str, n_leaves: int, n_encoder: int,
 
 
 # tp_train: llama3.2-1b at TP_LAYERS in f32 on the (data 2, model 2) mesh
-# (4 layers until the head-cutting runs took their time), each run
+# (4 layers until the head-cutting runs took their time, 2 until the
+# three-rank launch took theirs), each run
 # against its emulated K = 2 twin of the same flags: losses
 # within TP_LOSS_REL of the twin's (TP sums each matmul in another order,
 # and AdamW turns a rounding-sized difference at a near-zero gradient
 # into a whole step)
 TP_LOSS_REL = 2e-5
-TP_LAYERS = 2
+TP_LAYERS = 1
 TP_AUTO_STEPS = 3
 # tp_resume: the step after which each run is stopped with its rank files
 # (lgc_rar's last top-k + AE step: the resumed steps are the compressed
@@ -2248,9 +2353,10 @@ TP_SERVE = (("tp serve B4 P64 G32", ["--model-shards", "2", "--batch", "4",
 
 # the other block kinds with model shards: (arch, lgc_rar's cut, the
 # auto step's cut), trained in f32 on the (data 2, model 2) mesh from
-# four processes on the one card.  mamba2-130m at full depth and
-# published widths.  deepseek-v3-671b's auto step at its emulated runs'
-# cut (1 layer, 4 of 256 experts, top-2, vocab 8192, the published
+# four processes on the one card.  mamba2-130m at published widths,
+# MAMBA_TP_LAYERS of its 24 layers (24 until the three-rank launch took
+# their time).  deepseek-v3-671b's auto step at its emulated runs' cut
+# (1 layer, 4 of 256 experts, top-2, vocab 8192, the published
 # capacity_factor 1.25, so the capacity drops tokens: 1.03B parameters,
 # a quarter of them and of their gradient and momentum a rank under TP
 # and FSDP); its lgc_rar at reduced(): at that cut (n_local 517M a model
@@ -2268,8 +2374,11 @@ TP_KIND_OPT = ["--optimizer", "sgd_momentum"]
 DEEPSEEK_TP_AUTO_CUT = {"n_layers": 1, "vocab_size": DEEPSEEK_TRAIN_VOCAB,
                         "moe": {"num_experts": DEEPSEEK_TRAIN_EXPERTS[0],
                                 "top_k": DEEPSEEK_TRAIN_EXPERTS[1]}}
+DEEPSEEK_D1536_CUT = dict(DEEPSEEK_TP_AUTO_CUT, d_model=1536)
+MAMBA_TP_LAYERS = 6
+_MAMBA_TP_CUT = {"n_layers": MAMBA_TP_LAYERS}
 TP_KINDS = (
-    ("mamba2-130m", None, None),
+    ("mamba2-130m", _MAMBA_TP_CUT, _MAMBA_TP_CUT),
     ("deepseek-v3-671b", "reduced", DEEPSEEK_TP_AUTO_CUT),
     ("llama-3.2-vision-90b", "reduced", "reduced"),
 )
@@ -2324,7 +2433,7 @@ _B4 = ["--model-shards", "2", "--batch", "4", "--prompt-len", "64"]
 JAMBA_F32_EXPERTS = 4
 TP_SERVE_KINDS = (
     ("tp serve mamba2-130m B4 P64 G32", _B4 + ["--gen", "32"], None,
-     "mamba2-130m", None),
+     "mamba2-130m", _MAMBA_TP_CUT),
     ("tp serve deepseek-v3-671b B4 P64 G32", _B4 + ["--gen", "32"], None,
      "deepseek-v3-671b", {"n_layers": DEEPSEEK_SERVE_LAYERS}),
     ("tp serve jamba-v0.1-52b B4 P64 G32", _B4 + ["--gen", "32"], None,
@@ -2335,7 +2444,7 @@ TP_SERVE_KINDS = (
      "float32", "deepseek-v3-671b",
      {"n_layers": 1, "moe": {"num_experts": DEEPSEEK_F32_EXPERTS}}),
     ("tp serve mamba2-130m f32 B4 P64 G16", _B4 + ["--gen", "16"],
-     "float32", "mamba2-130m", None),
+     "float32", "mamba2-130m", _MAMBA_TP_CUT),
     ("tp serve jamba-v0.1-52b f32 B4 P64 G16", _B4 + ["--gen", "16"],
      "float32", "jamba-v0.1-52b",
      {"n_layers": 8, "moe": {"num_experts": JAMBA_F32_EXPERTS}}),
@@ -2355,7 +2464,7 @@ TP_SERVE_FOUR = (
 # in another order, which can flip a greedy near-tie); phi3-medium-14b
 # (40 query heads, 10 a shard; 10 kv heads, 2.5 a shard) served bf16.
 # Each rank's held bytes the dry run's for host_mesh(1, 4)
-TP_HEADS_LAYERS = 2
+TP_HEADS_LAYERS = 1
 TP_HEADS_CUT = {"n_layers": TP_HEADS_LAYERS}
 TP_HEADS_MESH = (1, 4)
 _HEADS = ["--data-shards", "1", "--model-shards", "4"]
@@ -2370,36 +2479,96 @@ TP_SERVE_HEADS = (
 )
 
 
+# the process-grid layouts the port ran last, in a launch of three ranks
+# on (data 1, model 3) or (data 3, model 1) and one serving run in the
+# four-rank launch on (pod 2, data 2):
+# - deepseek-v3-671b at its published attention widths (128 heads,
+#   q_lora 1536, kv_lora 512, nope 128, rope 64, v 128) on (data 1, model
+#   3): 42 2/3 heads a shard.  Its auto step at DEEPSEEK_TP_AUTO_CUT (1
+#   layer with MTP, 4 experts, top-2, vocab 8192), f32, momentum SGD,
+#   against its one-node twin; its lgc_rar the same cut with d_model 7168
+#   -> 1536 (DEEPSEEK_D1536_CUT: at model 3 little divides, wo's 16384
+#   rows, wkv_b's 32768 columns, the 4 experts, the vocab and the MTP
+#   proj are replicated, so each rank holds 964M of the 1.03B parameters,
+#   and three ranks' K1 state at ~50 B a parameter does not fit the card)
+#   against its one-node twin, K1 and K3 on every rank; served bf16 at B4
+#   P64 G32 and G2 and f32 at B4 P64 G16, 1 layer (+ MTP) with
+#   DEEPSEEK_F32_EXPERTS experts, the absorbed decode against the whole
+#   latent (512 does not divide by 3): the f32 tokens one process's and
+#   its logits within TP3_LOGITS_REL; bf16, the prefill's tokens one
+#   process's, G2's first decode step's logits within SERVE_REL, G32's
+#   decode tokens compared (bf16 sums of the shards' partial products
+#   round in another order than one matmul's);
+# - mamba2-130m at MAMBA_TP_LAYERS layers served B1 P64 G32 on (data
+#   3): the conv state's 3 rows a rank each, the state's 24 heads 8 a
+#   rank: tokens one process's;
+# - llama3.2-1b at TP_SERVE_LAYERS layers, f32, with a sliding window of
+#   TP3_WINDOW, served B1 P256 G64: on (data 3) the ring's 64 slots a
+#   rank, on (pod 2, data 2) 96 a rank over data, whole over pod; the
+#   prompt past the ring and the decode wrapping it: tokens one
+#   process's (same window), logits within TP3_LOGITS_REL
+TP3_MESH = (1, 3)
+TP3_SEQ_MESH = (3, 1)
+TP3_LOSS_REL = 1e-5
+TP3_LOGITS_REL = 1e-3
+TP3_WINDOW = 192
+_TP3 = ["--data-shards", "1", "--model-shards", "3"]
+_DEEPSEEK_TP3_SERVE = {"n_layers": 1,
+                       "moe": {"num_experts": DEEPSEEK_F32_EXPERTS}}
+_LLAMA_WINDOW = ("llama3.2-1b", {"n_layers": TP_SERVE_LAYERS,
+                                 "sliding_window": TP3_WINDOW})
+_B1_WINDOW = ["--batch", "1", "--prompt-len", "256", "--gen", "64"]
+TP3_SERVE_HEADS = (
+    ("tp3 serve deepseek-v3-671b heads B4 P64 G32", _TP3 + [
+        "--batch", "4", "--prompt-len", "64", "--gen", "32"], None,
+     "deepseek-v3-671b", _DEEPSEEK_TP3_SERVE),
+    ("tp3 serve deepseek-v3-671b heads B4 P64 G2", _TP3 + [
+        "--batch", "4", "--prompt-len", "64", "--gen", "2"], None,
+     "deepseek-v3-671b", _DEEPSEEK_TP3_SERVE),
+    ("tp3 serve deepseek-v3-671b heads f32 B4 P64 G16", _TP3 + [
+        "--batch", "4", "--prompt-len", "64", "--gen", "16"], "float32",
+     "deepseek-v3-671b", _DEEPSEEK_TP3_SERVE),
+)
+TP3_SERVE_SEQ = (
+    ("tp3 serve mamba2-130m conv rows B1 P64 G32", [
+        "--data-shards", "3", "--batch", "1", "--prompt-len", "64",
+        "--gen", "32"], None, "mamba2-130m", _MAMBA_TP_CUT),
+    ("tp3 serve llama3.2-1b window B1 P256 G64",
+     ["--data-shards", "3"] + _B1_WINDOW, "float32") + _LLAMA_WINDOW,
+)
+TP_SERVE_PODS = (
+    ("tp serve llama3.2-1b window pods B1 P256 G64",
+     ["--data-shards", "2"] + _B1_WINDOW, "float32") + _LLAMA_WINDOW + (2,),
+)
+
+
 def tp_serve_specs(table=None):
     """The serving runs of ``table`` (TP_SERVE and TP_SERVE_KINDS when
-    None): (name, flags, dtype[, arch, cut])."""
+    None): (name, flags, dtype[, arch, cut[, pods]])."""
     rows = TP_SERVE + TP_SERVE_KINDS if table is None else table
     return [pg_spec(row[0], row[1], n_layers=None, kind="serve",
-                    dtype=row[2], **dict(zip(("arch", "cut"), row[3:])))
+                    dtype=row[2], **dict(zip(("arch", "cut", "pods"),
+                                             row[3:])))
             for row in rows]
 
 
-def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
-    """tp_train: the lgc_rar and auto (``none``) runs with model shards,
-    each rank against its twin's losses (TP_LOSS_REL: llama's emulated
-    K = 2 twins; the other kinds' lgc_rar against theirs, their auto step
-    against the one-node run on the whole batch), its held bytes against
-    the dry run's per-device prediction for host_mesh(2, 2) to the byte,
-    K1 and K3 launched on every rank of lgc_rar in the right phases, its
-    per-op rows the per-shard layout's plan.  The head-cutting runs on
-    (data 1, model 4) the same way, against their one-node twins."""
-    from repro_torch.configs.base import (CompressionConfig, InputShape,
-                                          TrainConfig)
-    from repro_torch.dist import plan as XP
-    from repro_torch.dist import sharding as SH
-    from repro_torch.launch.dryrun import local_bytes, per_device_bytes
-    from repro_torch.launch.input_specs import params_specs
-    from repro_torch.launch.mesh import host_mesh
-    from repro_torch.launch.steps import lgc_state_specs
-    from repro_torch.models.model import build_model
-    from repro_torch.optim.optimizers import build_optimizer
-    shape = InputShape("tp_train", 128, 8, "train")
-    cc = CompressionConfig(method="lgc_rar")
+def tp3_train_runs():
+    """The three-rank launch's training runs: (name, twin, method, flags,
+    steps, cut, the cut's names)."""
+    auto_names = ["moe.num_experts", "moe.top_k", "n_layers", "vocab_size"]
+    return [
+        ("tp3 deepseek-v3-671b none", "deepseek-v3-671b none f32 one node",
+         "none", ["--compression", "none"] + _TP3 + TP_KIND_OPT,
+         TP_KIND_AUTO_STEPS, DEEPSEEK_TP_AUTO_CUT, auto_names),
+        ("tp3 deepseek-v3-671b lgc_rar",
+         "deepseek-v3-671b lgc_rar f32 one node d1536", "lgc_rar",
+         train_flags()["lgc"] + _TP3 + TP_KIND_OPT, TP_KIND_LGC_STEPS,
+         DEEPSEEK_D1536_CUT, ["d_model"] + auto_names)]
+
+
+def tp_train_table():
+    """tp_train's runs: (name, twin, method, cfg, the cut's names,
+    optimizer, (data, model))."""
     table = [("tp lgc_rar", "lgc_rar f32", "lgc_rar", _f32_llama(TP_LAYERS),
               ["n_layers"], "adamw", (2, 2)),
              ("tp none", "none f32", "none", _f32_llama(TP_LAYERS),
@@ -2414,6 +2583,35 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
                       f"qwen2-1.5b {method} f32 one node", method,
                       arch_cfg("qwen2-1.5b", TP_HEADS_CUT, "float32"),
                       ["n_layers"], TP_KIND_OPT[1], TP_HEADS_MESH))
+    return table
+
+
+def tp_train_checks(runs, got, smi: str, launch, lgc_step, table=None,
+                    tol: float = TP_LOSS_REL) -> None:
+    """tp_train: the lgc_rar and auto (``none``) runs with model shards,
+    each rank against its twin's losses (``tol``: llama's emulated
+    K = 2 twins; the other kinds' lgc_rar against theirs, their auto step
+    against the one-node run on the whole batch), its held bytes against
+    the dry run's per-device prediction for host_mesh(2, 2) to the byte,
+    K1 and K3 launched on every rank of lgc_rar in the right phases, its
+    per-op rows the per-shard layout's plan.  The head-cutting runs on
+    (data 1, model 4) the same way, against their one-node twins.
+    ``table``: other runs instead, rows of (name, twin, method, cfg, the
+    cut's names, optimizer, (data, model))."""
+    from repro_torch.configs.base import (CompressionConfig, InputShape,
+                                          TrainConfig)
+    from repro_torch.dist import plan as XP
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.dryrun import local_bytes, per_device_bytes
+    from repro_torch.launch.input_specs import params_specs
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.steps import lgc_state_specs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import build_optimizer
+    shape = InputShape("tp_train", 128, 8, "train")
+    cc = CompressionConfig(method="lgc_rar")
+    if table is None:
+        table = tp_train_table()
     for name, twin_name, method, cfg, reduced, opt, (data, mp) in table:
         mesh = host_mesh(data, mp)
         model = build_model(cfg)
@@ -2446,7 +2644,7 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
              mtp_losses=[[h.get("mtp_loss") for h in rec["history"]]
                          for rec in recs] if cfg.mtp_depth else None,
              twin_moe_kept=twin.get("moe_kept") if cfg.moe else None,
-             worst_rel=worst, tol_rel=TP_LOSS_REL, held=held,
+             worst_rel=worst, tol_rel=tol, held=held,
              predicted={k: want[k] for k in ("params", "optimizer",
                                              "compressor")},
              step_ms=steady, twin_step_ms=twin["step_ms"],
@@ -2454,7 +2652,7 @@ def tp_train_checks(runs, got, smi: str, launch, lgc_step) -> None:
              twin_peak_gib=twin["peak_gib"],
              launches=[rec["launches"] for rec in recs],
              wire=recs[0]["wire"])
-        if len(losses[0]) != len(twin["losses"]) or worst > TP_LOSS_REL:
+        if len(losses[0]) != len(twin["losses"]) or worst > tol:
             raise AssertionError(f"{name}: losses {losses} against the "
                                  f"twin's {twin['losses']}")
         for r, h in enumerate(held):
@@ -2539,12 +2737,20 @@ def tp_resume_checks(runs, got, smi: str, launch, lgc_step) -> None:
              bitwise=True)
 
 
-def tp_serve_checks(runs, got, smi: str, launch, specs, mesh=None) -> None:
+def tp_serve_checks(runs, got, smi: str, launch, specs, mesh=None,
+                    ones=None) -> None:
     """tp_serve: each serving run's greedy tokens equal on every rank;
     an f32 run's equal to one process's on this card (the same seeded
     weights); prefill ms, median decode ms, tokens/s and peak GiB a
-    rank.  With ``mesh`` ((data, model), data 1) each rank's held params
-    and cache bytes the dry run's for it."""
+    rank.  With ``mesh`` ((data, model)) each rank's held params and
+    cache bytes the dry run's for it.  With ``ones`` (a dict of one
+    process's results, filled as they run) every run's tokens are one
+    process's too (a bf16 run with model shards: the prefill's token of
+    every row, each row's first differing token printed), and where
+    every row's tokens but the last are one process's, the last logits
+    on every rank within TP3_LOGITS_REL (f32) or SERVE_REL (bf16) of one
+    process's largest: a bf16 run of G2 holds its first decode step's
+    logits so."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import serve
     from repro_torch.launch.dryrun import per_device_bytes
@@ -2555,25 +2761,61 @@ def tp_serve_checks(runs, got, smi: str, launch, specs, mesh=None) -> None:
         toks = recs[0]["tokens"]
         if any(rec["tokens"] != toks for rec in recs):
             raise AssertionError(f"{spec['name']}: the ranks' tokens differ")
-        one = None
+        one, logits_rel, same = None, None, None
         cfg = arch_cfg(spec["arch"], spec["cut"], spec["dtype"])
-        if spec["dtype"] == "float32":
+        flags = spec["flags"]
+        shape = [flags[flags.index(f) + 1]
+                 for f in ("--batch", "--prompt-len", "--gen")]
+        if spec["dtype"] == "float32" or ones is not None:
             # one process on this card, the same weights (seed 0)
-            gc_cuda()
-            flags = spec["flags"]
-            one = serve.run(cfg, serve.parse_args(
-                ["--batch", "4", "--prompt-len", "64", "--gen",
-                 flags[flags.index("--gen") + 1]]))["tokens"].tolist()
-            gc_cuda()
-            if one != toks:
+            key = json.dumps([spec["arch"], spec["cut"], spec["dtype"],
+                              shape])
+            ref = (ones or {}).get(key)
+            if ref is None:
+                gc_cuda()
+                res = serve.run(cfg, serve.parse_args(
+                    ["--batch", shape[0], "--prompt-len", shape[1],
+                     "--gen", shape[2]]))
+                ref = (res["tokens"].tolist(), res["logits"])
+                del res
+                gc_cuda()
+                if ones is not None:
+                    ones[key] = ref
+            one = ref[0]
+            # bf16 sums of the model shards' partial products round in
+            # another order than one process's matmul, which can flip a
+            # greedy near-tie in decode: there the prefill's tokens are
+            # gated, the decode's compared
+            f32 = spec["dtype"] == "float32"
+            mp = flags[flags.index("--model-shards") + 1] \
+                if "--model-shards" in flags else "1"
+            same = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                         None) for x, y in zip(toks, one)]
+            if one != toks and (f32 or mp == "1"):
                 raise AssertionError(f"{spec['name']}: tokens {toks} != one "
                                      f"process's {one}")
+            if 0 in same:
+                raise AssertionError(f"{spec['name']}: the prefill's tokens "
+                                     f"{[x[0] for x in toks]} != one "
+                                     f"process's {[y[0] for y in one]}")
+            # the last logits' context: the prompt and every token but
+            # the last
+            if ones is not None and all(d is None or d >= int(shape[2]) - 1
+                                        for d in same):
+                tol = TP3_LOGITS_REL if f32 else SERVE_REL
+                out_dir = pg_report_flags("pg " + spec["name"])[1]
+                scale = float(np.abs(ref[1]).max())
+                logits_rel = max(float(np.abs(np.load(os.path.join(
+                    out_dir, f"logits{r}.npy")) - ref[1]).max()) / scale
+                    for r in range(len(recs)))
+                if logits_rel > tol:
+                    raise AssertionError(
+                        f"{spec['name']}: last logits {logits_rel} of the "
+                        f"largest from one process's > {tol}")
         B = len(toks)
         want = None
         if mesh is not None:
-            flags = spec["flags"]
-            total = int(flags[flags.index("--prompt-len") + 1]) + int(
-                flags[flags.index("--gen") + 1])
+            total = int(shape[1]) + int(shape[2])
             want, _ = per_device_bytes(build_model(cfg), InputShape(
                 "tp_serve", total, B, "decode"), host_mesh(*mesh))
             want = {k: want[k] for k in ("params", "cache")}
@@ -2595,15 +2837,18 @@ def tp_serve_checks(runs, got, smi: str, launch, specs, mesh=None) -> None:
              held=[rec["held"] for rec in recs], predicted=want,
              mesh=None if mesh is None else dict(zip(("data", "model"),
                                                      mesh)),
-             tokens_equal_one_process=None if one is None else True,
-             tokens=toks[0][:8])
+             pods=spec.get("pods"), window=cfg.sliding_window or None,
+             tokens_equal_one_process=None if one is None else one == toks,
+             first_differing_token=same,
+             logits_rel_one_process=logits_rel, tokens=toks[0][:8])
 
 
 def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
     """lgc_rar (K1 and K3) on the mesh wire, K = 2, batch 8, 6 steps
     through the three phases, on the new gradient layouts: mamba2-130m
-    at full width and depth (the SSM's leaves) at seq 128 and at
-    train_4k's 4096 (batch 256 cut to 8), and arctic-480b at published
+    at full width (the SSM's leaves) at seq 128 at full depth and at
+    train_4k's 4096 (batch 256 cut to 8) at MAMBA_LONG_LAYERS, and
+    arctic-480b at published
     widths cut to 1 layer and ARCTIC_TRAIN_EXPERTS experts (the 3-D expert
     stacks; 4 sequences of 128 a node: G = 32 groups of 16, C = 10)."""
     from repro_torch.configs import get_arch
@@ -2614,7 +2859,8 @@ def moe_ssm_train_runs(dev, runs, K: int, lgc, n_encoder: int) -> None:
         dev, "mamba2-130m lgc_rar", lgc, 6, expect, cfg=mamba, reduced=())
     runs["mamba2-130m lgc_rar seq 4096"] = train_phase(
         dev, "mamba2-130m lgc_rar seq 4096", lgc + ["--seq", str(TRAIN_SEQ)],
-        6, expect, cfg=mamba, reduced=("batch",))
+        6, expect, cfg=dataclasses.replace(mamba, n_layers=MAMBA_LONG_LAYERS),
+        reduced=("batch", "n_layers"))
     arctic = get_arch("arctic-480b")
     arctic = dataclasses.replace(arctic, n_layers=1, moe=dataclasses.replace(
         arctic.moe, num_experts=ARCTIC_TRAIN_EXPERTS))
@@ -2758,34 +3004,55 @@ def guard_runs(dev, runs, n_leaves: int, K: int) -> None:
                              f"step 4 on the encoding")
 
 
+def _llama(n_layers: int):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("llama3.2-1b"), n_layers=n_layers)
+
+
+def resume_twin(dev, runs, lgc):
+    """The uninterrupted run of the resume runs (d): lgc_rar with the main
+    path's flags at RESUME_LAYERS (run here when missing), its report's
+    digest the one the process runs are held to."""
+    name = f"lgc_rar {RESUME_LAYERS} layers"
+    if name not in runs:
+        runs[name] = train_phase(
+            dev, name, lgc + pg_report_flags(name), 6,
+            launched("fused_ef_topk", "matmul_bias_lrelu"),
+            cfg=_llama(RESUME_LAYERS))
+    return runs[name]
+
+
 def resume_run(dev, runs, K: int, lgc) -> None:
-    """(d) lgc_rar with the main path's flags and a checkpoint every 3
-    steps, stopped after step 3 as a crash would stop it (the file then
-    holds the state after step 3, to resume at step 4), then resumed from
-    that file: steps 4 and 5, the compressed phase on the u, v and AE
-    read back, must give the uninterrupted lgc_rar run's losses bit for
-    bit.  The file's bytes and the save and load seconds are printed; the
-    file is deleted."""
+    """(d) lgc_rar with the main path's flags at RESUME_LAYERS and a
+    checkpoint every 3 steps, stopped after step 3 as a crash would stop
+    it (the file then holds the state after step 3, to resume at step 4),
+    then resumed from that file: steps 4 and 5, the compressed phase on
+    the u, v and AE read back, must give the uninterrupted run's
+    (``resume_twin``) losses bit for bit.  The file's bytes and the save
+    and load seconds are printed; the file is deleted."""
     import shutil
     from repro_torch.core.autoencoder import ENCODER_SPEC as ENCODER
     ckdir = os.path.join(ROOT, "build", "ckpt_smoke")
     path = os.path.join(ckdir, "ckpt.npz")
+    whole = resume_twin(dev, runs, lgc)
     try:
         first = runs["lgc_rar stopped"] = train_phase(
             dev, "lgc_rar stopped after step 3",
             lgc + ["--checkpoint-dir", ckdir, "--checkpoint-every", "3"], 6,
-            per_step(fused_ef_topk=K), stop_after=3)
+            per_step(fused_ef_topk=K), stop_after=3,
+            cfg=_llama(RESUME_LAYERS))
         nbytes = os.path.getsize(path)
         second = runs["lgc_rar resumed"] = train_phase(
             dev, "lgc_rar resumed at step 4", lgc + ["--resume", path], 6,
             per_step(fused_ef_topk=K,
-                     compressed={"matmul_bias_lrelu": len(ENCODER) * K}))
+                     compressed={"matmul_bias_lrelu": len(ENCODER) * K}),
+            cfg=_llama(RESUME_LAYERS))
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
-    want = runs["lgc_rar"]["losses"]
+    want = whole["losses"]
     equal = first["losses"] == want[:4] and second["losses"] == want[4:] \
         and [h["step"] for h in second["history"]] == [4, 5]
-    emit("resume", file_bytes=nbytes,
+    emit("resume", n_layers=RESUME_LAYERS, file_bytes=nbytes,
          save_s=first["history"][3]["checkpoint_s"],
          load_s=second["resumed"]["seconds"],
          resumed_at=second["resumed"]["step"],
@@ -3232,7 +3499,7 @@ def serve_phase(dev) -> dict:
     its ms and peak; then PREFILL_32K at batch 1: its ms, peak and finite
     logits, PREFILL_32K_DECODE decode steps from its cache, the first held
     against a full prefill of length PREFILL_32K + 1.  Then each arch of
-    SERVE_ARCHS, freed before the next."""
+    SERVE_ARCHS at SERVE_ARCH_LAYERS, freed before the next."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.profile import kernel_times
     from repro_torch.utils.tree import tree_leaves
@@ -3293,8 +3560,12 @@ def serve_phase(dev) -> dict:
     result["prefill_32k"] = prefill_32k(dev, model, params, gen)
     del params
     gc_cuda()
+    from repro_torch.configs import get_arch
     for arch, shapes in SERVE_ARCHS:
-        result[arch], _, params = serve_arch(dev, arch, shapes)
+        result[arch], _, params = serve_arch(
+            dev, arch, shapes, cfg=dataclasses.replace(
+                get_arch(arch), n_layers=SERVE_ARCH_LAYERS),
+            reduced=("n_layers",))
         del params
         gc_cuda()
     return result

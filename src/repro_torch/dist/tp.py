@@ -211,16 +211,20 @@ class Shards:
     names ``"data"``; ``seq``: the data group over which a decode cache
     is split along the sequence (rank i holding slots [i·S/n,
     (i+1)·S/n)), or over its other dim 2 (the encoder tokens of a cross
-    cache, a Mamba2 state's heads); ``batch``: the dp group over which
-    the batch of one loss is split, member i holding its i-th block of
-    rows (the auto step, serving with the batch over data): MoE's
-    dispatch groups, its aux loss's means and the token counts are the
-    whole batch's."""
+    cache, a Mamba2 state's heads or its conv state's rows); ``batch``:
+    the dp group over which the batch of one loss is split, member i
+    holding its i-th block of rows (the auto step, serving with the batch
+    over data): MoE's dispatch groups, its aux loss's means and the token
+    counts are the whole batch's."""
     model: Optional[Group] = None
     fsdp: Optional[Group] = None
     specs: Dict[str, tuple] = field(default_factory=dict)
     seq: Optional[Group] = None
     batch: Optional[Group] = None
+    # the dp size whose divisibility the reference's cache rule checks
+    # (pod x data: over pods the cache is split over data, held whole over
+    # pod); 0 = the size of ``seq``
+    seq_dp: int = 0
 
     @property
     def mp(self) -> int:

@@ -133,7 +133,8 @@ def _serve(cfg, args, params, device, grid) -> Dict[str, Any]:
         decode, _ = make_decode_step(model, grid, shape)
         params = init_held(model, args.seed, device, lay.pspecs, grid) \
             if params is None else shard_params(params, lay.pspecs, grid)
-        world = Group(range(grid.spec.size), None, device)
+        if args.temperature > 0:
+            world = Group(range(grid.spec.size), None, device)
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab_size,
                           (args.batch, args.prompt_len)).astype(np.int32)

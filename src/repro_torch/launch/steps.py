@@ -51,7 +51,8 @@ from repro_torch.launch.input_specs import params_specs
 from repro_torch.launch.mesh import (MeshSpec, dp_axes_of, dp_size_of,
                                      model_size_of)
 from repro_torch.models.model import Model
-from repro_torch.optim.optimizers import Optimizer, build_optimizer
+from repro_torch.optim.optimizers import (Optimizer, build_optimizer,
+                                          sum_of_squares)
 from repro_torch.utils.tree import (keystr_path, tree_leaves,
                                     tree_leaves_with_path, tree_map,
                                     tree_size_bytes, tree_unflatten,
@@ -219,19 +220,15 @@ def make_lgc_train_step(model: Model, tc: TrainConfig, K: int,
         return LGCTrainStep(model,
                             build_compressor(tc.compression, template, K, Ks),
                             build_optimizer(tc), device, mesh)
-    _check_clip(tc)
     st = lgc_state_specs(model, tc.compression, grid.spec)
     tp = Shards(model=grid.model, specs=st.params)
+    # the decoded global gradient is the same on every node: its norm
+    # sums the blocks over ``model`` alone
+    squares = sum_of_squares(st.params, {"model": grid.model})
     return LGCTrainStep(replace(model, tp=tp),
                         build_compressor(tc.compression, st.template, K, Ks),
-                        build_optimizer(tc), device, mesh, grid, st.params)
-
-
-def _check_clip(tc: TrainConfig) -> None:
-    if tc.grad_clip_norm:
-        raise NotImplementedError(
-            "grad_clip_norm > 0 on sharded params: the global norm's sum "
-            "of squares over the distinct shards is not ported")
+                        build_optimizer(tc, squares=squares), device, mesh,
+                        grid, st.params)
 
 
 def shard_params(full, specs: Dict[str, tuple], grid):
@@ -247,10 +244,11 @@ def init_held(model: Model, seed: int, device, specs: Dict[str, tuple],
     """This process's block of ``model.init`` from a generator seeded with
     ``seed`` on ``device``, the launch's processes drawing one after
     another (a barrier over the world between turns), each replacing
-    every whole leaf by its block as it goes: a card that the processes
-    share holds their blocks and one whole model at a time, not one whole
-    model a process (deepseek-v3's one layer of 256 experts is 50 GB in
-    bf16)."""
+    every whole leaf by its block as each part of the model is drawn
+    (``Model.init``'s ``place``): a card that the processes share holds
+    their blocks and one whole part at a time, not one whole model a
+    process (deepseek-v3's one layer of 256 experts and its MTP block,
+    each 23 GB in bf16)."""
     import torch.distributed as dist
 
     def cut(tree, prefix):
@@ -263,12 +261,12 @@ def init_held(model: Model, seed: int, device, specs: Dict[str, tuple],
                                         grid.coords,
                                         grid.spec.axis_sizes).clone()
                 del whole
+        return tree
     held = None
     for r in range(dist.get_world_size()):
         if r == grid.rank:
             held = model.init(torch.Generator(device=device).manual_seed(
-                seed), device)
-            cut(held, "")
+                seed), device, place=lambda path, part: cut(part, path + "/"))
             if torch.device(device).type == "cuda":
                 torch.cuda.empty_cache()
         dist.barrier()
@@ -363,12 +361,13 @@ def make_auto_train_step(model: Model, tc: TrainConfig, grid
     """The auto step on ``grid`` (a ``launch.mesh.ProcessGrid``), its
     placement ``auto_train_pspecs`` with FSDP, as the reference's
     trainer builds it; the optimizer state takes its params' specs."""
-    _check_clip(tc)
     pspecs = auto_train_pspecs(model, tc, grid.spec)[0]
     tp = Shards(model=grid.model, fsdp=grid.data, specs=pspecs,
                 batch=grid.dp)
-    return AutoTrainStep(replace(model, tp=tp), build_optimizer(tc), grid,
-                         pspecs)
+    squares = sum_of_squares(pspecs, {"model": grid.model,
+                                              "data": grid.data})
+    return AutoTrainStep(replace(model, tp=tp),
+                         build_optimizer(tc, squares=squares), grid, pspecs)
 
 
 # ===========================================================================
@@ -392,7 +391,9 @@ def _serve_layout(model: Model, grid, shape: InputShape) -> ServeLayout:
     """The reference's serving placement on ``grid``: ``serve_pspecs``,
     and the cache's ``serve_cache_pspecs`` (its batch over the dp axes
     when they divide it and it is > 1, as ``decode_token_pspec`` splits
-    the tokens; else its sequence over ``data``)."""
+    the tokens; else its sequence over ``data``, where pod x data
+    divides it: a sliding window's ring of slots too, each pod holding
+    the whole cache, the partial softmaxes combined over ``data``)."""
     spec = grid.spec
     pspecs = serve_pspecs(model, spec)
     cache = model.init_cache(shape.global_batch, shape.seq_len, "meta")
@@ -406,14 +407,11 @@ def _serve_layout(model: Model, grid, shape: InputShape) -> ServeLayout:
         rows = slice(d * B // K, (d + 1) * B // K)
         batch = grid.dp
     elif any(sp[2] == "data" for sp in cspecs):
-        if model.cfg.sliding_window or spec.axis_sizes.get("pod", 1) > 1:
-            raise NotImplementedError(
-                "a cache split along the sequence under a sliding window "
-                "or over pods is not ported")
         seq = grid.data
     fsdp = any(SH.dims_over(sp, "data") for sp in pspecs.values())
     tp = Shards(model=grid.model, fsdp=grid.data if fsdp else None,
-                specs=pspecs, seq=seq, batch=batch)
+                specs=pspecs, seq=seq, batch=batch,
+                seq_dp=dp_size_of(spec))
     return ServeLayout(replace(model, tp=tp), grid, pspecs, rows)
 
 

@@ -52,16 +52,16 @@ receives), and fail_fast raises on every process at the same step.
 ``--model-shards`` M > 1 (under torchrun only: one process holds one
 model shard) makes the world the (pod, data, model) mesh, pod x data x M
 processes; M is any size the reference's rules take, also one whose
-shards cut a head (``models.model.Model._check_tp`` names the one
-exception).  With a compression method each process compresses its model
-shard's block of its node's gradient over its shard's dp column
-(``launch.steps.make_lgc_train_step`` with a grid: tensor parallelism
-over ``model``, the per-model-shard layout, the AE's gradients averaged
-over ``model``).  Under torchrun ``--compression none`` runs the
-reference's auto step at any M, as the reference's trainer does
-(``use_lgc``): TP over ``model``, FSDP over ``data``, DP over ``pod``
-(``make_auto_train_step``); the emulated one-process run keeps its K-node
-``none`` through the LGC step, since one process holds no shards.
+shards cut a head (latent attention's too).  With a compression method
+each process compresses its model shard's block of its node's gradient
+over its shard's dp column (``launch.steps.make_lgc_train_step`` with a
+grid: tensor parallelism over ``model``, the per-model-shard layout, the
+AE's gradients averaged over ``model``).  Under torchrun ``--compression
+none`` runs the reference's auto step at any M, as the reference's
+trainer does (``use_lgc``): TP over ``model``, FSDP over ``data``, DP
+over ``pod`` (``make_auto_train_step``); the emulated one-process run
+keeps its K-node ``none`` through the LGC step, since one process holds
+no shards.
 
 Checkpoints under torchrun are one file a rank (``ckpt.rank<r>.npz``,
 ``checkpoint.save_rank_checkpoint``), on any grid: each holds the rank's

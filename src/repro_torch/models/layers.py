@@ -311,6 +311,21 @@ def decode_attention(q, k_cache, v_cache, *, kv_positions, pos: int,
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
+def _slot(S: int, pos: int, seq, ring: bool = False):
+    """The cache slot of position ``pos`` in this member's S slots (of
+    S·n split along the sequence over ``seq``; -1 when another member
+    holds it); raises past the cache.  With ``ring`` (a sliding window)
+    the S·n slots are a ring buffer: ``pos`` goes to slot pos % (S·n)."""
+    n, i = (seq.size, seq.index) if seq is not None else (1, 0)
+    if ring:
+        pos = pos % (S * n)
+    elif not 0 <= pos < S * n:
+        raise IndexError(f"decode position {pos} is past the cache's "
+                         f"{S * n} slots")
+    slot = pos - i * S
+    return slot if 0 <= slot < S else -1
+
+
 def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None,
                      seq=None):
     """x: (B, 1, D); cache: {"k", "v": (B, S, KH, hd), "pos": (S,) int32
@@ -321,8 +336,10 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None,
     shards, else all KH of them (the reference's cache rule), the new
     token's k, v gathered whole into it and this shard's query heads
     attending the kv heads they read; ``seq``: the cache is split along
-    the sequence over this group, member i holding slots [i·S, (i+1)·S),
-    and the member holding ``pos`` writes it."""
+    the sequence over this group, member i holding slots [i·S, (i+1)·S)
+    of the S·n (under a sliding window the ring's, ``pos`` going to
+    slot pos % (S·n)), and the member holding ``pos``'s slot writes
+    it."""
     B = x.shape[0]
     hd, H, KH = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
@@ -336,17 +353,9 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None,
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
-    S = cache["k"].shape[1]
-    slot = pos % S if cfg.sliding_window else pos
-    if seq is not None:
-        if not 0 <= pos < S * seq.size:
-            raise IndexError(f"decode position {pos} is past the cache's "
-                             f"{S * seq.size} slots")
-        slot = pos - seq.index * S
-    elif not 0 <= slot < S:
-        raise IndexError(f"decode position {pos} is past the cache's "
-                         f"{S} slots")
-    if 0 <= slot < S:
+    slot = _slot(cache["k"].shape[1], pos, seq,
+                 ring=bool(cfg.sliding_window))
+    if slot >= 0:
         cache["k"][:, slot].copy_(k[:, 0])
         cache["v"][:, slot].copy_(v[:, 0])
         cache["pos"][slot:slot + 1].fill_(pos)     # no host-to-device copy
@@ -500,22 +509,33 @@ def _latent(p, h, hc, width: int, tp):
 
 
 def _mla_qkv(p, cfg: ModelConfig, h, positions, tp=None):
-    """h: (B, S, D), normed.  Returns q_nope (B, S, H, nope), q_rope (B,
-    S, H, rope) roped, the latent c_kv (B, S, r) after kv_norm and
-    k_rope (B, S, 1, rope) roped.  Under tensor parallelism ``wq_a`` and
-    ``wkv_a`` are column shards of their (not head-aligned) latent dims,
-    gathered before the norms and the rope split (every shard then holds
-    the whole c_kv and k_rope), and ``wq_b`` a column shard of whole
-    heads: q holds this shard's H/mp heads."""
+    """h: (B, S, D), normed.  Returns q_nope (B, S, c, nope), q_rope (B,
+    S, c, rope) roped, the latent c_kv (B, S, r) after kv_norm, k_rope
+    (B, S, 1, rope) roped, and the c query heads' indices.  Under tensor
+    parallelism ``wq_a`` and ``wkv_a`` are column shards of their (not
+    head-aligned) latent dims, gathered before the norms and the rope
+    split (every shard then holds the whole c_kv and k_rope).  Where the
+    heads divide over the shards ``wq_b`` is a column shard of whole
+    heads and q holds this shard's H/mp of them; else (its columns cut a
+    head, or do not divide and the rules replicate it) q is taken whole
+    (:func:`_col_full`) and this shard keeps the slots of
+    :func:`head_slots`."""
     m = cfg.mla
     B, S, _ = h.shape
+    H, qk = cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim
     hc = h if tp is None else tp.copy(h)
     qa = _latent(p["wq_a"], h, hc, m.q_lora_rank, tp)
     qa = rmsnorm(p["q_norm"], qa, cfg.rms_norm_eps)
     if tp is not None:
         qa = tp.copy(qa)
-    q = linear(p["wq_b"], qa)
-    q = q.view(B, S, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if split_heads(H, tp):
+        idx = head_slots(H, tp)
+        q = _take(_col_full(p["wq_b"], qa, tp, H * qk).view(B, S, H, qk),
+                  idx, 2)
+    else:
+        q = linear(p["wq_b"], qa).view(B, S, -1, qk)
+        lo = tp.m * q.shape[2] if tp is not None else 0
+        idx = list(range(lo, lo + q.shape[2]))
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv_a = _latent(p["wkv_a"], h, hc, m.kv_lora_rank + m.qk_rope_head_dim,
@@ -523,17 +543,24 @@ def _mla_qkv(p, cfg: ModelConfig, h, positions, tp=None):
     c_kv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_kv = rmsnorm(p["kv_norm"], c_kv, cfg.rms_norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
-    return q_nope, q_rope, c_kv, k_rope
+    return q_nope, q_rope, c_kv, k_rope, idx
 
 
-def _mla_expand_kv(p, cfg: ModelConfig, c_kv, k_rope):
-    """The latent expanded to per-head k (B, S, H, nope + rope; the rope
-    key shared by every head) and v (B, S, H, v_head_dim); H is
-    ``wkv_b``'s heads (a shard's under tensor parallelism)."""
+def _mla_expand_kv(p, cfg: ModelConfig, c_kv, k_rope, tp=None, idx=None):
+    """The latent expanded to per-head k (B, S, c, nope + rope; the rope
+    key shared by every head) and v (B, S, c, v_head_dim) of the query
+    heads ``idx``: ``wkv_b``'s own heads (all of them, or a shard's
+    whole heads under tensor parallelism), or, where the model shards
+    cut a head, the slots ``idx`` of the whole expansion
+    (:func:`_col_full`; ``c_kv`` already through ``copy``)."""
     m = cfg.mla
     B, S, _ = c_kv.shape
-    kv = linear(p["wkv_b"], c_kv).view(B, S, -1,
-                                       m.qk_nope_head_dim + m.v_head_dim)
+    w = m.qk_nope_head_dim + m.v_head_dim
+    if split_heads(cfg.n_heads, tp):
+        kv = _take(_col_full(p["wkv_b"], c_kv, tp, cfg.n_heads * w).view(
+            B, S, cfg.n_heads, w), idx, 2)
+    else:
+        kv = linear(p["wkv_b"], c_kv).view(B, S, -1, w)
     H = kv.shape[2]
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)], -1)
@@ -545,32 +572,38 @@ def mla_fwd(p, cfg: ModelConfig, x, positions, tp=None):
     expanded form: causal flash over q, k of width nope + rope and v of
     width v_head_dim.  Returns (x + attention, (c_kv (B, S, r), k_rope
     (B, S, rope))): what prefill keeps as the cache.  ``tp``: each shard
-    attends with its heads (``_mla_qkv``; ``wkv_b`` a column shard of
-    whole heads, the gathered latent and rope key through ``copy``
-    first) and ``wo`` is a row shard; the returned latent is whole."""
-    B, S, _ = x.shape
+    attends with its query heads (``_mla_qkv``: its whole heads, or the
+    slots of :func:`head_slots` where the shards cut a head), k and v
+    expanded for those heads from ``wkv_b`` (the gathered latent and rope
+    key through ``copy`` first), and ``wo`` takes the outputs as
+    ``attention_fwd``'s does (a row shard of whole heads, or the slots
+    gathered first, :func:`_heads_out`); the returned latent is whole."""
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, positions, tp)
+    q_nope, q_rope, c_kv, k_rope, idx = _mla_qkv(p, cfg, h, positions, tp)
     if tp is not None:
-        k, v = _mla_expand_kv(p, cfg, tp.copy(c_kv), tp.copy(k_rope))
+        k, v = _mla_expand_kv(p, cfg, tp.copy(c_kv), tp.copy(k_rope), tp,
+                              idx)
     else:
         k, v = _mla_expand_kv(p, cfg, c_kv, k_rope)
     q = torch.cat([q_nope, q_rope], -1)
     o = flash.flash_attention(q, k, v, True, 0)
-    return x + _row(p["wo"], o.reshape(B, S, -1), tp), \
+    return x + _attn_out(p["wo"], o, tp, cfg.n_heads), \
         (c_kv, k_rope[:, :, 0])
 
 
-def _slot(S: int, pos: int, seq):
-    """The cache slot of position ``pos`` in this member's S slots (of
-    S·n split along the sequence over ``seq``; -1 when another member
-    holds it); raises past the cache."""
-    n, i = (seq.size, seq.index) if seq is not None else (1, 0)
-    if not 0 <= pos < S * n:
-        raise IndexError(f"decode position {pos} is past the cache's "
-                         f"{S * n} slots")
-    slot = pos - i * S
-    return slot if 0 <= slot < S else -1
+def _wkv_b_heads(p, cfg: ModelConfig, tp, idx):
+    """``wkv_b`` as (r, c, nope + v) for the query heads ``idx``: a
+    shard's own whole heads, or, where the shards cut a head, the slots
+    ``idx`` of the whole weight (a column shard's blocks gathered over
+    ``model``; decode only, no gradient)."""
+    m = cfg.mla
+    w = p["wkv_b"]["w"]
+    width = m.qk_nope_head_dim + m.v_head_dim
+    if not split_heads(cfg.n_heads, tp):
+        return w.view(m.kv_lora_rank, -1, width)
+    if w.shape[-1] != cfg.n_heads * width:
+        w = tp.model.all_gather(w, -1)
+    return _take(w.view(m.kv_lora_rank, cfg.n_heads, width), idx, 1)
 
 
 def mla_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None, seq=None):
@@ -585,50 +618,58 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None, seq=None):
     "k_rope": (B, S, rope), "pos": (S,) int32}, written at slot ``pos``
     IN PLACE.  Returns (x + attention, cache).
 
-    ``tp``: the cache holds this shard's block of the latent and of the
-    rope key (the reference's rule splits their last dim over
-    ``model``), ``wkv_b`` this shard's heads.  The lifted q_lat and
-    q_rope are gathered over the heads, each shard's scores over its
-    latent block are summed over ``model``, and the latent output's
-    blocks gathered before this shard's heads take wkv_b's value half.
+    ``tp``: each shard lifts its query heads (its whole heads, or the
+    slots of :func:`head_slots` where the shards cut a head) with
+    ``wkv_b``'s key half of those heads, and q_lat and q_rope are
+    gathered over the heads (the repeats past the last head dropped).
+    The cache holds the latent and the rope key whole, or this shard's
+    block of their last dim where the reference's rule splits it over
+    ``model`` (it divides): the scores of a split part are summed over
+    ``model``, a whole part's computed on every shard alike; the latent
+    output's blocks are gathered before this shard's heads take wkv_b's
+    value half, and ``wo`` takes the outputs as in :func:`mla_fwd`.
     ``seq``: the cache holds this member's slots along the sequence, the
     partial softmaxes combined over that group (as ``decode_attention``
     does)."""
     m = cfg.mla
-    B = x.shape[0]
+    B, H = x.shape[0], cfg.n_heads
     h = rmsnorm(p["norm"], x, cfg.rms_norm_eps)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope, c_new, k_rope_new = _mla_qkv(p, cfg, h, posv, tp)
+    q_nope, q_rope, c_new, k_rope_new, idx = _mla_qkv(p, cfg, h, posv, tp)
     r, e = cache["c_kv"].shape[-1], cache["k_rope"].shape[-1]
-    if r != m.kv_lora_rank:
+    r_split, e_split = r != m.kv_lora_rank, e != m.qk_rope_head_dim
+    if r_split:
         c_new = c_new.narrow(-1, tp.m * r, r)
-    if e != m.qk_rope_head_dim:
+    if e_split:
         k_rope_new = k_rope_new.narrow(-1, tp.m * e, e)
     slot = _slot(cache["c_kv"].shape[1], pos, seq)
     if slot >= 0:
         cache["c_kv"][:, slot].copy_(c_new[:, 0])
         cache["k_rope"][:, slot].copy_(k_rope_new[:, 0, 0])
         cache["pos"][slot:slot + 1].fill_(pos)
-    wkv_b = p["wkv_b"]["w"].view(m.kv_lora_rank, -1,
-                                 m.qk_nope_head_dim + m.v_head_dim)
-    Hl = wkv_b.shape[1]
-    wk_b, wv_b = wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], -1)
-    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk_b)       # (B, 1, H, r)
-    split = Hl != cfg.n_heads
-    if split:
-        q_lat = tp.model.all_gather(q_lat, 2)
-        q_rope = tp.model.all_gather(q_rope, 2)
-    if r != m.kv_lora_rank:
+    wk_b, wv_b = _wkv_b_heads(p, cfg, tp, idx).split(
+        [m.qk_nope_head_dim, m.v_head_dim], -1)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk_b)       # (B, 1, c, r)
+    if tp is not None and tp.mp > 1:
+        q_lat = tp.model.all_gather(q_lat, 2)[:, :, :H]
+        q_rope = tp.model.all_gather(q_rope, 2)[:, :, :H]
+    if r_split:
         q_lat = q_lat.narrow(-1, tp.m * r, r)
-    if e != m.qk_rope_head_dim:
+    if e_split:
         q_rope = q_rope.narrow(-1, tp.m * e, e)
     c_kv = cache["c_kv"].float()
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    s = (torch.einsum("bqhr,bkr->bhk", q_lat.float(), c_kv)
-         + torch.einsum("bqhe,bke->bhk", q_rope.float(),
-                        cache["k_rope"].float()))
-    if r != m.kv_lora_rank or e != m.qk_rope_head_dim:
-        s = tp.model.all_reduce(s)
+    s_lat = torch.einsum("bqhr,bkr->bhk", q_lat.float(), c_kv)
+    s_rope = torch.einsum("bqhe,bke->bhk", q_rope.float(),
+                          cache["k_rope"].float())
+    if r_split and e_split:
+        s = tp.model.all_reduce(s_lat + s_rope)
+    elif r_split:
+        s = tp.model.all_reduce(s_lat) + s_rope
+    elif e_split:
+        s = s_lat + tp.model.all_reduce(s_rope)
+    else:
+        s = s_lat + s_rope
     s = (s * scale).masked_fill(~(cache["pos"] <= pos), float("-inf"))
     if seq is None:
         o_lat = torch.einsum("bhk,bkr->bhr", torch.softmax(s, dim=-1), c_kv)
@@ -637,12 +678,11 @@ def mla_decode(p, cfg: ModelConfig, x, cache, pos: int, tp=None, seq=None):
         ex = torch.exp(s - mx)
         o_lat = seq.all_reduce(torch.einsum("bhk,bkr->bhr", ex, c_kv)) \
             / seq.all_reduce(ex.sum(-1, keepdim=True))
-    if r != m.kv_lora_rank:
+    if r_split:
         o_lat = tp.model.all_gather(o_lat, -1)                # (B, H, r)
-    if split:
-        o_lat = o_lat.narrow(1, tp.m * Hl, Hl)
+    o_lat = _take(o_lat, idx, 1)                              # (B, c, r)
     o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), wv_b)
-    return x + _row(p["wo"], o.reshape(B, 1, -1), tp), cache
+    return x + _attn_out(p["wo"], o[:, None], tp, H), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
@@ -856,8 +896,17 @@ def moe_fwd(p, cfg: ModelConfig, x, dropless: bool = False, tp=None,
     act = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     yo = torch.bmm(act, p["w_down"])                          # (E, G·C, D)
     w = (gsel * valid).to(yo.dtype).transpose(0, 1).reshape(El, G * C, 1)
-    out = torch.zeros((T, D), dtype=yo.dtype, device=x.device).index_add(
-        0, rows.reshape(-1), (yo * w).reshape(El * G * C, D))
+    out = torch.zeros((T, D), dtype=yo.dtype, device=x.device)
+    if tp is not None and tp.mp > 1 and ep is None:
+        # every model shard computes every expert and must agree:
+        # index_put's accumulate sums each row's slots in their order on
+        # the card too; index_add's atomics there do not (three ranks
+        # served bf16 tokens that differed)
+        out = out.index_put((rows.reshape(-1),),
+                            (yo * w).reshape(El * G * C, D), accumulate=True)
+    else:
+        out = out.index_add(0, rows.reshape(-1),
+                            (yo * w).reshape(El * G * C, D))
 
     # load-balance aux loss (Switch-style), in the reference's order
     if batch is None or not whole_aux:

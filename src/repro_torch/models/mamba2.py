@@ -265,26 +265,30 @@ def mamba_decode(p, cfg: ModelConfig, x, cache, tp=None, seq=None):
     of the state's N (the reference's rule puts ``model`` on the last
     dim of conv and on N of ssm): the conv runs on the channel block, its
     output gathered; the recurrence updates this shard's N slice, y's
-    partial sums over N all-reduced over ``model``.  ``seq``: the state
-    holds this member's block of the heads (the reference's rule at
-    batch 1), its y gathered over that group."""
+    partial sums over N all-reduced over ``model``.  ``seq`` (batch 1,
+    the cache split over that group by the reference's rule): where it
+    divides them, the state holds this member's block of the heads, its
+    y gathered over the group, and the conv state this member's block of
+    the d_conv - 1 rows, gathered before the conv, each member keeping
+    its block of the shifted state."""
     s, d_inner, H = _dims(cfg)
     P, N = s.head_dim, s.d_state
     b = x.shape[0]
     z, xBC, dt = _in_proj(p, cfg, x, tp)
-    if cache["conv"].shape[1] != s.d_conv - 1:
-        raise NotImplementedError("a conv state split along its d_conv - 1 "
-                                  "rows is not ported")
-    cw = cache["conv"].shape[-1]
+    state, rows = cache["conv"], cache["conv"].shape[1]
+    if rows != s.d_conv - 1:
+        state = seq.all_gather(state, 1)          # the rows over ``seq``
+    cw = state.shape[-1]
     if cw != xBC.shape[-1]:
         lo = tp.m * cw
         out, conv = _causal_conv(p["conv_w"].narrow(-1, lo, cw),
                                  p["conv_b"].narrow(-1, lo, cw),
-                                 xBC.narrow(-1, lo, cw), cache["conv"])
+                                 xBC.narrow(-1, lo, cw), state)
         xBC = tp.model.all_gather(out, -1)
     else:
-        xBC, conv = _causal_conv(p["conv_w"], p["conv_b"], xBC,
-                                 cache["conv"])
+        xBC, conv = _causal_conv(p["conv_w"], p["conv_b"], xBC, state)
+    if rows != s.d_conv - 1:
+        conv = conv.narrow(1, seq.index * rows, rows)
     xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])

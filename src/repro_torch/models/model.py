@@ -78,8 +78,6 @@ class Model:
 
     def __post_init__(self):
         cfg = self.cfg
-        if self.mp > 1:
-            self._check_tp()
         for kind in cfg.block_pattern:
             if kind == MLA:
                 # the reference builds this kind's params, but its loss,
@@ -101,26 +99,6 @@ class Model:
     @property
     def mp(self) -> int:
         return self.tp.mp if self.tp is not None else 1
-
-    def _check_tp(self):
-        """What the port refuses under ``--model-shards``, where the
-        reference runs: latent attention whose heads do not divide over
-        the model shards.  Every other mixer takes any model size the
-        reference's rules take (they split the flattened heads x
-        head_dim columns however the model axis divides them, and
-        replicate a dim it does not divide): attention, cross-attention
-        and Mamba2 gather a head that a shard's block cuts
-        (``layers.attention_fwd``, ``mamba2.mamba_fwd``).  MLA's absorbed
-        decode lifts each shard's whole heads into the latent; deepseek's
-        128 heads divide every model size up to 128, the production
-        meshes' 16 among them."""
-        cfg, mp = self.cfg, self.mp
-        if cfg.mla is not None and ATTN in cfg.block_pattern \
-                and cfg.n_heads % mp:
-            raise ValueError(
-                f"{cfg.name}: --model-shards {mp} splits a latent-attention "
-                f"head ({cfg.n_heads} heads): the port's latent attention "
-                f"needs whole heads on each shard (ROADMAP.md Queue 3)")
 
     def _tpm(self):
         """The Shards when the heads are split over ``model``, else None."""
@@ -183,29 +161,43 @@ class Model:
                                       device, lead))
         return p
 
-    def init(self, gen: torch.Generator, device="cpu") -> Dict[str, Any]:
+    def init(self, gen: torch.Generator, device="cpu",
+             place=None) -> Dict[str, Any]:
+        """The seeded weights.  ``place(path, part)``, where given, takes
+        each part as soon as it is drawn (a top-level entry, each pattern
+        position's blocks, each entry of the MTP block) and returns what
+        is kept of it: a caller that keeps a block of each leaf holds one
+        whole part at a time, not the whole model.  The draws are the same
+        either way."""
         cfg, dtype = self.cfg, _dtype(self.cfg)
+        put = place or (lambda path, part: part)
         lead = (cfg.n_blocks,)
         params: Dict[str, Any] = {
-            "embed": {"w": L._dense_init(gen, (cfg.vocab_size, cfg.d_model),
-                                         dtype, device, scale=0.02)},
-            "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
-            "blocks": {f"p{i}": self._init_position(gen, i, device, lead)
-                       for i in range(len(cfg.block_pattern))},
+            "embed": put("embed", {"w": L._dense_init(
+                gen, (cfg.vocab_size, cfg.d_model), dtype, device,
+                scale=0.02)}),
+            "final_norm": put("final_norm",
+                              L.init_rmsnorm(cfg.d_model, dtype, device)),
+            "blocks": {f"p{i}": put(f"blocks/p{i}", self._init_position(
+                gen, i, device, lead))
+                for i in range(len(cfg.block_pattern))},
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = L.init_linear(gen, cfg.d_model,
-                                              cfg.vocab_size, dtype, device)
+            params["lm_head"] = put("lm_head", L.init_linear(
+                gen, cfg.d_model, cfg.vocab_size, dtype, device))
         if cfg.mtp_depth > 0:
             # one block, whatever the depth, as the reference builds it:
             # [norm_h(h_t); norm_e(embed(token_t+1))] projected to
             # d_model, then pattern position 0's mixer and FFN
             params["mtp"] = {
-                "proj": L.init_linear(gen, 2 * cfg.d_model, cfg.d_model,
-                                      dtype, device),
-                "norm_h": L.init_rmsnorm(cfg.d_model, dtype, device),
-                "norm_e": L.init_rmsnorm(cfg.d_model, dtype, device),
-                "block": self._init_position(gen, 0, device, ()),
+                "proj": put("mtp/proj", L.init_linear(
+                    gen, 2 * cfg.d_model, cfg.d_model, dtype, device)),
+                "norm_h": put("mtp/norm_h",
+                              L.init_rmsnorm(cfg.d_model, dtype, device)),
+                "norm_e": put("mtp/norm_e",
+                              L.init_rmsnorm(cfg.d_model, dtype, device)),
+                "block": put("mtp/block",
+                             self._init_position(gen, 0, device, ())),
             }
         return params
 
@@ -335,19 +327,18 @@ class Model:
         cross-entropy's halving to 1-row chunks); ``flash.chunk_plan``
         and ``xent_chunk_plan`` pad instead, with the same values up to
         the order of f32 sums.  Under tensor parallelism ``proj`` is a
-        column shard, its output gathered, the next token's embedding is
-        the vocab-parallel one and the block runs sharded."""
+        column shard, its output gathered (or, where its columns do not
+        divide, a replicated weight every shard applies alike), the next
+        token's embedding is the vocab-parallel one and the block runs
+        sharded."""
         cfg, tp = self.cfg, self._tpm()
         p = self._sub(params, "mtp")
         e_next = self._embed(params, tokens[:, 1:])
         hh = torch.cat([L.rmsnorm(p["norm_h"], h[:, :-1], cfg.rms_norm_eps),
                         L.rmsnorm(p["norm_e"], e_next, cfg.rms_norm_eps)],
                        dim=-1)
-        if tp is not None:
-            hh = tp.copy(hh)
-        hm = L.linear(p["proj"], hh)
-        if hm.shape[-1] != cfg.d_model:
-            hm = tp.gather(hm)
+        hm = L._latent(p["proj"], hh, hh if tp is None else tp.copy(hh),
+                       cfg.d_model, tp)
         positions = torch.arange(tokens.shape[1] - 1, device=tokens.device)
         hm = self._mixer(p["block"]["mixer"], cfg.block_pattern[0], hm,
                          positions, None)
@@ -384,8 +375,9 @@ class Model:
         where it divides (attention's and cross-attention's kv heads, the
         latent's and the rope key's last dim, Mamba2's conv channels and
         its state's N); split along the sequence (``tp.seq``), dim 2 over
-        it where it divides (the slots, the encoder tokens, the state's
-        heads) and a position ring's slots."""
+        it where ``tp.seq_dp`` (pod x data) divides it (the slots, the
+        encoder tokens, the state's heads, the conv state's rows) and a
+        position ring's slots."""
         cfg, dtype = self.cfg, _dtype(self.cfg)
         seq = self._seq()
         if self.mp == 1 and seq is None:
@@ -393,8 +385,9 @@ class Model:
         full = self._cache_tree(batch, seq_len, dtype, "meta")
         n = seq.size if seq is not None else 1
         specs = SH.cache_pspecs(
-            full, dp_axes=("data",) if seq is not None else (), dp_size=n,
-            model_size=self.mp, seq_shard_axis="data" if seq else None)
+            full, dp_axes=("data",) if seq is not None else (),
+            dp_size=self.tp.seq_dp or n, model_size=self.mp,
+            seq_shard_axis="data" if seq else None)
         sizes = {"data": n, "model": self.mp}
         leaves = []
         for path, x in tree_leaves_with_path(full):
@@ -442,6 +435,22 @@ class Model:
                 full = full.narrow(d, idx * like.shape[d], like.shape[d])
         return full
 
+    def _prompt_slots(self, S: int, n_slots: int, device):
+        """(positions, slots): which of an S-token prompt's positions this
+        process's ``n_slots`` cache slots keep, and where.  The cache's
+        slots, split along the sequence over ``tp.seq`` (member i holding
+        [i·n_slots, (i+1)·n_slots) of R = n_slots·n) or whole (R =
+        n_slots), keep the last R positions of the prompt at slot pos %
+        R: the reference's ``_window_cache`` ring under a sliding window
+        (R the window), slot = pos otherwise (R >= S)."""
+        seq = self._seq()
+        n, i = (seq.size, seq.index) if seq is not None else (1, 0)
+        R = n_slots * n
+        start = max(0, S - R)
+        pos = start + (i * n_slots + torch.arange(n_slots) - start) % R
+        mine = pos < S
+        return pos[mine].to(device), torch.arange(n_slots)[mine].to(device)
+
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: Optional[int] = None):
         """Process a whole prompt (no gradient, no remat; MoE with its
@@ -460,7 +469,7 @@ class Model:
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
         cache = self.init_cache(B, cache_len or S, tokens.device)
-        seq = self._seq()
+        ring = None
         h = self._embed(params, tokens)
         for i in range(cfg.n_blocks):
             blk = self._block(params, i)
@@ -474,17 +483,10 @@ class Model:
                         h, kv = L.attention_fwd(p["mixer"], cfg, h,
                                                 positions, tp)
                         names = ("k", "v")
-                    n_slots = c["pos"].shape[1]
-                    if seq is None:
-                        keep = torch.arange(max(0, S - n_slots), S,
-                                            device=tokens.device)
-                        slots = keep % n_slots
-                    else:
-                        # this member's slots [lo, lo + n_slots)
-                        lo = seq.index * n_slots
-                        keep = torch.arange(lo, max(lo, min(S, lo + n_slots)),
-                                            device=tokens.device)
-                        slots = keep - lo
+                    if ring is None:
+                        ring = self._prompt_slots(S, c["pos"].shape[1],
+                                                  tokens.device)
+                    keep, slots = ring
                     for name, x in zip(names, kv):
                         dst = c[name][i]
                         if x.shape[-1] != dst.shape[-1]:
@@ -530,9 +532,7 @@ class Model:
                     h, _ = L.attention_decode(p["mixer"], cfg, h, c, pos,
                                               tp, seq)
                 elif kind == MAMBA:
-                    h, _ = M.mamba_decode(p["mixer"], cfg, h, c, tp,
-                                          seq if c["ssm"].shape[1]
-                                          != M._dims(cfg)[2] else None)
+                    h, _ = M.mamba_decode(p["mixer"], cfg, h, c, tp, seq)
                 else:
                     h = L.cross_attention_fwd(
                         p["mixer"], cfg, h, (c["k"], c["v"]), tp,

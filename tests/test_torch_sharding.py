@@ -9,13 +9,15 @@ Then the hazards of the rules, each against the reference.
 
 And the sweep of ``--model-shards`` on the meta device: each of the ten
 archs at its published widths (one superblock deep), one rank of model
-sizes 2, 4, 8 and 16, whose group hands back shape-right tensors,
-trains (forward and backward), prefills and decodes a step; every held
+sizes 2, 4, 8 and 16 (and deepseek-v3-671b's of 6 and 12), whose group
+hands back shape-right tensors, trains (forward and backward), prefills
+and decodes a step; every held
 leaf (params, gradients, cache) has its ``local_shape`` under the
 reference's spec.  At model 16 nine of the ten archs split a head
 (half a kv head of llama3.2-1b, granite-8b, jamba and vision; qwen2's 12
 query heads; phi3's 10 kv heads; musicgen's 24 heads; arctic's 8 kv
-heads; mamba2-130m's 24 Mamba2 heads)."""
+heads; mamba2-130m's 24 Mamba2 heads); deepseek-v3-671b's 128 latent
+heads split at model 6 and 12."""
 import functools
 from dataclasses import replace
 
@@ -231,8 +233,15 @@ def _ref_one_superblock(arch):
     return jax.eval_shape(RefModel(rcfg).init, jax.random.PRNGKey(0))
 
 
-@pytest.mark.parametrize("mp", (2, 4, 8, 16))
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+# every arch at model 2, 4, 8 and 16, and deepseek-v3-671b where the
+# model axis cuts its 128 latent-attention heads (21 1/3 and 10 2/3 a
+# shard: wq_b's 24576 columns in blocks that cut a head, wkv_b's 32768
+# and wo's 16384 rows replicated)
+META_CASES = [(arch, mp) for mp in (2, 4, 8, 16) for arch in ASSIGNED_ARCHS] \
+    + [("deepseek-v3-671b", 6), ("deepseek-v3-671b", 12)]
+
+
+@pytest.mark.parametrize("arch,mp", META_CASES)
 def test_model_shards_step_on_the_meta_device(arch, mp):
     """The last shard of ``mp`` (the one a head's slots run past, where
     the heads do not divide) trains, prefills and decodes one step at

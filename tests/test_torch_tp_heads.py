@@ -16,7 +16,10 @@ cross layers count).
 One launch (world 4, gloo) runs every case from the reference's initial
 weights and AE (PRNGKey(0), drawn here), while one subprocess runs the
 reference's trainer and server beside it, with the same overrides and
-gates.  Gates, as tests/test_torch_tp.py's:
+gates; and deepseek-v3-671b with 6 latent-attention heads over model 4
+(``THREAD_CASES``: its auto step and serving in the reference
+subprocess, the port's on threads standing in for the ranks, no
+process launch).  Gates, as tests/test_torch_tp.py's:
 
 - the auto step (``--compression none``, 3 steps): losses within 1e-5 of
   the reference's; the first step's gradient blocks within 1e-5 of each
@@ -37,7 +40,9 @@ gates.  Gates, as tests/test_torch_tp.py's:
   (the reference's B1 on (data 2)); the last logits within 1e-5 of one
   process's; held bytes the dry run's (but the (n_blocks, S) position
   ring at batch 4 over data 2: the reference's rule splits its S, every
-  process here holds it whole, tests/test_torch_tp.py says why).
+  process here holds it whole, tests/test_torch_tp.py says why);
+- deepseek's cut latent heads: the auto step's losses within 1e-5 of
+  the reference's, greedy tokens at batch 4 the reference's.
 """
 import ast
 import json
@@ -51,11 +56,15 @@ import pytest
 import torch
 
 import _torch_tp_heads_worker as W
+import _torch_tp_worker as TW
 from _one_thread import one_thread  # noqa: F401  (autouse)
 from _torch_pg import REPO, launch, worker
+from _torch_tp_threads import run_ranks, thread_grids
 from _torch_train_common import close
+from repro_torch.configs import get_arch
 from repro_torch.configs.base import (CompressionConfig, InputShape,
                                       TrainConfig)
+from repro_torch.data import synthetic_token_batches
 from repro_torch.dist import sharding as SH
 from repro_torch.dist.tp import Shards
 from repro_torch.launch import dryrun, serve, steps, train
@@ -108,19 +117,32 @@ json.dump(tokens, open("serve.json", "w"))
 """
 
 
+# run here on threads standing in for the ranks (no process launch),
+# against the same reference subprocess: deepseek-v3-671b's latent
+# attention with 6 heads over model 4 (1.5 heads a shard: wq_b's 288
+# columns, wkv_b's 384 and wo's 192 rows in blocks that cut a head), MTP
+# and 4 experts (one a shard); its auto step and its serving at batch 4
+THREAD_CASES = {
+    "deepseek6": ("deepseek-v3-671b", {"n_heads": 6}, (1, 4), None),
+}
+
+
 def _ref_runs(tmp):
     """The reference's runs of every case: [overrides, gates, [(kind, run
     name, flags)]]; its lgc_rar checkpoints under tmp/<case>.lgc."""
     out = []
-    for name, (arch, over, (data, model), gates) in W.CASES.items():
-        flags = W.mesh_flags(name) + ["--arch", arch]
+    for name, (arch, over, (data, model), gates) in {
+            **W.CASES, **THREAD_CASES}.items():
+        flags = ["--data-shards", str(data), "--model-shards", str(model),
+                 "--arch", arch]
         runs = [("train", f"{name} auto", W.AUTO + flags + [
             "--metrics-out", str(tmp / f"{name}.auto.json")])]
         if name in W.LGC_CASES:
             runs.append(("train", f"{name} lgc", W.LGC + flags + [
                 "--metrics-out", str(tmp / f"{name}.lgc.json"),
                 "--checkpoint-dir", str(tmp / f"{name}.lgc")]))
-        for run, B in W.serve_runs(name):
+        for run, B in (W.serve_runs(name) if name in W.CASES
+                       else [(f"{name} b4", 4)]):
             mesh = flags if B > 1 else ["--data-shards", "2", "--arch", arch]
             runs.append(("serve", run, W.SERVE + mesh + ["--batch", str(B)]))
         out.append([over, gates, runs])
@@ -129,19 +151,23 @@ def _ref_runs(tmp):
 
 def _reference_init(name):
     """The reference trainer's initial weights and AE (PRNGKey(0)) of a
-    case, its gates set: {p<i>, a<i>} numpy in tree order."""
+    case, its gates set: {p<i>, a<i>} numpy in tree order (a thread
+    case's weights alone)."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_arch as ref_get_arch
     from repro.configs.base import CompressionConfig as RCC
     from repro.core import build_compressor
     from repro.models.model import Model as RefModel
-    arch, over, _, gates = W.CASES[name]
+    arch, over, _, gates = {**W.CASES, **THREAD_CASES}[name]
     key = jax.random.PRNGKey(0)
     rparams = jax.jit(RefModel(ref_get_arch(arch).reduced(**over)).init)(key)
     for pos in rparams["blocks"].values():
         if gates is not None and "gate" in pos["mixer"]:
             pos["mixer"]["gate"] = jnp.full_like(pos["mixer"]["gate"], gates)
+    if name in THREAD_CASES:
+        return {f"p{i}": np.asarray(a)
+                for i, a in enumerate(jax.tree_util.tree_leaves(rparams))}
     rcc = RCC(method="lgc_rar", warmup_steps=1, ae_train_steps=1)
     ae = jax.jit(lambda k: build_compressor(rcc, rparams, 1)
                  .init_state(k)["ae"])(key)
@@ -163,7 +189,7 @@ def runs(tmp_path_factory):
         [sys.executable, "-c", REF, json.dumps(_ref_runs(tmp))],
         cwd=str(tmp), env=env, stdout=log, stderr=subprocess.STDOUT)
     try:
-        for name in W.CASES:
+        for name in {**W.CASES, **THREAD_CASES}:
             np.savez(tmp / f"{name}.npz", **_reference_init(name))
         launch(tmp, worker("_torch_tp_heads_worker.py") + [
             str(tmp), str(tmp / "out"), "{store}"], 4, timeout=600)
@@ -184,7 +210,7 @@ def runs(tmp_path_factory):
         ranks.append(rec)
     logs = dict(re.findall(r"^=== (.+)\n((?:(?!=== ).*\n)*)", text, re.M))
     ref = {"serve": json.loads((tmp / "serve.json").read_text())}
-    for name in W.CASES:
+    for name in {**W.CASES, **THREAD_CASES}:
         ref[name] = {"auto": [h["loss"] for h in json.loads(
             (tmp / f"{name}.auto.json").read_text())]}
         if name not in W.LGC_CASES:
@@ -351,3 +377,40 @@ def test_serving_matches_reference(runs):
                 assert rec[run]["held"] == {
                     "params": want["params"],
                     "cache": want["cache"] + extra}, (r, run)
+
+
+def test_cut_latent_heads_match_reference(runs):
+    """deepseek's 6 latent-attention heads over model 4 (THREAD_CASES),
+    each rank a thread: the auto step's 3 losses (momentum SGD, the
+    trainer's schedule and batches) within 1e-5 of the reference's, and
+    the greedy tokens at batch 4 (prefill, then the absorbed decode
+    against the latent cache split over model) the reference's."""
+    tmp, _, ref = runs
+    name = "deepseek6"
+    arch, over, (data, model), _ = THREAD_CASES[name]
+    cfg = get_arch(arch).reduced(**over)
+    assert cfg.n_heads % model and cfg.mla is not None and cfg.mtp_depth
+    full = TW.whole_params(cfg, TW.init_arrays(str(tmp / f"{name}.npz"))[0])
+    tc = TrainConfig(optimizer="sgd_momentum", learning_rate=0.1,
+                     steps=W.AUTO_STEPS,
+                     compression=CompressionConfig(method="none"))
+    args = serve.parse_args(W.SERVE + ["--batch", "4", "--device", "cpu"])
+
+    def rank(grid):
+        ats = steps.make_auto_train_step(build_model(cfg), tc, grid)
+        params, opt_state = ats.init_from(full)
+        stream = synthetic_token_batches(cfg.vocab_size, W.BATCH, W.SEQ,
+                                         seed=0)
+        losses = []
+        for step in range(W.AUTO_STEPS):
+            params, opt_state, metrics = ats.step(
+                params, opt_state, train.to_device(next(stream), "cpu"),
+                step)
+            losses.append(float(metrics["loss"]))
+        res = serve._serve(cfg, args, full, grid.device, grid)
+        return losses, res["tokens"].tolist()
+    for r, (losses, tokens) in enumerate(run_ranks(
+            rank, thread_grids(1, data, model))):
+        np.testing.assert_allclose(losses, ref[name]["auto"], rtol=0,
+                                   atol=1e-5, err_msg=f"rank {r}")
+        assert tokens == ref["serve"][f"{name} b4"], r

@@ -54,9 +54,9 @@ MTP loss, every gradient, prefill and decode at ``reduced()``):
 
 Without a launch: the MoE dispatch of one rank's rows with the whole
 batch's groups at a capacity that drops, threads standing in for the
-ranks, against one process; a mesh that splits a latent-attention head
-raises, and one that splits a cross-attention kv head runs (threads
-standing in for the shards).
+ranks, against one process; meshes that split a latent-attention head
+(deepseek's 8 over 16 and over 3) and a cross-attention kv head, held to
+one process (threads standing in for the shards).
 """
 import ast
 import json
@@ -428,30 +428,42 @@ class _Stub:
         self.size, self.index = mp, m
 
 
-def test_a_mesh_that_splits_a_latent_or_cross_head_raises():
-    """deepseek's 8 latent-attention heads over 16 shards raise (the
-    port's latent attention needs whole heads).  Cross-attention and
-    Mamba2 heads, once refused, now run: vision's 4 kv heads over 8
-    shards (half a kv head each, in self- and cross-attention; threads
-    standing in for the shards, gates at 0.5: loss, prefill and decode
-    logits within 1e-5 of one process's, gradient blocks within 1e-5 of
-    each leaf's largest entry), and mamba2-130m's 24 heads over 16 build
-    (tests/test_torch_sharding.py runs its step at published widths)."""
-    with pytest.raises(ValueError, match="whole heads"):
-        Model(get_arch("deepseek-v3-671b").reduced(), Shards(model=_Stub(16)))
+def test_a_mesh_that_splits_a_latent_or_cross_head_matches_one_process():
+    """Once refused, now run: deepseek's 8 latent-attention heads over 16
+    shards (half a head each; the shards past the eighth hold only
+    repeats) and over 3 (2 2/3 heads each: ``wq_b``'s 384 columns in
+    blocks that cut a head, ``wkv_b``'s 512 and ``wo``'s 256 rows
+    replicated, and the MTP block's ``proj`` too), and vision's 4 kv
+    heads over 8 shards (half a kv head each, in self- and
+    cross-attention; gates at 0.5).  Threads standing in for the shards:
+    each shard's loss (deepseek's MTP loss apart too), prefill and
+    decode logits (deepseek's absorbed decode) within 1e-5 of one
+    process's, its gradient blocks within 1e-5 of each leaf's largest
+    entry.  mamba2-130m's 24 heads over 16 build
+    (tests/test_torch_sharding.py runs its step and deepseek's at
+    published widths)."""
     Model(get_arch("mamba2-130m"), Shards(model=_Stub(16)))
-    cfg = get_arch("llama-3.2-vision-90b").reduced()
-    g = torch.Generator().manual_seed(0)
-    full = W.set_gates(build_model(cfg).init(g), W.GATE)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
-    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1),
-             "encoder_embeds": torch.randn(2, cfg.num_encoder_tokens,
-                                           cfg.encoder_dim, generator=g)}
-    got, want = shards_and_one_process(cfg, 8, full, batch)
-    for m, res in enumerate(got):
-        np.testing.assert_allclose(float(res["loss"]), float(want["loss"]),
-                                   rtol=0, atol=1e-5)
-        for key in ("logits", "step"):
-            close(res[key].numpy(), want[key].numpy(), 1e-5, f"{m} {key}")
-        for a, b in zip(res["grads"], want["grads"][m]):
-            close(a.numpy(), b.numpy(), 1e-5, f"shard {m} gradient")
+    for arch, mp in (("deepseek-v3-671b", 16), ("deepseek-v3-671b", 3),
+                     ("llama-3.2-vision-90b", 8)):
+        name = f"{arch} over {mp}"
+        cfg = get_arch(arch).reduced()
+        g = torch.Generator().manual_seed(0)
+        full = build_model(cfg).init(g)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        if cfg.num_encoder_tokens:
+            full = W.set_gates(full, W.GATE)
+            batch["encoder_embeds"] = torch.randn(
+                2, cfg.num_encoder_tokens, cfg.encoder_dim, generator=g)
+        got, want = shards_and_one_process(cfg, mp, full, batch)
+        for m, res in enumerate(got):
+            for key in ["loss"] + (["mtp_loss"] if cfg.mtp_depth else []):
+                np.testing.assert_allclose(
+                    float(res["metrics"][key]), float(want["metrics"][key]),
+                    rtol=0, atol=1e-5, err_msg=f"{name} shard {m} {key}")
+            for key in ("logits", "step"):
+                close(res[key].numpy(), want[key].numpy(), 1e-5,
+                      f"{name} shard {m} {key}")
+            for a, b in zip(res["grads"], want["grads"][m]):
+                close(a.numpy(), b.numpy(), 1e-5,
+                      f"{name} shard {m} gradient")

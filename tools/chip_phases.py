@@ -9,7 +9,11 @@ jamba-v0.1-52b at one superblock, the f32 decode-vs-prefill gate),
 (cross-attention against the CPU, the bf16 dtypes), ``train_mla_cross``
 (deepseek-v3-671b at 1 layer, llama-3.2-vision-90b at reduced()),
 ``serve_mla_cross`` (deepseek-v3-671b at 1 layer with the 32768 prompt,
-vision at 2 superblocks, the f32 gates) and ``pg_train`` (the trainer
+vision at 2 superblocks, the f32 gates), ``tp3`` (the three-rank
+launch: deepseek-v3-671b's latent heads cut by model 3, the row-split
+Mamba2 conv state and the windowed batch-1 cache split over data 3; and
+the windowed cache over (pod 2, data 2) in a four-rank launch) and
+``pg_train`` (the trainer
 under torchrun, one node per process on this card, each run against
 its emulated twin, which it runs first; then the failure runs (a)-(d)
 one node per process: the chaos wire under scrub and skip_round,
@@ -25,9 +29,9 @@ these paths.
 
     python3 tools/chip_phases.py [moe] [ssd] [train] [serve] [mla] \
         [cross] [train_mla_cross] [serve_mla_cross] [pg_train] [tp] \
-        [dryrun] [quickstart] [baselines]                    # card
+        [tp3] [dryrun] [quickstart] [baselines]              # card
 
-No names runs all thirteen.  Each phase prints its JSON lines as
+No names runs all fourteen.  Each phase prints its JSON lines as
 chip_smoke does and raises as chip_smoke would.
 """
 import json
@@ -44,8 +48,8 @@ import chip_smoke as CS  # noqa: E402  (sets the allocator before torch)
 import torch  # noqa: E402
 
 PHASES = ("moe", "ssd", "train", "serve", "mla", "cross",
-          "train_mla_cross", "serve_mla_cross", "pg_train", "tp", "dryrun",
-          "quickstart", "baselines")
+          "train_mla_cross", "serve_mla_cross", "pg_train", "tp", "tp3",
+          "dryrun", "quickstart", "baselines")
 
 
 def main(argv=None):
@@ -73,6 +77,7 @@ def main(argv=None):
            "pg_train": lambda: pg_train(dev, smi, len(ENCODER_SPEC),
                                         ("pg",)),
            "tp": lambda: pg_train(dev, smi, len(ENCODER_SPEC), ("tp",)),
+           "tp3": lambda: pg_train(dev, smi, len(ENCODER_SPEC), ("tp3",)),
            "dryrun": lambda: CS.dryrun_phase(dev),
            "quickstart": lambda: CS.quickstart_phase(dev),
            "baselines": baselines}
@@ -104,7 +109,8 @@ def baselines() -> None:
 
 def pg_train(dev, smi: str, n_encoder: int, parts) -> None:
     """chip_smoke's process runs (``parts``: "pg", the runs one node per
-    process and the failure runs; "tp", the runs with model shards), each
+    process and the failure runs; "tp", the runs with model shards;
+    "tp3", the three-rank launch and the serving run over pods), each
     against what it is compared with, its emulated twins run here."""
     n_leaves = len(CS.llama_layout(0.001).compressed)
     CS.pg_phases(dev, {}, smi, n_leaves, n_encoder, parts)
